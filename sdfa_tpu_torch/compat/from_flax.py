@@ -1,0 +1,54 @@
+"""Weight bridge from the JAX package's flax variables, and a seeded init.
+
+The port's module and parameter names follow the flax tree, so a flax
+path ``params/audio_encoder/built_layers_6/lstm/w_ih_l0`` is the state_dict
+key ``audio_encoder.built_layers_6.lstm.w_ih_l0`` with the same shape and
+layout: the bridge is a walk over the collections. It takes the nested
+tree after ``jax.device_get`` (dicts of numpy arrays) and imports no jax.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+COLLECTIONS = ("params", "batch_stats", "constants")
+
+
+def _walk(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, val in tree.items():
+        if hasattr(val, "items"):
+            yield from _walk(val, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), np.asarray(val)
+
+
+def state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """Nested flax variables (numpy leaves) → the port's state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for col in COLLECTIONS:
+        for path, arr in _walk(variables.get(col, {})):
+            out[".".join(path)] = torch.from_numpy(np.array(arr, np.float32))
+    return out
+
+
+def load_flax_variables(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
+    """Load every parameter, batch statistic and constant of ``variables``
+    into ``model``; both sides must hold exactly the same names and shapes."""
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    return model
+
+
+def init_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Seeded init of every learned parameter (no jax needed): each module
+    that owns parameters resets them from one CPU generator, in module
+    order, with the JAX package's init rules (kaiming/glorot kernels,
+    weight-norm g = ‖v‖, LSTM uniform ±1/√H, zero biases, identity BN)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for module in model.modules():
+        reset = getattr(module, "reset_parameters", None)
+        if reset is not None and any(True for _ in module.parameters(recurse=False)):
+            reset(gen)
+    return model

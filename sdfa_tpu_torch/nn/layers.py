@@ -1,0 +1,248 @@
+"""Layer zoo for the serving slice (counterpart of ``sdfa_tpu/nn/layers.py``):
+Conv1d/Conv2d, Pool2d, FullyConnected, Permute, Squeeze, with the
+post-activation + eval-mode BatchNorm extension and weight norm.
+
+Layouts follow the JAX package: FC kernels (in, out), conv kernels
+(O, I, kh, kw); parameter names match the flax tree (``kernel_v``,
+``kernel_g``, ``bias``, ``post_bn.scale``, ...) so weights bridge by name.
+Weight norm keeps (v, g) as parameters and forms v / ‖v‖ · g in forward.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import functions as fn
+
+
+def _pair(x) -> Tuple[int, int]:
+    return tuple(x) if isinstance(x, (tuple, list)) else (x, x)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over ``axis`` with flax's parameter names."""
+
+    def __init__(self, num_features: int, eps: float, axis: int):
+        super().__init__()
+        self.eps, self.axis = float(eps), axis
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def forward(self, x):
+        shape = [1] * x.ndim
+        shape[self.axis] = -1
+        mul = torch.rsqrt(self.var + self.eps) * self.scale
+        return (x - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+    def reset_parameters(self, gen: torch.Generator):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+
+class _Ext(nn.Module):
+    """Post-activation + BatchNorm extension (inference: dropout is the
+    identity). The pre-layer variants are not used by the shipped configs
+    and are refused."""
+
+    bn_axis = -1
+
+    def _init_ext(self, out_channels: int, activation=None, batch_norm=None,
+                  bn_first: bool = False, dropout=None, drop_always: bool = False,
+                  **prev):
+        if any(v not in (None, False, 0) for v in prev.values()):
+            raise NotImplementedError(f"pre-layer extras are not ported: {prev}")
+        if drop_always and dropout:
+            raise NotImplementedError("dropout at inference is not ported")
+        self._act = fn.parse_activation(activation)
+        self.bn_first = bool(bn_first)
+        self.post_bn = None
+        if batch_norm is not None:
+            self.post_bn = BatchNorm(out_channels, float(dict(batch_norm).get("eps", 1e-5)),
+                                     self.bn_axis)
+
+    def ext_post(self, x):
+        if self.post_bn is not None and self.bn_first:
+            return self._act(self.post_bn(x))
+        x = self._act(x)
+        return self.post_bn(x) if self.post_bn is not None else x
+
+
+class _Weighted(_Ext):
+    """A kernel parameter, optionally weight-normed over ``norm_axes``."""
+
+    def _init_weight(self, shape, fan_in: int, fan_out: int, weight_norm: bool,
+                     norm_axes: Sequence[int], init_method: str,
+                     init_nonlinearity: Optional[str]):
+        self.weight_norm = bool(weight_norm)
+        self.norm_axes = tuple(norm_axes)
+        self._fans = (fan_in, fan_out)
+        self._init = (init_method, init_nonlinearity)
+        if self.weight_norm:
+            self.kernel_v = nn.Parameter(torch.empty(shape))
+            g_shape = [shape[a] for a in range(len(shape)) if a not in self.norm_axes]
+            self.kernel_g = nn.Parameter(torch.empty(g_shape))
+        else:
+            self.kernel = nn.Parameter(torch.empty(shape))
+
+    def weight(self) -> torch.Tensor:
+        if not self.weight_norm:
+            return self.kernel
+        v = self.kernel_v
+        norm = torch.sqrt(torch.sum(v * v, dim=self.norm_axes, keepdim=True))
+        g = self.kernel_g.view([1 if a in self.norm_axes else v.shape[a]
+                                for a in range(v.ndim)])
+        return v / torch.clamp(norm, min=1e-12) * g
+
+    def reset_parameters(self, gen: torch.Generator):
+        fan_in, fan_out = self._fans
+        method, nonlin = self._init
+        v = self.kernel_v if self.weight_norm else self.kernel
+        with torch.no_grad():
+            if method == "glorot":
+                w = torch.randn(v.shape, generator=gen) * math.sqrt(2.0 / (fan_in + fan_out))
+            elif method == "default":
+                bound = math.sqrt(1.0 / fan_in)
+                w = torch.rand(v.shape, generator=gen) * (2 * bound) - bound
+            else:
+                gain = fn.activation_gain(nonlin or "leaky_relu@a:0")
+                w = torch.randn(v.shape, generator=gen) * (gain / math.sqrt(fan_in))
+            v.copy_(w)
+            if self.weight_norm:
+                self.kernel_g.copy_(torch.sqrt(torch.sum(w * w, dim=self.norm_axes)))
+            if getattr(self, "bias", None) is not None:
+                self.bias.zero_()
+
+
+class FullyConnected(_Weighted):
+    def __init__(self, in_channels: int, out_channels: int, bias: bool = True,
+                 init_method: str = "kaiming", init_nonlinearity: Optional[str] = None,
+                 weight_norm: bool = False, **ext):
+        super().__init__()
+        self.in_channels, self.out_channels = int(in_channels), int(out_channels)
+        self._init_weight((self.in_channels, self.out_channels), self.in_channels,
+                          self.out_channels, weight_norm, (0,), init_method,
+                          init_nonlinearity)
+        self.bias = nn.Parameter(torch.zeros(self.out_channels)) if bias else None
+        self._init_ext(self.out_channels, **ext)
+
+    def forward(self, x):
+        shape = x.shape
+        x = torch.matmul(x.reshape(-1, shape[-1]), self.weight())
+        if self.bias is not None:
+            x = x + self.bias
+        return self.ext_post(x).reshape(shape[:-1] + (self.out_channels,))
+
+
+class Conv1d(_Weighted):
+    bn_axis = 1
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
+                 stride: int = 1, padding: Any = "same", dilation: int = 1,
+                 groups: int = 1, bias: bool = True, init_method: str = "kaiming",
+                 init_nonlinearity: Optional[str] = None, weight_norm: bool = False,
+                 **ext):
+        super().__init__()
+        k = int(kernel_size)
+        self.k, self.stride, self.dilation = k, int(stride), int(dilation)
+        self.padding, self.groups = padding, int(groups)
+        self._init_weight((out_channels, in_channels // groups, k),
+                          in_channels // groups * k, out_channels * k // groups,
+                          weight_norm, (1, 2), init_method, init_nonlinearity)
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self._init_ext(out_channels, **ext)
+
+    def forward(self, x):  # (B, C, T)
+        if isinstance(self.padding, str):
+            lo, hi = fn.get_pad_tuple(x.shape[-1], self.k, self.stride, self.dilation,
+                                      self.padding)
+        else:
+            lo = hi = int(self.padding)
+        x = F.pad(x, (lo, hi))
+        out = F.conv1d(x, self.weight(), self.bias, stride=self.stride,
+                       dilation=self.dilation, groups=self.groups)
+        return self.ext_post(out)
+
+
+class Conv2d(_Weighted):
+    bn_axis = 1
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Any = 1,
+                 stride: Any = 1, padding: Any = "same", dilation: Any = 1,
+                 groups: int = 1, bias: bool = True, init_method: str = "kaiming",
+                 init_nonlinearity: Optional[str] = None, weight_norm: bool = False,
+                 **ext):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.k, self.stride, self.dilation = (kh, kw), _pair(stride), _pair(dilation)
+        self.padding, self.groups = padding, int(groups)
+        self._init_weight((out_channels, in_channels // groups, kh, kw),
+                          in_channels // groups * kh * kw,
+                          out_channels * kh * kw // groups,
+                          weight_norm, (1, 2, 3), init_method, init_nonlinearity)
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self._init_ext(out_channels, **ext)
+
+    def forward(self, x):  # (B, C, H, W)
+        (kh, kw), (sh, sw), (dh, dw) = self.k, self.stride, self.dilation
+        if isinstance(self.padding, str):
+            pw = fn.get_pad_tuple(x.shape[-1], kw, sw, dw, self.padding)
+            ph = fn.get_pad_tuple(x.shape[-2], kh, sh, dh, self.padding)
+        else:
+            p0, p1 = _pair(self.padding)
+            ph, pw = (p0, p0), (p1, p1)
+        x = F.pad(x, pw + ph)
+        out = F.conv2d(x, self.weight(), self.bias, stride=(sh, sw),
+                       dilation=(dh, dw), groups=self.groups)
+        return self.ext_post(out)
+
+
+class Pool2d(nn.Module):
+    """Max/avg pool after explicit zero "same" padding (as the reference)."""
+
+    def __init__(self, mode: str = "max", kernel_size: Any = 2,
+                 stride: Optional[Any] = None, padding: Any = "same"):
+        super().__init__()
+        self.mode, self.padding = mode, padding
+        self.k = _pair(kernel_size)
+        self.stride = _pair(stride or kernel_size)
+
+    def forward(self, x):
+        (kh, kw), (sh, sw) = self.k, self.stride
+        if isinstance(self.padding, str):
+            ph = fn.get_pad_tuple(x.shape[-2], kh, sh, 1, self.padding)
+            pw = fn.get_pad_tuple(x.shape[-1], kw, sw, 1, self.padding)
+        else:
+            p0, p1 = _pair(self.padding)
+            ph, pw = (p0, p0), (p1, p1)
+        x = F.pad(x, pw + ph)
+        if self.mode == "max":
+            return F.max_pool2d(x, (kh, kw), (sh, sw))
+        return F.avg_pool2d(x, (kh, kw), (sh, sw))
+
+
+class Permute(nn.Module):
+    def __init__(self, dims: Sequence[int] = ()):
+        super().__init__()
+        self.dims = tuple(dims)
+
+    def forward(self, x):
+        return x.permute(self.dims)
+
+
+class Squeeze(nn.Module):
+    def __init__(self, dim: int = 0):
+        super().__init__()
+        self.dim = int(dim)
+
+    def forward(self, x):
+        return x.squeeze(self.dim)

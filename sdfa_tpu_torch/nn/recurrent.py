@@ -1,0 +1,101 @@
+"""Recurrent layers: the time LSTM stack and FreqLstm (counterpart of
+``sdfa_tpu/nn/recurrent.py``; GRU and LSTM2d are not ported yet).
+
+Weights keep the JAX layout — ``w_ih_l{k}[_reverse]`` (in, 4H),
+``w_hh_l{k}[_reverse]`` (H, 4H), torch gate order i, f, g, o — so the flax
+tree bridges by name. A 2-layer bidirectional stack runs the fused
+``ops.bilstm2`` kernel; FreqLstm ("full" mode) runs ``ops.freq_lstm``.
+Both wrappers take their plain PyTorch version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .. import ops
+from ..ops.bilstm2 import bilstm2, bilstm2_plain, bilstm_layer_plain
+from ..ops.freq_lstm import freq_lstm, freq_lstm_plain
+from .layers import FullyConnected
+
+
+class LSTM(nn.Module):
+    """Multi-layer (bi)LSTM over time, batch first: (B, T, C) → (B, T, H·dirs).
+    Inference only (dropout between layers is the identity)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 bias: bool = False, batch_first: bool = True, dropout: float = 0.0,
+                 bidirectional: bool = False):
+        super().__init__()
+        if not batch_first:
+            raise NotImplementedError("only batch_first layout is used")
+        if not bidirectional:
+            raise NotImplementedError("unidirectional LSTM is not ported yet")
+        self.input_size, self.hidden_size = int(input_size), int(hidden_size)
+        self.num_layers, self.bias = int(num_layers), bool(bias)
+        n = 4 * self.hidden_size
+        for layer in range(self.num_layers):
+            in_size = self.input_size if layer == 0 else 2 * self.hidden_size
+            for sfx in (f"_l{layer}", f"_l{layer}_reverse"):
+                self.register_parameter("w_ih" + sfx, nn.Parameter(torch.empty(in_size, n)))
+                self.register_parameter("w_hh" + sfx, nn.Parameter(torch.empty(self.hidden_size, n)))
+                if self.bias:
+                    self.register_parameter("b_ih" + sfx, nn.Parameter(torch.empty(n)))
+                    self.register_parameter("b_hh" + sfx, nn.Parameter(torch.empty(n)))
+
+    def reset_parameters(self, gen: torch.Generator):
+        stdv = 1.0 / math.sqrt(self.hidden_size)
+        with torch.no_grad():
+            for p in self.parameters(recurse=False):
+                p.copy_(torch.rand(p.shape, generator=gen) * (2 * stdv) - stdv)
+
+    def layer_weights(self, layer: int):
+        """(w_ih (2, in, 4H), w_hh (2, H, 4H), gate bias (2, 4H) or None),
+        direction 0 forward, 1 reverse."""
+        sfx = (f"_l{layer}", f"_l{layer}_reverse")
+        w_ih = torch.stack([getattr(self, "w_ih" + s) for s in sfx])
+        w_hh = torch.stack([getattr(self, "w_hh" + s) for s in sfx])
+        gb = None
+        if self.bias:
+            gb = torch.stack([getattr(self, "b_ih" + s) + getattr(self, "b_hh" + s)
+                              for s in sfx])
+        return w_ih, w_hh, gb
+
+    def forward(self, x):
+        if self.num_layers == 2:
+            lw = [self.layer_weights(0), self.layer_weights(1)]
+            fused = bilstm2_plain if ops.using_plain() else bilstm2
+            return fused(x.contiguous(), *lw[0], *lw[1])
+        for layer in range(self.num_layers):
+            x = bilstm_layer_plain(x, *self.layer_weights(layer))
+        return x
+
+
+class FreqLstm(nn.Module):
+    """Bidirectional LSTM along the frequency axis ("spectral gathering"):
+    (B, C, F, T) → per-timestep biLSTM over F, all F outputs projected to
+    ``output_size`` → (B, output_size, 1, T). "full" mode only."""
+
+    def __init__(self, input_size: int, freq_length: int, hidden_size: int = 128,
+                 output_size: int = 256, bias: bool = True, mode: str = "full"):
+        super().__init__()
+        if mode != "full":
+            raise NotImplementedError(f"FreqLstm mode {mode!r} is not ported yet")
+        self.freq_length, self.hidden_size = int(freq_length), int(hidden_size)
+        self.output_size = int(output_size)
+        self.lstm = LSTM(input_size, hidden_size, num_layers=1, bias=bias,
+                         bidirectional=True)
+        self.proj = FullyConnected(self.freq_length * 2 * self.hidden_size,
+                                   self.output_size, bias=bias)
+
+    def forward(self, x):
+        bsz, ch, fq, t = x.shape
+        if fq != self.freq_length:
+            raise ValueError(f"expected {self.freq_length} freq bins, got {fq}")
+        rows = x.permute(0, 3, 2, 1).reshape(bsz * t, fq, ch).contiguous()  # (B·T, F, C)
+        w_ih, w_hh, gb = self.lstm.layer_weights(0)
+        fused = freq_lstm_plain if ops.using_plain() else freq_lstm
+        out = fused(rows, w_ih, w_hh, gb, self.proj.weight(), self.proj.bias)
+        return out.reshape(bsz, t, self.output_size).transpose(1, 2)[:, :, None, :]

@@ -1,0 +1,137 @@
+"""The three kernels' plain PyTorch versions against the JAX package's
+references, at small shapes, plus the CUDA kernels themselves where a card
+is present.
+
+- K1 ``freq_lstm_plain`` vs ``freq_lstm_reference`` (f32 HIGHEST scan) and
+  vs the Pallas kernel in interpret mode (3-pass products ≈ f32).
+- K2 ``bilstm2_plain`` vs ``bilstm_2layer_reference``. The Pallas kernel's
+  interpret output is bf16-rounded by design, so the f32 oracle is the bar.
+- K3 ``decode_solve_plain`` vs ``decode_solve_fused(interpret=True)`` in
+  its f32 configuration (delta off, 3-pass products, f32 P): the default
+  delta mode rounds ΔT and P to bf16.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sdfa_tpu.ops import deform_solver as jds
+from sdfa_tpu.ops import pallas_decode_solve as jpds
+from sdfa_tpu.ops.pallas_bilstm2 import bilstm_2layer_reference
+from sdfa_tpu.ops.pallas_freq_lstm import freq_lstm_fused, freq_lstm_reference
+from sdfa_tpu_torch.mesh import synthetic_template
+from sdfa_tpu_torch.ops import bilstm2 as K2
+from sdfa_tpu_torch.ops import decode_solve as K3
+from sdfa_tpu_torch.ops import freq_lstm as K1
+from sdfa_tpu_torch.ops.deform_solver import DeformationSolver
+
+
+def _rand(rng, shape, scale):
+    return rng.normal(0, scale, shape).astype(np.float32)
+
+
+def _k1_args(rng, rows, F, C, H, out, bias=True):
+    return [_rand(rng, (rows, F, C), 1.0), _rand(rng, (2, C, 4 * H), 0.1),
+            _rand(rng, (2, H, 4 * H), 0.1), _rand(rng, (2, 4 * H), 0.1) if bias else None,
+            _rand(rng, (F * 2 * H, out), 0.02), _rand(rng, (out,), 0.1) if bias else None]
+
+
+def _both(args):
+    jx = [None if a is None else jnp.asarray(a) for a in args]
+    tx = [None if a is None else torch.from_numpy(a) for a in args]
+    return jx, tx
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_freq_lstm_plain_matches_reference(bias):
+    jx, tx = _both(_k1_args(np.random.default_rng(0), 37, 6, 8, 16, 12, bias))
+    want = np.asarray(freq_lstm_reference(*jx))
+    got = K1.freq_lstm(*tx).numpy()  # CPU tensors → the plain version
+    assert got.shape == (37, 12)
+    assert float(np.abs(got - want).max()) < 1e-5  # f32 both sides
+
+
+def test_freq_lstm_plain_matches_pallas_interpret():
+    """Flagship widths (C 64, H 128, out 256), ragged 130 rows on 128-row
+    blocks, 4 frequency steps."""
+    jx, tx = _both(_k1_args(np.random.default_rng(1), 130, 4, 64, 128, 256))
+    want = np.asarray(freq_lstm_fused(*jx, block_rows=128, interpret=True, precise=True))
+    got = K1.freq_lstm_plain(*tx).numpy()
+    assert float(np.abs(got - want).max()) < 2e-5  # the 3-pass split ≈ f32
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_bilstm2_plain_matches_reference(bias):
+    rng = np.random.default_rng(2)
+    rows, T, IN, H = 5, 9, 12, 8
+    args = [_rand(rng, (rows, T, IN), 1.0),
+            _rand(rng, (2, IN, 4 * H), 0.2), _rand(rng, (2, H, 4 * H), 0.2),
+            _rand(rng, (2, 4 * H), 0.1) if bias else None,
+            _rand(rng, (2, 2 * H, 4 * H), 0.2), _rand(rng, (2, H, 4 * H), 0.2),
+            _rand(rng, (2, 4 * H), 0.1) if bias else None]
+    jx, tx = _both(args)
+    want = np.asarray(bilstm_2layer_reference(*jx))
+    got = K2.bilstm2(*tx).numpy()
+    assert got.shape == (rows, T, 2 * H)
+    assert float(np.abs(got - want).max()) < 1e-5  # f32 both sides
+
+
+@pytest.fixture(scope="module")
+def small_solvers():
+    verts, faces, cnst = synthetic_template(0, n_major=8, n_minor=10, n_extra=3, n_free=30)
+    return (verts, faces, cnst, jds.DeformationSolver(verts, faces, cnst_indices=cnst),
+            DeformationSolver(verts, faces, cnst))
+
+
+@pytest.mark.parametrize("rows", [9, 16])
+def test_decode_solve_plain_matches_pallas_interpret(small_solvers, rows):
+    *_, jsolver, tsolver = small_solvers
+    n = tsolver.n_tris
+    Ks, Kr = 12, 7
+    rng = np.random.default_rng(3)
+    sc, sm = _rand(rng, (6 * n, Ks), 0.05), _rand(rng, (6 * n,), 0.05)
+    rc, rm = _rand(rng, (3 * n, Kr), 0.05), _rand(rng, (3 * n,), 0.05)
+    coef_s, coef_r = _rand(rng, (rows, Ks), 1.0), _rand(rng, (rows, Kr), 1.0)
+    jdsc = jpds.prep_consts({"compT": sc, "means": sm}, {"compT": rc, "means": rm},
+                            jsolver.consts, jsolver.spec, p_dtype=jnp.float32)
+    want = np.asarray(jpds.decode_solve_free(jnp.asarray(coef_s), jnp.asarray(coef_r), jdsc,
+                                             interpret=True, delta=False, precise=True))
+    dsc = K3.prep_consts(sc, sm, rc, rm, tsolver, "cpu")
+    got = K3.decode_solve(torch.from_numpy(coef_s), torch.from_numpy(coef_r), dsc).numpy()
+    assert got.shape == want.shape == (rows, 3, tsolver.n_free)
+    assert float(np.abs(got - want).max()) < 1e-5  # metres; f32 vs the 3-pass split
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain(cuda, small_solvers):
+    """Each kernel on the card against its plain version on the same inputs
+    (flagship widths for the LSTMs, a small mesh for decode+solve)."""
+    rng = np.random.default_rng(4)
+    x1 = [None if a is None else torch.from_numpy(a).to(cuda)
+          for a in _k1_args(rng, 45, 32, 64, 128, 256)]
+    assert float((K1.freq_lstm(*x1) - K1.freq_lstm_plain(*x1)).abs().max()) < 1e-4
+    x2 = [torch.from_numpy(a).to(cuda) for a in (
+        _rand(rng, (7, 64, 256), 0.5), _rand(rng, (2, 256, 1024), 0.06),
+        _rand(rng, (2, 256, 1024), 0.06), _rand(rng, (2, 1024), 0.06),
+        _rand(rng, (2, 512, 1024), 0.06), _rand(rng, (2, 256, 1024), 0.06),
+        _rand(rng, (2, 1024), 0.06))]
+    assert float((K2.bilstm2(*x2) - K2.bilstm2_plain(*x2)).abs().max()) < 1e-4
+    *_, tsolver = small_solvers
+    n = tsolver.n_tris
+    dsc = K3.prep_consts(_rand(rng, (6 * n, 85), 0.01), _rand(rng, (6 * n,), 0.01),
+                         _rand(rng, (3 * n, 180), 0.01), _rand(rng, (3 * n,), 0.01),
+                         tsolver, cuda)
+    cs = torch.from_numpy(_rand(rng, (11, 85), 1.0)).to(cuda)
+    cr = torch.from_numpy(_rand(rng, (11, 180), 1.0)).to(cuda)
+    err = (K3.decode_solve(cs, cr, dsc) - K3.decode_solve_plain(cs, cr, dsc)).abs().max()
+    assert float(err) < 1e-5

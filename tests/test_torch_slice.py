@@ -1,0 +1,96 @@
+"""The whole wav → vertices slice, port vs JAX: ``AnimationTask.
+generate_vertices`` on the flagship dgrad network (full widths, same flax
+variables on both sides through the weight bridge) over a small synthetic
+template, with the PCA dims cut to that mesh (6·/3·n_tris) and seeded PCA
+bases. The JAX task runs its device frontend and overlap path (the XLA
+scan and solve paths on CPU); the port runs its plain versions on CPU.
+
+Budget: the ROADMAP's 1e-4 m; both sides are f32 through the same math,
+so the test holds them to 1e-5 m."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from test_torch_nn import _perturb
+
+from sdfa_tpu.models import build_model as jbuild
+from sdfa_tpu.task import AnimationTask as JTask
+from sdfa_tpu.tools import configure as jconfigure
+from sdfa_tpu.viewer import frame as jframe
+from sdfa_tpu_torch.compat import load_flax_variables
+from sdfa_tpu_torch.config import configure as tconfigure
+from sdfa_tpu_torch.mesh import synthetic_template, write_ply
+from sdfa_tpu_torch.models import build_model as tbuild
+from sdfa_tpu_torch.task import AnimationTask as TTask
+from sdfa_tpu_torch.viewer import frame as tframe
+
+TOL_M = 1e-5
+
+
+@pytest.fixture(scope="module")
+def tasks(tmp_path_factory):
+    root = tmp_path_factory.mktemp("slice")
+    verts, faces, cnst = synthetic_template(2, n_major=10, n_minor=12, n_extra=5, n_free=50)
+    n = len(faces)
+    rng = np.random.default_rng(0)
+    (root / "pca").mkdir()
+    for name, shape in (("scale_compT", (6 * n, 85)), ("scale_means", (6 * n,)),
+                        ("rotat_compT", (3 * n, 180)), ("rotat_means", (3 * n,))):
+        np.save(root / "pca" / f"{name}.npy", rng.normal(0, 0.02, shape).astype(np.float32))
+    write_ply(str(root / "template.ply"), verts, faces)
+    (root / "cnst.txt").write_text(" ".join(str(int(i)) for i in cnst))
+    dims = {"model": {"output": {"output_dim_scale": 6 * n, "output_dim_rotat": 3 * n}}}
+
+    jhp = jconfigure("dgrad", overrides=dims, dataset_root=str(root))
+    jmodel = jbuild(jhp, load_pca=True)
+    k = jax.random.PRNGKey(0)
+    variables = jax.device_get(jmodel.init({"params": k, "dropout": k},
+                                           jnp.zeros((2, 64, 128, 3), jnp.float32),
+                                           jnp.zeros((2,), jnp.int32), False))
+    variables = _perturb(variables, rng)
+
+    saved_j, saved_t = dict(jframe._state), dict(tframe._state)
+    try:
+        # the JAX template state is module-global and later test files in
+        # this worker expect the FLAME template: restored below
+        jframe.set_template_mesh(str(root / "template.ply"), str(root / "cnst.txt"))
+        tframe.set_template_mesh(verts, faces, cnst)
+        jtask = JTask(jhp, jmodel, variables, device_frontend=True, overlap_frontend=True)
+        tmodel = load_flax_variables(tbuild(tconfigure("dgrad", overrides=dims,
+                                                       dataset_root=str(root))), variables)
+        yield jtask, TTask(tconfigure("dgrad", overrides=dims, dataset_root=str(root)),
+                           tmodel, "cpu"), len(verts)
+    finally:
+        jframe._state.clear()
+        jframe._state.update(saved_j)
+        tframe._state.clear()
+        tframe._state.update(saved_t)
+
+
+def _signal(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 8000)) / 8000
+    sig = 0.3 * np.sin(2 * np.pi * 150 * t) * (1 + 0.4 * np.sin(2 * np.pi * 3 * t))
+    return (sig + 0.02 * rng.standard_normal(len(t))).clip(-1, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("seconds,speaker", [(0.6, 2), (0.9, "f1")])
+def test_generate_vertices_matches_jax(tasks, seconds, speaker):
+    jtask, ttask, n_verts = tasks
+    sig = _signal(seconds, int(seconds * 10))
+    ts_j, verts_j = jtask.generate_vertices(sig, speaker)
+    ts_t, verts_t = ttask.generate_vertices(sig, speaker)
+    assert list(ts_t) == list(ts_j)
+    assert verts_t.shape == np.asarray(verts_j).shape == (len(ts_j), n_verts, 3)
+    assert np.isfinite(verts_t).all()
+    assert float(np.abs(verts_t - np.asarray(verts_j)).max()) < TOL_M
+
+
+def test_warmup_and_unported_wires(tasks):
+    _, ttask, _ = tasks
+    assert ttask.warmup(seconds=0.3) >= 0.0
+    with pytest.raises(NotImplementedError):
+        ttask.generate_vertices(_signal(0.3, 1), 0, wire="i16")
