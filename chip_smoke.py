@@ -3,22 +3,33 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # about 2 minutes
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns: a request, a train step
 
 Phases, each printed as one JSON line:
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions.
-2. build: compiles the three CUDA kernels from ``sdfa_tpu_torch/csrc``.
-3. kernels: runs each kernel at the serving path's shapes, holds it
-   against its plain PyTorch version on the same inputs, and times both
-   with CUDA events.
-4. serve: the flagship ``dgrad`` config at full width (seeded weights,
-   seeded PCA bases at the shipped dims, a synthetic template with FLAME's
-   5023 vertices / 9976 triangles / 1261 free vertices) serves three 3 s
-   requests through ``AnimationTask.generate_vertices``; every kernel's
-   launch counter must move during those requests.
+2. build: compiles the five CUDA sources of ``sdfa_tpu_torch/csrc`` side by side.
+3. kernels: runs each kernel at its path's shapes, holds it against its plain
+   PyTorch version on the same inputs, times both with CUDA events, computes
+   the card's bound for the same work, and times the one library call that
+   computes the same function where there is one (``torch.nn.LSTM`` through
+   cuDNN for the recurrences), as a yardstick that no path uses.
+4. serve: the flagship ``dgrad`` config at full width (seeded weights, seeded
+   PCA bases at the shipped dims, a synthetic template with FLAME's 5023
+   vertices / 9976 triangles / 1261 free vertices) serves three 3 s requests
+   through ``AnimationTask.generate_vertices``; the launch counters of
+   ``freq_lstm``, ``bilstm2`` and ``decode_solve`` must move.
 5. check: one request again through the plain versions on the card, and
    sampled frames against the float64 host solve.
+6. k4_path: the same config with a 1-layer time LSTM serves a 1 s request; the
+   ``bilstm_layer`` counter must move and the plain versions must agree.
+7. train: ``Trainer.train()`` takes 5 steps of 100 windows at full width with
+   the shipped optimizer and loss sections; every loss term and the gradient
+   norm must be finite, the ``bilstm_core`` forward and backward counters must
+   each read 15, parameters must change, the checkpoint must load back equal,
+   and one step through the plain versions from the same state and dropout
+   seed must give the same loss and gradients.
 
 Any failure raises, so the script exits non-zero and prints no result
 line. The last line is ``{"ok": true, "device": {...}}``.
@@ -28,15 +39,26 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
 K1_ROWS = 4 * 768     # 4 clips x a 3 s clip's 768-frame grid
 K2_WINDOWS = 256      # windows per suffix call
 K3_WINDOWS = 256
-TOL = {"freq_lstm": 1e-4, "bilstm2": 1e-4, "decode_solve": 1e-5}  # max |kernel - plain|
+K4_ROWS = 256
+TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
+TRAIN_STEPS = 5
+TOL = {"freq_lstm": 1e-4, "bilstm2": 1e-4, "decode_solve": 1e-5, "bilstm_layer": 1e-4,
+       "bilstm_core_fwd": 1e-4}  # max |kernel - plain|
+BWD_REL_TOL = 1e-4    # bilstm_core_bwd: max |diff| / max |reference|, for d(xp) and d(w_hh)
 PLAIN_TOL_M = 1e-4    # wav -> vertices through kernels vs through plain versions
 ORACLE_TOL_M = 1e-4   # sampled frames vs the float64 host solve
+STEP_LOSS_RTOL = 1e-5  # train step, kernels vs plain versions: total loss
+STEP_GRAD_RTOL = 1e-4  # ... and every gradient: max |diff| over the model's largest |gradient|;
+                       # the recurrent layers' gradients also over their own largest |value|
+F32_PEAK = 67e12      # H100 SXM, float32 outside the tensor cores, FLOP/s (data sheet)
+HBM_RATE = 3.35e12    # H100 SXM, bytes/s (data sheet)
 
 
 def emit(obj):
@@ -64,6 +86,35 @@ def time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def time_backward_ms(make_out, inputs, dout, n: int) -> float:
+    """Time of the backward pass alone: a fresh forward graph each turn, CUDA
+    events around ``autograd.grad``; the first turn warms up."""
+    import torch
+
+    total = 0.0
+    for turn in range(n + 1):
+        out = make_out()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(out, inputs, dout)
+        end.record()
+        torch.cuda.synchronize()
+        if turn:
+            total += start.elapsed_time(end)
+    return total / n
+
+
+def bound(flops: float, nbytes: float):
+    """The least time the card could take: the larger of operations over the
+    float32 peak and bytes (inputs once, outputs once) over the HBM rate."""
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def signal(seconds: float, sr: int, seed: int):
     import numpy as np
 
@@ -72,6 +123,23 @@ def signal(seconds: float, sr: int, seed: int):
     f0 = rng.uniform(110.0, 220.0)
     sig = 0.3 * np.sin(2 * np.pi * f0 * t) * (1 + 0.4 * np.sin(2 * np.pi * 3 * t))
     return (sig + 0.02 * rng.standard_normal(len(t))).clip(-1, 1).astype(np.float32)
+
+
+def train_batches(n: int):
+    """Seeded synthetic batches at FLAME's counts, as the sliding-window
+    reader ships them: first half frame i, second half frame i + 1."""
+    import numpy as np
+
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(100 + i)
+        half = rng.integers(0, 8, (TRAIN_WINDOWS // 2,)).astype(np.int64)
+        out.append({
+            "audio_feat": rng.normal(0.4, 0.2, (TRAIN_WINDOWS, 64, 128, 3)).astype(np.float32),
+            "speaker_id": np.concatenate([half, half]),
+            "dgrad_3d_scale_coef": rng.normal(0, 1, (TRAIN_WINDOWS, 1, 85)).astype(np.float32),
+            "dgrad_3d_rotat_coef": rng.normal(0, 1, (TRAIN_WINDOWS, 1, 180)).astype(np.float32)})
+    return out
 
 
 def main():
@@ -92,8 +160,10 @@ def main():
     from sdfa_tpu_torch.config import configure
     from sdfa_tpu_torch.mesh import FLAME_COUNTS, synthetic_template
     from sdfa_tpu_torch.models import build_model
-    from sdfa_tpu_torch.ops import bilstm2, build, decode_solve, freq_lstm
+    from sdfa_tpu_torch.ops import (bilstm2, bilstm_core, bilstm_layer, build, decode_solve,
+                                    freq_lstm)
     from sdfa_tpu_torch.task import AnimationTask
+    from sdfa_tpu_torch.train import Experiment, Trainer, checkpoints
     from sdfa_tpu_torch.viewer import frame
 
     dev = torch.device("cuda:0")
@@ -105,8 +175,7 @@ def main():
           "torch_cuda": torch.version.cuda, "nvcc": nvcc, "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    for name in ("freq_lstm", "bilstm2", "decode_solve"):
-        build.load_library(name)
+    build.load_libraries(["freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": {k: v["seconds"] for k, v in build.BUILD_INFO.items()},
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_INFO.items()}})
@@ -130,45 +199,147 @@ def main():
           "n_verts": solver.n_verts, "n_tris": solver.n_tris, "n_free": solver.n_free,
           "params": sum(p.numel() for p in model.parameters())})
 
-    # --- each kernel against its plain version at the path's shapes -------
-    enc = model.audio_encoder
-    fl = enc.built_layers_6
-    w_ih, w_hh, gb = fl.lstm.layer_weights(0)
-    x1 = torch.randn(K1_ROWS, fl.freq_length, w_ih.shape[1], generator=torch.Generator()
-                     .manual_seed(1)).to(dev)
-    k1 = (x1, w_ih, w_hh, gb, fl.proj.weight(), fl.proj.bias)
-    lw = [enc.built_layers_9.layer_weights(layer) for layer in range(2)]
-    x2 = (0.5 * torch.randn(K2_WINDOWS, 64, 256, generator=torch.Generator()
-                            .manual_seed(2))).to(dev)
-    k2 = (x2, *lw[0], *lw[1])
-    g3 = torch.Generator().manual_seed(3)
-    k3 = (torch.randn(K3_WINDOWS, 85, generator=g3).to(dev),
-          torch.randn(K3_WINDOWS, 180, generator=g3).to(dev), dsc)
-    cases = [("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain, k1,
-              "sdfa_tpu_torch/csrc/freq_lstm.cu", "sdfa_tpu/ops/pallas_freq_lstm.py:187"),
-             ("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain, k2,
-              "sdfa_tpu_torch/csrc/bilstm2.cu", "sdfa_tpu/ops/pallas_bilstm2.py:52"),
-             ("decode_solve", decode_solve.decode_solve, decode_solve.decode_solve_plain, k3,
-              "sdfa_tpu_torch/csrc/decode_solve.cu", "sdfa_tpu/ops/pallas_decode_solve.py:229")]
-    report = []
-    with torch.inference_mode():
-        for name, kernel, plain, args, source, replaces in cases:
+    # --- each kernel against its plain version at its path's shapes ---------
+    def randn(seed, *shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=torch.Generator().manual_seed(seed))).to(dev)
+
+    def library_lstm(n_in, hidden, layers, seed):
+        lstm = torch.nn.LSTM(n_in, hidden, num_layers=layers, bias=False, bidirectional=True)
+        torch.manual_seed(seed)
+        for p in lstm.parameters():
+            torch.nn.init.uniform_(p, -hidden ** -0.5, hidden ** -0.5)
+        return lstm.to(dev)
+
+    report = {}
+
+    def record(name, shape, err, tol, ms, plain_ms, flops, moved, library_ms, source, replaces,
+               primary=True, **extra):
+        bound_ms, bound_by = bound(flops, moved)
+        line = {"phase": "kernel", "name": name, "shape": shape, "max_abs_err": err, "tol": tol,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "gflop": flops / 1e9, "mbytes": moved / 1e6,
+                "card": smi, **extra}
+        emit(line)
+        if not err <= tol:
+            raise RuntimeError(f"{name} {shape}: kernel disagrees with its plain version: "
+                               f"{err} > {tol}")
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                 **{k: v for k, v in extra.items() if k == "err_is"}}
+        if primary:
+            report[name] = entry
+        else:
+            report[name].setdefault("other_shapes", []).append(
+                {k: entry[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")})
+
+    def forward_case(name, kernel, plain, args, flops, library, source, replaces, primary=True):
+        with torch.inference_mode():
             got = kernel(*args)
             torch.cuda.synchronize()
             want = plain(*args)
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"{name}: non-finite output")
             err = float((got - want).abs().max())
-            finite = bool(torch.isfinite(got).all())
             ms = time_ms(lambda: kernel(*args), 5)
-            plain_ms = time_ms(lambda: plain(*args), 5)
-            emit({"phase": "kernel", "name": name, "shape": list(got.shape),
-                  "max_abs_err": err, "tol": TOL[name], "ms": ms, "plain_ms": plain_ms,
-                  "card": smi})
-            if not finite or not err <= TOL[name]:
-                raise RuntimeError(f"{name}: kernel disagrees with its plain version: "
-                                   f"max |diff| {err} > {TOL[name]} (finite={finite})")
-            report.append({"name": name, "route": "cuda", "source": source,
-                           "replaces": replaces, "max_abs_err": err, "ms": ms,
-                           "plain_ms": plain_ms})
+            plain_ms = time_ms(lambda: plain(*args), 3)
+            library_ms = time_ms(library, 5) if library else None
+        moved = nbytes(*[a for a in args if torch.is_tensor(a)], got)
+        record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, flops, moved, library_ms,
+               source, replaces, primary)
+
+    enc = model.audio_encoder
+    fl = enc.built_layers_6
+    w_ih, w_hh, gb = fl.lstm.layer_weights(0)
+    x1 = randn(1, K1_ROWS, fl.freq_length, w_ih.shape[1])
+    lib1, x1_lib = library_lstm(64, 128, 1, 1), x1.transpose(0, 1).contiguous()
+    forward_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain,
+                 (x1, w_ih, w_hh, gb, fl.proj.weight(), fl.proj.bias),
+                 2.0 * K1_ROWS * (32 * 2 * (64 + 128) * 512 + 8192 * 256),
+                 lambda: lib1(x1_lib),  # the LSTM part only: no 8192 -> 256 projection
+                 "sdfa_tpu_torch/csrc/freq_lstm.cu", "sdfa_tpu/ops/pallas_freq_lstm.py:187")
+
+    lw = [enc.built_layers_9.layer_weights(layer) for layer in range(2)]
+    x2 = randn(2, K2_WINDOWS, 64, 256, scale=0.5)
+    lib2, x2_lib = library_lstm(256, 256, 2, 2), x2.transpose(0, 1).contiguous()
+    forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain, (x2, *lw[0], *lw[1]),
+                 2.0 * K2_WINDOWS * 64 * 2 * ((256 + 256) + (512 + 256)) * 1024,
+                 lambda: lib2(x2_lib),
+                 "sdfa_tpu_torch/csrc/bilstm2.cu", "sdfa_tpu/ops/pallas_bilstm2.py:52")
+
+    g3 = torch.Generator().manual_seed(3)
+    coef_s = torch.randn(K3_WINDOWS, 85, generator=g3).to(dev)
+    coef_r = torch.randn(K3_WINDOWS, 180, generator=g3).to(dev)
+    tp, nf = dsc.p.shape[1:]
+    with torch.inference_mode():
+        got = decode_solve.decode_solve(coef_s, coef_r, dsc)
+        torch.cuda.synchronize()
+        err = float((got - decode_solve.decode_solve_plain(coef_s, coef_r, dsc)).abs().max())
+        ms = time_ms(lambda: decode_solve.decode_solve(coef_s, coef_r, dsc), 5)
+        plain_ms = time_ms(lambda: decode_solve.decode_solve_plain(coef_s, coef_r, dsc), 5)
+    record("decode_solve", list(got.shape), err, TOL["decode_solve"], ms, plain_ms,
+           2.0 * K3_WINDOWS * ((85 * 6 + 180 * 3) * tp + 9 * tp * nf),
+           nbytes(coef_s, coef_r, *dsc, got), None,  # the plain version's product is cuBLAS
+           "sdfa_tpu_torch/csrc/decode_solve.cu", "sdfa_tpu/ops/pallas_decode_solve.py:229")
+
+    for n_in, layer in ((256, 0), (512, 1)):  # the stack's first layer, then a deeper one
+        x4 = randn(4 + layer, K4_ROWS, 64, n_in, scale=0.5)
+        lib4, x4_lib = library_lstm(n_in, 256, 1, 4 + layer), x4.transpose(0, 1).contiguous()
+        forward_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
+                     (x4, *lw[layer]), 2.0 * K4_ROWS * 64 * 2 * (n_in + 256) * 1024,
+                     lambda: lib4(x4_lib), "sdfa_tpu_torch/csrc/bilstm_layer.cu",
+                     "sdfa_tpu/ops/pallas_bilstm.py:42", primary=layer == 0)
+
+    # K5 at the train step's two shapes (the FreqLstm core first: it is the larger), then
+    # two ragged shapes that reach the other row tiles, held to the plain version only
+    core_src = "sdfa_tpu_torch/csrc/bilstm_core.cu"
+    for steps, rows, hid, n_in, timed in ((32, 6400, 128, 64, True), (64, 100, 256, 256, True),
+                                          (3, 1061, 256, 0, False), (5, 7, 128, 0, False)):
+        xp = randn(50 + hid, 2, steps, rows, 4 * hid, scale=0.5).requires_grad_()
+        w_core = randn(51 + hid, 2, hid, 4 * hid, scale=hid ** -0.5).requires_grad_()
+        dout = randn(52 + hid, steps, rows, 2 * hid)
+        out = bilstm_core.bilstm_core(xp, w_core)
+        torch.cuda.synchronize()
+        got_g = torch.autograd.grad(out, (xp, w_core), dout)
+        torch.cuda.synchronize()
+        ref = bilstm_core.bilstm_core_plain(xp, w_core)
+        ref_g = torch.autograd.grad(ref, (xp, w_core), dout)
+        err_f = float((out - ref).detach().abs().max())
+        err_b = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got_g, ref_g))
+        if not timed:
+            emit({"phase": "kernel", "name": "bilstm_core", "shape": [steps, rows, hid],
+                  "fwd_max_abs_err": err_f, "bwd_max_rel_err": err_b, "card": smi})
+            if not (err_f <= TOL["bilstm_core_fwd"] and err_b <= BWD_REL_TOL):
+                raise RuntimeError(f"bilstm_core {(steps, rows, hid)}: {err_f}, {err_b}")
+            continue
+        del ref, ref_g, got_g
+        lib5 = library_lstm(n_in, hid, 1, 5).train()
+        x5 = randn(53, steps, rows, n_in, scale=0.5).requires_grad_()
+        xp_d, w_d = xp.detach(), w_core.detach()
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: bilstm_core.bilstm_core(xp_d, w_d), 5)
+            plain_fwd_ms = time_ms(lambda: bilstm_core.bilstm_core_plain(xp_d, w_d), 3)
+            _, gates, cs = bilstm_core._forward_kernel(xp_d, w_d)
+            w_t = w_d.transpose(1, 2).contiguous()
+            bwd_ms = time_ms(lambda: bilstm_core._backward_kernel(gates, cs, w_t, dout), 5)
+            dw_ms = time_ms(lambda: bilstm_core.dw_hh(out.detach(), gates), 5)
+        lib_fwd_ms = time_ms(lambda: lib5(x5), 5)
+        plain_bwd_ms = time_backward_ms(lambda: bilstm_core.bilstm_core_plain(xp, w_core),
+                                        (xp, w_core), dout, 2)
+        lib_bwd_ms = time_backward_ms(lambda: lib5(x5)[0], (x5, *lib5.parameters()), dout, 3)
+        flops = 2.0 * steps * rows * 2 * hid * 4 * hid
+        primary = hid == 128
+        record("bilstm_core_fwd", [steps, rows, hid], err_f, TOL["bilstm_core_fwd"], fwd_ms,
+               plain_fwd_ms, flops, nbytes(xp, w_core, out, gates, cs), lib_fwd_ms, core_src,
+               "sdfa_tpu/ops/pallas_bilstm_train.py:101", primary)
+        record("bilstm_core_bwd", [steps, rows, hid], err_b, BWD_REL_TOL, bwd_ms, plain_bwd_ms,
+               flops, nbytes(gates, cs, w_core, dout, xp), lib_bwd_ms, core_src,
+               "sdfa_tpu/ops/pallas_bilstm_train.py:198", primary,
+               err_is="max |diff| / max |reference| over d(xp) and d(w_hh)",
+               dw_hh_library_product_ms=dw_ms)
+        del out, gates, cs, xp, xp_d, dout, x5, lib5
+    torch.cuda.empty_cache()
 
     # --- the serving path: warm up, then three requests --------------------
     sr = int(hp.audio.sample_rate)
@@ -216,12 +387,225 @@ def main():
     if not oracle_err <= ORACLE_TOL_M:
         raise RuntimeError(f"kernel path vs float64 oracle: {oracle_err} m > {ORACLE_TOL_M}")
 
-    for entry in report:
-        entry["launches"] = launches[entry["name"]]
-    emit({"kernels": report})
+    if "--profile" in sys.argv[1:]:
+        profile_serving(task, requests, sorted(walls)[1] * 1e3, smi)
+
+    # --- K4's path: a stack that is not 2 layers deep serves through bilstm_layer ---
+    hp1 = configure("dgrad")
+    hp1.model.audio_encoder.set_key("layers", [
+        ("lstm", 256, 256, "num_layers=1", "bidirectional=True") if spec[0] == "lstm"
+        else spec for spec in hp1.model.audio_encoder.layers])
+    task1 = AnimationTask(hp1, init_params(build_model(hp1, pca=pca), SEED), dev)
+    task1._decode = task._decode  # same template, same PCA bases
+    sig1 = signal(1.0, sr, 20)
+    task1.generate_vertices(sig1, 2)  # warm-up
+    bilstm_layer.LAUNCHES = 0
+    t0 = time.perf_counter()
+    ts1, v1 = task1.generate_vertices(sig1, 2)
+    wall1 = time.perf_counter() - t0
+    launches["bilstm_layer"] = bilstm_layer.LAUNCHES
+    with ops.plain_versions():
+        _, v1_plain = task1.generate_vertices(sig1, 2)
+    k4_err = float(np.abs(v1 - v1_plain).max())
+    emit({"phase": "k4_path", "audio_s": 1.0, "windows": len(ts1), "wall_s": wall1,
+          "launches": launches["bilstm_layer"], "plain_max_abs_m": k4_err,
+          "plain_tol_m": PLAIN_TOL_M, "card": smi})
+    if launches["bilstm_layer"] < 1:
+        raise RuntimeError("the 1-layer stack did not launch bilstm_layer")
+    if v1.shape != (len(ts1), FLAME_COUNTS[0], 3) or not np.isfinite(v1).all():
+        raise RuntimeError(f"k4 path: bad output {v1.shape}")
+    if not k4_err <= PLAIN_TOL_M:
+        raise RuntimeError(f"k4 path, kernels vs plain versions: {k4_err} m > {PLAIN_TOL_M}")
+    del task1
+
+    # --- the training path: Trainer.train() for 5 steps at full width ----------
+    hp_t = configure("dgrad")
+    hp_t.trainer.set_key("max_epochs", 1)
+    hp_t.trainer.set_key("save_gap_epochs", 1)
+    batches = train_batches(TRAIN_STEPS)
+    with tempfile.TemporaryDirectory(prefix="sdfa_chip_smoke_") as tmp:
+        def experiment(name, **kw):
+            return Experiment(hp_t, build_model(hp_t, pca=pca), os.path.join(tmp, name), dev,
+                              seed=SEED, **kw)
+
+        # one step on a throwaway experiment warms up the allocator and the libraries,
+        # and is the kernel side of the kernel-vs-plain comparison below
+        warm = experiment("warm")
+        m_kernel = warm.train_step(batches[0])
+        g_kernel = {n: p.grad.clone() for n, p in warm.model.named_parameters()}
+        torch.cuda.synchronize()
+        del warm
+
+        exp = experiment("run")
+        before = {k: v.clone() for k, v in exp.model.state_dict().items()}
+        stamps = []
+
+        def timed_loader():
+            # the Trainer asks for the next batch between steps: a synchronize there
+            # brackets each step, upload and host work included
+            for batch in batches:
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                yield batch
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(exp, timed_loader())
+        trainer.train()
+        launches["bilstm_core_fwd"] = bilstm_core.FWD_LAUNCHES
+        launches["bilstm_core_bwd"] = bilstm_core.BWD_LAUNCHES
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
+        for i, m in enumerate(trainer.step_metrics):
+            bad = [k for k, v in m.items() if not np.isfinite(v)]
+            if bad:
+                raise RuntimeError(f"train step {i}: non-finite {bad}")
+        if (launches["bilstm_core_fwd"], launches["bilstm_core_bwd"]) != (3 * TRAIN_STEPS,) * 2:
+            raise RuntimeError(f"bilstm_core launches {launches}, expected {3 * TRAIN_STEPS} each")
+        after = exp.model.state_dict()
+        unchanged = [n for n, p in exp.model.named_parameters() if torch.equal(before[n], p)]
+        if unchanged:
+            raise RuntimeError(f"parameters did not change: {unchanged}")
+        loaded = experiment("reload", load_from=checkpoints.latest_checkpoint(exp.log_dir))
+        got_state, got_opt = loaded.model.state_dict(), loaded.optimizer.state_dict()["state"]
+        same = (all(torch.equal(got_state[k], v) for k, v in after.items())
+                and all(torch.equal(got_opt[i][k], v)
+                        for i, slot in exp.optimizer.state_dict()["state"].items()
+                        for k, v in slot.items())
+                and all(torch.equal(a, b) for n in exp.scalers
+                        for a, b in zip(loaded.scalers[n], exp.scalers[n]))
+                and (loaded.step, loaded.epoch) == (exp.step, exp.epoch) == (TRAIN_STEPS, 1))
+        if not same:
+            raise RuntimeError("the reloaded checkpoint differs from the state saved")
+        del loaded
+
+        plain = experiment("plain")
+        with ops.plain_versions():
+            m_plain = plain.train_step(batches[0])
+        loss_rel = abs(float(m_kernel["total"]) - float(m_plain["total"])) / abs(
+            float(m_plain["total"]))
+        # A gradient that is zero but for rounding (the weight-norm gain of a conv whose
+        # output goes through BatchNorm, the attention query under a near-uniform softmax)
+        # differs by 1e-3 of its own size between two runs of the SAME path, so every
+        # parameter is held to the largest gradient of the model, and the recurrent
+        # layers' own parameters, which the kernels produce, to their own size as well.
+        def own_size_diffs(grads):
+            """max |kernel − other| per parameter, and the same over its own max |value|."""
+            diffs = {n: float((g_kernel[n] - g).abs().max()) for n, g in grads.items()}
+            return diffs, {n: diffs[n] / max(float(g.abs().max()), 1e-30)
+                           for n, g in grads.items()}
+
+        g_plain = {n: p.grad for n, p in plain.model.named_parameters()}
+        g_max = max(float(g.abs().max()) for g in g_plain.values())
+        diffs, own = own_size_diffs(g_plain)
+        grad_rel = max(diffs.values()) / g_max
+        lstm_rel = max(v for n, v in own.items()
+                       if n.rpartition(".")[2].startswith(("w_ih", "w_hh", "b_ih", "b_hh")))
+        worst = sorted(own, key=own.get, reverse=True)[:3]
+        del plain
+        again = experiment("again")  # the kernel path once more: the floor of that measure
+        again.train_step(batches[0])
+        _, own_again = own_size_diffs({n: p.grad for n, p in again.model.named_parameters()})
+        worst_again = max(own_again, key=own_again.get)
+        del again
+        emit({"phase": "train", "steps": TRAIN_STEPS, "windows_per_step": TRAIN_WINDOWS,
+              "step_ms_median": step_ms[len(step_ms) // 2], "step_ms_all": step_ms,
+              "windows_per_s": TRAIN_WINDOWS / (step_ms[len(step_ms) // 2] / 1e3),
+              "peak_memory_gib": peak_gib, "launches": {k: launches[k] for k in (
+                  "bilstm_core_fwd", "bilstm_core_bwd")},
+              "first_step": trainer.step_metrics[0], "last_step": trainer.step_metrics[-1],
+              "plain_step_loss_rel": loss_rel, "plain_step_grad_vs_largest_gradient": grad_rel,
+              "plain_step_lstm_grad_rel": lstm_rel, "largest_gradient": g_max,
+              "worst_by_own_size": [{"name": n, "rel": own[n],
+                                     "max_abs_gradient": float(g_plain[n].abs().max())}
+                                    for n in worst],
+              "same_path_twice_worst_by_own_size": {"name": worst_again,
+                                                    "rel": own_again[worst_again]},
+              "loss_rtol": STEP_LOSS_RTOL, "grad_rtol": STEP_GRAD_RTOL, "card": smi})
+        if not loss_rel <= STEP_LOSS_RTOL:
+            raise RuntimeError(f"train step, kernels vs plain: loss differs by {loss_rel}")
+        if not (grad_rel <= STEP_GRAD_RTOL and lstm_rel <= STEP_GRAD_RTOL):
+            raise RuntimeError(f"train step, kernels vs plain: gradients differ by {grad_rel} "
+                               f"of the largest gradient, {lstm_rel} on the recurrent layers")
+
+        if "--profile" in sys.argv[1:]:
+            profile_train_step(exp, batches, smi, step_ms[len(step_ms) // 2])
+
+    kernels = []
+    for name, entry in report.items():
+        entry["launches"] = launches[name]
+        if entry["launches"] < 1:
+            raise RuntimeError(f"{name} was never launched on its path")
+        kernels.append(entry)
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def device_kernels(prof, spans=()):
+    """(name, device ms, launches) of every kernel and copy in a profile, largest
+    first, and their sum; ``spans`` names record_function ranges to leave out."""
+    from torch.autograd import DeviceType
+
+    device = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.key not in spans]
+    device.sort(key=lambda item: -item[1])
+    return device, sum(ms for _, ms, _ in device)
+
+
+def profile_serving(task, requests, wall_ms_unprofiled, smi):
+    """The serve phase's requests once more under ``torch.profiler``: device
+    time by kernel per request and the busy share of an unprofiled request."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for sig, spk in requests:
+            task.generate_vertices(sig, spk)
+        torch.cuda.synchronize()
+    device, busy_ms = device_kernels(prof)
+    n = len(requests)
+    emit({"phase": "profile_serve", "requests": n, "device_busy_ms_per_request": busy_ms / n,
+          "wall_ms_unprofiled_median": wall_ms_unprofiled,
+          "device_busy_share": busy_ms / n / wall_ms_unprofiled,
+          "top_device_ms_per_request": [{"name": k[:80], "ms": ms / n, "calls_per_request": c / n}
+                                        for k, ms, c in device[:10]], "card": smi})
+
+
+def profile_train_step(exp, batches, smi, step_ms_unprofiled):
+    """Three more train steps under ``torch.profiler``: device time by stage
+    (the ``record_function`` spans of ``Experiment.train_step``) and by
+    kernel, and the device's busy time per step as a share of the unprofiled
+    step (the profiler slows the host, so the profiled span would understate it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for batch in batches[:3]:
+            exp.train_step(batch)
+        torch.cuda.synchronize()
+    span_ms = 1e3 * (time.perf_counter() - t0)
+    spans = ("train/upload", "train/forward_loss", "train/backward", "train/clip_adam")
+    device, busy_ms = device_kernels(prof, spans)
+    # a span's device time is that of the kernels launched inside it on the calling
+    # thread; autograd launches the backward's kernels from its own thread, so the
+    # backward's share is what the other three leave
+    stages = {e.key: e.device_time_total / 1e3 / 3 for e in prof.key_averages()
+              if e.device_type == DeviceType.CPU and e.key in spans and e.key != spans[2]}
+    stages[spans[2]] = busy_ms / 3 - sum(stages.values())
+    emit({"phase": "profile", "steps": 3, "profiled_span_ms": span_ms,
+          "device_busy_ms_per_step": busy_ms / 3, "step_ms_unprofiled": step_ms_unprofiled,
+          "device_busy_share": busy_ms / 3 / step_ms_unprofiled,
+          "stage_device_ms_per_step": stages,
+          "top_device_ms_per_step": [{"name": k[:80], "ms": ms / 3, "calls_per_step": n / 3}
+                                     for k, ms, n in device[:16]], "card": smi})
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
-"""PyTorch/CUDA port of the wav → vertices serving path of ``sdfa_tpu``.
+"""PyTorch/CUDA port of ``sdfa_tpu``: the wav → vertices serving path and the
+training path.
 
 Layout mirrors the JAX package so each module's counterpart is easy to
 find: ``audio/`` (frontend), ``nn/`` (layers, the layer-spec engine,
 recurrent layers, attention), ``models/`` (the network), ``ops/`` (the
-deformation solver and the three hand-written Hopper kernels with their
-plain PyTorch versions), ``viewer/`` (template state), ``task.py``
-(``AnimationTask``) and ``config.py`` (the config reader).
+deformation solver and the hand-written Hopper kernels with their plain
+PyTorch versions), ``train/`` (``Experiment``, ``Trainer``, schedules,
+checkpoints), ``viewer/`` (template state), ``task.py`` (``AnimationTask``)
+and ``config.py`` (the config reader).
 
 The package imports ``torch``, numpy and scipy only — never ``jax``,
 ``flax`` or ``sdfa_tpu``. Importing it builds nothing: each CUDA kernel is

@@ -58,7 +58,9 @@ def _perm(n_tris: int, per_tri: int, interleave: bool) -> np.ndarray:
 
 
 class SpeechDrivenAnimation(nn.Module):
-    """audio features → dgrad PCA coefficients (inference)."""
+    """audio features → dgrad PCA coefficients, or (``decode=True``, the
+    ``face_data`` prediction type that training uses) the flat dgrad
+    outputs behind the frozen PCA inversions."""
 
     def __init__(self, encoder_specs, output_specs, output_scale_specs, output_rotat_specs,
                  output_dim_scale: int, output_dim_rotat: int, pca_coeffs_scale: int,
@@ -74,12 +76,19 @@ class SpeechDrivenAnimation(nn.Module):
         self.rotat_pca = PcaInversion(pca_coeffs_rotat, output_dim_rotat)
         self.split, self.taxis = encoder_overlap_split(encoder_specs, weight_norm)
 
-    def forward(self, audio_feat, speaker_id):
-        """Per-window path: window features (N, T, F, C) → (raw PCA
-        coefficient dict as ``forward_windows`` returns it, alignments)."""
+    def forward(self, audio_feat, speaker_id, decode: bool = False):
+        """Per-window path: window features (N, T, F, C) → (prediction dict,
+        alignments). By default the raw PCA coefficients, as
+        ``forward_windows`` returns them; with ``decode=True`` the flat
+        ``dgrad_3d_scale`` (N, 1, tris·6) and ``dgrad_3d_rotat`` (N, 1, tris·3),
+        differentiable end to end."""
         condition = self.speaker_embedding(speaker_id)
         z_audio, aligns = self.audio_encoder(audio_feat, condition=condition)
-        return self._heads(z_audio, condition), aligns
+        preds = self._heads(z_audio, condition)
+        if decode:
+            preds = {"dgrad_3d_scale": self.scale_pca(preds["dgrad_3d_scale_pca"]),
+                     "dgrad_3d_rotat": self.rotat_pca(preds["dgrad_3d_rotat_pca"])}
+        return preds, aligns
 
     def _heads(self, z_audio, condition):
         x, _ = self.output_trunk(z_audio, condition=condition)

@@ -14,7 +14,8 @@ from .layers import Conv1d, FullyConnected
 
 
 class BahdanauAttention(nn.Module):
-    """Additive attention with eval-time score scaling."""
+    """Additive attention; ``scale_score_at_eval`` multiplies the scores in
+    eval mode only."""
 
     def __init__(self, num_units: int = 128, query_size: int = 512,
                  key_size: int = 512, query_radius: int = 1,
@@ -43,7 +44,9 @@ class BahdanauAttention(nn.Module):
             raise ValueError(f"query shape {tuple(query.shape)}")
         q = self.conv_query(query.transpose(1, 2)).transpose(1, 2)  # (N, 1, C)
         score = self.v(torch.tanh(self.proj_qry(q) + self.proj_key(key) + self.b))
-        score = score.transpose(1, 2) * self.scale_score_at_eval  # (N, 1, T)
+        score = score.transpose(1, 2)  # (N, 1, T)
+        if not self.training:
+            score = score * self.scale_score_at_eval
         if self.smooth:
             s = torch.sigmoid(score)
             align = s / s.sum(dim=-1, keepdim=True)

@@ -1,6 +1,13 @@
-"""Layer zoo for the serving slice (counterpart of ``sdfa_tpu/nn/layers.py``):
-Conv1d/Conv2d, Pool2d, FullyConnected, Permute, Squeeze, with the
-post-activation + eval-mode BatchNorm extension and weight norm.
+"""Layer zoo (counterpart of ``sdfa_tpu/nn/layers.py``): Conv1d/Conv2d,
+Pool2d, FullyConnected, Permute, Squeeze, with the post-activation +
+BatchNorm + dropout extension and weight norm.
+
+Training and eval follow ``nn.Module.training``. In training BatchNorm
+normalises with the batch's mean and biased variance and moves its running
+statistics by ``new = (1 − momentum)·old + momentum·batch`` (the biased
+variance there too, unlike ``torch.nn.BatchNorm*``). Dropout draws its keep
+mask from an explicit ``torch.Generator`` (``set_dropout_generator``), so a
+caller that seeds it per step gets the same masks again.
 
 Layouts follow the JAX package: FC kernels (in, out), conv kernels
 (O, I, kh, kw); parameter names match the flax tree (``kernel_v``,
@@ -24,12 +31,31 @@ def _pair(x) -> Tuple[int, int]:
     return tuple(x) if isinstance(x, (tuple, list)) else (x, x)
 
 
-class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over ``axis`` with flax's parameter names."""
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Bernoulli keep-mask with probability 1 − rate, kept values scaled by
+    1 / keep. ``gen`` must live on ``x``'s device."""
+    if gen is None:
+        raise RuntimeError("dropout needs a generator: call set_dropout_generator(model, gen)")
+    keep = 1.0 - float(rate)
+    mask = torch.rand(x.shape, generator=gen, device=x.device, dtype=x.dtype) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
-    def __init__(self, num_features: int, eps: float, axis: int):
+
+def set_dropout_generator(model: nn.Module, gen: Optional[torch.Generator]):
+    """Hand ``gen`` to every module of ``model`` that draws dropout masks."""
+    for module in model.modules():
+        if hasattr(module, "dropout_generator"):
+            module.dropout_generator = gen
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over ``axis`` with flax's parameter names. ``momentum`` is
+    the weight of the new batch in the running statistics (torch's sense)."""
+
+    def __init__(self, num_features: int, eps: float, axis: int, momentum: float = 0.1):
         super().__init__()
         self.eps, self.axis = float(eps), axis
+        self.decay = 1.0 - float(momentum)
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
@@ -38,8 +64,17 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         shape = [1] * x.ndim
         shape[self.axis] = -1
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        return (x - self.mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        mean, var = self.mean, self.var
+        if self.training:
+            axes = [a for a in range(x.ndim) if a != self.axis % x.ndim]
+            mean = x.mean(dim=axes)
+            # E[x²] − E[x]², clamped at 0: the JAX package's (flax's) form
+            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.decay).add_((1 - self.decay) * mean)
+                self.var.mul_(self.decay).add_((1 - self.decay) * var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
     def reset_parameters(self, gen: torch.Generator):
         with torch.no_grad():
@@ -50,9 +85,8 @@ class BatchNorm(nn.Module):
 
 
 class _Ext(nn.Module):
-    """Post-activation + BatchNorm extension (inference: dropout is the
-    identity). The pre-layer variants are not used by the shipped configs
-    and are refused."""
+    """Post-activation + BatchNorm + dropout extension. The pre-layer
+    variants are not used by the shipped configs and are refused."""
 
     bn_axis = -1
 
@@ -61,20 +95,26 @@ class _Ext(nn.Module):
                   **prev):
         if any(v not in (None, False, 0) for v in prev.values()):
             raise NotImplementedError(f"pre-layer extras are not ported: {prev}")
-        if drop_always and dropout:
-            raise NotImplementedError("dropout at inference is not ported")
         self._act = fn.parse_activation(activation)
         self.bn_first = bool(bn_first)
+        self.drop_rate, self.drop_always = float(dropout or 0.0), bool(drop_always)
+        self.dropout_generator: Optional[torch.Generator] = None
         self.post_bn = None
         if batch_norm is not None:
-            self.post_bn = BatchNorm(out_channels, float(dict(batch_norm).get("eps", 1e-5)),
-                                     self.bn_axis)
+            cfg = dict(batch_norm)
+            self.post_bn = BatchNorm(out_channels, float(cfg.get("eps", 1e-5)), self.bn_axis,
+                                     momentum=float(cfg.get("momentum", 0.1)))
 
     def ext_post(self, x):
         if self.post_bn is not None and self.bn_first:
-            return self._act(self.post_bn(x))
-        x = self._act(x)
-        return self.post_bn(x) if self.post_bn is not None else x
+            x = self._act(self.post_bn(x))
+        else:
+            x = self._act(x)
+            if self.post_bn is not None:
+                x = self.post_bn(x)
+        if self.drop_rate and (self.training or self.drop_always):
+            x = dropout(x, self.drop_rate, self.dropout_generator)
+        return x
 
 
 class _Weighted(_Ext):

@@ -3,9 +3,17 @@
 
 Weights keep the JAX layout — ``w_ih_l{k}[_reverse]`` (in, 4H),
 ``w_hh_l{k}[_reverse]`` (H, 4H), torch gate order i, f, g, o — so the flax
-tree bridges by name. A 2-layer bidirectional stack runs the fused
-``ops.bilstm2`` kernel; FreqLstm ("full" mode) runs ``ops.freq_lstm``.
-Both wrappers take their plain PyTorch version for CPU tensors.
+tree bridges by name.
+
+Routing is by ``self.training``. In eval mode a 2-layer bidirectional
+stack runs the fused ``ops.bilstm2`` kernel, any other depth runs
+``ops.bilstm_layer`` per layer, and FreqLstm ("full" mode) runs
+``ops.freq_lstm``. In training mode every layer (FreqLstm's too) computes
+its input projection as a library product, which autograd differentiates,
+and runs the recurrences through ``ops.bilstm_core``, whose backward is a
+kernel as well. Every wrapper takes its plain PyTorch version for CPU
+tensors, and the modules take the plain versions under
+``ops.plain_versions()``.
 """
 
 from __future__ import annotations
@@ -16,14 +24,16 @@ import torch
 from torch import nn
 
 from .. import ops
-from ..ops.bilstm2 import bilstm2, bilstm2_plain, bilstm_layer_plain
+from ..ops.bilstm2 import bilstm2, bilstm2_plain
+from ..ops.bilstm_core import bilstm_core, bilstm_core_plain
+from ..ops.bilstm_layer import bilstm_layer, bilstm_layer_plain
 from ..ops.freq_lstm import freq_lstm, freq_lstm_plain
-from .layers import FullyConnected
+from .layers import FullyConnected, dropout
 
 
 class LSTM(nn.Module):
-    """Multi-layer (bi)LSTM over time, batch first: (B, T, C) → (B, T, H·dirs).
-    Inference only (dropout between layers is the identity)."""
+    """Multi-layer biLSTM over time, batch first: (B, T, C) → (B, T, 2H), with
+    dropout between layers in training mode."""
 
     def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
                  bias: bool = False, batch_first: bool = True, dropout: float = 0.0,
@@ -35,6 +45,8 @@ class LSTM(nn.Module):
             raise NotImplementedError("unidirectional LSTM is not ported yet")
         self.input_size, self.hidden_size = int(input_size), int(hidden_size)
         self.num_layers, self.bias = int(num_layers), bool(bias)
+        self.dropout = float(dropout)
+        self.dropout_generator = None  # see layers.set_dropout_generator
         n = 4 * self.hidden_size
         for layer in range(self.num_layers):
             in_size = self.input_size if layer == 0 else 2 * self.hidden_size
@@ -64,12 +76,30 @@ class LSTM(nn.Module):
         return w_ih, w_hh, gb
 
     def forward(self, x):
+        if self.training:
+            return self._forward_train(x)
+        plain = ops.using_plain()
         if self.num_layers == 2:
             lw = [self.layer_weights(0), self.layer_weights(1)]
-            fused = bilstm2_plain if ops.using_plain() else bilstm2
-            return fused(x.contiguous(), *lw[0], *lw[1])
+            return (bilstm2_plain if plain else bilstm2)(x.contiguous(), *lw[0], *lw[1])
+        layer_fn = bilstm_layer_plain if plain else bilstm_layer
         for layer in range(self.num_layers):
-            x = bilstm_layer_plain(x, *self.layer_weights(layer))
+            x = layer_fn(x.contiguous(), *self.layer_weights(layer))
+        return x
+
+    def _forward_train(self, x):
+        """Per layer: xp[d] = x·w_ih[d] (+ b_ih + b_hh) for both directions in
+        one product, laid out (2, T, B, 4H) as the core takes it; the
+        recurrences in ``bilstm_core``; dropout between layers."""
+        core = bilstm_core_plain if ops.using_plain() else bilstm_core
+        for layer in range(self.num_layers):
+            w_ih, w_hh, gb = self.layer_weights(layer)
+            xp = torch.matmul(x.transpose(0, 1).unsqueeze(0), w_ih.unsqueeze(1))
+            if gb is not None:
+                xp += gb[:, None, None, :]  # in place: the product's backward does not read xp
+            x = core(xp.contiguous(), w_hh).transpose(0, 1)  # (T, B, 2H) → (B, T, 2H)
+            if layer < self.num_layers - 1 and self.dropout > 0.0:
+                x = dropout(x, self.dropout, self.dropout_generator)
         return x
 
 
@@ -95,7 +125,11 @@ class FreqLstm(nn.Module):
         if fq != self.freq_length:
             raise ValueError(f"expected {self.freq_length} freq bins, got {fq}")
         rows = x.permute(0, 3, 2, 1).reshape(bsz * t, fq, ch).contiguous()  # (B·T, F, C)
-        w_ih, w_hh, gb = self.lstm.layer_weights(0)
-        fused = freq_lstm_plain if ops.using_plain() else freq_lstm
-        out = fused(rows, w_ih, w_hh, gb, self.proj.weight(), self.proj.bias)
+        if self.training:
+            h = self.lstm(rows)  # (B·T, F, 2H) through the training core
+            out = self.proj(h.reshape(bsz * t, fq * 2 * self.hidden_size))
+        else:
+            w_ih, w_hh, gb = self.lstm.layer_weights(0)
+            fused = freq_lstm_plain if ops.using_plain() else freq_lstm
+            out = fused(rows, w_ih, w_hh, gb, self.proj.weight(), self.proj.bias)
         return out.reshape(bsz, t, self.output_size).transpose(1, 2)[:, :, None, :]

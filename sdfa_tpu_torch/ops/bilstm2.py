@@ -11,37 +11,9 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .bilstm_layer import HIDDEN, MAX_IN, bilstm_layer_plain  # one step loop, one limit
 
 LAUNCHES = 0  # kernel launches by ``bilstm2`` in this process
-
-HIDDEN, MAX_IN = 256, 512  # what the CUDA kernel takes
-
-
-def _lstm_dir(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """One direction of an LSTM scan: xp (rows, T, 4H) input projection with
-    bias → h (rows, T, H). Torch gate order i, f, g, o."""
-    rows, steps, _ = xp.shape
-    h = xp.new_zeros(rows, w_hh.shape[0])
-    c = torch.zeros_like(h)
-    hs = [None] * steps
-    for t in (range(steps - 1, -1, -1) if reverse else range(steps)):
-        i, f, g, o = (xp[:, t] + h @ w_hh).chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        hs[t] = h
-    return torch.stack(hs, dim=1)
-
-
-def bilstm_layer_plain(x, w_ih, w_hh, gate_bias):
-    """One biLSTM layer, plain PyTorch: (rows, T, in) → (rows, T, 2H)
-    (``bilstm_layer_reference`` in the JAX package)."""
-    outs = []
-    for d in range(2):
-        xp = x @ w_ih[d]
-        if gate_bias is not None:
-            xp = xp + gate_bias[d]
-        outs.append(_lstm_dir(xp, w_hh[d], reverse=bool(d)))
-    return torch.cat(outs, dim=-1)
 
 
 def bilstm2_plain(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2):

@@ -3,21 +3,24 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface, compiled
 by ``nvcc`` for ``sm_90a`` into a shared library and loaded with
 ``ctypes``. Libraries live under ``build/sdfa_tpu_torch/`` at the repo
-root (git-ignored), keyed by a hash of the source and the flags, so a
-fresh checkout builds them on its first CUDA launch and an unchanged
-source is never rebuilt. Nothing here runs at import time: a CPU host
-needs no ``nvcc``.
+root (git-ignored), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a fresh checkout builds them on its
+first CUDA launch and an unchanged source is never rebuilt.
+``load_libraries`` builds several sources at once, one ``nvcc`` each.
+Nothing here runs at import time: a CPU host needs no ``nvcc``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
@@ -41,15 +44,15 @@ def nvcc_path() -> str:
     return path
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library.
-    Raises if the build fails."""
-    if name in _LIBS:
-        return _LIBS[name]
+def _compile(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists; return the
+    library's path. Raises if the build fails."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as fp:
-        digest = hashlib.sha256(fp.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = os.path.join(BUILD_ROOT, f"{name}-{digest}")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as fp:
+            digest.update(fp.read())
+    out_dir = os.path.join(BUILD_ROOT, f"{name}-{digest.hexdigest()[:16]}")
     lib_path = os.path.join(out_dir, f"lib{name}.so")
     if not os.path.exists(lib_path):
         os.makedirs(out_dir, exist_ok=True)
@@ -62,12 +65,29 @@ def load_library(name: str) -> ctypes.CDLL:
         os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
         BUILD_INFO[name] = dict(seconds=time.perf_counter() - t0,
                                 ptxas=proc.stderr.strip(), path=lib_path)
-    lib = ctypes.CDLL(lib_path)
-    # every kernel source exports its runtime's cudaGetErrorString
-    lib.sdfa_error_string.argtypes = [ctypes.c_int]
-    lib.sdfa_error_string.restype = ctypes.c_char_p
-    _LIBS[name] = lib
-    return lib
+    return lib_path
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library.
+    Raises if the build fails."""
+    if name not in _LIBS:
+        lib = ctypes.CDLL(_compile(name))
+        # every kernel source exports its runtime's cudaGetErrorString
+        lib.sdfa_error_string.argtypes = [ctypes.c_int]
+        lib.sdfa_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def load_libraries(names: Sequence[str]):
+    """Build the named kernels side by side (one ``nvcc`` process each, all
+    started together) and load them. Raises if any build fails."""
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        for future in [pool.submit(_compile, name) for name in names]:
+            future.result()
+    for name in names:
+        load_library(name)
 
 
 def check(name: str, t, shape):
@@ -79,17 +99,20 @@ def check(name: str, t, shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel takes {tuple(shape)}")
 
 
-def launch(name: str, tensors, ints, device):
-    """Call ``sdfa_<name>(pointers..., ints..., stream)`` of csrc/<name>.cu on
-    the current stream; ``None`` passes a null pointer. Raises on a
-    non-zero cudaError_t (a refused launch never runs, and a later
-    synchronize would not report it)."""
+def launch(name: str, tensors, ints, device, entry: str = ""):
+    """Call ``sdfa_<entry or name>(pointers..., ints..., stream)`` of
+    csrc/<name>.cu on ``device``'s current stream; ``None`` passes a null
+    pointer. The device is made current for the call, so a launch from
+    autograd's thread lands on the tensors' card. Raises on a non-zero
+    cudaError_t (a refused launch never runs, and a later synchronize would
+    not report it)."""
     lib = load_library(name)
-    fn = getattr(lib, f"sdfa_{name}")
+    fn = getattr(lib, f"sdfa_{entry or name}")
     fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    code = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints,
-              torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        code = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints,
+                  torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
-        raise RuntimeError(f"{name} launch: CUDA error {code} "
+        raise RuntimeError(f"{entry or name} launch: CUDA error {code} "
                            f"({lib.sdfa_error_string(code).decode()})")

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .bilstm2 import bilstm_layer_plain
+from .bilstm_layer import bilstm_layer_plain
 
 LAUNCHES = 0  # kernel launches by ``freq_lstm`` in this process
 

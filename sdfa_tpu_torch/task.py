@@ -3,8 +3,9 @@
 
 Per request: the clip's frame grid and clip-level features (frontend),
 the per-frame encoder prefix once per clip (convs + FreqLstm kernel), then
-per window the temporal suffix (fused 2-layer biLSTM kernel, attention,
-heads) and the decode+solve kernel from PCA coefficients to vertices.
+per window the temporal suffix (fused 2-layer biLSTM kernel, or the
+per-layer kernel for a stack of another depth, attention, heads) and the
+decode+solve kernel from PCA coefficients to vertices.
 
 Shape policy: the clip's frame count is rounded up to a multiple of 256
 exactly as the JAX package does (``frame_idx`` and ``ts_list`` are
@@ -21,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from . import ops
 from .audio.pipeline import WindowSpec, clip_frame_features_padded
 from .models.sdfa import SpeechDrivenAnimation
 from .ops.decode_solve import decode_solve_fused, prep_consts
@@ -31,6 +33,7 @@ MAX_WINDOW_BATCH = 2048  # decode scratch: 9·10112·4 B ≈ 364 KB per window
 
 class AnimationTask:
     def __init__(self, hparams, model: SpeechDrivenAnimation, device):
+        ops.full_float32()
         self.hp = hparams
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()

@@ -1,0 +1,421 @@
+"""Experiment + Trainer: the training runtime (counterpart of
+``sdfa_tpu/train/trainer.py``).
+
+One optimization step is forward (BatchNorm on batch statistics, dropout
+from a generator seeded by (experiment seed, global step)), the losses with
+their dynamic scalers, backward — the recurrences through the
+``bilstm_core`` kernels on a card — the gradient norm, optional clipping and
+Adam. The ``Trainer`` takes any iterable of batch dicts, as numpy arrays or
+tensors: ``audio_feat`` (N, T, F, C), ``speaker_id`` (N,), and the targets
+either as ``dgrad_3d_scale`` / ``dgrad_3d_rotat`` or as PCA coefficients
+``dgrad_3d_scale_coef`` / ``dgrad_3d_rotat_coef``, decoded on the device
+inside the loss. The first half of a batch is frame i, the second half
+frame i + 1.
+
+Run directory: ``hparams.json``, ``params_info.txt``,
+``train_log/metrics.jsonl``, ``train_log/loss/epoch-loss.csv`` and the
+checkpoints of ``checkpoints.py``.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import logging
+import os
+import time
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .. import ops
+from ..compat.from_flax import init_params
+from ..models import losses as L
+from ..models.sdfa import SpeechDrivenAnimation
+from ..nn.layers import set_dropout_generator
+from . import checkpoints as ckpt_io
+from . import lr_schedules
+
+log = logging.getLogger(__name__)
+
+SCALER_NAMES = ("dyn_p_scale", "dyn_m_scale", "dyn_p_rotat", "dyn_m_rotat", "dyn_e")
+METRICS_EVERY = 50  # steps between lines of metrics.jsonl
+
+
+def make_loss_fn(model: SpeechDrivenAnimation, hparams):
+    """Returns loss_fn(scalers, batch, training) → (total, aux); ``batch``
+    holds tensors on the model's device and the model's mode is the
+    caller's to set."""
+    hp_loss = hparams.loss
+    pred_type = hparams.model.get("prediction_type", "face_data")
+    is_face_data = pred_type == "face_data"
+    postfix = "_pca" if pred_type.startswith("pca") else ""
+    dyn = bool(hp_loss.get("dynamic_scalar", False))
+    p_scale = float(hp_loss.get("ploss_scale", 1))
+    m_scale = float(hp_loss.get("mloss_scale", 1))
+    weight_key = hp_loss.get("anime_loss_weight")
+
+    def loss_fn(scalers: Dict[str, L.ScalerState], batch, training: bool):
+        audio_feat = batch["audio_feat"]
+        preds, _ = model(audio_feat, batch["speaker_id"], decode=is_face_data)
+        weights = batch.get(weight_key) if weight_key else None
+        if weights is None:
+            weights = audio_feat.new_ones(audio_feat.shape[0])
+
+        pred_s = preds[f"dgrad_3d_scale{postfix}"]
+        pred_r = preds[f"dgrad_3d_rotat{postfix}"]
+        if "dgrad_3d_scale_coef" in batch:
+            # PCA-coefficient targets decode on the device: 85 + 180 floats per
+            # frame cross the bus instead of 89,784
+            true_s = model.scale_pca(batch["dgrad_3d_scale_coef"].float())
+            true_r = model.rotat_pca(batch["dgrad_3d_rotat_coef"].float())
+        else:
+            true_s = batch[f"dgrad_3d_scale{postfix}"].float()
+            true_r = batch[f"dgrad_3d_rotat{postfix}"].float()
+        if is_face_data:
+            true_s = true_s.reshape(true_s.shape[:2] + (-1,))
+            true_r = true_r.reshape(true_r.shape[:2] + (-1,))
+            ps = L.ploss_flat(pred_s, true_s, weights, group=6)
+            ms = L.mloss_flat(pred_s, true_s, weights, group=6)
+            pr = L.ploss_flat(pred_r, true_r, weights, group=3, exp_values=True)
+            mr = L.mloss_flat(pred_r, true_r, weights, group=3, exp_values=True)
+        else:
+            kw = dict(is_dgrad=True, is_face_data=False)
+            ps = L.ploss(pred_s, true_s, weights, **kw)
+            ms = L.mloss(pred_s, true_s, weights, **kw)
+            pr = L.ploss(pred_r, true_r, weights, **kw)
+            mr = L.mloss(pred_r, true_r, weights, **kw)
+        scalars = dict(scalar_ps=ps, scalar_ms=ms, scalar_pr=pr, scalar_mr=mr,
+                       scalar_ploss=ps + pr, scalar_mloss=ms + mr)
+        loss_terms: Dict[str, torch.Tensor] = {}
+        new_scalers = dict(scalers)
+        if dyn:
+            for key, val, sname, scl in (("dyn_ps", ps, "dyn_p_scale", p_scale),
+                                         ("dyn_ms", ms, "dyn_m_scale", m_scale),
+                                         ("dyn_pr", pr, "dyn_p_rotat", p_scale),
+                                         ("dyn_mr", mr, "dyn_m_rotat", m_scale)):
+                scaled, new_scalers[sname] = L.dynamic_scale(val, scalers[sname], training)
+                loss_terms[key] = scaled * scl
+        else:
+            loss_terms.update(loss_ps=ps * p_scale, loss_ms=ms * m_scale,
+                              loss_pr=pr * p_scale, loss_mr=mr * m_scale)
+        total = sum(loss_terms.values())
+        scalars["total"] = total
+        return total, dict(new_scalers=new_scalers, scalars=scalars, loss_terms=loss_terms)
+
+    return loss_fn
+
+
+def make_optimizer(hparams, params: Iterable[torch.nn.Parameter]):
+    """Adam (AdamW when a weight decay is set or named); lr and beta1 are
+    written into the param groups before every step.
+    Returns (optimizer, lr_fn, beta1_fn, mode, base_lr)."""
+    opt = hparams.optim
+    args = dict(opt.get("args") or {})
+    base_lr = float(args.get("lr", 1e-3))
+    wd = float(args.get("weight_decay", 0) or 0)
+    sched = opt.get("lr_scheduler") or None
+    lr_fn, beta1_fn, mode = lr_schedules.build(sched.get("name") if sched else None, base_lr,
+                                               sched.get("args") if sched else None)
+    name = opt.get("name", "Adam")
+    if name not in ("Adam", "AdamW"):
+        raise NotImplementedError(f"optimizer '{name}' is not ported")
+    if wd > 0 or name == "AdamW":
+        # decoupled decay p ← p − lr·wd·p, the rule of the JAX package's optimizer
+        optimizer = torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=wd)
+    else:
+        optimizer = torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8)
+    return optimizer, lr_fn, beta1_fn, mode, base_lr
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed for one global step: a function of
+    (experiment seed, step) only, so a resumed run repeats an uninterrupted one."""
+    return (int(seed) * 1_000_003 + int(step)) % (2 ** 63 - 1)
+
+
+class Experiment:
+    """Composition root: run directory, model and optimizer state, the train
+    and eval steps, checkpoints, metric writers."""
+
+    def __init__(self, hparams, model: SpeechDrivenAnimation, log_dir: str, device,
+                 load_from: Optional[str] = None, seed: int = 1234):
+        ops.full_float32()
+        self.hp, self.log_dir, self.seed = hparams, log_dir, int(seed)
+        self.device = torch.device(device)
+        os.makedirs(os.path.join(log_dir, "train_log", "loss"), exist_ok=True)
+        with open(os.path.join(log_dir, "hparams.json"), "w") as fp:
+            json.dump(hparams, fp, indent=2, default=str)
+
+        self.model = init_params(model, self.seed).to(self.device)
+        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        (self.optimizer, self.lr_fn, self.beta1_fn, self.sched_mode,
+         self.base_lr) = make_optimizer(hparams, self.params)
+        self.grad_clip = (hparams.get("trainer") or {}).get("grad_clip")
+        self.scalers = {name: L.ScalerState.init(self.device) for name in SCALER_NAMES}
+        self.step = 0   # global optimization steps taken
+        self.epoch = 0
+        self.dropout_gen = torch.Generator(device=self.device)
+        set_dropout_generator(self.model, self.dropout_gen)
+        self.loss_fn = make_loss_fn(self.model, hparams)
+        self._dump_params_info()
+        if load_from:
+            self.load(load_from)
+
+    def _dump_params_info(self):
+        lines, total = [], 0
+        for name, p in sorted(self.model.named_parameters()):
+            total += p.numel()
+            lines.append(f"{name.replace('.', '/')}  {tuple(p.shape)}  {p.numel()}")
+        lines.append(f"TOTAL: {total}")
+        with open(os.path.join(self.log_dir, "params_info.txt"), "w") as fp:
+            fp.write("\n".join(lines) + "\n")
+        log.info("model parameters: %s", f"{total:,}")
+
+    # -- steps ---------------------------------------------------------------
+    def put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Host batch (numpy arrays or tensors) → tensors on the device."""
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def current_lr(self) -> Tuple[float, float]:
+        """(lr, beta1) for the next step. In step mode the schedule is read
+        at ``step + 1``: the first optimization step sees counter 1, not 0."""
+        it = self.epoch if self.sched_mode == "epoch" else self.step + 1
+        return self.lr_fn(it), (self.beta1_fn(it) if self.beta1_fn else 0.9)
+
+    def train_step(self, batch) -> Dict[str, Any]:
+        """One optimization step; returns the loss scalars and terms, the
+        gradient norm (before clipping) as 0-dim device tensors, and lr.
+        The gradients stay on the parameters until the next step. The four
+        ``record_function`` spans name the stages in a ``torch.profiler`` trace."""
+        with record_function("train/upload"):
+            batch = self.put_batch(batch)
+        lr, b1 = self.current_lr()
+        for group in self.optimizer.param_groups:
+            group["lr"], group["betas"] = lr, (b1, group["betas"][1])
+        self.dropout_gen.manual_seed(step_seed(self.seed, self.step))
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        with record_function("train/forward_loss"):
+            total, aux = self.loss_fn(self.scalers, batch, True)
+        with record_function("train/backward"):
+            total.backward()
+        with record_function("train/clip_adam"):
+            grads = [p.grad for p in self.params if p.grad is not None]
+            grad_norm = global_norm(grads)
+            if self.grad_clip:
+                clip = float(self.grad_clip)
+                scale = clip / torch.clamp(grad_norm, min=clip)  # g · c / max(‖g‖, c)
+                for g in grads:
+                    g.mul_(scale)
+            self.optimizer.step()
+        self.scalers = aux["new_scalers"]
+        self.step += 1
+        metrics = {k: v.detach() for k, v in {**aux["scalars"], **aux["loss_terms"]}.items()}
+        return {**metrics, "grad_norm": grad_norm, "lr": lr}
+
+    @torch.no_grad()
+    def eval_step(self, batch) -> Dict[str, torch.Tensor]:
+        self.model.eval()
+        _, aux = self.loss_fn(self.scalers, self.put_batch(batch), False)
+        return {**aux["scalars"], **aux["loss_terms"]}
+
+    # -- metric IO -----------------------------------------------------------
+    def write_metrics(self, tag: str, metrics: Dict[str, float], step: int):
+        rec = {"tag": tag, "step": int(step), "time": time.time()}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        with open(os.path.join(self.log_dir, "train_log", "metrics.jsonl"), "a") as fp:
+            fp.write(json.dumps(rec) + "\n")
+
+    def write_loss_csv(self, history):
+        """Rewrite epoch-loss.csv from the per-epoch rows."""
+        if not history:
+            return
+        keys = sorted({k for row in history for k in row if k != "epoch"})
+        path = os.path.join(self.log_dir, "train_log", "loss", "epoch-loss.csv")
+        with open(path, "w", newline="") as fp:
+            writer = csv.writer(fp)
+            writer.writerow(["epoch"] + keys)
+            for row in history:
+                writer.writerow([row.get("epoch")] + [row.get(k, "") for k in keys])
+
+    # -- checkpoint IO -------------------------------------------------------
+    def payload(self) -> Dict[str, Any]:
+        return dict(epoch=self.epoch, global_step=self.step,
+                    model=self.model.state_dict(), optimizer=self.optimizer.state_dict(),
+                    scalers={k: (v.vt, v.beta_t) for k, v in self.scalers.items()})
+
+    def save(self, max_nb: int = 10) -> str:
+        return ckpt_io.save_checkpoint(self.log_dir, self.payload(), self.epoch, self.step,
+                                       max_nb=max_nb)
+
+    def save_best(self, metric_name: str, value: float) -> str:
+        return ckpt_io.save_best(self.log_dir, self.payload(), metric_name, value,
+                                 self.epoch, self.step)
+
+    def load(self, path: str):
+        # read on the host: load_state_dict moves tensors to their parameters' device
+        # and leaves Adam's step counters on the host, where a fresh optimizer has them
+        payload = ckpt_io.load_checkpoint(path)
+        self.model.load_state_dict(payload["model"], strict=True)
+        self.optimizer.load_state_dict(payload["optimizer"])
+        self.scalers = {k: L.ScalerState(vt=v[0].to(self.device), beta_t=v[1].to(self.device))
+                        for k, v in payload["scalers"].items()}
+        self.epoch, self.step = int(payload["epoch"]), int(payload["global_step"])
+        log.info("restored checkpoint from %s (epoch %d)", path, self.epoch)
+
+
+def _to_host(step_metrics: List[Dict[str, Any]]) -> List[Dict[str, float]]:
+    """Per-step metric dicts (0-dim device tensors and floats) → floats, with
+    one device round trip for the whole list."""
+    if not step_metrics:
+        return []
+    keys = [k for k, v in step_metrics[0].items() if torch.is_tensor(v)]
+    table = torch.stack([torch.stack([m[k].float() for k in keys])
+                         for m in step_metrics]).cpu().numpy()
+    return [{**{k: float(v) for k, v in m.items() if not torch.is_tensor(v)},
+             **dict(zip(keys, map(float, row)))} for m, row in zip(step_metrics, table)]
+
+
+def _mean(rows: List[Dict[str, float]]) -> Dict[str, float]:
+    return {k: float(np.mean([r[k] for r in rows])) for k in rows[0]} if rows else {}
+
+
+class Trainer:
+    """Epoch loop with a hook registry, save cadences, validation and the
+    resume of the loss history."""
+
+    _hooks: Dict[str, list] = {k: [] for k in (
+        "prev_train", "post_train", "prev_valid", "post_valid", "prev_epoch", "post_epoch")}
+
+    @classmethod
+    def register_hook(cls, point: str):
+        if point not in cls._hooks:
+            raise ValueError(f"unknown hook point: {point}")
+
+        def deco(fn):
+            cls._hooks[point].append(fn)
+            return fn
+
+        return deco
+
+    def __init__(self, experiment: Experiment, train_loader, valid_loader=None):
+        self.exp = experiment
+        self.train_loader, self.valid_loader = train_loader, valid_loader
+        hp_tr = experiment.hp.trainer
+        self.max_epochs = int(hp_tr.get("max_epochs", 100))
+        self.save_gap_epochs = hp_tr.get("save_gap_epochs")
+        self.save_gap_steps = int(hp_tr.get("save_gap_steps", 0) or 0)
+        if self.save_gap_epochs and self.save_gap_steps:
+            raise ValueError("set save_gap_epochs or save_gap_steps, not both (the default "
+                             "config sets save_gap_epochs=10: override it with None to "
+                             "save by steps)")
+        # a gap of 0 / None disables validation; the shipped configs set 0 on purpose
+        self.valid_gap_epochs = int(hp_tr.get("valid_gap_epochs", 0) or 0)
+        self.metric_name = hp_tr.get("reference_metric", "ploss")
+        self.metric_larger = bool(hp_tr.get("reference_metric_larger", False))
+        self.best_metric = None
+        self.step_metrics: List[Dict[str, float]] = []  # the last epoch's, one dict per step
+        self._history: Optional[List[dict]] = None
+        self._steps_seen = 0
+
+    def _load_loss_history(self):
+        """Prior epochs' loss rows from the run directory; rows at or past the
+        resumed epoch are dropped, they will be trained again."""
+        path = os.path.join(self.exp.log_dir, "train_log", "loss", "epoch-loss.csv")
+        if not os.path.exists(path):
+            return []
+        rows = []
+        with open(path, newline="") as fp:
+            for row in csv.DictReader(fp):
+                try:
+                    epoch = int(row["epoch"])
+                except (KeyError, ValueError):
+                    continue
+                if epoch >= self.exp.epoch:
+                    continue
+                parsed = {"epoch": epoch}
+                for k, v in row.items():
+                    if k == "epoch" or v in ("", None):
+                        continue
+                    try:
+                        parsed[k] = float(v)
+                    except ValueError:
+                        parsed[k] = v
+                rows.append(parsed)
+        return rows
+
+    def _run_hooks(self, point: str, **kwargs):
+        for fn in self._hooks[point]:
+            fn(self.exp, **kwargs)
+
+    def _is_better(self, value: float) -> bool:
+        if self.best_metric is None:
+            return True
+        return value > self.best_metric if self.metric_larger else value < self.best_metric
+
+    def train(self):
+        exp = self.exp
+        log.info("training on %s", exp.device)
+        while exp.epoch < self.max_epochs:
+            self._run_hooks("prev_epoch", epoch=exp.epoch)
+            t0 = time.time()
+            train_metrics = self._train_epoch()
+            if not train_metrics:
+                log.info("no batches this epoch: stopping")
+                break
+            row = {"epoch": exp.epoch, **{f"train_{k}": v for k, v in train_metrics.items()}}
+            if (self.valid_loader is not None and self.valid_gap_epochs > 0
+                    and (exp.epoch + 1) % self.valid_gap_epochs == 0):
+                valid_metrics = self._validate()
+                row.update({f"valid_{k}": v for k, v in valid_metrics.items()})
+                metric = valid_metrics.get("scalar_" + self.metric_name,
+                                           valid_metrics.get(self.metric_name))
+                if metric is not None and self._is_better(metric):
+                    self.best_metric = metric
+                    exp.save_best(self.metric_name, metric)
+            if self._history is None:
+                # a resumed run keeps the loss history the csv already holds
+                self._history = self._load_loss_history()
+            self._history.append(row)
+            exp.write_loss_csv(self._history)
+            exp.epoch += 1
+            if self.save_gap_epochs and exp.epoch % int(self.save_gap_epochs) == 0:
+                exp.save()
+            self._run_hooks("post_epoch", epoch=exp.epoch)
+            log.info("epoch %d/%d done in %.1fs train_ploss=%.5f", exp.epoch, self.max_epochs,
+                     time.time() - t0, train_metrics.get("scalar_ploss", float("nan")))
+        exp.save()
+
+    def _train_epoch(self) -> Dict[str, float]:
+        exp = self.exp
+        device_metrics = []  # stay on the device; fetched once at the epoch's end
+        self._run_hooks("prev_train", epoch=exp.epoch)
+        for batch in self.train_loader:
+            metrics = exp.train_step(batch)
+            device_metrics.append(metrics)
+            self._steps_seen += 1
+            if self.save_gap_steps and self._steps_seen % self.save_gap_steps == 0:
+                exp.save()
+            if len(device_metrics) % METRICS_EVERY == 0:
+                exp.write_metrics("train", _to_host([metrics])[0], exp.step)
+        self._run_hooks("post_train", epoch=exp.epoch)
+        self.step_metrics = _to_host(device_metrics)
+        return _mean(self.step_metrics)
+
+    def _validate(self) -> Dict[str, float]:
+        exp = self.exp
+        self._run_hooks("prev_valid", epoch=exp.epoch)
+        rows = _to_host([exp.eval_step(batch) for batch in self.valid_loader])
+        self._run_hooks("post_valid", epoch=exp.epoch)
+        out = _mean(rows)
+        exp.write_metrics("valid", out, exp.step)
+        return out

@@ -1,11 +1,12 @@
-"""The three kernels' plain PyTorch versions against the JAX package's
+"""The serving kernels' plain PyTorch versions against the JAX package's
 references, at small shapes, plus the CUDA kernels themselves where a card
-is present.
+is present (the training core has tests/test_torch_train_core.py).
 
 - K1 ``freq_lstm_plain`` vs ``freq_lstm_reference`` (f32 HIGHEST scan) and
   vs the Pallas kernel in interpret mode (3-pass products ≈ f32).
 - K2 ``bilstm2_plain`` vs ``bilstm_2layer_reference``. The Pallas kernel's
   interpret output is bf16-rounded by design, so the f32 oracle is the bar.
+- K4 ``bilstm_layer_plain`` vs ``bilstm_layer_reference``.
 - K3 ``decode_solve_plain`` vs ``decode_solve_fused(interpret=True)`` in
   its f32 configuration (delta off, 3-pass products, f32 P): the default
   delta mode rounds ΔT and P to bf16.
@@ -19,10 +20,12 @@ import jax.numpy as jnp
 
 from sdfa_tpu.ops import deform_solver as jds
 from sdfa_tpu.ops import pallas_decode_solve as jpds
+from sdfa_tpu.ops.pallas_bilstm import bilstm_layer_reference
 from sdfa_tpu.ops.pallas_bilstm2 import bilstm_2layer_reference
 from sdfa_tpu.ops.pallas_freq_lstm import freq_lstm_fused, freq_lstm_reference
 from sdfa_tpu_torch.mesh import synthetic_template
 from sdfa_tpu_torch.ops import bilstm2 as K2
+from sdfa_tpu_torch.ops import bilstm_layer as K4
 from sdfa_tpu_torch.ops import decode_solve as K3
 from sdfa_tpu_torch.ops import freq_lstm as K1
 from sdfa_tpu_torch.ops.deform_solver import DeformationSolver
@@ -78,6 +81,19 @@ def test_bilstm2_plain_matches_reference(bias):
     assert float(np.abs(got - want).max()) < 1e-5  # f32 both sides
 
 
+@pytest.mark.parametrize("bias", [True, False])
+def test_bilstm_layer_plain_matches_reference(bias):
+    rng = np.random.default_rng(5)
+    rows, T, IN, H = 6, 11, 10, 8
+    jx, tx = _both([_rand(rng, (rows, T, IN), 1.0), _rand(rng, (2, IN, 4 * H), 0.2),
+                    _rand(rng, (2, H, 4 * H), 0.2),
+                    _rand(rng, (2, 4 * H), 0.1) if bias else None])
+    want = np.asarray(bilstm_layer_reference(*jx))
+    got = K4.bilstm_layer(*tx).numpy()  # CPU tensors → the plain version
+    assert got.shape == (rows, T, 2 * H)
+    assert float(np.abs(got - want).max()) < 1e-5  # f32 both sides
+
+
 @pytest.fixture(scope="module")
 def small_solvers():
     verts, faces, cnst = synthetic_template(0, n_major=8, n_minor=10, n_extra=3, n_free=30)
@@ -126,6 +142,9 @@ def test_cuda_kernels_match_plain(cuda, small_solvers):
         _rand(rng, (2, 512, 1024), 0.06), _rand(rng, (2, 256, 1024), 0.06),
         _rand(rng, (2, 1024), 0.06))]
     assert float((K2.bilstm2(*x2) - K2.bilstm2_plain(*x2)).abs().max()) < 1e-4
+    for x4 in (x2[:4], [torch.from_numpy(_rand(rng, (7, 64, 512), 0.5)).to(cuda), *x2[4:6],
+                        None]):
+        assert float((K4.bilstm_layer(*x4) - K4.bilstm_layer_plain(*x4)).abs().max()) < 1e-4
     *_, tsolver = small_solvers
     n = tsolver.n_tris
     dsc = K3.prep_consts(_rand(rng, (6 * n, 85), 0.01), _rand(rng, (6 * n,), 0.01),

@@ -10,6 +10,7 @@ so the test holds them to 1e-5 m."""
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -94,3 +95,16 @@ def test_warmup_and_unported_wires(tasks):
     assert ttask.warmup(seconds=0.3) >= 0.0
     with pytest.raises(NotImplementedError):
         ttask.generate_vertices(_signal(0.3, 1), 0, wire="i16")
+
+
+def test_task_switches_tf32_off(tasks):
+    """AnimationTask leaves both TF32 switches off without the caller's help."""
+    _, ttask, _ = tasks
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        TTask(ttask.hp, ttask.model, "cpu")
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
