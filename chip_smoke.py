@@ -4,17 +4,22 @@
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py            # about 2 minutes
-    python3 chip_smoke.py --profile  # also torch.profiler breakdowns: a request, a train step
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns: a request, a train step;
+                                     # and the biLSTM step kernel's SM clocks by part of a step
 
 Phases, each printed as one JSON line:
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions.
-2. build: compiles the five CUDA sources of ``sdfa_tpu_torch/csrc`` side by side.
+2. build: compiles the five CUDA sources of ``sdfa_tpu_torch/csrc`` side by side
+   and prints what ptxas says of each kernel (registers, shared memory, spills)
+   and how many clusters of the biLSTM step kernel the card holds at once.
 3. kernels: runs each kernel at its path's shapes, holds it against its plain
    PyTorch version on the same inputs, times both with CUDA events, computes
    the card's bound for the same work, and times the one library call that
    computes the same function where there is one (``torch.nn.LSTM`` through
-   cuDNN for the recurrences), as a yardstick that no path uses.
+   cuDNN for the recurrences), as a yardstick that no path uses. ``bilstm2``,
+   ``bilstm_layer`` and ``bilstm_core`` are also held to their plain versions,
+   untimed, at ragged shapes that reach every edge of their tilings.
 4. serve: the flagship ``dgrad`` config at full width (seeded weights, seeded
    PCA bases at the shipped dims, a synthetic template with FLAME's 5023
    vertices / 9976 triangles / 1261 free vertices) serves three 3 s requests
@@ -178,6 +183,7 @@ def main():
     build.load_libraries(["freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": {k: v["seconds"] for k, v in build.BUILD_INFO.items()},
+          "bilstm_step_kernel_max_active_clusters": bilstm_layer.max_active_clusters(dev),
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_INFO.items()}})
 
     # --- the flagship model at full width, seeded ---------------------------
@@ -291,6 +297,35 @@ def main():
                      lambda: lib4(x4_lib), "sdfa_tpu_torch/csrc/bilstm_layer.cu",
                      "sdfa_tpu/ops/pallas_bilstm.py:42", primary=layer == 0)
 
+    # K4 and K2 at ragged shapes, held to the plain versions only: one row, a partial row
+    # tile, the request's 216 windows, a second row chunk (257 rows at T = 64); T = 1 and 3;
+    # an input width that is no multiple of the projection's K tile; with and without bias
+    def ragged_case(name, kernel, plain, args):
+        with torch.inference_mode():
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            err = float((got - plain(*args)).abs().max())
+        emit({"phase": "kernel", "name": name, "shape": list(args[0].shape),
+              "gate_bias": args[3] is not None, "max_abs_err": err, "tol": TOL[name],
+              "card": smi})
+        if not (err <= TOL[name] and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"{name} {tuple(args[0].shape)}: {err} > {TOL[name]}")
+
+    def layer_weights(seed, n_in, bias):
+        return (randn(seed, 2, n_in, 1024, scale=1 / 16),
+                randn(seed + 1, 2, 256, 1024, scale=1 / 16),
+                randn(seed + 2, 2, 1024, scale=0.1) if bias else None)
+
+    for i, (rows, steps, n_in, bias) in enumerate((
+            (1, 1, 100, True), (7, 3, 256, False), (216, 64, 512, True), (257, 64, 100, False),
+            (257, 3, 512, True), (1, 64, 256, False), (7, 1, 512, True), (216, 3, 100, False))):
+        first = (randn(60 + 10 * i, rows, steps, n_in, scale=0.5),
+                 *layer_weights(61 + 10 * i, n_in, bias))
+        ragged_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
+                    first)
+        ragged_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
+                    first + layer_weights(64 + 10 * i, 512, bias))
+
     # K5 at the train step's two shapes (the FreqLstm core first: it is the larger), then
     # two ragged shapes that reach the other row tiles, held to the plain version only
     core_src = "sdfa_tpu_torch/csrc/bilstm_core.cu"
@@ -389,6 +424,7 @@ def main():
 
     if "--profile" in sys.argv[1:]:
         profile_serving(task, requests, sorted(walls)[1] * 1e3, smi)
+        profile_step_clocks(build, dev, smi)
 
     # --- K4's path: a stack that is not 2 layers deep serves through bilstm_layer ---
     hp1 = configure("dgrad")
@@ -574,6 +610,51 @@ def profile_serving(task, requests, wall_ms_unprofiled, smi):
           "device_busy_share": busy_ms / n / wall_ms_unprofiled,
           "top_device_ms_per_request": [{"name": k[:80], "ms": ms / n, "calls_per_request": c / n}
                                         for k, ms, c in device[:10]], "card": smi})
+
+
+def profile_step_clocks(build, dev, smi):
+    """Where a step of the biLSTM step kernel spends its time: builds
+    ``csrc/bilstm_layer.cu`` once more with ``-DSDFA_STEP_CLOCKS`` (thread 0 of
+    the first block adds up SM clocks by part of a turn), runs one layer at
+    224 and 256 rows x 64 steps, and prints clocks per step beside the least
+    a step's 32 x 256 x 128 multiply-adds need on one SM (128 a clock)."""
+    import ctypes
+
+    import torch
+
+    lib_path = os.path.join(build.BUILD_ROOT, "libbilstm_layer_step_clocks.so")
+    src = os.path.join(build.CSRC, "bilstm_layer.cu")
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-DSDFA_STEP_CLOCKS", "-o", lib_path,
+                    src], capture_output=True, text=True, check=True, timeout=600)
+    lib = ctypes.CDLL(lib_path)
+    lib.sdfa_bilstm_layer.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.sdfa_bilstm_layer_step_clocks.argtypes = [ctypes.c_void_p]
+    steps, n_in = 64, 256
+    for rows in (224, 256):
+        gen = torch.Generator().manual_seed(rows)
+        x = (0.5 * torch.randn(rows, steps, n_in, generator=gen)).to(dev)
+        w_ih = (torch.randn(2, n_in, 1024, generator=gen) / 16).to(dev)
+        w_hh = (torch.randn(2, 256, 1024, generator=gen) / 16).to(dev)
+        xp = torch.empty(2, rows, steps, 1024, device=dev)
+        out = torch.empty(rows, steps, 512, device=dev)
+
+        def call():
+            code = lib.sdfa_bilstm_layer(x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), None,
+                                         xp.data_ptr(), out.data_ptr(), rows, steps, n_in, 256,
+                                         rows, torch.cuda.current_stream(dev).cuda_stream)
+            if code != 0:
+                raise RuntimeError(f"bilstm_layer (step clocks build): CUDA error {code}")
+
+        ms = time_ms(call, 5)
+        clocks = (ctypes.c_longlong * 4)()
+        if lib.sdfa_bilstm_layer_step_clocks(clocks) != 0:
+            raise RuntimeError("could not read the step clocks")
+        per_step = [c / steps for c in clocks]
+        emit({"phase": "profile_step_clocks", "rows": rows, "steps": steps, "layer_ms": ms,
+              "sm_clocks_per_step": dict(zip(("product", "warp_exchanges", "cell_and_send_h",
+                                              "barrier_and_output"), per_step)),
+              "sm_clocks_per_step_total": sum(per_step),
+              "fma_floor_clocks_per_step": 32 * 256 * 128 / 128, "card": smi})
 
 
 def profile_train_step(exp, batches, smi, step_ms_unprofiled):

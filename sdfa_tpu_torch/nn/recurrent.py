@@ -6,8 +6,8 @@ Weights keep the JAX layout — ``w_ih_l{k}[_reverse]`` (in, 4H),
 tree bridges by name.
 
 Routing is by ``self.training``. In eval mode a 2-layer bidirectional
-stack runs the fused ``ops.bilstm2`` kernel, any other depth runs
-``ops.bilstm_layer`` per layer, and FreqLstm ("full" mode) runs
+stack runs ``ops.bilstm2`` (both layers behind one call), any other depth
+runs ``ops.bilstm_layer`` per layer, and FreqLstm ("full" mode) runs
 ``ops.freq_lstm``. In training mode every layer (FreqLstm's too) computes
 its input projection as a library product, which autograd differentiates,
 and runs the recurrences through ``ops.bilstm_core``, whose backward is a

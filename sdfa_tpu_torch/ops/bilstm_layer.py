@@ -4,11 +4,21 @@ Counterpart of ``sdfa_tpu/ops/pallas_bilstm.py``: ``bilstm_layer`` takes
 the arguments of ``bilstm_layer_fused`` — x (rows, T, in), w_ih
 (2, in, 4H), w_hh (2, H, 4H), gate bias (2, 4H) or None; direction 0
 forward, 1 reverse; gate order i, f, g, o — and returns (rows, T, 2H)
-float32, forward h in ``[..., :H]`` and reverse h in ``[..., H:]``. The
-input projection is computed inside the kernel.
+float32, forward h in ``[..., :H]`` and reverse h in ``[..., H:]``.
+
+On a card the layer is two hand-written kernels per row chunk
+(``csrc/bilstm_layer.cuh``): a tiled product computes the input projection
+xp = x·w_ih (+ bias) for all steps at once into a scratch tensor, then the
+step loop runs with w_hh held in the shared memory of an 8-block cluster:
+block s of a cluster owns hidden units 32s … 32s+31 of one direction for a
+tile of 32 rows. What is not CUDA — the row chunks, the scratch size, which
+gate columns a block owns — lives here, and ``bilstm_layer_tiled`` walks the
+same tiling in plain tensors so that the CPU tests reach it.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -17,6 +27,14 @@ from . import build
 LAUNCHES = 0  # kernel launches by ``bilstm_layer`` in this process
 
 HIDDEN, MAX_IN = 256, 512  # what the CUDA kernel takes
+CLUSTER = 8                # blocks per cluster: each owns HIDDEN / CLUSTER hidden units
+ROW_TILE = 32              # rows per cluster, walked as two sub-tiles that take turns
+SUB_TILE = ROW_TILE // 2
+# Rows are walked in chunks of at most SCRATCH_ROW_STEPS (row, step) pairs
+# (one row where T alone is more), so the scratch does not grow with the
+# batch: xp holds 2 · 4H floats per pair, 128 MiB at H = 256; the 2-layer
+# kernel's stack another 2H floats per pair, 32 MiB.
+SCRATCH_ROW_STEPS = 16384
 
 
 def lstm_dir(xp: torch.Tensor, w_hh: torch.Tensor, reverse: bool) -> torch.Tensor:
@@ -46,24 +64,106 @@ def bilstm_layer_plain(x, w_ih, w_hh, gate_bias):
     return torch.cat(outs, dim=-1)
 
 
+def chunk_rows(steps: int) -> int:
+    """Rows per chunk at ``steps`` time steps: whole row tiles where a tile
+    fits ``SCRATCH_ROW_STEPS``, never less than one row."""
+    n = max(1, SCRATCH_ROW_STEPS // steps)
+    return n - n % ROW_TILE if n >= ROW_TILE else n
+
+
+def scratch_rows(rows: int, steps: int) -> int:
+    """Rows of scratch (xp, the 2-layer stack) a call allocates: one chunk's,
+    or all rows where they are fewer."""
+    return min(rows, chunk_rows(steps))
+
+
+def block_columns(block: int, hidden: int = HIDDEN) -> torch.Tensor:
+    """The gate columns block ``block`` of a cluster owns, as the kernel holds
+    them, [unit][gate]: hidden unit j owns columns j, H+j, 2H+j, 3H+j, so a
+    block's 4H / CLUSTER columns are four strided runs, not one."""
+    per = hidden // CLUSTER
+    units = block * per + torch.arange(per)
+    return (units[:, None] + hidden * torch.arange(4)[None, :]).reshape(-1)
+
+
+def layer_tiled_chunk(x, w_ih, w_hh, gate_bias):
+    """One chunk of rows the way the kernels walk it, in plain tensors: the
+    projection for all steps first, then per (row tile, direction) the step
+    loop over the tile's two sub-tiles, in which each of the cluster's blocks
+    multiplies the full h by its own column slice (k in four interleaved
+    quarters, summed pairwise as the warp exchanges do), applies the cell to
+    its units and hands its h slice to the buffer the next step reads."""
+    rows, steps, _ = x.shape
+    hid = w_hh.shape[1]
+    per = hid // CLUSTER
+    cols = [block_columns(b, hid) for b in range(CLUSTER)]
+    xp = torch.stack([x @ w_ih[d] if gate_bias is None else x @ w_ih[d] + gate_bias[d]
+                      for d in range(2)])  # (2, rows, T, 4H)
+    out = x.new_empty(rows, steps, 2 * hid)
+    for row0 in range(0, rows, SUB_TILE):  # a tile's sub-tiles are independent rows
+        n = min(SUB_TILE, rows - row0)  # the kernel computes the sub-tile's other rows on zeros
+        for d in range(2):
+            w_blocks = [w_hh[d][:, c] for c in cols]  # each block's resident slice
+            h = [x.new_zeros(n, hid), x.new_empty(n, hid)]  # double-buffered
+            c_state = x.new_zeros(n, hid)
+            for step in range(steps):
+                t = step if d == 0 else steps - 1 - step
+                cur, nxt = step % 2, 1 - step % 2
+                for b in range(CLUSTER):
+                    own = slice(b * per, (b + 1) * per)
+                    part = [h[cur][:, q::4] @ w_blocks[b][q::4] for q in range(4)]
+                    pre = ((part[0] + part[2]) + (part[1] + part[3])
+                           + xp[d, row0:row0 + n, t][:, cols[b]]).reshape(n, per, 4)
+                    i, f, o = (torch.sigmoid(pre[..., q]) for q in (0, 1, 3))
+                    c_state[:, own] = f * c_state[:, own] + i * torch.tanh(pre[..., 2])
+                    h[nxt][:, own] = o * torch.tanh(c_state[:, own])
+                out[row0:row0 + n, t, d * hid:(d + 1) * hid] = h[nxt]
+    return out
+
+
+def bilstm_layer_tiled(x, w_ih, w_hh, gate_bias):
+    """``bilstm_layer_plain``'s function computed the kernel's way: row
+    chunks of ``chunk_rows(T)``, each through ``layer_tiled_chunk``."""
+    chunk = chunk_rows(x.shape[1])
+    return torch.cat([layer_tiled_chunk(x[r:r + chunk], w_ih, w_hh, gate_bias)
+                      for r in range(0, x.shape[0], chunk)])
+
+
+def max_active_clusters(device) -> int:
+    """How many clusters of the step kernel ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters`` for the launch the wrapper makes)."""
+    lib = build.load_library("bilstm_layer")
+    lib.sdfa_bilstm_layer_clusters.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.sdfa_bilstm_layer_clusters.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = lib.sdfa_bilstm_layer_clusters(ctypes.byref(n))
+    if code != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {code} "
+                           f"({lib.sdfa_error_string(code).decode()})")
+    return n.value
+
+
 def bilstm_layer(x, w_ih, w_hh, gate_bias):
-    """One biLSTM layer: the CUDA kernel for CUDA tensors, the plain
+    """One biLSTM layer: the CUDA kernels for CUDA tensors, the plain
     version for CPU tensors; any other input raises."""
     if x.device.type == "cpu":
         return bilstm_layer_plain(x, w_ih, w_hh, gate_bias)
     rows, steps, n_in = x.shape
     gdim = 4 * HIDDEN
-    if n_in > MAX_IN or w_hh.shape[1] != HIDDEN:
-        raise ValueError(f"bilstm_layer kernel takes H={HIDDEN}, in<={MAX_IN}; got x "
+    if n_in > MAX_IN or w_hh.shape[1] != HIDDEN or steps < 1:
+        raise ValueError(f"bilstm_layer kernel takes H={HIDDEN}, in<={MAX_IN}, T>=1; got x "
                          f"{tuple(x.shape)}, w_hh {tuple(w_hh.shape)}")
     build.check("x", x, (rows, steps, n_in))
     build.check("w_ih", w_ih, (2, n_in, gdim))
     build.check("w_hh", w_hh, (2, HIDDEN, gdim))
     if gate_bias is not None:
         build.check("gate_bias", gate_bias, (2, gdim))
+    xp = torch.empty(2, scratch_rows(rows, steps), steps, gdim, device=x.device,
+                     dtype=torch.float32)
     out = torch.empty(rows, steps, 2 * HIDDEN, device=x.device, dtype=torch.float32)
-    build.launch("bilstm_layer", (x, w_ih, w_hh, gate_bias, out),
-                 (rows, steps, n_in, HIDDEN), x.device)
+    build.launch("bilstm_layer", (x, w_ih, w_hh, gate_bias, xp, out),
+                 (rows, steps, n_in, HIDDEN, chunk_rows(steps)), x.device)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -3,7 +3,7 @@
 
 Per request: the clip's frame grid and clip-level features (frontend),
 the per-frame encoder prefix once per clip (convs + FreqLstm kernel), then
-per window the temporal suffix (fused 2-layer biLSTM kernel, or the
+per window the temporal suffix (2-layer biLSTM kernel, or the
 per-layer kernel for a stack of another depth, attention, heads) and the
 decode+solve kernel from PCA coefficients to vertices.
 

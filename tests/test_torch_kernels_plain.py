@@ -145,6 +145,11 @@ def test_cuda_kernels_match_plain(cuda, small_solvers):
     for x4 in (x2[:4], [torch.from_numpy(_rand(rng, (7, 64, 512), 0.5)).to(cuda), *x2[4:6],
                         None]):
         assert float((K4.bilstm_layer(*x4) - K4.bilstm_layer_plain(*x4)).abs().max()) < 1e-4
+    # ragged: a second row tile of one row, T = 3, an input width off the product's K tile
+    x2r = [torch.from_numpy(_rand(rng, (33, 3, 100), 0.5)).to(cuda),
+           torch.from_numpy(_rand(rng, (2, 100, 1024), 0.06)).to(cuda), x2[2], None, *x2[4:6], None]
+    assert float((K2.bilstm2(*x2r) - K2.bilstm2_plain(*x2r)).abs().max()) < 1e-4
+    assert float((K4.bilstm_layer(*x2r[:4]) - K4.bilstm_layer_plain(*x2r[:4])).abs().max()) < 1e-4
     *_, tsolver = small_solvers
     n = tsolver.n_tris
     dsc = K3.prep_consts(_rand(rng, (6 * n, 85), 0.01), _rand(rng, (6 * n,), 0.01),
