@@ -3,23 +3,26 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py            # about 2 minutes
-    python3 chip_smoke.py --profile  # also torch.profiler breakdowns: a request, a train step;
-                                     # and the biLSTM step kernel's SM clocks by part of a step
+    python3 chip_smoke.py            # about 45 seconds
+    python3 chip_smoke.py --profile  # about a minute. Also torch.profiler breakdowns: a
+                                     # request, a train step; the biLSTM step kernel's SM clocks
+                                     # by part of a step; the training core's other tile choices
 
 Phases, each printed as one JSON line:
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions.
 2. build: compiles the five CUDA sources of ``sdfa_tpu_torch/csrc`` side by side
    and prints what ptxas says of each kernel (registers, shared memory, spills)
-   and how many clusters of the biLSTM step kernel the card holds at once.
+   and how many clusters the card holds at once of the biLSTM step kernel and of
+   the training core's forward and backward kernels at each hidden width.
 3. kernels: runs each kernel at its path's shapes, holds it against its plain
    PyTorch version on the same inputs, times both with CUDA events, computes
    the card's bound for the same work, and times the one library call that
    computes the same function where there is one (``torch.nn.LSTM`` through
    cuDNN for the recurrences), as a yardstick that no path uses. ``bilstm2``,
    ``bilstm_layer`` and ``bilstm_core`` are also held to their plain versions,
-   untimed, at ragged shapes that reach every edge of their tilings.
+   untimed, at ragged shapes that reach every edge of their tilings, and
+   ``bilstm_core``'s backward must give the same bits twice.
 4. serve: the flagship ``dgrad`` config at full width (seeded weights, seeded
    PCA bases at the shipped dims, a synthetic template with FLAME's 5023
    vertices / 9976 triangles / 1261 free vertices) serves three 3 s requests
@@ -181,9 +184,12 @@ def main():
 
     t0 = time.perf_counter()
     build.load_libraries(["freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core"])
+    core_clusters = {f"{hid}_{which}": n  # resident clusters per (hidden width, pass)
+                     for (hid, which), n in bilstm_core.max_active_clusters(dev).items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": {k: v["seconds"] for k, v in build.BUILD_INFO.items()},
           "bilstm_step_kernel_max_active_clusters": bilstm_layer.max_active_clusters(dev),
+          "bilstm_core_max_active_clusters": core_clusters,
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_INFO.items()}})
 
     # --- the flagship model at full width, seeded ---------------------------
@@ -326,11 +332,23 @@ def main():
         ragged_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
                     first + layer_weights(64 + 10 * i, 512, bias))
 
-    # K5 at the train step's two shapes (the FreqLstm core first: it is the larger), then
-    # two ragged shapes that reach the other row tiles, held to the plain version only
+    # K5 at the train step's two shapes (the FreqLstm core first: it is the larger), then,
+    # held to the plain version only, ragged shapes that reach every edge of the cluster
+    # tiling at both widths: one row; a partial row tile with T = 2 (the double buffers'
+    # first turn); T = 1 (no exchange at all) at one row more than a tile; one row more than
+    # one wave of resident clusters; T = 64 at 100 rows. Every case also launches the
+    # backward twice on the same inputs: the partial sums are added in a fixed order, so
+    # the two results must be equal bit for bit.
     core_src = "sdfa_tpu_torch/csrc/bilstm_core.cu"
-    for steps, rows, hid, n_in, timed in ((32, 6400, 128, 64, True), (64, 100, 256, 256, True),
-                                          (3, 1061, 256, 0, False), (5, 7, 128, 0, False)):
+    cases = [(32, 6400, 128, 64), (64, 100, 256, 256), (3, 1061, 256, 0), (5, 7, 128, 0)]
+    for hid, tile in bilstm_core.ROW_TILE.items():
+        wave_tiles = min(core_clusters[f"{hid}_fwd"], core_clusters[f"{hid}_bwd"]) // 2
+        cases += [(3, 1, hid, 0), (2, 7, hid, 0), (1, tile + 1, hid, 0),
+                  (3, wave_tiles * tile + 1, hid, 0)]
+    cases.append((64, 100, 128, 0))  # at H = 256 this is a timed shape already
+
+    def core_case(steps, rows, hid, n_in):  # a function: its tensors go when it returns
+        timed = n_in > 0
         xp = randn(50 + hid, 2, steps, rows, 4 * hid, scale=0.5).requires_grad_()
         w_core = randn(51 + hid, 2, hid, 4 * hid, scale=hid ** -0.5).requires_grad_()
         dout = randn(52 + hid, steps, rows, 2 * hid)
@@ -341,23 +359,31 @@ def main():
         ref = bilstm_core.bilstm_core_plain(xp, w_core)
         ref_g = torch.autograd.grad(ref, (xp, w_core), dout)
         err_f = float((out - ref).detach().abs().max())
-        err_b = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got_g, ref_g))
+        err_b = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    for a, b in zip(got_g, ref_g))
+        xp_d, w_d = xp.detach(), w_core.detach()
+        with torch.no_grad():
+            _, gates, cs = bilstm_core._forward_kernel(xp_d, w_d)
+            again = bilstm_core._backward_kernel(gates, cs, w_d, dout)
+            repeats = (torch.equal(again, got_g[0]) and
+                       torch.equal(again, bilstm_core._backward_kernel(gates, cs, w_d, dout)))
+        if not repeats:
+            raise RuntimeError(f"bilstm_core backward {(steps, rows, hid)}: two launches on the "
+                               "same inputs differ")
         if not timed:
             emit({"phase": "kernel", "name": "bilstm_core", "shape": [steps, rows, hid],
-                  "fwd_max_abs_err": err_f, "bwd_max_rel_err": err_b, "card": smi})
+                  "fwd_max_abs_err": err_f, "bwd_max_rel_err": err_b,
+                  "bwd_repeats_bit_for_bit": repeats, "card": smi})
             if not (err_f <= TOL["bilstm_core_fwd"] and err_b <= BWD_REL_TOL):
                 raise RuntimeError(f"bilstm_core {(steps, rows, hid)}: {err_f}, {err_b}")
-            continue
-        del ref, ref_g, got_g
+            return
+        del ref, ref_g, got_g, again
         lib5 = library_lstm(n_in, hid, 1, 5).train()
         x5 = randn(53, steps, rows, n_in, scale=0.5).requires_grad_()
-        xp_d, w_d = xp.detach(), w_core.detach()
         with torch.no_grad():
             fwd_ms = time_ms(lambda: bilstm_core.bilstm_core(xp_d, w_d), 5)
             plain_fwd_ms = time_ms(lambda: bilstm_core.bilstm_core_plain(xp_d, w_d), 3)
-            _, gates, cs = bilstm_core._forward_kernel(xp_d, w_d)
-            w_t = w_d.transpose(1, 2).contiguous()
-            bwd_ms = time_ms(lambda: bilstm_core._backward_kernel(gates, cs, w_t, dout), 5)
+            bwd_ms = time_ms(lambda: bilstm_core._backward_kernel(gates, cs, w_d, dout), 5)
             dw_ms = time_ms(lambda: bilstm_core.dw_hh(out.detach(), gates), 5)
         lib_fwd_ms = time_ms(lambda: lib5(x5), 5)
         plain_bwd_ms = time_backward_ms(lambda: bilstm_core.bilstm_core_plain(xp, w_core),
@@ -372,8 +398,10 @@ def main():
                flops, nbytes(gates, cs, w_core, dout, xp), lib_bwd_ms, core_src,
                "sdfa_tpu/ops/pallas_bilstm_train.py:198", primary,
                err_is="max |diff| / max |reference| over d(xp) and d(w_hh)",
-               dw_hh_library_product_ms=dw_ms)
-        del out, gates, cs, xp, xp_d, dout, x5, lib5
+               dw_hh_library_product_ms=dw_ms, repeats_bit_for_bit=repeats)
+
+    for case in cases:
+        core_case(*case)
     torch.cuda.empty_cache()
 
     # --- the serving path: warm up, then three requests --------------------
@@ -425,6 +453,7 @@ def main():
     if "--profile" in sys.argv[1:]:
         profile_serving(task, requests, sorted(walls)[1] * 1e3, smi)
         profile_step_clocks(build, dev, smi)
+        profile_core_tiles(build, dev, smi)
 
     # --- K4's path: a stack that is not 2 layers deep serves through bilstm_layer ---
     hp1 = configure("dgrad")
@@ -655,6 +684,55 @@ def profile_step_clocks(build, dev, smi):
                                               "barrier_and_output"), per_step)),
               "sm_clocks_per_step_total": sum(per_step),
               "fma_floor_clocks_per_step": 32 * 256 * 128 / 128, "card": smi})
+
+
+def profile_core_tiles(build, dev, smi):
+    """The training core's tile choices side by side: builds ``csrc/bilstm_core.cu``
+    as it is and with each compile-time choice changed (``-DSDFA_CORE_RG256=2``:
+    32-row tiles at H = 256; ``-DSDFA_CORE_RG128=1``: 16-row tiles at H = 128;
+    ``-DSDFA_CORE_MINB128=1``: one block to a multiprocessor at H = 128), and
+    times both passes of each build at the train step's two shapes, twice."""
+    import concurrent.futures
+    import ctypes
+
+    import torch
+
+    variants = {"as_built": [], "h256_32_row_tiles": ["-DSDFA_CORE_RG256=2"],
+                "h128_16_row_tiles": ["-DSDFA_CORE_RG128=1"],
+                "h128_one_block_per_sm": ["-DSDFA_CORE_MINB128=1"]}
+    src = os.path.join(build.CSRC, "bilstm_core.cu")
+
+    def compile_one(tag):
+        path = os.path.join(build.BUILD_ROOT, f"libbilstm_core_{tag}.so")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, *variants[tag], "-o", path, src],
+                       capture_output=True, text=True, check=True, timeout=600)
+        return ctypes.CDLL(path)
+
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(compile_one, variants)))
+    times = {tag: {} for tag in variants}
+    for steps, rows, hid in ((32, 6400, 128), (64, 100, 256)):
+        gen = torch.Generator().manual_seed(hid)
+        xp = (0.5 * torch.randn(2, steps, rows, 4 * hid, generator=gen)).to(dev)
+        w_hh = (torch.randn(2, hid, 4 * hid, generator=gen) * hid ** -0.5).to(dev)
+        dout = torch.randn(steps, rows, 2 * hid, generator=gen).to(dev)
+        out, gates, dg = torch.empty_like(dout), torch.empty_like(xp), torch.empty_like(xp)
+        cs = torch.empty(2, steps, rows, hid, device=dev)
+        for turn in range(2):
+            for tag, lib in libs.items():
+                def call(entry, *tensors):
+                    fn = getattr(lib, entry)
+                    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                    code = fn(*(t.data_ptr() for t in tensors), steps, rows, hid,
+                              torch.cuda.current_stream(dev).cuda_stream)
+                    if code != 0:
+                        raise RuntimeError(f"{entry} ({tag}): CUDA error {code}")
+
+                fwd = time_ms(lambda: call("sdfa_bilstm_core_fwd", xp, w_hh, out, gates, cs), 5)
+                bwd = time_ms(lambda: call("sdfa_bilstm_core_bwd", gates, cs, w_hh, dout, dg), 5)
+                times[tag].setdefault(f"{steps}x{rows}x{hid}", []).append(
+                    {"fwd_ms": fwd, "bwd_ms": bwd})
+    emit({"phase": "profile_core_tiles", "ms": times, "card": smi})
 
 
 def profile_train_step(exp, batches, smi, step_ms_unprofiled):

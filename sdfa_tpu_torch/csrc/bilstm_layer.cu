@@ -33,7 +33,7 @@ extern "C" int sdfa_bilstm_layer(const float* x, const float* w_ih, const float*
 }
 
 // *n: how many clusters of the step kernel the card holds at once.
-extern "C" int sdfa_bilstm_layer_clusters(int* n) { return (int)max_active_clusters(n); }
+extern "C" int sdfa_bilstm_layer_clusters(int* n) { return (int)layer_max_active_clusters(n); }
 
 #ifdef SDFA_STEP_CLOCKS
 // out[0..3]: SM clocks thread 0 of the first block spent in the product, the

@@ -44,6 +44,10 @@
 //    read as four broadcast float4, the weights as one float4 per k); two
 //    warp exchanges sum the quarters and leave each lane the 2 rows x 4
 //    gates it finishes. No block-level barrier inside a step.
+//    The step loop is a template on the hidden width, the rows of a sub-tile
+//    and the tensors' order: the training core (bilstm_core.cu) runs the same
+//    step indexed by time, with the gates and the cell state written out as
+//    well, at H = 256 and at H = 128 (a cluster of 4 blocks).
 //
 // f32 throughout (expf/tanhf, correctly rounded reciprocal, no fast-math).
 // Sums run in another order than the plain version's: k in four interleaved
@@ -171,17 +175,39 @@ proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
 
 // --- the recurrence: one cluster per (row tile, direction) ---------------------
 
-constexpr int CL = 8;              // blocks per cluster
-constexpr int UPB = H / CL;        // hidden units per block: 32
-constexpr int RT = 32;             // rows per cluster, walked as two sub-tiles of SUB rows
-constexpr int SUB = RT / 2;
-constexpr int HS = SUB + 4;        // row stride of the transposed h buffers: the four float4
-                                   // a warp reads per load then lie in different banks
-constexpr int STEP_THREADS = 256;  // warp = (unit group of 8, row group of 8); lane = (k
-                                   // quarter, unit)
-constexpr int WS_FLOATS = H * UPB * 4;      // W_hh slice [k][unit][gate]
-constexpr int HT_FLOATS = 2 * 2 * H * HS;   // h, transposed [sub-tile][buffer][k][row]
-constexpr int STEP_SMEM = (WS_FLOATS + HT_FLOATS) * 4;  // 212,992 of 232,448 B
+constexpr int UPB = 32;  // hidden units per block, whatever the width: a cluster is HH / UPB blocks
+
+// Sizes of the step loop at HH hidden units with RG row groups of 8 rows to a
+// sub-tile. The layer kernels run <256, 2>: 8 blocks, 32 rows, 256 threads.
+template <int HH, int RG>
+struct StepDims {
+  static constexpr int CL = HH / UPB;     // blocks per cluster
+  static constexpr int G = 4 * HH;        // gate width
+  static constexpr int SUB = 8 * RG;      // rows per sub-tile
+  static constexpr int RT = 2 * SUB;      // rows per cluster, walked as two sub-tiles
+  static constexpr int HS = SUB + 4;      // row stride of the transposed h buffers: the four
+                                          // float4 a warp reads per load lie in different banks
+  static constexpr int THREADS = 128 * RG;  // warp = (unit group of 8, row group of 8); lane =
+                                            // (k quarter, unit)
+  static constexpr int WROW = 4 * UPB;      // floats per k of the W_hh slice [k][unit][gate]
+  static constexpr int WS_FLOATS = HH * WROW;
+  static constexpr int HT_FLOATS = 2 * 2 * HH * HS;  // h, transposed [sub-tile][buffer][k][row]
+  static constexpr int SMEM = (WS_FLOATS + HT_FLOATS) * 4;  // <256, 2>: 212,992 of 232,448 B
+};
+
+// Where (row, t) lies in the step loop's tensors, in rows of G (xp, gates), of
+// 2 HH (out) or of HH (c) floats: the layer kernels keep a row's steps
+// together, (rows, T, .); the training core is indexed by time, (T, rows, .).
+struct RowMajor {
+  static __device__ __forceinline__ size_t pos(int row, int t, int rows, int T) {
+    return (size_t)row * T + t;
+  }
+};
+struct TimeMajor {
+  static __device__ __forceinline__ size_t pos(int row, int t, int rows, int T) {
+    return (size_t)t * rows + row;
+  }
+};
 
 // 1 / (1 + e^-x) with the correctly rounded reciprocal (what 1.0f / y rounds to)
 __device__ __forceinline__ float sigm(float x) { return __frcp_rn(1.0f + expf(-x)); }
@@ -200,8 +226,9 @@ __device__ __forceinline__ void fma4(float (&acc)[8][4], int r0, const float4& h
 }
 
 // The cluster's hardware barrier in its two halves. arrive: this thread's
-// writes so far (its h in the peers' shared memory) are released; wait: every
-// thread of the cluster has arrived and what they released is visible here.
+// accesses so far (its stores into the peers' shared memory, its reads of what
+// they stored into its own) are released; wait: every thread of the cluster
+// has arrived and what they released is visible here.
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
@@ -209,8 +236,23 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// grid (CL, row tiles, 2 directions), cluster (CL, 1, 1), STEP_SMEM bytes of
-// dynamic shared memory. xp (2, rows, T, G) comes from proj_kernel.
+// Block s's slice of one direction's W_hh (HH, 4 HH) into shared memory:
+// W_hh[:, q HH + j] for its units j = s UPB .. s UPB + 31, gates interleaved
+// per unit, [k][unit][gate] with WROW floats to a k. Read from device memory
+// once per launch, by the forward and the backward step loops alike.
+template <int HH, int WROW, int THREADS>
+__device__ __forceinline__ void load_w_slice(float* ws, const float* wd, int s, int tid) {
+  for (int i = tid; i < HH * 4 * UPB; i += THREADS) {
+    const int k = i / (4 * UPB), q = (i / UPB) % 4, uu = i % UPB;
+    ws[k * WROW + uu * 4 + q] = wd[(size_t)k * (4 * HH) + q * HH + s * UPB + uu];
+  }
+}
+
+// grid (CL, row tiles, 2 directions), cluster (CL, 1, 1), StepDims::SMEM bytes
+// of dynamic shared memory. xp holds the input projections (+ bias) of both
+// directions, laid out as Order says. With SAVE the post-activation gates
+// i, f, g, o (laid out as xp) and the cell state (as xp, HH wide) are written
+// too, each at its (row, t): what a backward pass needs.
 //
 // Rows do not depend on each other, so the tile's two sub-tiles A and B take
 // turns: a block sends its h for A, arrives at the cluster barrier, and
@@ -233,30 +275,29 @@ __device__ long long step_clocks[STEP_PARTS];
 #else
 #define STEP_CLOCK(i)
 #endif
-static __global__ void __launch_bounds__(STEP_THREADS, 1)
+template <int HH, int RG, class Order, bool SAVE, int MINB>
+static __global__ void __launch_bounds__(StepDims<HH, RG>::THREADS, MINB)
 steps_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
-             float* __restrict__ out, int rows, int T) {
+             float* __restrict__ out, float* __restrict__ gates, float* __restrict__ cs,
+             int rows, int T) {
+  using D = StepDims<HH, RG>;
+  constexpr int CL = D::CL, G = D::G, SUB = D::SUB, RT = D::RT, HS = D::HS;
   extern __shared__ __align__(16) float smem[];
   float* ws = smem;
-  float* ht = ws + WS_FLOATS;
+  float* ht = ws + D::WS_FLOATS;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int s = (int)cluster.block_rank();  // which 32 hidden units
   const int d = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int kq = lane / 8;                 // this lane sums k = kq, kq + 4, kq + 8, ...
-  const int u = 8 * (warp / 2) + lane % 8; // unit within the block
-  const int rg = warp % 2;                 // rows 8 rg .. 8 rg + 7 of a sub-tile in the product
-  const int j = s * UPB + u;               // hidden unit
-  const int rfin = 8 * rg + 2 * kq;        // the two rows of a sub-tile this thread finishes
+  const int kq = lane / 8;                  // this lane sums k = kq, kq + 4, kq + 8, ...
+  const int u = 8 * (warp / RG) + lane % 8; // unit within the block
+  const int rg = warp % RG;                 // rows 8 rg .. 8 rg + 7 of a sub-tile in the product
+  const int j = s * UPB + u;                // hidden unit
+  const int rfin = 8 * rg + 2 * kq;         // the two rows of a sub-tile this thread finishes
 
-  // W_hh[d][:, q H + j] for the block's units, gates interleaved per unit
-  const float* wd = w_hh + (size_t)d * H * G;
-  for (int i = tid; i < H * 4 * UPB; i += STEP_THREADS) {
-    const int k = i / (4 * UPB), q = (i / UPB) % 4, uu = i % UPB;
-    ws[(k * UPB + uu) * 4 + q] = wd[(size_t)k * G + q * H + s * UPB + uu];
-  }
-  for (int i = tid; i < HT_FLOATS; i += STEP_THREADS) ht[i] = 0.0f;
+  load_w_slice<HH, D::WROW, D::THREADS>(ws, w_hh + (size_t)d * HH * G, s, tid);
+  for (int i = tid; i < D::HT_FLOATS; i += D::THREADS) ht[i] = 0.0f;
   // every block of the cluster runs and has zeroed its h before a peer writes into it
   cluster.sync();
 
@@ -265,8 +306,9 @@ steps_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
   for (int b = 0; b < CL; ++b) peer[b] = cluster.map_shared_rank(ht, b);
 
   float c_state[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  const float* xcol = xp + (size_t)d * rows * T * G + j;
-  float* ocol = out + d * H + j;
+  const size_t dir = (size_t)d * rows * T;  // direction d of xp, gates and c, in (row, t) pairs
+  const float* xcol = xp + dir * G + j;
+  float* ocol = out + d * HH + j;
   const float* wcol = ws + (kq * UPB + u) * 4;
   const bool hi = lane & 16, mid = lane & 8;
 #ifdef SDFA_STEP_CLOCKS
@@ -287,16 +329,16 @@ steps_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           xv[r][q] = row0 + r < rows
-                         ? __ldcs(xcol + ((size_t)(row0 + r) * T + t) * G + q * H) : 0.0f;
+                         ? __ldcs(xcol + Order::pos(row0 + r, t, rows, T) * G + q * HH) : 0.0f;
 
       float acc[8][4];
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
-      const float* hc = ht + ((a * 2 + cur) * H + kq) * HS + 8 * rg;
+      const float* hc = ht + ((a * 2 + cur) * HH + kq) * HS + 8 * rg;
 #pragma unroll 8
-      for (int kk = 0; kk < H / 4; ++kk) {
+      for (int kk = 0; kk < HH / 4; ++kk) {
         const float4 w = *reinterpret_cast<const float4*>(wcol + kk * 16 * UPB);
         const float4 h0 = *reinterpret_cast<const float4*>(hc + kk * 4 * HS);
         const float4 h1 = *reinterpret_cast<const float4*>(hc + kk * 4 * HS + 4);
@@ -326,18 +368,23 @@ steps_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
         }
       STEP_CLOCK(1)
 
-      float hv[2];
+      float hv[2], act[2][4], cv[2];  // h; the gates after their activations; c
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float g[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) g[q] = pre[r][q] + xv[r][q];
-        const float cn = sigm(g[1]) * c_state[a][r] + sigm(g[0]) * tanhf(g[2]);
+        act[r][0] = sigm(g[0]);
+        act[r][1] = sigm(g[1]);
+        act[r][2] = tanhf(g[2]);
+        act[r][3] = sigm(g[3]);
+        const float cn = act[r][1] * c_state[a][r] + act[r][0] * act[r][2];
         c_state[a][r] = cn;
-        hv[r] = sigm(g[3]) * tanhf(cn);
+        cv[r] = cn;
+        hv[r] = act[r][3] * tanhf(cn);
       }
       const float2 hvec = make_float2(hv[0], hv[1]);
-      const int dst = ((a * 2 + 1 - cur) * H + j) * HS + rfin;
+      const int dst = ((a * 2 + 1 - cur) * HH + j) * HS + rfin;
 #pragma unroll
       for (int b = 0; b < CL; ++b) *reinterpret_cast<float2*>(peer[b] + dst) = hvec;
       STEP_CLOCK(2)
@@ -349,7 +396,15 @@ steps_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
       cluster_arrive();
 #pragma unroll
       for (int r = 0; r < 2; ++r)
-        if (row0 + r < rows) ocol[((size_t)(row0 + r) * T + t) * (2 * H)] = hv[r];
+        if (row0 + r < rows) {
+          const size_t p = Order::pos(row0 + r, t, rows, T);
+          ocol[p * (2 * HH)] = hv[r];
+          if (SAVE) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) gates[(dir + p) * G + q * HH + j] = act[r][q];
+            cs[(dir + p) * HH + j] = cv[r];
+          }
+        }
       STEP_CLOCK(3)
     }
   }
@@ -360,20 +415,45 @@ steps_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
 #endif
 }
 
-inline void steps_config(cudaLaunchConfig_t& config, cudaLaunchAttribute& attr, int rows,
-                         cudaStream_t stream) {
+// A launch of `kernel` as clusters of `cl` blocks on `stream`, with `smem`
+// bytes of dynamic shared memory (granted to the kernel here, on the device
+// that is current: also on a thread that launches it for the first time).
+template <class Kernel>
+inline cudaError_t cluster_config(cudaLaunchConfig_t& config, cudaLaunchAttribute& attr,
+                                  Kernel kernel, dim3 grid, int threads, int smem, int cl,
+                                  cudaStream_t stream) {
   config = cudaLaunchConfig_t{};
-  config.gridDim = dim3(CL, (rows + RT - 1) / RT, 2);
-  config.blockDim = dim3(STEP_THREADS, 1, 1);
-  config.dynamicSmemBytes = STEP_SMEM;
+  config.gridDim = grid;
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = smem;
   config.stream = stream;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = CL;
+  attr.val.clusterDim.x = cl;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   config.attrs = &attr;
   config.numAttrs = 1;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
+
+// How many clusters of such a launch the card runs at once.
+template <class Kernel>
+inline cudaError_t max_active_clusters(int* n, Kernel kernel, int threads, int smem, int cl) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  const cudaError_t err =
+      cluster_config(config, attr, kernel, dim3(cl, 16, 2), threads, smem, cl, 0);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(n, kernel, &config);
+}
+
+// The step loop of a layer: StepDims<H, 2>, a row's steps together, nothing saved.
+using LayerDims = StepDims<H, 2>;
+using StepsKernel = void (*)(const float*, const float*, float*, float*, float*, int, int);
+inline StepsKernel layer_steps_kernel() { return steps_kernel<H, 2, RowMajor, false, 1>; }
 
 // One layer over `rows` rows (one chunk): x (rows, T, in) -> out (rows, T,
 // 2H); xp is scratch for 2 * rows * T * G floats. A refused launch returns
@@ -387,25 +467,21 @@ inline cudaError_t run_layer(const float* x, int in, const float* w_ih, const fl
                                                                      vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(steps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             STEP_SMEM);
-  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  steps_config(config, attr, rows, stream);
-  return cudaLaunchKernelEx(&config, steps_kernel, (const float*)xp, w_hh, out, rows, T);
+  err = cluster_config(config, attr, layer_steps_kernel(),
+                       dim3(LayerDims::CL, (rows + LayerDims::RT - 1) / LayerDims::RT, 2),
+                       LayerDims::THREADS, LayerDims::SMEM, LayerDims::CL, stream);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&config, layer_steps_kernel(), (const float*)xp, w_hh, out,
+                            (float*)nullptr, (float*)nullptr, rows, T);
 }
 
-// How many clusters of steps_kernel the card runs at once (16 cover 256 rows
-// x 2 directions in one wave).
-inline cudaError_t max_active_clusters(int* n) {
-  cudaError_t err = cudaFuncSetAttribute(steps_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, STEP_SMEM);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr;
-  steps_config(config, attr, 16 * RT, 0);
-  return cudaOccupancyMaxActiveClusters(n, steps_kernel, &config);
+// How many clusters of a layer's step loop the card runs at once (16 cover
+// 256 rows x 2 directions in one wave).
+inline cudaError_t layer_max_active_clusters(int* n) {
+  return max_active_clusters(n, layer_steps_kernel(), LayerDims::THREADS, LayerDims::SMEM,
+                             LayerDims::CL);
 }
 
 }  // namespace bilstm

@@ -14,6 +14,18 @@ indexed by time (not by the direction's step number, as the Pallas kernel
 has them): direction 1's previous step is t + 1. As in the JAX package,
 ``dw_hh[d] = h_prev[d]ᵀ · dg[d]`` is a library product outside the kernel,
 and the input projection with its gradients belongs to the caller.
+
+On a card both passes keep w_hh in the shared memory of a thread-block
+cluster: H / 32 blocks own a tile of ``ROW_TILE[H]`` rows of one direction,
+block s the four gates of hidden units 32s … 32s+31, the same slice in both
+passes (no transposed copy of w_hh is made). The forward is the step loop of
+``csrc/bilstm_layer.cuh`` indexed by time; the backward multiplies a
+block's own d_pre columns by its slice, hands every block the partial sums
+of that block's units, and adds them in block order. What is not CUDA —
+which columns a block owns, in how many interleaved parts a product is
+summed, the order of the partial sums — lives here too:
+``forward_steps_tiled`` and ``backward_steps_tiled`` walk the same tiling in
+plain tensors so that the CPU tests reach it; nothing on a path calls them.
 """
 
 from __future__ import annotations
@@ -22,12 +34,13 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import build
-from .bilstm_layer import lstm_dir
+from .bilstm_layer import UNITS_PER_BLOCK, block_columns, lstm_dir
 
 FWD_LAUNCHES = 0  # forward-kernel launches in this process
 BWD_LAUNCHES = 0  # backward-kernel launches in this process
 
-HIDDENS = (128, 256)  # what the CUDA kernels take
+HIDDENS = (128, 256)            # what the CUDA kernels take
+ROW_TILE = {128: 32, 256: 16}   # rows a cluster owns, walked as two sub-tiles that take turns
 
 
 def bilstm_core_plain(xp, w_hh):
@@ -61,9 +74,19 @@ def forward_steps(xp, w_hh):
     return out, gates, cs
 
 
-def backward_steps(gates, cs, w_hht, dout):
+def _d_pre(i, f, g, o, c, c_prev, dh_tot, dc):
+    """The cell's backward at one step: → (d_pre of the gates i, f, g, o,
+    stacked on a new last axis, and dc handed to the previous step)."""
+    tc = torch.tanh(c)
+    dcv = dc + dh_tot * o * (1.0 - tc * tc)
+    d_pre = torch.stack([dcv * g * i * (1.0 - i), dcv * c_prev * f * (1.0 - f),
+                         dcv * i * (1.0 - g * g), dh_tot * tc * o * (1.0 - o)], dim=-1)
+    return d_pre, dcv * f
+
+
+def backward_steps(gates, cs, w_hh, dout):
     """The backward kernel's step, in plain tensors: BPTT over both
-    directions → dg (2, T, rows, 4H) = d(xp). ``w_hht`` is (2, 4H, H)."""
+    directions → dg (2, T, rows, 4H) = d(xp)."""
     _, steps, rows, gdim = gates.shape
     hid = gdim // 4
     dg = torch.empty_like(gates)
@@ -75,15 +98,131 @@ def backward_steps(gates, cs, w_hht, dout):
             t_prev = t - 1 if d == 0 else t + 1
             i, f, g, o = gates[d, t].chunk(4, dim=-1)
             c_prev = cs[d, t_prev] if step > 0 else torch.zeros_like(dc)
-            tc = torch.tanh(cs[d, t])
-            dh_tot = dout[t, :, d * hid:(d + 1) * hid] + dh
-            dcv = dc + dh_tot * o * (1.0 - tc * tc)
-            d_pre = torch.cat([dcv * g * i * (1.0 - i), dcv * c_prev * f * (1.0 - f),
-                               dcv * i * (1.0 - g * g), dh_tot * tc * o * (1.0 - o)], dim=-1)
+            d_pre, dc = _d_pre(i, f, g, o, cs[d, t], c_prev,
+                               dout[t, :, d * hid:(d + 1) * hid] + dh, dc)
+            d_pre = d_pre.transpose(1, 2).reshape(rows, gdim)  # gate-major, as xp has it
             dg[d, t] = d_pre
-            dh = d_pre @ w_hht[d]
-            dc = dcv * f
+            dh = d_pre @ w_hh[d].T
     return dg
+
+
+def cluster_blocks(hid: int) -> int:
+    """Blocks of a cluster at ``hid`` hidden units: each owns 32 of them."""
+    return hid // UNITS_PER_BLOCK
+
+
+def column_parts(hid: int) -> int:
+    """In how many interleaved parts of its 32 units a lane of the backward
+    product sums a block's 128 (unit, gate) columns: a warp holds a quarter
+    of the H outputs, H / 16 side by side, the parts on the lanes left over."""
+    return 32 // (hid // 16)
+
+
+def sum_partials(partials, order=None):
+    """The blocks' partial sums added one after the other in block order (or
+    in ``order``, for the tests): a fixed order, so results repeat bit for bit."""
+    order = range(len(partials)) if order is None else order
+    total = None
+    for b in order:
+        total = partials[b].clone() if total is None else total + partials[b]
+    return total
+
+
+def forward_steps_tiled(xp, w_hh):
+    """``forward_steps``' function computed the forward kernel's way: per
+    (sub-tile of rows, direction) a step loop in which each block of the
+    cluster multiplies the full h by its own column slice (k in four
+    interleaved quarters, summed pairwise as the warp exchanges do), applies
+    the cell to its 32 units, writes their gates and c at their TIME index
+    and hands its h slice to the buffer the next step reads."""
+    _, steps, rows, gdim = xp.shape
+    hid = gdim // 4
+    per, blocks, sub = UNITS_PER_BLOCK, cluster_blocks(hid), ROW_TILE[hid] // 2
+    cols = [block_columns(b, hid) for b in range(blocks)]
+    out = xp.new_empty(steps, rows, 2 * hid)
+    gates = torch.empty_like(xp)
+    cs = xp.new_empty(2, steps, rows, hid)
+    for row0 in range(0, rows, sub):  # a tile's sub-tiles are independent rows
+        rs = slice(row0, min(row0 + sub, rows))  # the kernel computes the other rows on zeros
+        n = rs.stop - rs.start
+        for d in range(2):
+            w_blocks = [w_hh[d][:, c] for c in cols]  # each block's resident slice
+            h = [xp.new_zeros(n, hid), xp.new_empty(n, hid)]  # double-buffered
+            c_state = xp.new_zeros(n, hid)
+            for step in range(steps):
+                t = step if d == 0 else steps - 1 - step
+                cur, nxt = step % 2, 1 - step % 2
+                for b in range(blocks):
+                    own = slice(b * per, (b + 1) * per)
+                    part = [h[cur][:, q::4] @ w_blocks[b][q::4] for q in range(4)]
+                    pre = ((part[0] + part[2]) + (part[1] + part[3])
+                           + xp[d, t, rs][:, cols[b]]).reshape(n, per, 4)
+                    i, f, o = (torch.sigmoid(pre[..., q]) for q in (0, 1, 3))
+                    g = torch.tanh(pre[..., 2])
+                    c_state[:, own] = f * c_state[:, own] + i * g
+                    h[nxt][:, own] = o * torch.tanh(c_state[:, own])
+                    gates[d, t, rs][:, cols[b]] = torch.stack([i, f, g, o], dim=-1).reshape(n, -1)
+                cs[d, t, rs] = c_state
+                out[t, rs, d * hid:(d + 1) * hid] = h[nxt]
+    return out, gates, cs
+
+
+def backward_steps_tiled(gates, cs, w_hh, dout, block_order=None):
+    """``backward_steps``' function computed the backward kernel's way: per
+    (sub-tile of rows, direction) and step, each block of the cluster turns
+    dh, dc and the residuals of its 32 units into d_pre (written to dg at
+    its time index), multiplies that slice, [unit][gate], by the SAME column
+    slice of w_hh the forward holds, contracting over its own columns in
+    ``column_parts`` interleaved parts of its units, which gives partial sums
+    for all H units; every block then adds the partial sums of its units in
+    block order. The last step's dh is used by nothing and not computed."""
+    _, steps, rows, gdim = gates.shape
+    hid = gdim // 4
+    per, blocks, sub = UNITS_PER_BLOCK, cluster_blocks(hid), ROW_TILE[hid] // 2
+    parts = column_parts(hid)
+    cols = [block_columns(b, hid) for b in range(blocks)]
+    dg = torch.empty_like(gates)
+    for row0 in range(0, rows, sub):
+        rs = slice(row0, min(row0 + sub, rows))
+        n = rs.stop - rs.start
+        for d in range(2):
+            w_blocks = [w_hh[d][:, c].reshape(hid, per, 4) for c in cols]  # [k][unit][gate]
+            dh, dc = gates.new_zeros(n, hid), gates.new_zeros(n, hid)
+            for step in range(steps - 1, -1, -1):
+                t = step if d == 0 else steps - 1 - step
+                t_prev = t - 1 if d == 0 else t + 1
+                partials = []
+                for b in range(blocks):
+                    own = slice(b * per, (b + 1) * per)
+                    i, f, g, o = gates[d, t, rs][:, cols[b]].reshape(n, per, 4).unbind(-1)
+                    c_prev = cs[d, t_prev, rs, own] if step > 0 else torch.zeros_like(i)
+                    d_pre, dc[:, own] = _d_pre(
+                        i, f, g, o, cs[d, t, rs, own], c_prev,
+                        dout[t, rs, d * hid + own.start:d * hid + own.stop] + dh[:, own],
+                        dc[:, own])
+                    dg[d, t, rs][:, cols[b]] = d_pre.reshape(n, -1)
+                    if step > 0:
+                        part = [torch.einsum("nuq,kuq->nk", d_pre[:, p::parts],
+                                             w_blocks[b][:, p::parts]) for p in range(parts)]
+                        partials.append(part[0] + part[1] if parts == 2
+                                        else (part[0] + part[2]) + (part[1] + part[3]))
+                if step > 0:
+                    dh = sum_partials(partials, block_order)
+    return dg
+
+
+def max_active_clusters(device) -> dict:
+    """How many clusters of each kernel ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters`` for the launches the wrappers make):
+    {(H, "fwd" | "bwd"): clusters}. Also checks that the row tiles the
+    kernels were built with are ``ROW_TILE``."""
+    lib = build.load_library("bilstm_core")
+    for hid, tile in ROW_TILE.items():
+        if lib.sdfa_bilstm_core_row_tile(hid) != tile:
+            raise RuntimeError(f"bilstm_core.cu owns {lib.sdfa_bilstm_core_row_tile(hid)} rows a "
+                               f"cluster at H={hid}, ROW_TILE says {tile}")
+    counts = build.query_ints("bilstm_core", "bilstm_core_clusters", 4, device)
+    return dict(zip(((128, "fwd"), (128, "bwd"), (256, "fwd"), (256, "bwd")), counts))
 
 
 def _core_dims(xp):
@@ -108,14 +247,14 @@ def _forward_kernel(xp, w_hh):
     return out, gates, cs
 
 
-def _backward_kernel(gates, cs, w_hht, dout):
+def _backward_kernel(gates, cs, w_hh, dout):
     steps, rows, hid = _core_dims(gates)
     build.check("gates", gates, (2, steps, rows, 4 * hid))
-    build.check("w_hht", w_hht, (2, 4 * hid, hid))
+    build.check("w_hh", w_hh, (2, hid, 4 * hid))
     build.check("c", cs, (2, steps, rows, hid))
     build.check("dout", dout, (steps, rows, 2 * hid))
     dg = torch.empty_like(gates)
-    build.launch("bilstm_core", (gates, cs, w_hht, dout, dg), (steps, rows, hid), gates.device,
+    build.launch("bilstm_core", (gates, cs, w_hh, dout, dg), (steps, rows, hid), gates.device,
                  entry="bilstm_core_bwd")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
@@ -149,8 +288,7 @@ class BilstmCore(torch.autograd.Function):
     def backward(ctx, dout):
         gates, cs, out, w_hh = ctx.saved_tensors
         on_cpu = gates.device.type == "cpu"
-        dg = (backward_steps if on_cpu else _backward_kernel)(
-            gates, cs, w_hh.transpose(1, 2).contiguous(), dout.contiguous())
+        dg = (backward_steps if on_cpu else _backward_kernel)(gates, cs, w_hh, dout.contiguous())
         return (dg if ctx.needs_input_grad[0] else None,
                 dw_hh(out, dg) if ctx.needs_input_grad[1] else None)
 

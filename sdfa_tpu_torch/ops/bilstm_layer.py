@@ -18,8 +18,6 @@ same tiling in plain tensors so that the CPU tests reach it.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import build
@@ -27,7 +25,8 @@ from . import build
 LAUNCHES = 0  # kernel launches by ``bilstm_layer`` in this process
 
 HIDDEN, MAX_IN = 256, 512  # what the CUDA kernel takes
-CLUSTER = 8                # blocks per cluster: each owns HIDDEN / CLUSTER hidden units
+UNITS_PER_BLOCK = 32       # hidden units a block of a cluster owns, whatever the width
+CLUSTER = HIDDEN // UNITS_PER_BLOCK  # blocks per cluster: 8
 ROW_TILE = 32              # rows per cluster, walked as two sub-tiles that take turns
 SUB_TILE = ROW_TILE // 2
 # Rows are walked in chunks of at most SCRATCH_ROW_STEPS (row, step) pairs
@@ -80,9 +79,9 @@ def scratch_rows(rows: int, steps: int) -> int:
 def block_columns(block: int, hidden: int = HIDDEN) -> torch.Tensor:
     """The gate columns block ``block`` of a cluster owns, as the kernel holds
     them, [unit][gate]: hidden unit j owns columns j, H+j, 2H+j, 3H+j, so a
-    block's 4H / CLUSTER columns are four strided runs, not one."""
-    per = hidden // CLUSTER
-    units = block * per + torch.arange(per)
+    block's 128 columns are four strided runs, not one. A cluster is
+    ``hidden // UNITS_PER_BLOCK`` blocks."""
+    units = block * UNITS_PER_BLOCK + torch.arange(UNITS_PER_BLOCK)
     return (units[:, None] + hidden * torch.arange(4)[None, :]).reshape(-1)
 
 
@@ -95,7 +94,7 @@ def layer_tiled_chunk(x, w_ih, w_hh, gate_bias):
     its units and hands its h slice to the buffer the next step reads."""
     rows, steps, _ = x.shape
     hid = w_hh.shape[1]
-    per = hid // CLUSTER
+    per = UNITS_PER_BLOCK
     cols = [block_columns(b, hid) for b in range(CLUSTER)]
     xp = torch.stack([x @ w_ih[d] if gate_bias is None else x @ w_ih[d] + gate_bias[d]
                       for d in range(2)])  # (2, rows, T, 4H)
@@ -132,16 +131,7 @@ def bilstm_layer_tiled(x, w_ih, w_hh, gate_bias):
 def max_active_clusters(device) -> int:
     """How many clusters of the step kernel ``device`` holds at once
     (``cudaOccupancyMaxActiveClusters`` for the launch the wrapper makes)."""
-    lib = build.load_library("bilstm_layer")
-    lib.sdfa_bilstm_layer_clusters.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.sdfa_bilstm_layer_clusters.restype = ctypes.c_int
-    n = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        code = lib.sdfa_bilstm_layer_clusters(ctypes.byref(n))
-    if code != 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {code} "
-                           f"({lib.sdfa_error_string(code).decode()})")
-    return n.value
+    return build.query_ints("bilstm_layer", "bilstm_layer_clusters", 1, device)[0]
 
 
 def bilstm_layer(x, w_ih, w_hh, gate_bias):

@@ -116,3 +116,19 @@ def launch(name: str, tensors, ints, device, entry: str = ""):
     if code != 0:
         raise RuntimeError(f"{entry or name} launch: CUDA error {code} "
                            f"({lib.sdfa_error_string(code).decode()})")
+
+
+def query_ints(name: str, entry: str, count: int, device):
+    """Call ``sdfa_<entry>(int*)`` of csrc/<name>.cu, which fills ``count``
+    ints about ``device`` (how many clusters of a kernel it holds at once),
+    and return them. Raises on a non-zero cudaError_t."""
+    lib = load_library(name)
+    fn = getattr(lib, f"sdfa_{entry}")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * count)()
+    with torch.cuda.device(device):
+        code = fn(out)
+    if code != 0:
+        raise RuntimeError(f"{entry}: CUDA error {code} ({lib.sdfa_error_string(code).decode()})")
+    return list(out)
