@@ -3,26 +3,32 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py            # about 45 seconds
-    python3 chip_smoke.py --profile  # about a minute. Also torch.profiler breakdowns: a
+    python3 chip_smoke.py            # about 50 seconds
+    python3 chip_smoke.py --profile  # about 70 seconds. Also torch.profiler breakdowns: a
                                      # request, a train step; the biLSTM step kernel's SM clocks
-                                     # by part of a step; the training core's other tile choices
+                                     # by part of a step; the other tile choices of the training
+                                     # core, of FreqLstm's step loop and of the solve product
 
 Phases, each printed as one JSON line:
 
 1. device: the card's name and power limit, torch / CUDA / nvcc versions.
 2. build: compiles the five CUDA sources of ``sdfa_tpu_torch/csrc`` side by side
-   and prints what ptxas says of each kernel (registers, shared memory, spills)
-   and how many clusters the card holds at once of the biLSTM step kernel and of
-   the training core's forward and backward kernels at each hidden width.
+   and prints what ptxas says of each kernel (registers, shared memory, spills),
+   how many clusters the card holds at once of the biLSTM step kernel, of
+   FreqLstm's and of the training core's forward and backward kernels at each
+   hidden width, how many blocks of the solve product, and the tensor-core
+   opcodes (``HGMMA``) in the machine code of ``decode_solve``.
 3. kernels: runs each kernel at its path's shapes, holds it against its plain
    PyTorch version on the same inputs, times both with CUDA events, computes
    the card's bound for the same work, and times the one library call that
    computes the same function where there is one (``torch.nn.LSTM`` through
-   cuDNN for the recurrences), as a yardstick that no path uses. ``bilstm2``,
-   ``bilstm_layer`` and ``bilstm_core`` are also held to their plain versions,
-   untimed, at ragged shapes that reach every edge of their tilings, and
-   ``bilstm_core``'s backward must give the same bits twice.
+   cuDNN for the recurrences), as a yardstick that no path uses. ``freq_lstm``
+   and ``decode_solve`` are timed at a request's own shape as well (768 rows,
+   216 windows). Every kernel is also held to its plain version, untimed, at
+   ragged shapes that reach every edge of its tiling; ``freq_lstm``,
+   ``decode_solve`` and ``bilstm_core``'s backward must give the same bits
+   twice. One line times the solve's product as a single ``torch.matmul`` in
+   TF32, for orientation: no path uses it.
 4. serve: the flagship ``dgrad`` config at full width (seeded weights, seeded
    PCA bases at the shipped dims, a synthetic template with FLAME's 5023
    vertices / 9976 triangles / 1261 free vertices) serves three 3 s requests
@@ -52,8 +58,10 @@ import time
 
 SEED = 0
 K1_ROWS = 4 * 768     # 4 clips x a 3 s clip's 768-frame grid
+K1_REQUEST_ROWS = 768  # one 3 s request's frame grid
 K2_WINDOWS = 256      # windows per suffix call
 K3_WINDOWS = 256
+K3_REQUEST_WINDOWS = 216  # one 3 s request's windows
 K4_ROWS = 256
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
 TRAIN_STEPS = 5
@@ -66,6 +74,7 @@ STEP_LOSS_RTOL = 1e-5  # train step, kernels vs plain versions: total loss
 STEP_GRAD_RTOL = 1e-4  # ... and every gradient: max |diff| over the model's largest |gradient|;
                        # the recurrent layers' gradients also over their own largest |value|
 F32_PEAK = 67e12      # H100 SXM, float32 outside the tensor cores, FLOP/s (data sheet)
+TF32_PEAK = 495e12    # H100 SXM, TF32 on the tensor cores, dense, FLOP/s (data sheet)
 HBM_RATE = 3.35e12    # H100 SXM, bytes/s (data sheet)
 
 
@@ -112,11 +121,28 @@ def time_backward_ms(make_out, inputs, dout, n: int) -> float:
     return total / n
 
 
-def bound(flops: float, nbytes: float):
-    """The least time the card could take: the larger of operations over the
-    float32 peak and bytes (inputs once, outputs once) over the HBM rate."""
-    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+def bound(flops: float, nbytes: float, tensor_flops: float = 0.0):
+    """The least time the card could take: the larger of operations over
+    their unit's peak (``flops`` in float32 outside the tensor cores,
+    ``tensor_flops`` in TF32 on them) and bytes (inputs once, outputs once)
+    over the HBM rate."""
+    t_ops = (flops / F32_PEAK + tensor_flops / TF32_PEAK) * 1e3
+    t_bytes = nbytes / HBM_RATE * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tensor_core_sass(build) -> dict:
+    """The tensor-core opcodes (``HGMMA``) in the machine code of the built
+    ``decode_solve`` library, by ``cuobjdump -sass``: how many, and the first
+    one. Raises if the product was compiled to none."""
+    lib = build.load_library("decode_solve")._name
+    sass = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"), "-sass",
+                           lib], capture_output=True, text=True, check=True, timeout=120).stdout
+    found = [line.split("*/")[1].split("/*")[0].strip(" ;") for line in sass.splitlines()
+             if "GMMA" in line and "*/" in line]
+    if not found:
+        raise RuntimeError("decode_solve: no warpgroup matrix opcode in the machine code")
+    return {"count": len(found), "first": found[0]}
 
 
 def nbytes(*tensors) -> int:
@@ -186,10 +212,14 @@ def main():
     build.load_libraries(["freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core"])
     core_clusters = {f"{hid}_{which}": n  # resident clusters per (hidden width, pass)
                      for (hid, which), n in bilstm_core.max_active_clusters(dev).items()}
+    k1_clusters = freq_lstm.max_active_clusters(dev)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": {k: v["seconds"] for k, v in build.BUILD_INFO.items()},
           "bilstm_step_kernel_max_active_clusters": bilstm_layer.max_active_clusters(dev),
           "bilstm_core_max_active_clusters": core_clusters,
+          "freq_lstm_step_kernel_max_active_clusters": k1_clusters,
+          "decode_solve_product_resident_blocks": decode_solve.resident_blocks(dev),
+          "decode_solve_tensor_core_sass": tensor_core_sass(build),
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_INFO.items()}})
 
     # --- the flagship model at full width, seeded ---------------------------
@@ -225,12 +255,14 @@ def main():
     report = {}
 
     def record(name, shape, err, tol, ms, plain_ms, flops, moved, library_ms, source, replaces,
-               primary=True, **extra):
-        bound_ms, bound_by = bound(flops, moved)
+               primary=True, tensor_flops=0.0, **extra):
+        bound_ms, bound_by = bound(flops, moved, tensor_flops)
         line = {"phase": "kernel", "name": name, "shape": shape, "max_abs_err": err, "tol": tol,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, "gflop": flops / 1e9, "mbytes": moved / 1e6,
                 "card": smi, **extra}
+        if tensor_flops:
+            line["gflop_tf32_tensor_cores"] = tensor_flops / 1e9
         emit(line)
         if not err <= tol:
             raise RuntimeError(f"{name} {shape}: kernel disagrees with its plain version: "
@@ -238,7 +270,7 @@ def main():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                 **{k: v for k, v in extra.items() if k == "err_is"}}
+                 **{k: v for k, v in extra.items() if k in ("err_is", "bound_peaks")}}
         if primary:
             report[name] = entry
         else:
@@ -261,16 +293,29 @@ def main():
         record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, flops, moved, library_ms,
                source, replaces, primary)
 
+    def repeats(name, kernel, args, first):
+        """Two launches on the same inputs must be equal bit for bit."""
+        if not torch.equal(kernel(*args), first):
+            raise RuntimeError(f"{name} {tuple(args[0].shape)}: two launches on the same inputs "
+                               "differ")
+        return True
+
     enc = model.audio_encoder
     fl = enc.built_layers_6
     w_ih, w_hh, gb = fl.lstm.layer_weights(0)
-    x1 = randn(1, K1_ROWS, fl.freq_length, w_ih.shape[1])
-    lib1, x1_lib = library_lstm(64, 128, 1, 1), x1.transpose(0, 1).contiguous()
-    forward_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain,
-                 (x1, w_ih, w_hh, gb, fl.proj.weight(), fl.proj.bias),
-                 2.0 * K1_ROWS * (32 * 2 * (64 + 128) * 512 + 8192 * 256),
-                 lambda: lib1(x1_lib),  # the LSTM part only: no 8192 -> 256 projection
-                 "sdfa_tpu_torch/csrc/freq_lstm.cu", "sdfa_tpu/ops/pallas_freq_lstm.py:187")
+    k1_weights = (w_ih, w_hh, gb, fl.proj.weight(), fl.proj.bias)
+    lib1 = library_lstm(64, 128, 1, 1)
+    for rows in (K1_ROWS, K1_REQUEST_ROWS):  # the kernel phase's four clips, then one request's
+        x1 = randn(1, rows, fl.freq_length, w_ih.shape[1])
+        x1_lib = x1.transpose(0, 1).contiguous()
+        forward_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain,
+                     (x1, *k1_weights), 2.0 * rows * (32 * 2 * (64 + 128) * 512 + 8192 * 256),
+                     lambda: lib1(x1_lib),  # the LSTM part only: no 8192 -> 256 projection
+                     "sdfa_tpu_torch/csrc/freq_lstm.cu", "sdfa_tpu/ops/pallas_freq_lstm.py:187",
+                     primary=rows == K1_ROWS)
+        with torch.inference_mode():
+            repeats("freq_lstm", freq_lstm.freq_lstm, (x1, *k1_weights),
+                    freq_lstm.freq_lstm(x1, *k1_weights))
 
     lw = [enc.built_layers_9.layer_weights(layer) for layer in range(2)]
     x2 = randn(2, K2_WINDOWS, 64, 256, scale=0.5)
@@ -280,20 +325,53 @@ def main():
                  lambda: lib2(x2_lib),
                  "sdfa_tpu_torch/csrc/bilstm2.cu", "sdfa_tpu/ops/pallas_bilstm2.py:52")
 
-    g3 = torch.Generator().manual_seed(3)
-    coef_s = torch.randn(K3_WINDOWS, 85, generator=g3).to(dev)
-    coef_r = torch.randn(K3_WINDOWS, 180, generator=g3).to(dev)
+    # K3 at the kernel phase's 256 windows, then a request's 216; its bound reckons the decode
+    # in float32 outside the tensor cores and the solve's product in TF32 on them. Then, held
+    # to the plain version only: one window, 7, 43, and one more than 256. Every case is
+    # launched twice: the K parts are added in a fixed order, so the bits must repeat.
     tp, nf = dsc.p.shape[1:]
-    with torch.inference_mode():
-        got = decode_solve.decode_solve(coef_s, coef_r, dsc)
-        torch.cuda.synchronize()
-        err = float((got - decode_solve.decode_solve_plain(coef_s, coef_r, dsc)).abs().max())
-        ms = time_ms(lambda: decode_solve.decode_solve(coef_s, coef_r, dsc), 5)
-        plain_ms = time_ms(lambda: decode_solve.decode_solve_plain(coef_s, coef_r, dsc), 5)
-    record("decode_solve", list(got.shape), err, TOL["decode_solve"], ms, plain_ms,
-           2.0 * K3_WINDOWS * ((85 * 6 + 180 * 3) * tp + 9 * tp * nf),
-           nbytes(coef_s, coef_r, *dsc, got), None,  # the plain version's product is cuBLAS
-           "sdfa_tpu_torch/csrc/decode_solve.cu", "sdfa_tpu/ops/pallas_decode_solve.py:229")
+    k3_src = ("sdfa_tpu_torch/csrc/decode_solve.cu", "sdfa_tpu/ops/pallas_decode_solve.py:229")
+    for windows in (K3_WINDOWS, K3_REQUEST_WINDOWS, 1, 7, 43, K3_WINDOWS + 1):
+        g3 = torch.Generator().manual_seed(3 if windows == K3_WINDOWS else 300 + windows)
+        coef_s = torch.randn(windows, 85, generator=g3).to(dev)
+        coef_r = torch.randn(windows, 180, generator=g3).to(dev)
+        timed = windows in (K3_WINDOWS, K3_REQUEST_WINDOWS)
+        with torch.inference_mode():
+            got = decode_solve.decode_solve(coef_s, coef_r, dsc)
+            torch.cuda.synchronize()
+            want = decode_solve.decode_solve_plain(coef_s, coef_r, dsc)
+            err = float((got - want).abs().max())
+            twice = repeats("decode_solve", decode_solve.decode_solve, (coef_s, coef_r, dsc), got)
+            if not timed:
+                emit({"phase": "kernel", "name": "decode_solve", "shape": list(got.shape),
+                      "max_abs_err": err, "tol": TOL["decode_solve"],
+                      "repeats_bit_for_bit": twice, "card": smi})
+                if not (err <= TOL["decode_solve"] and bool(torch.isfinite(got).all())):
+                    raise RuntimeError(f"decode_solve {windows} windows: {err}")
+                continue
+            ms = time_ms(lambda: decode_solve.decode_solve(coef_s, coef_r, dsc), 5)
+            plain_ms = time_ms(lambda: decode_solve.decode_solve_plain(coef_s, coef_r, dsc), 5)
+            # for orientation only, used by no path: the solve's product (3W x 3T') . (3T' x NF)
+            # as one library call in TF32
+            dt = decode_solve.delta_transforms(coef_s, coef_r, dsc).reshape(3 * windows, 3 * tp)
+            p_mat = dsc.p.reshape(3 * tp, nf)
+            try:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                matmul_tf32_ms = time_ms(lambda: dt @ p_mat, 5)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            matmul_f32_ms = time_ms(lambda: dt @ p_mat, 5)
+            del dt
+        emit({"phase": "yardstick", "what": "the solve's product alone as one torch.matmul",
+              "shape": [3 * windows, 3 * tp, nf], "tf32_ms": matmul_tf32_ms,
+              "f32_ms": matmul_f32_ms, "card": smi})
+        record("decode_solve", list(got.shape), err, TOL["decode_solve"], ms, plain_ms,
+               2.0 * windows * (85 * 6 + 180 * 3) * tp,
+               nbytes(coef_s, coef_r, *dsc, got) - nbytes(dsc.p),  # the kernel reads p_t, not p
+               None,  # no one call computes decode + solve
+               *k3_src, primary=windows == K3_WINDOWS, tensor_flops=2.0 * windows * 9 * tp * nf,
+               bound_peaks="decode: 67 TFLOP/s f32; product: 495 TFLOP/s TF32 tensor cores",
+               repeats_bit_for_bit=twice)
 
     for n_in, layer in ((256, 0), (512, 1)):  # the stack's first layer, then a deeper one
         x4 = randn(4 + layer, K4_ROWS, 64, n_in, scale=0.5)
@@ -331,6 +409,26 @@ def main():
                     first)
         ragged_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
                     first + layer_weights(64 + 10 * i, 512, bias))
+
+    # K1 at ragged shapes, held to the plain version only and launched twice (the slabs of the
+    # output projection are added in a fixed order): one row; a partial row tile; one row more
+    # than a tile; one row more than a wave of resident clusters, which is also a second row
+    # chunk at F = 32; F = 1 and F = 3; an input width that is no multiple of 4; with and
+    # without gate bias and b_proj
+    wave_rows = k1_clusters // 2 * freq_lstm.ROW_TILE
+    for i, (rows, n_freq, n_in, bias) in enumerate((
+            (1, 32, 64, True), (7, 3, 64, False), (freq_lstm.ROW_TILE + 1, 32, 100, True),
+            (wave_rows + 1, 32, 64, False), (216, 1, 64, True), (257, 3, 100, False),
+            (wave_rows + 1, 1, 100, True))):
+        args = (randn(160 + 10 * i, rows, n_freq, n_in),
+                randn(161 + 10 * i, 2, n_in, 512, scale=n_in ** -0.5),
+                randn(162 + 10 * i, 2, 128, 512, scale=128 ** -0.5),
+                randn(163 + 10 * i, 2, 512, scale=0.1) if bias else None,
+                randn(164 + 10 * i, n_freq * 256, 256, scale=0.02),
+                randn(165 + 10 * i, 256, scale=0.1) if bias else None)
+        ragged_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain, args)
+        with torch.inference_mode():
+            repeats("freq_lstm", freq_lstm.freq_lstm, args, freq_lstm.freq_lstm(*args))
 
     # K5 at the train step's two shapes (the FreqLstm core first: it is the larger), then,
     # held to the plain version only, ragged shapes that reach every edge of the cluster
@@ -454,6 +552,7 @@ def main():
         profile_serving(task, requests, sorted(walls)[1] * 1e3, smi)
         profile_step_clocks(build, dev, smi)
         profile_core_tiles(build, dev, smi)
+        profile_serving_tiles(build, dev, smi, k1_weights, dsc)
 
     # --- K4's path: a stack that is not 2 layers deep serves through bilstm_layer ---
     hp1 = configure("dgrad")
@@ -638,7 +737,7 @@ def profile_serving(task, requests, wall_ms_unprofiled, smi):
           "wall_ms_unprofiled_median": wall_ms_unprofiled,
           "device_busy_share": busy_ms / n / wall_ms_unprofiled,
           "top_device_ms_per_request": [{"name": k[:80], "ms": ms / n, "calls_per_request": c / n}
-                                        for k, ms, c in device[:10]], "card": smi})
+                                        for k, ms, c in device[:14]], "card": smi})
 
 
 def profile_step_clocks(build, dev, smi):
@@ -692,24 +791,12 @@ def profile_core_tiles(build, dev, smi):
     32-row tiles at H = 256; ``-DSDFA_CORE_RG128=1``: 16-row tiles at H = 128;
     ``-DSDFA_CORE_MINB128=1``: one block to a multiprocessor at H = 128), and
     times both passes of each build at the train step's two shapes, twice."""
-    import concurrent.futures
-    import ctypes
-
     import torch
 
     variants = {"as_built": [], "h256_32_row_tiles": ["-DSDFA_CORE_RG256=2"],
                 "h128_16_row_tiles": ["-DSDFA_CORE_RG128=1"],
                 "h128_one_block_per_sm": ["-DSDFA_CORE_MINB128=1"]}
-    src = os.path.join(build.CSRC, "bilstm_core.cu")
-
-    def compile_one(tag):
-        path = os.path.join(build.BUILD_ROOT, f"libbilstm_core_{tag}.so")
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, *variants[tag], "-o", path, src],
-                       capture_output=True, text=True, check=True, timeout=600)
-        return ctypes.CDLL(path)
-
-    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
-        libs = dict(zip(variants, pool.map(compile_one, variants)))
+    libs = build_variants(build, "bilstm_core", variants)
     times = {tag: {} for tag in variants}
     for steps, rows, hid in ((32, 6400, 128), (64, 100, 256)):
         gen = torch.Generator().manual_seed(hid)
@@ -721,18 +808,120 @@ def profile_core_tiles(build, dev, smi):
         for turn in range(2):
             for tag, lib in libs.items():
                 def call(entry, *tensors):
-                    fn = getattr(lib, entry)
-                    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                    code = fn(*(t.data_ptr() for t in tensors), steps, rows, hid,
-                              torch.cuda.current_stream(dev).cuda_stream)
-                    if code != 0:
-                        raise RuntimeError(f"{entry} ({tag}): CUDA error {code}")
+                    call_entry(lib, entry, tensors, (steps, rows, hid), dev)
 
                 fwd = time_ms(lambda: call("sdfa_bilstm_core_fwd", xp, w_hh, out, gates, cs), 5)
                 bwd = time_ms(lambda: call("sdfa_bilstm_core_bwd", gates, cs, w_hh, dout, dg), 5)
                 times[tag].setdefault(f"{steps}x{rows}x{hid}", []).append(
                     {"fwd_ms": fwd, "bwd_ms": bwd})
     emit({"phase": "profile_core_tiles", "ms": times, "card": smi})
+
+
+def build_variants(build, name, variants):
+    """``csrc/<name>.cu`` built once per entry of ``variants`` (tag -> extra nvcc
+    flags), side by side; -> {tag: the loaded library}."""
+    import concurrent.futures
+    import ctypes
+
+    src = os.path.join(build.CSRC, name + ".cu")
+
+    def compile_one(tag):
+        path = os.path.join(build.BUILD_ROOT, f"lib{name}_{tag}.so")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, *variants[tag], "-o", path, src],
+                       capture_output=True, text=True, check=True, timeout=600)
+        return ctypes.CDLL(path)
+
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        return dict(zip(variants, pool.map(compile_one, variants)))
+
+
+def call_entry(lib, entry, tensors, ints, dev):
+    """``entry(pointers..., ints..., stream)`` of a library built by
+    ``build_variants``, on ``dev``'s current stream; raises on a CUDA error."""
+    import ctypes
+
+    import torch
+
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    code = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints,
+              torch.cuda.current_stream(dev).cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{entry}: CUDA error {code}")
+
+
+def profile_serving_tiles(build, dev, smi, k1_weights, dsc):
+    """The compile-time choices of the two serving kernels redesigned last, side
+    by side, each build timed twice in turns. ``csrc/freq_lstm.cu`` as it is and
+    with 16-row tiles (``-DSDFA_FREQ_RG=1``) at 768 and 3072 rows;
+    ``csrc/decode_solve.cu`` as it is (a ring of 3 stages, two blocks to a
+    multiprocessor; the decode 4 windows a block) and with 4 stages and one
+    block, 2 stages and two blocks (``-DSDFA_SOLVE_STAGES``,
+    ``-DSDFA_SOLVE_MINB``), and the decode 8 and 16 windows a block
+    (``-DSDFA_DECODE_WR``), at 256 and 216 windows, K split by the same rule
+    from each build's own occupancy."""
+    import ctypes
+
+    import torch
+
+    from sdfa_tpu_torch.ops import decode_solve
+
+    def tiling(lib, entry, count):
+        out = (ctypes.c_int * count)()
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        if fn(out) != 0:
+            raise RuntimeError(f"{entry} failed")
+        return list(out)
+
+    empty = dict(device=dev, dtype=torch.float32)
+    times = {"freq_lstm": {}, "decode_solve": {}}
+    libs = build_variants(build, "freq_lstm", {"as_built": [],
+                                               "16_row_tiles": ["-DSDFA_FREQ_RG=1"]})
+    for rows in (K1_REQUEST_ROWS, K1_ROWS):
+        x = torch.randn(rows, 32, 64, generator=torch.Generator().manual_seed(rows)).to(dev)
+        out = torch.empty(rows, 256, **empty)
+        for turn in range(2):
+            for tag, lib in libs.items():
+                clusters, row_tile, _ = tiling(lib, "sdfa_freq_lstm_tiling", 3)
+                wave = clusters // 2 * row_tile
+                chunk = max(wave, 1024 - 1024 % wave)  # whole waves, about 1024 rows
+                n = min(rows, chunk)
+                scratch = (torch.empty(2, n, 32, 512, **empty), torch.empty(n, 32, 256, **empty),
+                           torch.empty(16, n, 256, **empty))
+                ms = time_ms(lambda: call_entry(lib, "sdfa_freq_lstm",
+                                                (x, *k1_weights, *scratch, out),
+                                                (rows, 32, 64, 128, 256, chunk), dev), 5)
+                times["freq_lstm"].setdefault(tag, {"resident_clusters": clusters,
+                                                    "rows_per_cluster": row_tile})
+                times["freq_lstm"][tag].setdefault(f"{rows}_rows_ms", []).append(ms)
+    libs = build_variants(build, "decode_solve", {
+        "as_built": [], "4_stages_1_block": ["-DSDFA_SOLVE_STAGES=4", "-DSDFA_SOLVE_MINB=1"],
+        "2_stages_2_blocks": ["-DSDFA_SOLVE_STAGES=2"],
+        "decode_8_windows_a_block": ["-DSDFA_DECODE_WR=8"],
+        "decode_16_windows_a_block": ["-DSDFA_DECODE_WR=16"]})
+    tp, nf = dsc.p.shape[1:]
+    n_pad = dsc.p_t.shape[0]
+    for windows in (K3_WINDOWS, K3_REQUEST_WINDOWS):
+        gen = torch.Generator().manual_seed(windows)
+        coef_s = torch.randn(windows, 85, generator=gen).to(dev)
+        coef_r = torch.randn(windows, 180, generator=gen).to(dev)
+        dt, out = torch.empty(windows, 9, tp, **empty), torch.empty(windows, 3, nf, **empty)
+        for turn in range(2):
+            for tag, lib in libs.items():
+                resident = tiling(lib, "sdfa_decode_solve_tiling", 4)[0]
+                parts = decode_solve.k_parts(3 * windows, n_pad, 3 * tp, resident)
+                part = torch.empty(parts, 3 * windows, n_pad, **empty)
+                ms = time_ms(lambda: call_entry(
+                    lib, "sdfa_decode_solve",
+                    (coef_s, coef_r, dsc.basis_s, dsc.means_s, dsc.basis_r, dsc.means_r, dsc.p_t,
+                     dsc.t0, dsc.x0, dt, part, out),
+                    (windows, 85, 180, tp, nf, n_pad, parts), dev), 5)
+                times["decode_solve"].setdefault(tag, {"resident_blocks": resident})
+                times["decode_solve"][tag].setdefault(f"{windows}_windows", {"k_parts": parts,
+                                                                              "ms": []})
+                times["decode_solve"][tag][f"{windows}_windows"]["ms"].append(ms)
+    emit({"phase": "profile_serving_tiles", "ms": times, "card": smi})
 
 
 def profile_train_step(exp, batches, smi, step_ms_unprofiled):

@@ -1,6 +1,7 @@
 // One bidirectional LSTM layer on the H100: the code shared by the per-layer
-// kernel (bilstm_layer.cu) and the 2-layer kernel (bilstm2.cu). Included by
-// both; each builds its own copy.
+// kernel (bilstm_layer.cu), the 2-layer kernel (bilstm2.cu), the training core
+// (bilstm_core.cu) and FreqLstm (freq_lstm.cu). Each includes it and builds its
+// own copy.
 //
 // Replaces the body the two Pallas kernels share, sdfa_tpu/ops/
 // pallas_bilstm.py:_bilstm_kernel and pallas_bilstm2.py:_bilstm2_kernel (the
@@ -23,7 +24,8 @@
 //    recurrence, so it is one tiled f32 product outside the dependent chain
 //    (128 x 128 tile, 16 deep, 8 x 8 outputs per thread, the next tile
 //    fetched into registers while this one is multiplied). xp (2, rows, T,
-//    4H) is scratch in device memory, written once and read once.
+//    4H) is scratch in device memory, written once and read once. The kernel
+//    is a template on the gate width (FreqLstm's is 4 x 128).
 // 2. steps_kernel: a cluster of CL = 8 blocks owns RT = 32 rows of one
 //    direction. One direction's W_hh is 256 x 1024 f32 = 1 MB: no block's
 //    shared memory holds it, eight blocks' do. Block s keeps the four gates
@@ -47,7 +49,8 @@
 //    The step loop is a template on the hidden width, the rows of a sub-tile
 //    and the tensors' order: the training core (bilstm_core.cu) runs the same
 //    step indexed by time, with the gates and the cell state written out as
-//    well, at H = 256 and at H = 128 (a cluster of 4 blocks).
+//    well, at H = 256 and at H = 128 (a cluster of 4 blocks); FreqLstm runs
+//    it at H = 128 over its frequency steps, a row's steps together.
 //
 // f32 throughout (expf/tanhf, correctly rounded reciprocal, no fast-math).
 // Sums run in another order than the plain version's: k in four interleaved
@@ -65,12 +68,13 @@ constexpr int H = 256;        // hidden units per direction
 constexpr int G = 4 * H;      // gate width
 constexpr int INMAX = 2 * H;  // widest layer input (layer 2: 2H)
 
-// --- the input projection: xp[d] (M, G) = x (M, K) . W_ih[d] (K, G) + gb[d] ---
+// --- the input projection: xp[d] (M, GW) = x (M, K) . W_ih[d] (K, GW) + gb[d] ---
+// GW is the gate width: 4 x 256 for the layer kernels, 4 x 128 for FreqLstm.
 
 constexpr int PM = 128, PN = 128, PK = 16, PT = 256;  // tile and threads
 
-// Eight consecutive k of one row of x from k on, zero past K or for a row
-// past M. `vec`: K % 4 == 0 and x is 16-byte aligned.
+// Eight consecutive k of one row of A from k on, zero from K on or for a row
+// past M. `vec`: the row's K-range is a multiple of 4 long and 16-byte aligned.
 __device__ __forceinline__ void load_a(const float* arow, bool row_ok, int k, int K, int vec,
                                        float (&ar)[8]) {
 #pragma unroll
@@ -80,41 +84,43 @@ __device__ __forceinline__ void load_a(const float* arow, bool row_ok, int k, in
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       if (k + 4 * h < K) {
-        const float4 v = *reinterpret_cast<const float4*>(arow + k + 4 * h);
+        const float4 v = __ldg(reinterpret_cast<const float4*>(arow + k + 4 * h));
         ar[4 * h] = v.x; ar[4 * h + 1] = v.y; ar[4 * h + 2] = v.z; ar[4 * h + 3] = v.w;
       }
   } else {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      if (k + i < K) ar[i] = arow[k + i];
+      if (k + i < K) ar[i] = __ldg(arow + k + i);
   }
 }
 
-// Two float4 of W_ih rows k and k + 8 (zero past K).
+// Two float4 of B's rows k and k + 8 (zero from K on); B has LDB floats to a row.
+template <int LDB>
 __device__ __forceinline__ void load_b(const float* bcol, int k, int K, float4 (&br)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kk = k + 8 * h;
-    br[h] = kk < K ? *reinterpret_cast<const float4*>(bcol + (size_t)kk * G)
+    br[h] = kk < K ? __ldg(reinterpret_cast<const float4*>(bcol + (size_t)kk * LDB))
                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
-// grid (2 G / PN, ceil(M / PM)): blockIdx.x walks the columns of both
+// grid (2 GW / PN, ceil(M / PM)): blockIdx.x walks the columns of both
 // directions, so neighbouring blocks share their rows of x.
+template <int GW>
 static __global__ void __launch_bounds__(PT, 2)
 proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
             const float* __restrict__ gb, float* __restrict__ xp, int M, int K, int vec) {
   __shared__ __align__(16) float As[2][PK][PM];
   __shared__ __align__(16) float Bs[2][PK][PN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int d = blockIdx.x / (G / PN), n0 = (blockIdx.x % (G / PN)) * PN;
+  const int d = blockIdx.x / (GW / PN), n0 = (blockIdx.x % (GW / PN)) * PN;
   const int m0 = blockIdx.y * PM;
   const int a_m = tid % PM, a_k = (tid / PM) * 8;  // x tile: 8 k of one row per thread
   const int b_k = tid / 32, b_n = (tid % 32) * 4;  // W tile: rows b_k, b_k + 8, one float4 each
   const bool row_ok = m0 + a_m < M;
   const float* arow = x + (size_t)(row_ok ? m0 + a_m : 0) * K;
-  const float* bcol = w_ih + (size_t)d * K * G + n0 + b_n;
+  const float* bcol = w_ih + (size_t)d * K * GW + n0 + b_n;
 
   float acc[8][8];
 #pragma unroll
@@ -125,7 +131,7 @@ proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
   float ar[8];
   float4 br[2];
   load_a(arow, row_ok, a_k, K, vec, ar);
-  load_b(bcol, b_k, K, br);
+  load_b<GW>(bcol, b_k, K, br);
   const int tiles = (K + PK - 1) / PK;
   for (int tile = 0; tile < tiles; ++tile) {
     const int buf = tile & 1;
@@ -136,7 +142,7 @@ proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
     __syncthreads();  // this tile is in place; the other buffer's readers are done (see below)
     if (tile + 1 < tiles) {
       load_a(arow, row_ok, (tile + 1) * PK + a_k, K, vec, ar);
-      load_b(bcol, (tile + 1) * PK + b_k, K, br);
+      load_b<GW>(bcol, (tile + 1) * PK + b_k, K, br);
     }
 #pragma unroll
     for (int kk = 0; kk < PK; ++kk) {
@@ -165,12 +171,22 @@ proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
       float4 v = make_float4(acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2],
                              acc[i][4 * half + 3]);
       if (gb) {
-        const float4 bv = *reinterpret_cast<const float4*>(gb + d * G + n);
+        const float4 bv = *reinterpret_cast<const float4*>(gb + d * GW + n);
         v.x += bv.x; v.y += bv.y; v.z += bv.z; v.w += bv.w;
       }
-      *reinterpret_cast<float4*>(xp + ((size_t)d * M + m) * G + n) = v;
+      *reinterpret_cast<float4*>(xp + ((size_t)d * M + m) * GW + n) = v;
     }
   }
+}
+
+// proj_kernel over M rows of x (M, in) on `stream`: xp (2, M, GW).
+template <int GW>
+inline cudaError_t launch_proj(const float* x, int in, const float* w_ih, const float* gb,
+                               float* xp, int M, cudaStream_t stream) {
+  const int vec = in % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  proj_kernel<GW><<<dim3(2 * GW / PN, (M + PM - 1) / PM), PT, 0, stream>>>(x, w_ih, gb, xp, M, in,
+                                                                         vec);
+  return cudaGetLastError();
 }
 
 // --- the recurrence: one cluster per (row tile, direction) ---------------------
@@ -461,11 +477,7 @@ inline StepsKernel layer_steps_kernel() { return steps_kernel<H, 2, RowMajor, fa
 inline cudaError_t run_layer(const float* x, int in, const float* w_ih, const float* w_hh,
                              const float* gb, float* xp, float* out, int rows, int T,
                              cudaStream_t stream) {
-  const int M = rows * T;
-  const int vec = in % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  proj_kernel<<<dim3(2 * G / PN, (M + PM - 1) / PM), PT, 0, stream>>>(x, w_ih, gb, xp, M, in,
-                                                                     vec);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_proj<G>(x, in, w_ih, gb, xp, rows * T, stream);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;

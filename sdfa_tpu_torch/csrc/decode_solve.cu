@@ -4,36 +4,70 @@
 // with T = exp(skew(r)) * S built from the 9 decoded planes of triangle t.
 //
 // Replaces sdfa_tpu/ops/pallas_decode_solve.py:_kernel_delta (entry points
-// decode_solve_free / decode_solve_fused). Delta form only, f32 P.
+// decode_solve_free / decode_solve_fused). Delta form only.
 //
-// What bounds it on the H100: the solve is a GEMM of M = 3W rows, N = NF
-// = 1261 columns and K = 3T' (T' = 9976 triangles padded to 10112):
-// 2 x 9 x 10112 x 1261 = 0.23 GFLOP per window; the decode adds 2 x 1050
-// x T' = 21 MFLOP per window plus 9 transcendentals per triangle. P is
-// 3 x 10112 x 1261 f32 = 153 MB, more than the 50 MB L2, so P is streamed
-// from HBM once per M tile. At W = 256 windows the GEMM is 60 GFLOP: it
-// is bound by f32 FMA throughput (67 TFLOP/s peak without tensor cores),
-// not by HBM (12 passes over P = 1.8 GB, ~0.6 ms at 3.35 TB/s).
+// What bounds it on the H100: the solve is a product of M = 3W rows, N = NF =
+// 1261 columns and K = 3T' (T' = 9976 triangles padded to 10112): 2 x 9 x
+// 10112 x 1261 = 0.23 GFLOP per window, 59 GFLOP at 256 windows; the decode
+// adds 2 x 1050 x T' = 21 MFLOP per window plus 9 transcendentals per
+// triangle. In f32 outside the tensor cores (67 TFLOP/s) the product alone
+// is 0.9 ms at best. The delta form exists so that a short mantissa is
+// enough: the TPU kernel multiplies dT by P in one bf16 pass with f32 sums.
+// Here the product runs on the tensor cores in TF32 (495 TFLOP/s), which is
+// 7 x closer to the f32 result than bf16 on the same inputs. What bounds it
+// then is bytes: P is 153 MB and dT 93 MB at 256 windows, 0.07 ms from device
+// memory if each is read once, and every 128 x 128 output tile pulls its two
+// operand strips, 31 MB, from L2 into shared memory.
 //
-// Design ((b) of two): decode_delta_kernel decodes each (window,
-// triangle) exactly once and writes dT (W, 9, T') to a scratch tensor;
-// solve_gemm_kernel is a tiled GEMM over it. Tiling the output over NF in
-// one fused kernel would redo the decode and the trig in every NF tile
-// (20 tiles of 64 columns); a block that owns all 1261 columns would
-// re-stream P once per few rows. The scratch costs one write and ~20
-// L2-friendly reads of 9 x T' floats per window, far below the GEMM's
-// time. dT rows are laid out so that A = dT viewed as (3W, 3T') is
-// row-major with K contiguous and B = P viewed as (3T', NF) is row-major:
-// the GEMM needs no transpose.
-// f32 arithmetic throughout (sinf/cosf/sqrtf, no fast-math).
+// Design, three kernels:
+//
+// 1. decode_delta_kernel decodes each (window, triangle) exactly once, in f32
+//    (sinf/cosf/sqrtf, no fast-math), and writes dT (W, 9, T') ROUNDED TO TF32
+//    to a scratch tensor. Viewed as (3W, 3T') it is the product's A operand,
+//    row-major with K contiguous.
+// 2. solve_product_kernel: C = A . B^T on wgmma.mma_async m64n128k8 TF32 with
+//    f32 accumulators in registers. TF32 wgmma takes both operands K-major
+//    only, so the constant P is kept transposed, p_t (N padded to 128, 3T'),
+//    rounded to TF32 on the host once. A block of two warpgroups owns a 128 x
+//    128 tile (64 rows a warpgroup) over one part of K; 16-byte cp.async
+//    copies fill a ring of STAGES shared-memory stages of 32 k (one 128-byte
+//    swizzle row per matrix row, chunk c of row r at c ^ (r % 8)), two blocks
+//    a multiprocessor so that one's barrier and copy requests hide behind the
+//    other's wgmma. K is split over gridDim.z so that the blocks fill the
+//    card (the caller sizes the split from the kernel's occupancy); blocks
+//    that run together walk K together and share their strips through L2.
+//    Each block writes its partial tile to scratch.
+// 3. solve_sum_kernel adds the K parts in part order, then x0[m % 3] in f32.
+//    No atomics: results repeat bit for bit.
+//
+// Tiling the output over NF in one fused kernel would redo the decode and the
+// trig in every NF tile. The dT scratch costs one write and a read through
+// L2, far below the product's time.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int DT = 128;    // triangles per decode block (one per thread)
-constexpr int WR = 4;      // windows per decode block
+#ifndef SDFA_DECODE_WR
+#define SDFA_DECODE_WR 4
+#endif
+constexpr int WR = SDFA_DECODE_WR;  // windows per decode block: one read of the bases serves all
 constexpr int KMAX = 256;  // largest PCA coefficient count
 
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero. The
+// tensor cores ignore the 13 low bits of an f32 operand, which truncates it:
+// twice the error, and biased. An operand rounded here loses nothing more there.
+__device__ __forceinline__ float round_tf32(float x) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
+  return __uint_as_float(u);
+}
+
+// dt (W, 9, T') = T - T0 per (window, triangle), each value rounded to TF32:
+// the product's A operand. grid (ceil(W / WR), T' / DT): the windows walk
+// fastest, so the blocks that run together read the same triangles' bases and
+// each basis value comes from device memory once.
 __global__ void __launch_bounds__(DT)
 decode_delta_kernel(const float* __restrict__ coef_s, const float* __restrict__ coef_r,
                     const float* __restrict__ basis_s, const float* __restrict__ means_s,
@@ -42,14 +76,14 @@ decode_delta_kernel(const float* __restrict__ coef_s, const float* __restrict__ 
                     int W, int Ks, int Kr, int Tp) {
   __shared__ float cs[WR][KMAX];
   __shared__ float cr[WR][KMAX];
-  const int w0 = blockIdx.y * WR;
+  const int w0 = blockIdx.x * WR;
   for (int i = threadIdx.x; i < WR * KMAX; i += DT) {
     const int r = i / KMAX, k = i % KMAX, w = w0 + r;
     cs[r][k] = (w < W && k < Ks) ? coef_s[(size_t)w * Ks + k] : 0.0f;
     cr[r][k] = (w < W && k < Kr) ? coef_r[(size_t)w * Kr + k] : 0.0f;
   }
   __syncthreads();
-  const int t = blockIdx.x * DT + threadIdx.x;
+  const int t = blockIdx.y * DT + threadIdx.x;
   if (t >= Tp) return;
 
   // d[r][k]: plane k of window w0+r at triangle t (6 scale, 3 rotation)
@@ -121,91 +155,236 @@ decode_delta_kernel(const float* __restrict__ coef_s, const float* __restrict__ 
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         const float tv = rot[i][0] * s[0][k] + rot[i][1] * s[1][k] + rot[i][2] * s[2][k];
-        out[(size_t)(3 * i + k) * Tp] = tv - t0v[3 * i + k];
+        out[(size_t)(3 * i + k) * Tp] = round_tf32(tv - t0v[3 * i + k]);
       }
   }
 }
 
-constexpr int BM = 64, BN = 64, BK = 16, GT = 256;  // GEMM tile, 4x4 per thread
+// --- the product: part[z] (M, npad) = A (M, K-part z) . Bt (npad, K-part z)^T ----
 
-// C (M, N) = A (M, K) . B (K, N) + x0[m % 3][n]; A, B, C row-major f32.
-// Requires K % BK == 0 and K % 4 == 0.
-__global__ void __launch_bounds__(GT)
-solve_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                  const float* __restrict__ x0, float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int a_m = tid / 4, a_k = (tid % 4) * 4;    // A tile: one float4 per thread
-  const int b_k = tid / 16, b_n = (tid % 16) * 4;  // B tile: four floats per thread
+constexpr int BM = 128, BN = 128;   // a block's output tile: 64 rows a warpgroup
+constexpr int BK = 32;              // k per stage: 32 f32 = one 128-byte swizzle row
+constexpr int GT = 256;             // two warpgroups
+#ifndef SDFA_SOLVE_STAGES
+#define SDFA_SOLVE_STAGES 3
+#endif
+#ifndef SDFA_SOLVE_MINB
+#define SDFA_SOLVE_MINB 2
+#endif
+constexpr int STAGES = SDFA_SOLVE_STAGES;  // ring depth; STAGES - 1 copies in flight
+constexpr int MINB = SDFA_SOLVE_MINB;      // blocks a multiprocessor should hold
+constexpr int ROW_BYTES = BK * 4;
+constexpr int A_BYTES = BM * ROW_BYTES, B_BYTES = BN * ROW_BYTES;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;            // 32 KB
+constexpr int SOLVE_SMEM = STAGES * STAGE_BYTES + 1024;   // + room to align the ring to 1024 B
+static_assert(ROW_BYTES == 128 && GT / 8 == 32 && BM % 32 == 0 && BN % 32 == 0, "copy layout");
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.0f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    float4 av = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (m0 + a_m < M)
-      av = *reinterpret_cast<const float4*>(A + (size_t)(m0 + a_m) * K + k0 + a_k);
-    As[a_k + 0][a_m] = av.x;
-    As[a_k + 1][a_m] = av.y;
-    As[a_k + 2][a_m] = av.z;
-    As[a_k + 3][a_m] = av.w;
-    const float* brow = B + (size_t)(k0 + b_k) * N;
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The shared-memory matrix descriptor of a K-major operand tile in the
+// 128-byte swizzle: start address, (unused) leading offset, 1024 bytes from
+// one group of 8 rows to the next, swizzle mode 1. The tile starts on a
+// 1024-byte boundary; a k step of 8 f32 is 32 bytes further on, + 2 here.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// acc (64 x 128 of a warpgroup, f32) += A (64 x 8) . B (128 x 8)^T in TF32
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&acc)[64], uint64_t desc_a,
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
+        "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]),
+        "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]),
+        "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]),
+        "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]),
+        "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]),
+        "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
+        "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31]),
+        "+f"(acc[32]), "+f"(acc[33]), "+f"(acc[34]), "+f"(acc[35]),
+        "+f"(acc[36]), "+f"(acc[37]), "+f"(acc[38]), "+f"(acc[39]),
+        "+f"(acc[40]), "+f"(acc[41]), "+f"(acc[42]), "+f"(acc[43]),
+        "+f"(acc[44]), "+f"(acc[45]), "+f"(acc[46]), "+f"(acc[47]),
+        "+f"(acc[48]), "+f"(acc[49]), "+f"(acc[50]), "+f"(acc[51]),
+        "+f"(acc[52]), "+f"(acc[53]), "+f"(acc[54]), "+f"(acc[55]),
+        "+f"(acc[56]), "+f"(acc[57]), "+f"(acc[58]), "+f"(acc[59]),
+        "+f"(acc[60]), "+f"(acc[61]), "+f"(acc[62]), "+f"(acc[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// grid (npad / BN, ceil(M / BM), parts), SOLVE_SMEM bytes of dynamic shared
+// memory. A (M, K) and Bt (npad, K) hold TF32 values; part z covers the k
+// tiles z per .. (z + 1) per - 1; rows from M on read as zero.
+__global__ void __launch_bounds__(GT, MINB)
+solve_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
+                     float* __restrict__ part, int M, int K, int npad, int per) {
+  extern __shared__ uint8_t ring_raw[];
+  const uint32_t ring = (smem_u32(ring_raw) + 1023u) & ~1023u;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int kt0 = blockIdx.z * per;
+  const int nk = min(K / BK, kt0 + per) - kt0;  // this part's k tiles
+
+  // The copy: thread (r0, c) moves 16-byte chunk c of rows r0, r0 + 32, ... of
+  // both operand tiles; rows 32 apart share r % 8, so its swizzled chunk is one.
+  const int c = tid % 8, r0 = tid / 8;
+  const uint32_t dst0 = (uint32_t)(r0 * ROW_BYTES + ((c ^ (r0 & 7)) << 4));
+  const float* a_src = A + (size_t)(m0 + r0) * K + (size_t)kt0 * BK + c * 4;
+  const float* b_src = Bt + (size_t)(n0 + r0) * K + (size_t)kt0 * BK + c * 4;
+  auto load = [&](int kt, int slot) {
+    const uint32_t sa = ring + slot * STAGE_BYTES + dst0, sb = sa + A_BYTES;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + b_n + q;
-      Bs[b_k][b_n + q] = n < N ? brow[n] : 0.0f;
+    for (int i = 0; i < BM / 32; ++i) {
+      const bool ok = m0 + r0 + 32 * i < M;
+      cp_async16(sa + i * 32 * ROW_BYTES,
+                 ok ? a_src + (size_t)i * 32 * K + kt * BK : A, ok ? 16 : 0);
     }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float ar[4] = {a.x, a.y, a.z, a.w}, br[4] = {b.x, b.y, b.z, b.w};
+    for (int i = 0; i < BN / 32; ++i)
+      cp_async16(sb + i * 32 * ROW_BYTES, b_src + (size_t)i * 32 * K + kt * BK, 16);
+  };
+
+  float acc[64];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt have landed
+    // wgmma reads shared memory through the async proxy: make the copies visible to it
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();  // everyone's have; and everyone is done with tile kt - 1's slot
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk) load(nxt, nxt % STAGES);
+    cp_async_commit();
+    const uint32_t stage = ring + (kt % STAGES) * STAGE_BYTES;
+    const uint64_t da = smem_desc(stage + wg * 64 * ROW_BYTES), db = smem_desc(stage + A_BYTES);
+    wgmma_fence();
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] += ar[i] * br[jj];
-    }
-    __syncthreads();
+    for (int kk = 0; kk < BK / 8; ++kk) wgmma_m64n128k8_tf32(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait_all();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) break;
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+  // A warpgroup's accumulators: warp w holds rows 16 w .. 16 w + 15, lane l rows
+  // l / 4 and l / 4 + 8 of them, columns 8 j + 2 (l % 4), + 1 for j < 16.
+  const int lane = tid % 32, row = m0 + wg * 64 + 16 * ((tid % 128) / 32) + lane / 4;
+  float* out = part + ((size_t)blockIdx.z * M + row) * npad + n0 + 2 * (lane % 4);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int n = n0 + tx * 4 + jj;
-      if (n < N) C[(size_t)m * N + n] = x0[(size_t)(m % 3) * N + n] + acc[i][jj];
-    }
+  for (int j = 0; j < BN / 8; ++j) {
+    if (row < M)
+      *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (row + 8 < M)
+      *reinterpret_cast<float2*>(out + (size_t)8 * npad + 8 * j) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
+}
+
+// out (M, N) = part[0] + part[1] + ... in part order, then + x0[m % 3].
+__global__ void __launch_bounds__(256)
+solve_sum_kernel(const float* __restrict__ part, const float* __restrict__ x0,
+                 float* __restrict__ out, int M, int N, int npad, int parts) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * N) return;
+  const int m = (int)(i / N), n = (int)(i % N);
+  float sum = part[(size_t)m * npad + n];
+  for (int z = 1; z < parts; ++z) sum += part[((size_t)z * M + m) * npad + n];
+  out[i] = sum + x0[(size_t)(m % 3) * N + n];
+}
+
+cudaError_t product_smem() {
+  return cudaFuncSetAttribute(solve_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              SOLVE_SMEM);
 }
 
 }  // namespace
 
-// dt: scratch (W, 9, Tp); out: (W, 3, NF). Tp % BK == 0 is required.
+// dt: scratch (W, 9, Tp); part: scratch (parts, 3W, npad); out: (W, 3, NF).
+// p_t (npad, 3 Tp) is P transposed, zero rows from NF on, in TF32 values.
 extern "C" int sdfa_decode_solve(const float* coef_s, const float* coef_r,
                                  const float* basis_s, const float* means_s,
                                  const float* basis_r, const float* means_r,
-                                 const float* p, const float* t0, const float* x0,
-                                 float* dt, float* out, int W, int Ks, int Kr, int Tp,
-                                 int NF, cudaStream_t stream) {
-  if (Ks <= 0 || Ks > KMAX || Kr <= 0 || Kr > KMAX || Tp <= 0 || Tp % BK || NF <= 0)
+                                 const float* p_t, const float* t0, const float* x0,
+                                 float* dt, float* part, float* out, int W, int Ks, int Kr,
+                                 int Tp, int NF, int npad, int parts, cudaStream_t stream) {
+  if (Ks <= 0 || Ks > KMAX || Kr <= 0 || Kr > KMAX || Tp <= 0 || (3 * Tp) % BK ||
+      NF <= 0 || npad < NF || npad % BN || parts <= 0)
     return (int)cudaErrorInvalidValue;
   if (W <= 0) return 0;
-  decode_delta_kernel<<<dim3((Tp + DT - 1) / DT, (W + WR - 1) / WR), DT, 0, stream>>>(
+  decode_delta_kernel<<<dim3((W + WR - 1) / WR, (Tp + DT - 1) / DT), DT, 0, stream>>>(
       coef_s, coef_r, basis_s, means_s, basis_r, means_r, t0, dt, W, Ks, Kr, Tp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int M = 3 * W, K = 3 * Tp;
-  solve_gemm_kernel<<<dim3((NF + BN - 1) / BN, (M + BM - 1) / BM), GT, 0, stream>>>(
-      dt, p, x0, out, M, NF, K);
+  const int per = (K / BK + parts - 1) / parts;
+  err = product_smem();  // on the device that is current, also on a thread that launches first
+  if (err != cudaSuccess) return (int)err;
+  solve_product_kernel<<<dim3(npad / BN, (M + BM - 1) / BM, parts), GT, SOLVE_SMEM, stream>>>(
+      dt, p_t, part, M, K, npad, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  solve_sum_kernel<<<(unsigned)(((size_t)M * NF + 255) / 256), 256, 0, stream>>>(
+      part, x0, out, M, NF, npad, parts);
   return (int)cudaGetLastError();
+}
+
+// n[0]: how many blocks of the product kernel the card holds at once; n[1],
+// n[2], n[3]: its tile's rows, columns and k per stage.
+extern "C" int sdfa_decode_solve_tiling(int* n) {
+  cudaError_t err = product_smem();
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, blocks = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, solve_product_kernel, GT,
+                                                      SOLVE_SMEM);
+  n[0] = sms * blocks;
+  n[1] = BM;
+  n[2] = BN;
+  n[3] = BK;
+  return (int)err;
 }
 
 extern "C" const char* sdfa_error_string(int code) {

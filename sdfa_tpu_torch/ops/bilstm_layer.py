@@ -95,7 +95,8 @@ def layer_tiled_chunk(x, w_ih, w_hh, gate_bias):
     rows, steps, _ = x.shape
     hid = w_hh.shape[1]
     per = UNITS_PER_BLOCK
-    cols = [block_columns(b, hid) for b in range(CLUSTER)]
+    blocks = hid // per  # blocks of a cluster: 8 at H = 256, 4 at FreqLstm's H = 128
+    cols = [block_columns(b, hid) for b in range(blocks)]
     xp = torch.stack([x @ w_ih[d] if gate_bias is None else x @ w_ih[d] + gate_bias[d]
                       for d in range(2)])  # (2, rows, T, 4H)
     out = x.new_empty(rows, steps, 2 * hid)
@@ -108,7 +109,7 @@ def layer_tiled_chunk(x, w_ih, w_hh, gate_bias):
             for step in range(steps):
                 t = step if d == 0 else steps - 1 - step
                 cur, nxt = step % 2, 1 - step % 2
-                for b in range(CLUSTER):
+                for b in range(blocks):
                     own = slice(b * per, (b + 1) * per)
                     part = [h[cur][:, q::4] @ w_blocks[b][q::4] for q in range(4)]
                     pre = ((part[0] + part[2]) + (part[1] + part[3])

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_QUERIES: Dict[tuple, list] = {}  # (name, entry, device index) → what query_ints returned
 BUILD_INFO: Dict[str, dict] = {}  # name → {"seconds", "ptxas", "path"} of this process's builds
 
 
@@ -120,8 +121,13 @@ def launch(name: str, tensors, ints, device, entry: str = ""):
 
 def query_ints(name: str, entry: str, count: int, device):
     """Call ``sdfa_<entry>(int*)`` of csrc/<name>.cu, which fills ``count``
-    ints about ``device`` (how many clusters of a kernel it holds at once),
-    and return them. Raises on a non-zero cudaError_t."""
+    ints about ``device`` (how many clusters of a kernel it holds at once,
+    the tiles it was built with), and return them; a device is asked once.
+    Raises on a non-zero cudaError_t."""
+    index = torch.device(device).index
+    key = (name, entry, torch.cuda.current_device() if index is None else index)
+    if key in _QUERIES:
+        return list(_QUERIES[key])
     lib = load_library(name)
     fn = getattr(lib, f"sdfa_{entry}")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -131,4 +137,5 @@ def query_ints(name: str, entry: str, count: int, device):
         code = fn(out)
     if code != 0:
         raise RuntimeError(f"{entry}: CUDA error {code} ({lib.sdfa_error_string(code).decode()})")
+    _QUERIES[key] = list(out)
     return list(out)
