@@ -3,11 +3,12 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py            # about 50 seconds
-    python3 chip_smoke.py --profile  # about 70 seconds. Also torch.profiler breakdowns: a
-                                     # request, a train step; the biLSTM step kernel's SM clocks
-                                     # by part of a step; the other tile choices of the training
-                                     # core, of FreqLstm's step loop and of the solve product
+    python3 chip_smoke.py            # about a minute
+    python3 chip_smoke.py --profile  # about two. Also torch.profiler breakdowns: a request
+                                     # (with its host-to-device copies counted), a server tick,
+                                     # a train step; the biLSTM step kernel's SM clocks by part
+                                     # of a step; the other tile choices of the training core,
+                                     # of FreqLstm's step loop and of the solve product
 
 Phases, each printed as one JSON line:
 
@@ -36,9 +37,22 @@ Phases, each printed as one JSON line:
    ``freq_lstm``, ``bilstm2`` and ``decode_solve`` must move.
 5. check: one request again through the plain versions on the card, and
    sampled frames against the float64 host solve.
-6. k4_path: the same config with a 1-layer time LSTM serves a 1 s request; the
+6. wires: the first request again on every wire (f32, i16, i8d, coef): error to
+   the f32 wire (coef: to the float64 solve), bytes downloaded, wall time, the
+   launch counters (``decode_solve`` must stay put on coef); an ensembled
+   request against the mean of its two runs; a request with every kept
+   constant dropped against the warm one, bit for bit.
+7. session: one ``StreamingSession`` fed the clip in uneven chunks, then
+   flushed, against the offline request.
+8. server: ``StreamingServer(capacity=8)`` with 8 streams of different lengths
+   and speakers on i16, i8d, coef and i16 pipelined, each stream against its
+   own offline request; tick time, frames a second, bytes a frame. One run at
+   capacity 32 for its tick time.
+9. tcp: ``ServeApp`` + ``StreamServerTCP`` on 127.0.0.1, four ``StreamClient``
+   threads, one of them on a coef service with a ``CoefDecoder``.
+10. k4_path: the same config with a 1-layer time LSTM serves a 1 s request; the
    ``bilstm_layer`` counter must move and the plain versions must agree.
-7. train: ``Trainer.train()`` takes 5 steps of 100 windows at full width with
+11. train: ``Trainer.train()`` takes 5 steps of 100 windows at full width with
    the shipped optimizer and loss sections; every loss term and the gradient
    norm must be finite, the ``bilstm_core`` forward and backward counters must
    each read 15, parameters must change, the checkpoint must load back equal,
@@ -54,6 +68,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 SEED = 0
@@ -63,6 +78,8 @@ K2_WINDOWS = 256      # windows per suffix call
 K3_WINDOWS = 256
 K3_REQUEST_WINDOWS = 216  # one 3 s request's windows
 K4_ROWS = 256
+K1_LIVE_ROWS = (12, 128, 512)  # a stream's first block; a block round at capacity 8 and 32
+LIVE_WINDOWS = (128, 512)      # a full tick's suffix call at capacity 8 and 32
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
 TRAIN_STEPS = 5
 TOL = {"freq_lstm": 1e-4, "bilstm2": 1e-4, "decode_solve": 1e-5, "bilstm_layer": 1e-4,
@@ -70,6 +87,10 @@ TOL = {"freq_lstm": 1e-4, "bilstm2": 1e-4, "decode_solve": 1e-5, "bilstm_layer":
 BWD_REL_TOL = 1e-4    # bilstm_core_bwd: max |diff| / max |reference|, for d(xp) and d(w_hh)
 PLAIN_TOL_M = 1e-4    # wav -> vertices through kernels vs through plain versions
 ORACLE_TOL_M = 1e-4   # sampled frames vs the float64 host solve
+WIRE_TOL_M = {"f32": 0.0, "i16": 5e-6 + 1e-7, "i8d": 2e-5 + 1e-7}  # a wire vs the f32 wire
+COEF_ORACLE_TOL_M = 1e-6  # the coef wire, decoded on the host, vs the float64 host solve
+STREAM_TOL_M = 1e-5   # streamed vs offline on the same audio (f32 and decoded coef frames)
+SOCKET_TIMEOUT_S = 120.0
 STEP_LOSS_RTOL = 1e-5  # train step, kernels vs plain versions: total loss
 STEP_GRAD_RTOL = 1e-4  # ... and every gradient: max |diff| over the model's largest |gradient|;
                        # the recurrent layers' gradients also over their own largest |value|
@@ -305,7 +326,8 @@ def main():
     w_ih, w_hh, gb = fl.lstm.layer_weights(0)
     k1_weights = (w_ih, w_hh, gb, fl.proj.weight(), fl.proj.bias)
     lib1 = library_lstm(64, 128, 1, 1)
-    for rows in (K1_ROWS, K1_REQUEST_ROWS):  # the kernel phase's four clips, then one request's
+    # the kernel phase's four clips, one request's grid, then live serving's block rounds
+    for rows in (K1_ROWS, K1_REQUEST_ROWS) + K1_LIVE_ROWS:
         x1 = randn(1, rows, fl.freq_length, w_ih.shape[1])
         x1_lib = x1.transpose(0, 1).contiguous()
         forward_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain,
@@ -318,24 +340,28 @@ def main():
                     freq_lstm.freq_lstm(x1, *k1_weights))
 
     lw = [enc.built_layers_9.layer_weights(layer) for layer in range(2)]
-    x2 = randn(2, K2_WINDOWS, 64, 256, scale=0.5)
-    lib2, x2_lib = library_lstm(256, 256, 2, 2), x2.transpose(0, 1).contiguous()
-    forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain, (x2, *lw[0], *lw[1]),
-                 2.0 * K2_WINDOWS * 64 * 2 * ((256 + 256) + (512 + 256)) * 1024,
-                 lambda: lib2(x2_lib),
-                 "sdfa_tpu_torch/csrc/bilstm2.cu", "sdfa_tpu/ops/pallas_bilstm2.py:52")
+    lib2 = library_lstm(256, 256, 2, 2)
+    for windows in (K2_WINDOWS,) + LIVE_WINDOWS:  # then a live tick's suffix calls
+        x2 = randn(2, windows, 64, 256, scale=0.5)
+        x2_lib = x2.transpose(0, 1).contiguous()
+        forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain, (x2, *lw[0], *lw[1]),
+                     2.0 * windows * 64 * 2 * ((256 + 256) + (512 + 256)) * 1024,
+                     lambda: lib2(x2_lib), "sdfa_tpu_torch/csrc/bilstm2.cu",
+                     "sdfa_tpu/ops/pallas_bilstm2.py:52", primary=windows == K2_WINDOWS)
 
-    # K3 at the kernel phase's 256 windows, then a request's 216; its bound reckons the decode
+    # K3 at the kernel phase's 256 windows, a request's 216, a live tick's 128 and 512; its
+    # bound reckons the decode
     # in float32 outside the tensor cores and the solve's product in TF32 on them. Then, held
     # to the plain version only: one window, 7, 43, and one more than 256. Every case is
     # launched twice: the K parts are added in a fixed order, so the bits must repeat.
     tp, nf = dsc.p.shape[1:]
     k3_src = ("sdfa_tpu_torch/csrc/decode_solve.cu", "sdfa_tpu/ops/pallas_decode_solve.py:229")
-    for windows in (K3_WINDOWS, K3_REQUEST_WINDOWS, 1, 7, 43, K3_WINDOWS + 1):
+    k3_timed = (K3_WINDOWS, K3_REQUEST_WINDOWS) + LIVE_WINDOWS
+    for windows in k3_timed + (1, 7, 43, K3_WINDOWS + 1):
         g3 = torch.Generator().manual_seed(3 if windows == K3_WINDOWS else 300 + windows)
         coef_s = torch.randn(windows, 85, generator=g3).to(dev)
         coef_r = torch.randn(windows, 180, generator=g3).to(dev)
-        timed = windows in (K3_WINDOWS, K3_REQUEST_WINDOWS)
+        timed = windows in k3_timed
         with torch.inference_mode():
             got = decode_solve.decode_solve(coef_s, coef_r, dsc)
             torch.cuda.synchronize()
@@ -532,10 +558,10 @@ def main():
     plain_err = float(np.abs(v_plain - v0).max())
     sample = sorted({0, len(ts0) // 3, 2 * len(ts0) // 3, len(ts0) - 1})
     with torch.inference_mode():
-        frame_idx, _, z = task._overlap_prefix(sig0)
+        frame_idx, _, z, _ = task._overlap_prefix(sig0)
         idx = torch.from_numpy(frame_idx[sample]).long().to(dev)
         spk = torch.full((len(sample),), spk0, dtype=torch.long, device=dev)
-        preds, _ = model.forward_windows(z, idx, spk)
+        preds, _, _ = model.forward_windows(z, idx, spk, raw_pca=True)
         dgrad = model.decode_to_anime(preds)[:, 0].double().cpu().numpy()
     oracle = np.stack([solver.solve_host(d) for d in dgrad])
     oracle_err = float(np.abs(v0[sample] - oracle).max())
@@ -548,8 +574,17 @@ def main():
     if not oracle_err <= ORACLE_TOL_M:
         raise RuntimeError(f"kernel path vs float64 oracle: {oracle_err} m > {ORACLE_TOL_M}")
 
+    # --- live serving: every wire, ensembling, a session, the server, the TCP service ---
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
+    path_launches = {"serve": dict(launches)}
+    path_launches["wires"] = wires_phase(task, counters, sig0, spk0, v0, sample, oracle, smi)
+    path_launches["session"] = session_phase(task, counters, sig0, spk0, ts0, v0, smi)
+    path_launches["server"] = server_phase(task, counters, sr, smi)
+    path_launches["tcp"] = tcp_phase(task, counters, sr, smi)
+
     if "--profile" in sys.argv[1:]:
         profile_serving(task, requests, sorted(walls)[1] * 1e3, smi)
+        profile_server_tick(task, sr, smi)
         profile_step_clocks(build, dev, smi)
         profile_core_tiles(build, dev, smi)
         profile_serving_tiles(build, dev, smi, k1_weights, dsc)
@@ -702,11 +737,373 @@ def main():
         entry["launches"] = launches[name]
         if entry["launches"] < 1:
             raise RuntimeError(f"{name} was never launched on its path")
+        entry["launches_by_path"] = {path: counts[name] for path, counts in path_launches.items()
+                                     if name in counts}
         kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def reset_counts(counters):
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+
+
+def read_counts(counters, path, zero=()):
+    """The launch counts since ``reset_counts``; raises if a kernel of ``path``
+    never launched (or one named in ``zero`` did)."""
+    counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+    for name, n in counts.items():
+        if (n != 0) if name in zero else (n < 1):
+            raise RuntimeError(f"{path}: {name} launched {n} times")
+    return counts
+
+
+def max_err(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32)).max())
+
+
+def wires_phase(task, counters, sig, spk, v_f32, sample, oracle, smi):
+    """One request per wire against the f32 wire's vertices (coef: against
+    the float64 solve on the sampled frames), an ensembled request against the
+    mean of its two runs, and a request with every kept constant dropped
+    against the warm one."""
+    import numpy as np
+    import torch
+
+    from sdfa_tpu_torch.audio import pipeline
+    from sdfa_tpu_torch.viewer import frame
+
+    n_w, v3 = len(v_f32), v_f32[0].size
+    payload = {"f32": n_w * v3 * 4, "i16": n_w * v3 * 2, "i8d": n_w * v3 + v3 * 2,
+               "coef": n_w * (85 + 180) * 4}
+    lines, launches = {}, {}
+    for wire in ("f32", "i16", "i8d", "coef"):
+        task.generate_vertices(sig, spk, wire=wire)  # the wire's own first call
+        walls = []
+        for _ in range(3):
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            ts, verts = task.generate_vertices(sig, spk, wire=wire)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        launches[wire] = read_counts(counters, f"wire {wire}",
+                                     zero=("decode_solve",) if wire == "coef" else ())
+        if verts.shape != v_f32.shape or verts.dtype != np.float32 or not np.isfinite(verts).all():
+            raise RuntimeError(f"wire {wire}: bad output {verts.shape} {verts.dtype}")
+        err = max_err(verts, v_f32)
+        line = {"max_abs_m_vs_f32": err, "bytes_downloaded": payload[wire],
+                "wall_ms": sorted(walls), "launches": launches[wire]}
+        if wire == "coef":
+            line["max_abs_m_vs_f64_solve"] = max_err(verts[sample], oracle)
+            line["tol_m_vs_f64_solve"] = COEF_ORACLE_TOL_M
+            if not line["max_abs_m_vs_f64_solve"] <= COEF_ORACLE_TOL_M:
+                raise RuntimeError(f"coef wire vs the float64 solve: {line}")
+        else:
+            line["tol_m"] = WIRE_TOL_M[wire]
+            if not err <= WIRE_TOL_M[wire]:
+                raise RuntimeError(f"wire {wire} vs the f32 wire: {err} m > {WIRE_TOL_M[wire]}")
+        lines[wire] = line
+
+    # ensembling: the answer is the mean of the clip's run and of a run delayed by 100 ms
+    t0 = time.perf_counter()
+    _, v_ens = task.generate_vertices(sig, spk, ensembling_ms=100.0)
+    ens_ms = 1e3 * (time.perf_counter() - t0)
+    _, a0, _ = task.generate_animation(sig, spk)
+    _, a1, _ = task.generate_animation(task._shifted(sig, 100.0), spk)
+    v_mean, _ = frame.frames_to_meshes((a0 + a1) / 2.0, "dgrad_3d", task.device)
+    ens_err = max_err(v_ens, v_mean)
+    if not ens_err <= 1e-6 or not max_err(v_ens, v_f32) > 1e-7:
+        raise RuntimeError(f"ensembled request: {ens_err} m from the mean of its two runs")
+
+    # every kept constant dropped (frontend constants, stacked LSTM weights): the same bits
+    _, warm = task.generate_vertices(sig, spk)
+    pipeline.clear_const_cache()
+    for module in task.model.modules():
+        if hasattr(module, "_stacked"):
+            module._stacked.clear()
+    _, cold = task.generate_vertices(sig, spk)
+    if not (np.array_equal(warm, cold) and np.array_equal(warm, v_f32)):
+        raise RuntimeError("a request with its kept constants dropped differs from the warm one: "
+                           f"{max_err(warm, cold)} m")
+    emit({"phase": "wires", "audio_s": len(sig) / task.wspec.sr, "windows": n_w, "wires": lines,
+          "ensembled_vs_mean_of_two_runs_m": ens_err, "ensembled_wall_ms": ens_ms,
+          "kept_constants_dropped_vs_warm": "bit-equal", "card": smi})
+    torch.cuda.empty_cache()
+    return launches["i16"]
+
+
+def session_phase(task, counters, sig, spk, ts_ref, v_ref, smi):
+    """One ``StreamingSession`` fed the clip in uneven chunks, then flushed."""
+    import numpy as np
+
+    def run():
+        sess = task.stream(spk, emit_batch=16, block_frames=16)
+        rng, got, i = np.random.default_rng(0), [], 0
+        while i < len(sig):
+            n = int(rng.integers(400, 3000))
+            got.extend(sess.push(sig[i:i + n]))
+            i += n
+        live = len(got)
+        got.extend(sess.flush())
+        return got, live
+
+    run()  # warm-up: the block constants, the allocator
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    got, live = run()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_counts(counters, "session")
+    err = max_err(np.stack([v for _, v in got]), v_ref)
+    emit({"phase": "session", "frames": len(got), "frames_before_flush": live,
+          "timeline_equal": [t for t, _ in got] == list(ts_ref), "max_abs_m_vs_offline": err,
+          "tol_m": STREAM_TOL_M, "wall_ms": wall_ms, "wall_ms_per_frame": wall_ms / len(got),
+          "launches": launches, "card": smi})
+    if [t for t, _ in got] != list(ts_ref) or not err <= STREAM_TOL_M:
+        raise RuntimeError(f"session vs offline: timeline or vertices differ ({err} m)")
+    return launches
+
+
+def drive_server(srv, clips, speakers, per_tick: int):
+    """Open one stream per clip, push ``per_tick`` samples to each stream per
+    tick until the clips end, flush and drain. → (frames by clip, wall ms of
+    every tick, frames each tick delivered)."""
+    sids = [srv.open(spk) for spk in speakers]
+    got = {sid: [] for sid in sids}
+    tick_ms, tick_frames = [], []
+
+    def tick():
+        t0 = time.perf_counter()
+        out = srv.tick()
+        tick_ms.append(1e3 * (time.perf_counter() - t0))
+        tick_frames.append(sum(len(f) for f in out.values()))
+        for sid, frames in out.items():
+            got[sid].extend(frames)
+
+    pos = 0
+    while pos < max(len(c) for c in clips):
+        for sid, clip in zip(sids, clips):
+            if pos < len(clip):
+                srv.push(sid, clip[pos:pos + per_tick])
+        pos += per_tick
+        tick()
+    for sid in sids:
+        srv.flush(sid)
+    while not all(srv.is_done(sid) for sid in sids):
+        tick()
+    for sid in sids:
+        srv.close(sid)
+    return [got[sid] for sid in sids], tick_ms, tick_frames
+
+
+def server_phase(task, counters, sr, smi):
+    """``StreamingServer`` at capacity 8: 8 streams of different lengths and
+    speakers per wire, each against its own offline request; two blocks of
+    audio per stream and tick, so that a full tick is two block rounds of 128
+    FreqLstm rows and one suffix call of up to 128 windows. Then capacity 32
+    on i16 for its tick time."""
+    import numpy as np
+
+    from sdfa_tpu_torch.streaming import CoefDecoder, StreamingServer
+
+    n, emit_batch, block = 8, 16, 16
+    per_tick = 2 * block * task.wspec.hop_size
+    clips = [signal(2.0 + 0.125 * k, sr, 40 + k) for k in range(n)]
+    speakers = list(range(n))
+    offline = [task.generate_vertices(c, k) for k, c in enumerate(clips)]
+    decoder = CoefDecoder(task)
+    v3 = offline[0][1][0].size
+    frame_bytes = {"i16": v3 * 2, "i8d": v3, "coef": (85 + 180) * 4}
+    tol = {"i16": WIRE_TOL_M["i16"] + STREAM_TOL_M, "i8d": WIRE_TOL_M["i8d"] + STREAM_TOL_M,
+           "coef": STREAM_TOL_M}
+    lines, launches = [], None
+    for wire, pipelined in (("i16", False), ("i8d", False), ("coef", False), ("i16", True)):
+        srv = StreamingServer(task, capacity=n, emit_batch=emit_batch, block_frames=block,
+                              wire=wire, pipeline=pipelined)
+        drive_server(srv, clips[:2], speakers[:2], per_tick)  # warm-up on the same server
+        reset_counts(counters)
+        got, tick_ms, tick_frames = drive_server(srv, clips, speakers, per_tick)
+        counts = read_counts(counters, f"server {wire}",
+                             zero=("decode_solve",) if wire == "coef" else ())
+        launches = launches or counts
+        # a delta stream starts from the template and catches up at 127 steps a frame: its
+        # first frames may be further off and are reported apart
+        skip = 8 if wire == "i8d" else 0
+        errs, head_errs = [], []
+        for k, frames in enumerate(got):
+            ts_ref, v_ref = offline[k]
+            if [t for t, _ in frames] != list(ts_ref):
+                raise RuntimeError(f"server {wire}: stream {k}'s timeline differs from offline")
+            verts = np.stack([v for _, v in frames])
+            verts = decoder.decode(verts) if wire == "coef" else verts
+            errs.append(max_err(verts[skip:], v_ref[skip:]))
+            head_errs.append(max_err(verts[:8], v_ref[:8]))
+        full = sorted(ms for ms, fr in zip(tick_ms, tick_frames) if fr >= n * (emit_batch - 2))
+        n_frames = sum(tick_frames)
+        fps = n_frames / (sum(tick_ms) / 1e3)
+        lines.append({"wire": wire, "pipeline": pipelined, "streams": n,
+                      "max_abs_m_vs_offline": max(errs), "tol_m": tol[wire],
+                      "first_frames_left_out": skip, "max_abs_m_first_8_frames": max(head_errs),
+                      "ticks": len(tick_ms), "full_ticks": len(full),
+                      "full_tick_wall_ms_median": full[len(full) // 2] if full else None,
+                      "full_tick_wall_ms_min_max": [full[0], full[-1]] if full else None,
+                      "frames": n_frames, "frames_per_s": fps,
+                      "times_real_time": fps / (60.0 * n), "bytes_per_frame": frame_bytes[wire],
+                      "launches": counts})
+        if not max(errs) <= tol[wire]:
+            raise RuntimeError(f"server {wire}: {max(errs)} m from offline > {tol[wire]}")
+
+    n32 = 32
+    clips32 = [signal(2.0, sr, 80 + k) for k in range(n32)]
+    srv = StreamingServer(task, capacity=n32, emit_batch=emit_batch, block_frames=block, wire="i16")
+    drive_server(srv, clips32[:2], [0, 1], per_tick)
+    got, tick_ms, tick_frames = drive_server(srv, clips32, [k % 8 for k in range(n32)], per_tick)
+    if any(len(f) != len(got[0]) or not np.isfinite(np.stack([v for _, v in f])).all()
+           for f in got):
+        raise RuntimeError("server at capacity 32: a stream's frames are missing or not finite")
+    full = sorted(ms for ms, fr in zip(tick_ms, tick_frames) if fr >= n32 * (emit_batch - 2))
+    fps32 = sum(tick_frames) / (sum(tick_ms) / 1e3)
+    emit({"phase": "server", "capacity": n, "emit_batch": emit_batch, "block_frames": block,
+          "audio_s": [len(c) / sr for c in clips], "samples_per_stream_and_tick": per_tick,
+          "runs": lines,
+          "capacity_32_i16": {"full_ticks": len(full),
+                              "full_tick_wall_ms_median": full[len(full) // 2] if full else None,
+                              "frames_per_s": fps32, "times_real_time": fps32 / (60.0 * n32)},
+          "card": smi})
+    return launches
+
+
+def tcp_phase(task, counters, sr, smi):
+    """``ServeApp`` + ``StreamServerTCP`` on loopback: three clients on an i16
+    service and one on a coef service with a ``CoefDecoder``, all at once."""
+    import numpy as np
+
+    from sdfa_tpu_torch.serve import ServeApp, StreamClient, StreamServerTCP
+    from sdfa_tpu_torch.streaming import CoefDecoder
+
+    clips = [signal(1.5 + 0.25 * k, sr, 60 + k) for k in range(4)]
+    offline = [task.generate_vertices(c, k) for k, c in enumerate(clips)]
+    decoder = CoefDecoder(task)
+    services = []
+    for wire in ("i16", "coef"):
+        app = ServeApp(task, capacity=4, emit_batch=16, block_frames=16, wire=wire, pipeline=True)
+        tcp = StreamServerTCP(("127.0.0.1", 0), app)
+        thread = threading.Thread(target=tcp.serve_forever, daemon=True)
+        thread.start()
+        services.append((app, tcp, thread))
+    results, errors = {}, []
+
+    def client(k):
+        try:
+            on_coef = k == 3
+            with StreamClient(services[on_coef][1].server_address) as c:
+                c.sock.settimeout(SOCKET_TIMEOUT_S)
+                sid = c.open(speaker=k)
+                for lo in range(0, len(clips[k]), 2000):
+                    c.push(sid, clips[k][lo:lo + 2000])
+                c.flush(sid)
+                # frames() returns when the stream's done marker arrives
+                results[k] = (c.wire, list(c.frames(sid, decoder=decoder if on_coef else None)))
+        except Exception as exc:  # reported below, on the main thread
+            errors.append((k, repr(exc)))
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=SOCKET_TIMEOUT_S + 30)
+        wall_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads) or len(results) != 4:
+            raise RuntimeError(f"tcp clients failed: {errors}, {sorted(results)} finished")
+        deadline = time.time() + 10
+        while any(app.srv.live() for app, _, _ in services) and time.time() < deadline:
+            time.sleep(0.02)
+        free = [app.srv.live() == [] for app, _, _ in services]
+    finally:
+        for app, tcp, thread in services:
+            tcp.shutdown()
+            tcp.server_close()
+            app.shutdown()
+            thread.join(timeout=10)
+    launches = read_counts(counters, "tcp")
+    errs, wires = [], []
+    for k in range(4):
+        wire, frames = results[k]
+        ts_ref, v_ref = offline[k]
+        if [t for t, _ in frames] != list(ts_ref):
+            raise RuntimeError(f"tcp client {k}: timeline differs from offline")
+        errs.append(max_err(np.stack([v for _, v in frames]), v_ref))
+        wires.append(wire)
+    tols = [STREAM_TOL_M + (WIRE_TOL_M["i16"] if w == "i16" else 0.0) for w in wires]
+    emit({"phase": "tcp", "clients": 4, "wires": wires, "max_abs_m_vs_offline": errs,
+          "tol_m": tols, "done_markers": 4, "slots_free_afterwards": free,
+          "frames": [len(results[k][1]) for k in range(4)], "wall_s": wall_s,
+          "launches": launches, "card": smi})
+    if wires != ["i16"] * 3 + ["coef"] or not all(free) or \
+            not all(e <= t for e, t in zip(errs, tols)):
+        raise RuntimeError(f"tcp: wires {wires}, errors {errs} m, slots free {free}")
+    return launches
+
+
+def profile_server_tick(task, sr, smi):
+    """Full ticks of an i16 server at capacity 8 under ``torch.profiler``:
+    device time by kernel per tick (two block rounds, one suffix call of up to
+    128 windows, one download)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdfa_tpu_torch.streaming import StreamingServer
+
+    n, per_tick, ticks = 8, 2 * 16 * task.wspec.hop_size, 6
+    clips = [signal((4 + 2 * ticks + 1) * per_tick / sr, sr, 90 + k) for k in range(n)]
+    srv = StreamingServer(task, capacity=n, emit_batch=16, block_frames=16, wire="i16")
+    sids = [srv.open(k) for k in range(n)]
+    pos, frames = 0, 0
+    host_ms = {"block_rounds": 0.0, "dispatch_suffix": 0.0, "collect": 0.0}
+
+    def rounds(count):
+        """``count`` ticks, the host's clock split by half of a tick: the block
+        rounds and the suffix call only enqueue; collect waits for the card,
+        copies the payload out of the pinned buffer and dequantizes it."""
+        nonlocal pos, frames
+        for _ in range(count):
+            for sid, clip in zip(sids, clips):
+                srv.push(sid, clip[pos:pos + per_tick])
+            pos += per_tick
+            t0 = time.perf_counter()
+            srv._advance_blocks()
+            t1 = time.perf_counter()
+            pending = srv._dispatch()
+            t2 = time.perf_counter()
+            frames += sum(len(f) for f in srv.tick_collect(pending).values())
+            t3 = time.perf_counter()
+            for key, ms in zip(host_ms, (t1 - t0, t2 - t1, t3 - t2)):
+                host_ms[key] += 1e3 * ms
+
+    rounds(4)  # past the first blocks and the lookahead: every later tick is full
+    frames, host_ms = 0, dict.fromkeys(host_ms, 0.0)
+    rounds(ticks)
+    unprofiled = {key: ms / ticks for key, ms in host_ms.items()}
+    unprofiled_ms = sum(unprofiled.values())
+    torch.cuda.synchronize()
+    frames = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rounds(ticks)
+        torch.cuda.synchronize()
+    device, busy_ms = device_kernels(prof)
+    emit({"phase": "profile_server_tick", "capacity": n, "wire": "i16", "ticks": ticks,
+          "frames_per_tick": frames / ticks, "tick_wall_ms_unprofiled": unprofiled_ms,
+          "tick_host_ms_unprofiled_by_half": unprofiled,
+          "device_busy_ms_per_tick": busy_ms / ticks,
+          "device_busy_share": busy_ms / ticks / unprofiled_ms,
+          "top_device_ms_per_tick": [{"name": k[:80], "ms": ms / ticks, "calls_per_tick": c / ticks}
+                                     for k, ms, c in device[:16]], "card": smi})
 
 
 def device_kernels(prof, spans=()):
@@ -733,7 +1130,13 @@ def profile_serving(task, requests, wall_ms_unprofiled, smi):
         torch.cuda.synchronize()
     device, busy_ms = device_kernels(prof)
     n = len(requests)
+    # a warm request uploads its signal and its window indices, and nothing else
+    h2d = sum(c for k, _, c in device if "memcpy" in k.lower() and "htod" in k.lower()) / n
+    if h2d > 2:
+        raise RuntimeError(f"a warm request makes {h2d} host-to-device copies; the signal's and "
+                           "the window indices' are the two it may make")
     emit({"phase": "profile_serve", "requests": n, "device_busy_ms_per_request": busy_ms / n,
+          "h2d_copies_per_request": h2d,
           "wall_ms_unprofiled_median": wall_ms_unprofiled,
           "device_busy_share": busy_ms / n / wall_ms_unprofiled,
           "top_device_ms_per_request": [{"name": k[:80], "ms": ms / n, "calls_per_request": c / n}

@@ -37,6 +37,12 @@ def frame_signal(signal: torch.Tensor, win_size: int, hop_size: int) -> torch.Te
     return signal.unfold(-1, win_size, hop_size)
 
 
+def rms_energy(signal: torch.Tensor, frame_length: int, hop_length: int) -> torch.Tensor:
+    """(..., n_samples) → per-frame RMS (..., n_frames)."""
+    frames = frame_signal(signal, frame_length, hop_length)
+    return torch.sqrt(torch.mean(frames * frames, dim=-1))
+
+
 @functools.lru_cache(maxsize=None)
 def dft_bases(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
     """(n_fft, n_fft//2+1) cos/-sin bases for the onesided real DFT."""

@@ -1,15 +1,19 @@
-"""Clip-level frontend for the overlap serving path (counterpart of
-``sdfa_tpu/audio/pipeline.py``): ``WindowSpec`` geometry (copied — it is
-plain Python) and the mel + Δ + Δ² features on the clip's hop grid.
+"""Device frontend (counterpart of ``sdfa_tpu/audio/pipeline.py``):
+``WindowSpec`` geometry (copied — it is plain Python), the mel + Δ + Δ²
+features on a clip's hop grid (one clip or a batch of equal-length clips)
+and the per-window features of the exact path.
 
 The DFT, mel and delta products are plain ``torch.matmul`` in float32
-(the JAX package runs them at HIGHEST; the port disables TF32).
+(the JAX package runs them at HIGHEST; the port disables TF32). Their
+constant operands (window, DFT bases, mel filters, Δ operators) are
+uploaded once per device and kept in a small LRU, ``_CONSTS``.
 """
 
 from __future__ import annotations
 
+import collections
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -94,32 +98,105 @@ class WindowSpec:
         return frame_idx, ts_list, pad, pad_right, int(t_total)
 
 
-def _const(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
+_CONSTS: "collections.OrderedDict[tuple, torch.Tensor]" = collections.OrderedDict()
+_CONSTS_MAX = 16  # 4 frontend constants per spec + 2 Δ operators per frame-count bucket
+
+
+def _const(key: tuple, build, like: torch.Tensor) -> torch.Tensor:
+    """The host constant ``build()`` as a tensor of ``like``'s device and
+    dtype, uploaded on first use and kept (least recently used out first)."""
+    key = key + (like.device, like.dtype)
+    hit = _CONSTS.get(key)
+    if hit is None:
+        with torch.inference_mode(False):  # a kept tensor must outlive the caller's mode
+            hit = torch.from_numpy(build()).to(device=like.device, dtype=like.dtype)
+        _CONSTS[key] = hit
+        if len(_CONSTS) > _CONSTS_MAX:
+            _CONSTS.popitem(last=False)
+    else:
+        _CONSTS.move_to_end(key)
+    return hit
+
+
+def clear_const_cache():
+    _CONSTS.clear()
+
+
+def _delta_const(n_frames: int, order: int, like: torch.Tensor) -> torch.Tensor:
+    return _const(("delta", n_frames, order), lambda: dsp.delta_matrix(n_frames, order), like)
 
 
 def mel_from_frames(frames: torch.Tensor, spec: WindowSpec) -> torch.Tensor:
     """Framed signal (..., T, win) → normalized mel-dB (..., T, M)."""
-    frames = frames * _const(dsp.get_window(spec.win_fn, spec.win_size), frames)
-    cos_b, sin_b = dsp.dft_bases(spec.win_size)
-    re = torch.matmul(frames, _const(cos_b, frames))
-    im = torch.matmul(frames, _const(sin_b, frames))
+    n = spec.win_size
+    frames = frames * _const(("window", spec.win_fn, n),
+                             lambda: dsp.get_window(spec.win_fn, n), frames)
+    re = torch.matmul(frames, _const(("dft_cos", n), lambda: dsp.dft_bases(n)[0], frames))
+    im = torch.matmul(frames, _const(("dft_sin", n), lambda: dsp.dft_bases(n)[1], frames))
     power = re * re + im * im
-    filt = dsp.mel_filters(spec.sr, spec.win_size, spec.n_mels, spec.fmin, spec.fmax)
-    mel = dsp.power_to_db(torch.matmul(power, _const(filt, power).T))
+    mel_key = ("mel", spec.sr, n, spec.n_mels, spec.fmin, spec.fmax)
+    filt = _const(mel_key, lambda: dsp.mel_filters(*mel_key[1:]), power)
+    mel = dsp.power_to_db(torch.matmul(power, filt.T))
     if spec.normalize:
         mel = dsp.normalize_db(mel, spec.ref_db, spec.top_db, spec.clip)
     return mel
 
 
+def _with_deltas(mel: torch.Tensor) -> torch.Tensor:
+    """mel (..., T, M) → [mel, Δ, Δ²] (..., T, M, 3), deltas along T."""
+    feat = mel.transpose(-1, -2)  # (..., M, T)
+    t = feat.shape[-1]
+    d1 = torch.matmul(feat, _delta_const(t, 1, feat))
+    d2 = torch.matmul(feat, _delta_const(t, 2, feat))
+    return torch.stack([feat, d1, d2], dim=-1).transpose(-3, -2)
+
+
 def clip_frame_features_padded(padded: torch.Tensor, spec: WindowSpec) -> torch.Tensor:
     """Pre-padded signal (n + pad_left + pad_right,) → clip-level features
-    (T_total, F, 3) = [mel, Δ, Δ²] on the hop grid."""
+    (T_total, F, 3) = [mel, Δ, Δ²] on the hop grid; a batch (B, S) of
+    equal-length padded clips → (B, T_total, F, 3)."""
     if spec.preemph:
         padded = dsp.preemphasis(padded, spec.preemph)
     frames = dsp.frame_signal(padded, spec.win_size, spec.hop_size)
-    feat = mel_from_frames(frames, spec).T  # (M, T)
-    t = feat.shape[-1]
-    d1 = torch.matmul(feat, _const(dsp.delta_matrix(t, 1), feat))
-    d2 = torch.matmul(feat, _const(dsp.delta_matrix(t, 2), feat))
-    return torch.stack([feat, d1, d2], dim=-1).transpose(0, 1)  # (T, M, 3)
+    return _with_deltas(mel_from_frames(frames, spec))
+
+
+def clip_frame_features_device(signal: torch.Tensor, spec: WindowSpec, pad_left: int,
+                               pad_right: int) -> torch.Tensor:
+    """signal (..., S) → clip-level features (..., T_total, F, 3): zero-pads,
+    then ``clip_frame_features_padded``."""
+    return clip_frame_features_padded(
+        torch.nn.functional.pad(signal, (pad_left, pad_right)), spec)
+
+
+def _gather_windows(signal: torch.Tensor, starts: torch.Tensor, spec: WindowSpec) -> torch.Tensor:
+    """signal (S,), starts (W,) → the zero-padded windows (W, sliding). The
+    last windows of a clip start up to half a window before its padded end
+    and read silence past it (the JAX gather clamps onto the pad's zeros)."""
+    pad = spec.sliding
+    padded = torch.nn.functional.pad(signal, (pad, 2 * pad))
+    idx = (starts.long() + pad)[:, None] + torch.arange(pad, device=signal.device)[None, :]
+    return padded[idx]
+
+
+def window_features_device(signal: torch.Tensor, starts: torch.Tensor,
+                           spec: WindowSpec) -> torch.Tensor:
+    """The exact per-window frontend: signal (S,), starts (W,) → features
+    (W, T, F, 3). Each window is preemphasized and framed on its own, and its
+    deltas are fitted on its own 64 frames."""
+    wav = _gather_windows(signal, starts, spec)
+    if spec.preemph:
+        wav = dsp.preemphasis(wav, spec.preemph)
+    frames = dsp.frame_signal(wav, spec.win_size, spec.hop_size)  # sliding spans spec.frames
+    return _with_deltas(mel_from_frames(frames, spec))
+
+
+def fetch_audio_features_device(signal: np.ndarray, spec: WindowSpec, device) -> Dict:
+    """Per-window features of a whole clip on ``device``: {"tslist",
+    "audio_feat" (W, T, F, 3), "energy" (W, T)}."""
+    starts, ts_list = spec.window_starts(len(signal))
+    sig = torch.from_numpy(np.asarray(signal, np.float32)).to(device)
+    starts = torch.from_numpy(starts).to(device)
+    energy = dsp.rms_energy(_gather_windows(sig, starts, spec), spec.win_size, spec.hop_size)
+    return dict(tslist=ts_list, audio_feat=window_features_device(sig, starts, spec),
+                energy=energy)

@@ -42,18 +42,25 @@ class SpeakerEmbedding(nn.Module):
 
 
 @functools.lru_cache(maxsize=None)
-def _perm(n_tris: int, per_tri: int, interleave: bool) -> np.ndarray:
-    """Column permutation of a tri-major decode: k-major planes
-    (perm[k·T + j] = per_tri·j + k), or the reference frame layout for
-    [scale | rotat] (perm[9j + k] = 6j + k, k < 6, else 6T + 3j + k − 6)."""
+def _km_perm(n_tris: int, per_tri: int) -> np.ndarray:
+    """Column permutation of a tri-major decode to k-major planes:
+    perm[k·T + j] = per_tri·j + k."""
     j = np.arange(n_tris)
     perm = np.empty(n_tris * per_tri, np.int64)
-    if interleave:
-        for k in range(9):
-            perm[9 * j + k] = 6 * j + k if k < 6 else 6 * n_tris + 3 * j + k - 6
-    else:
-        for k in range(per_tri):
-            perm[k * n_tris + j] = per_tri * j + k
+    for k in range(per_tri):
+        perm[k * n_tris + j] = per_tri * j + k
+    return perm
+
+
+@functools.lru_cache(maxsize=None)
+def _interleave_perm(n_tris: int) -> np.ndarray:
+    """Gather indices that interleave concat([scale (T·6), rotat (T·3)]) into
+    the reference frame layout: perm[9j + k] = 6j + k for k < 6, else
+    6T + 3j + k − 6."""
+    j = np.arange(n_tris)
+    perm = np.empty(n_tris * 9, np.int64)
+    for k in range(9):
+        perm[9 * j + k] = 6 * j + k if k < 6 else 6 * n_tris + 3 * j + k - 6
     return perm
 
 
@@ -75,6 +82,7 @@ class SpeechDrivenAnimation(nn.Module):
         self.scale_pca = PcaInversion(pca_coeffs_scale, output_dim_scale)
         self.rotat_pca = PcaInversion(pca_coeffs_rotat, output_dim_rotat)
         self.split, self.taxis = encoder_overlap_split(encoder_specs, weight_norm)
+        self._perms = {}  # (layout, device) → the decode's column permutation on that device
 
     def forward(self, audio_feat, speaker_id, decode: bool = False):
         """Per-window path: window features (N, T, F, C) → (prediction dict,
@@ -82,13 +90,18 @@ class SpeechDrivenAnimation(nn.Module):
         ``forward_windows`` returns them; with ``decode=True`` the flat
         ``dgrad_3d_scale`` (N, 1, tris·6) and ``dgrad_3d_rotat`` (N, 1, tris·3),
         differentiable end to end."""
-        condition = self.speaker_embedding(speaker_id)
-        z_audio, aligns = self.audio_encoder(audio_feat, condition=condition)
-        preds = self._heads(z_audio, condition)
+        preds, _, aligns = self.forward_latent(audio_feat, speaker_id)
         if decode:
             preds = {"dgrad_3d_scale": self.scale_pca(preds["dgrad_3d_scale_pca"]),
                      "dgrad_3d_rotat": self.rotat_pca(preds["dgrad_3d_rotat_pca"])}
         return preds, aligns
+
+    def forward_latent(self, audio_feat, speaker_id):
+        """``forward`` with the encoder's output beside it, as the JAX model's
+        ``__call__`` returns: (raw PCA coefficients, z_audio, alignments)."""
+        condition = self.speaker_embedding(speaker_id)
+        z_audio, aligns = self.audio_encoder(audio_feat, condition=condition)
+        return self._heads(z_audio, condition), z_audio, aligns
 
     def _heads(self, z_audio, condition):
         x, _ = self.output_trunk(z_audio, condition=condition)
@@ -103,31 +116,56 @@ class SpeechDrivenAnimation(nn.Module):
         z, _ = self.audio_encoder(clip_feat[None], stop=self.split)
         return torch.movedim(z[0], self.taxis - 1, 0)
 
-    def forward_windows(self, z_frames, frame_idx, speaker_id):
+    def encode_frames_batch(self, clip_feats):
+        """Batched ``encode_frames``: (B, T_total, F, C) → (B, T_total, …).
+        The prefix is per frame, so FreqLstm sees all B·T_total rows in one
+        call and walks them in the row chunks its wrapper holds."""
+        if self.split <= 0:
+            raise ValueError("encoder has no time-independent prefix")
+        z, _ = self.audio_encoder(clip_feats, stop=self.split)
+        return torch.movedim(z, self.taxis, 1)
+
+    def forward_windows(self, z_frames, frame_idx, speaker_id, raw_pca: bool = False):
         """Temporal suffix per window: gather each window's frames from the
-        clip-level prefix output, then biLSTM, attention and the heads.
-        Returns the raw PCA coefficients (the ``raw_pca=True`` path):
-        {"dgrad_3d_scale_pca": (W, 1, Ks), "dgrad_3d_rotat_pca": (W, 1, Kr)}
-        plus the alignments."""
+        prefix output (a clip's frame grid, or any table of encoded frames:
+        ``z_frames[frame_idx]`` is a pure gather), then biLSTM, attention and
+        the heads. Returns (preds, z_audio, alignments). ``raw_pca=True``
+        gives the heads' raw PCA coefficients, {"dgrad_3d_scale_pca": (W, 1,
+        Ks), "dgrad_3d_rotat_pca": (W, 1, Kr)}; otherwise the flat decoded
+        ``dgrad_3d_scale`` / ``dgrad_3d_rotat`` as ``forward(decode=True)``."""
         condition = self.speaker_embedding(speaker_id)
         z = torch.movedim(z_frames[frame_idx], 1, self.taxis)  # (W, frames, …)
         z_audio, aligns = self.audio_encoder(z, condition=condition, start=self.split)
-        return self._heads(z_audio, condition), aligns
+        preds = self._heads(z_audio, condition)
+        if not raw_pca:
+            preds = {"dgrad_3d_scale": self.scale_pca(preds["dgrad_3d_scale_pca"]),
+                     "dgrad_3d_rotat": self.rotat_pca(preds["dgrad_3d_rotat_pca"])}
+        return preds, z_audio, aligns
+
+    def _perm_on(self, layout: str, device) -> torch.Tensor:
+        key = (layout, torch.device(device))
+        if key not in self._perms:
+            n_tris = self.scale_pca.means.shape[0] // 6
+            perm = (_interleave_perm(n_tris) if layout == "interleave"
+                    else _km_perm(n_tris, 6 if layout == "scale" else 3))
+            with torch.inference_mode(False):
+                self._perms[key] = torch.from_numpy(perm).to(device)
+        return self._perms[key]
 
     def decode_to_anime(self, preds: Dict[str, torch.Tensor], planes: bool = False):
-        """PCA coefficients → flat dgrad frames (N, L, tris·9): k-major planes
-        (``planes=True``, [k·n_tris + tri]) or the reference layout
-        [tri·9 + k]."""
-        n_tris = self.scale_pca.means.shape[0] // 6
-        scale = self.scale_pca(preds["dgrad_3d_scale_pca"])
-        rotat = self.rotat_pca(preds["dgrad_3d_rotat_pca"])
+        """Prediction dict (PCA coefficients, or the decoded ``dgrad_3d_scale``
+        / ``dgrad_3d_rotat``: the keys say which) → flat dgrad frames (N, L,
+        tris·9): k-major planes (``planes=True``, [k·n_tris + tri]) or the
+        reference layout [tri·9 + k]."""
+        if "dgrad_3d_scale_pca" in preds:
+            scale = self.scale_pca(preds["dgrad_3d_scale_pca"])
+            rotat = self.rotat_pca(preds["dgrad_3d_rotat_pca"])
+        else:
+            scale, rotat = preds["dgrad_3d_scale"], preds["dgrad_3d_rotat"]
         if planes:
-            dev = scale.device
-            return torch.cat([scale[..., torch.from_numpy(_perm(n_tris, 6, False)).to(dev)],
-                              rotat[..., torch.from_numpy(_perm(n_tris, 3, False)).to(dev)]],
-                             dim=-1)
-        perm = torch.from_numpy(_perm(n_tris, 9, True)).to(scale.device)
-        return torch.cat([scale, rotat], dim=-1)[..., perm]
+            return torch.cat([scale[..., self._perm_on("scale", scale.device)],
+                              rotat[..., self._perm_on("rotat", scale.device)]], dim=-1)
+        return torch.cat([scale, rotat], dim=-1)[..., self._perm_on("interleave", scale.device)]
 
 
 def build_model(hparams, pca: Optional[Dict[str, np.ndarray]] = None) -> SpeechDrivenAnimation:

@@ -47,6 +47,7 @@ class LSTM(nn.Module):
         self.num_layers, self.bias = int(num_layers), bool(bias)
         self.dropout = float(dropout)
         self.dropout_generator = None  # see layers.set_dropout_generator
+        self._stacked = {}  # layer → (parameter stamp, stacked weights), eval mode only
         n = 4 * self.hidden_size
         for layer in range(self.num_layers):
             in_size = self.input_size if layer == 0 else 2 * self.hidden_size
@@ -65,14 +66,34 @@ class LSTM(nn.Module):
 
     def layer_weights(self, layer: int):
         """(w_ih (2, in, 4H), w_hh (2, H, 4H), gate bias (2, 4H) or None),
-        direction 0 forward, 1 reverse."""
+        direction 0 forward, 1 reverse.
+
+        In eval mode with autograd off the stacked tensors are kept between
+        calls. They are dropped by a version check, not an ``_apply``
+        override: the stamp holds every parameter's storage address and
+        in-place version, so ``.to()`` (new storage), ``load_state_dict`` and
+        an optimizer step (in-place writes) all miss. In training mode, or
+        with autograd on, nothing is kept: the stack stays part of the graph."""
         sfx = (f"_l{layer}", f"_l{layer}_reverse")
+        keep = not self.training and not torch.is_grad_enabled()
+        if keep:
+            params = [getattr(self, n + s) for s in sfx
+                      for n in (("w_ih", "w_hh", "b_ih", "b_hh") if self.bias
+                                else ("w_ih", "w_hh"))]
+            stamp = tuple((p.data_ptr(), 0 if p.is_inference() else p._version) for p in params)
+            hit = self._stacked.get(layer)
+            if hit is not None and hit[0] == stamp:
+                return hit[1]
+        else:
+            self._stacked.clear()
         w_ih = torch.stack([getattr(self, "w_ih" + s) for s in sfx])
         w_hh = torch.stack([getattr(self, "w_hh" + s) for s in sfx])
         gb = None
         if self.bias:
             gb = torch.stack([getattr(self, "b_ih" + s) + getattr(self, "b_hh" + s)
                               for s in sfx])
+        if keep:
+            self._stacked[layer] = (stamp, (w_ih, w_hh, gb))
         return w_ih, w_hh, gb
 
     def forward(self, x):

@@ -99,6 +99,9 @@ class DeformationSolver:
         ar_mat = sp.csr_matrix((w[~free], (rows[~free], vi_to_col_r[vi][~free])),
                                shape=(3 * self.n_tris, max(self.n_cnsts, 1)))
         self._ar = ar_mat
+        # equation k reads triangle _eq_src[k]'s transform: the identity table
+        # (the correspondence fan-out is not ported)
+        self._eq_src = np.arange(self.n_tris, dtype=np.int64)
         self._at = a_mat.T.tocsr()
         ata = (self._at @ a_mat).toarray()
         if reg:

@@ -1,6 +1,7 @@
 """The serving kernels' plain PyTorch versions against the JAX package's
-references, at small shapes, plus the CUDA kernels themselves where a card
-is present (the training core has tests/test_torch_train_core.py).
+references, at small shapes (the training core has
+tests/test_torch_train_core.py; the CUDA kernels themselves against these
+plain versions run on a card from tests_gpu/test_cuda_kernels.py).
 
 - K1 ``freq_lstm_plain`` vs ``freq_lstm_reference`` (f32 HIGHEST scan) and
   vs the Pallas kernel in interpret mode (3-pass products ≈ f32).
@@ -118,44 +119,3 @@ def test_decode_solve_plain_matches_pallas_interpret(small_solvers, rows):
     got = K3.decode_solve(torch.from_numpy(coef_s), torch.from_numpy(coef_r), dsc).numpy()
     assert got.shape == want.shape == (rows, 3, tsolver.n_free)
     assert float(np.abs(got - want).max()) < 1e-5  # metres; f32 vs the 3-pass split
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-def test_cuda_kernels_match_plain(cuda, small_solvers):
-    """Each kernel on the card against its plain version on the same inputs
-    (flagship widths for the LSTMs, a small mesh for decode+solve)."""
-    rng = np.random.default_rng(4)
-    x1 = [None if a is None else torch.from_numpy(a).to(cuda)
-          for a in _k1_args(rng, 45, 32, 64, 128, 256)]
-    assert float((K1.freq_lstm(*x1) - K1.freq_lstm_plain(*x1)).abs().max()) < 1e-4
-    x2 = [torch.from_numpy(a).to(cuda) for a in (
-        _rand(rng, (7, 64, 256), 0.5), _rand(rng, (2, 256, 1024), 0.06),
-        _rand(rng, (2, 256, 1024), 0.06), _rand(rng, (2, 1024), 0.06),
-        _rand(rng, (2, 512, 1024), 0.06), _rand(rng, (2, 256, 1024), 0.06),
-        _rand(rng, (2, 1024), 0.06))]
-    assert float((K2.bilstm2(*x2) - K2.bilstm2_plain(*x2)).abs().max()) < 1e-4
-    for x4 in (x2[:4], [torch.from_numpy(_rand(rng, (7, 64, 512), 0.5)).to(cuda), *x2[4:6],
-                        None]):
-        assert float((K4.bilstm_layer(*x4) - K4.bilstm_layer_plain(*x4)).abs().max()) < 1e-4
-    # ragged: a second row tile of one row, T = 3, an input width off the product's K tile
-    x2r = [torch.from_numpy(_rand(rng, (33, 3, 100), 0.5)).to(cuda),
-           torch.from_numpy(_rand(rng, (2, 100, 1024), 0.06)).to(cuda), x2[2], None, *x2[4:6], None]
-    assert float((K2.bilstm2(*x2r) - K2.bilstm2_plain(*x2r)).abs().max()) < 1e-4
-    assert float((K4.bilstm_layer(*x2r[:4]) - K4.bilstm_layer_plain(*x2r[:4])).abs().max()) < 1e-4
-    *_, tsolver = small_solvers
-    n = tsolver.n_tris
-    dsc = K3.prep_consts(_rand(rng, (6 * n, 85), 0.01), _rand(rng, (6 * n,), 0.01),
-                         _rand(rng, (3 * n, 180), 0.01), _rand(rng, (3 * n,), 0.01),
-                         tsolver, cuda)
-    cs = torch.from_numpy(_rand(rng, (11, 85), 1.0)).to(cuda)
-    cr = torch.from_numpy(_rand(rng, (11, 180), 1.0)).to(cuda)
-    err = (K3.decode_solve(cs, cr, dsc) - K3.decode_solve_plain(cs, cr, dsc)).abs().max()
-    assert float(err) < 1e-5

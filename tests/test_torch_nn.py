@@ -158,3 +158,49 @@ def test_freq_lstm_matches_flax():
         got = tmod(_t(x))
     assert got.shape == (2, 12, 1, 5)
     assert float(np.abs(got.numpy() - np.asarray(want)).max()) < TOL
+
+
+def test_lstm_keeps_stacked_weights_in_eval_mode_only():
+    """In eval mode with autograd off ``layer_weights`` hands out the tensors
+    it stacked before, bit-equal to a fresh stack; ``load_state_dict``, an
+    in-place write, ``.to()`` of another dtype and ``train()`` each drop them,
+    and training (or autograd on) never keeps any: the stack stays in the
+    graph."""
+    lstm = trec.LSTM(6, 4, num_layers=2, bias=True, bidirectional=True)
+    lstm.reset_parameters(torch.Generator().manual_seed(0))
+    lstm.eval()
+
+    def fresh(layer):
+        sfx = (f"_l{layer}", f"_l{layer}_reverse")
+        return (torch.stack([getattr(lstm, "w_ih" + s) for s in sfx]),
+                torch.stack([getattr(lstm, "w_hh" + s) for s in sfx]),
+                torch.stack([getattr(lstm, "b_ih" + s) + getattr(lstm, "b_hh" + s) for s in sfx]))
+
+    with torch.inference_mode():
+        first = lstm.layer_weights(1)
+        assert all(a is b for a, b in zip(first, lstm.layer_weights(1)))
+        assert all(torch.equal(a, b) for a, b in zip(first, fresh(1)))
+        x = torch.randn(3, 5, 6, generator=torch.Generator().manual_seed(1))
+        out = lstm(x)
+        lstm._stacked.clear()
+        assert torch.equal(out, lstm(x))  # kept or restacked: the same bits
+
+    state = {k: v + 1.0 for k, v in lstm.state_dict().items()}
+    lstm.load_state_dict(state)
+    with torch.inference_mode():
+        reloaded = lstm.layer_weights(1)
+        assert reloaded[0] is not first[0]
+        assert all(torch.equal(a, b) for a, b in zip(reloaded, fresh(1)))
+    with torch.no_grad():
+        lstm.w_hh_l1.mul_(2.0)  # what an optimizer step does
+        assert torch.equal(lstm.layer_weights(1)[1], fresh(1)[1])
+        kept = lstm.layer_weights(0)
+        lstm.double()
+        assert lstm.layer_weights(0)[0].dtype == torch.float64 and kept[0].dtype == torch.float32
+        lstm.float()
+    assert lstm.layer_weights(0)[0].requires_grad  # autograd on: nothing kept, in the graph
+    assert not lstm._stacked
+    lstm.train()
+    with torch.no_grad():
+        lstm.layer_weights(0)
+    assert not lstm._stacked

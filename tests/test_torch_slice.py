@@ -8,6 +8,8 @@ scan and solve paths on CPU); the port runs its plain versions on CPU.
 Budget: the ROADMAP's 1e-4 m; both sides are f32 through the same math,
 so the test holds them to 1e-5 m."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -30,10 +32,41 @@ from sdfa_tpu_torch.viewer import frame as tframe
 
 TOL_M = 1e-5
 
+_BN = "batch_norm={'momentum': 0.01, 'eps': 0.001}"
+_LRELU = "act=lrelu@a:0.2"
 
-@pytest.fixture(scope="module")
-def tasks(tmp_path_factory):
-    root = tmp_path_factory.mktemp("slice")
+
+def narrow_model():
+    """The dgrad network's layers at narrow widths (the same layer types, 128
+    mel bins → 32 frequency steps, 85 + 180 coefficients): what the serving
+    test files other than this one run, so that they stay fast on a CPU."""
+    head = [("fc", 24 + 8, 24, _LRELU, "cat_condition=2"), ("fc", 24, 16, "act=tanh")]
+    return {"audio_encoder": {"layers": [
+        ("permute", (0, 3, 2, 1)),
+        ("conv2d", 3, 6, (3, 1), (1, 1), _LRELU, _BN),
+        ("pool2d", "max", (2, 1)),
+        ("conv2d", 6, 8, (3, 1), (1, 1), _LRELU, _BN),
+        ("pool2d", "max", (2, 1)),
+        ("conv2d", 8, 8, (1, 1), (1, 1), _LRELU, _BN),
+        ("freq-lstm", 8, 32, "hidden_size=8", "output_size=16"),
+        ("squeeze", 2),
+        ("permute", (0, 2, 1)),
+        ("lstm", 16, 12, "num_layers=2", "bidirectional=True", "dropout=0.1"),
+        ("attn", "bah", 24, 12, 2, "scale_score_at_eval=1.0"),
+    ]}, "output": {
+        "layers": [("fc", 24 + 8, 24, _LRELU, "cat_condition=2")],
+        "layers_scale": head + [("fc", 16, 85, "act=linear")],
+        "layers_rotat": head + [("fc", 16, 180, "act=linear")],
+    }}
+
+
+@contextlib.contextmanager
+def task_pair(root, narrow=False, **port_kwargs):
+    """(JAX task, port task, n_verts) on the same weights over a small
+    synthetic template installed on both sides; both template states are
+    restored on exit. Shared by the other ``test_torch_*`` serving files,
+    which pass ``narrow=True`` (``narrow_model``); this file runs the full
+    widths."""
     verts, faces, cnst = synthetic_template(2, n_major=10, n_minor=12, n_extra=5, n_free=50)
     n = len(faces)
     rng = np.random.default_rng(0)
@@ -44,6 +77,10 @@ def tasks(tmp_path_factory):
     write_ply(str(root / "template.ply"), verts, faces)
     (root / "cnst.txt").write_text(" ".join(str(int(i)) for i in cnst))
     dims = {"model": {"output": {"output_dim_scale": 6 * n, "output_dim_rotat": 3 * n}}}
+    if narrow:
+        net = narrow_model()
+        dims["model"]["audio_encoder"] = net["audio_encoder"]
+        dims["model"]["output"].update(net["output"])
 
     jhp = jconfigure("dgrad", overrides=dims, dataset_root=str(root))
     jmodel = jbuild(jhp, load_pca=True)
@@ -63,12 +100,18 @@ def tasks(tmp_path_factory):
         tmodel = load_flax_variables(tbuild(tconfigure("dgrad", overrides=dims,
                                                        dataset_root=str(root))), variables)
         yield jtask, TTask(tconfigure("dgrad", overrides=dims, dataset_root=str(root)),
-                           tmodel, "cpu"), len(verts)
+                           tmodel, "cpu", **port_kwargs), len(verts)
     finally:
         jframe._state.clear()
         jframe._state.update(saved_j)
         tframe._state.clear()
         tframe._state.update(saved_t)
+
+
+@pytest.fixture(scope="module")
+def tasks(tmp_path_factory):
+    with task_pair(tmp_path_factory.mktemp("slice")) as pair:
+        yield pair
 
 
 def _signal(seconds, seed):
@@ -91,10 +134,17 @@ def test_generate_vertices_matches_jax(tasks, seconds, speaker):
 
 
 def test_warmup_and_unported_wires(tasks):
-    _, ttask, _ = tasks
+    """``warmup`` takes the reference's arguments; a wire neither side knows is
+    a ``ValueError`` with the reference's text; the host-numpy frontend, the
+    one piece of the task that is not ported, says so."""
+    jtask, ttask, _ = tasks
     assert ttask.warmup(seconds=0.3) >= 0.0
-    with pytest.raises(NotImplementedError):
-        ttask.generate_vertices(_signal(0.3, 1), 0, wire="i16")
+    assert ttask.warmup(0.3, "i16", 1) >= 0.0
+    for task in (jtask, ttask):
+        with pytest.raises(ValueError, match="unknown wire format 'i4'"):
+            task.generate_vertices(_signal(0.3, 1), 0, wire="i4")
+    with pytest.raises(NotImplementedError, match="A4"):
+        TTask(ttask.hp, ttask.model, "cpu", device_frontend=False)
 
 
 def test_task_switches_tf32_off(tasks):

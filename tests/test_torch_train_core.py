@@ -7,8 +7,9 @@ against the JAX package (``sdfa_tpu.ops.pallas_bilstm_train``), on CPU:
   plain-tensor transcription of the kernels' step, which CPU tensors take)
   vs autograd of the scan, and vs the Pallas kernels in interpret mode,
   residual layouts included;
-- the CUDA kernels vs the plain version where a card is present (the
-  kernels' cluster tiling is walked on the CPU in test_torch_core_tiled.py).
+- the CUDA kernels vs the plain version run on a card from
+  tests_gpu/test_cuda_kernels.py (the kernels' cluster tiling is walked on
+  the CPU in test_torch_core_tiled.py).
 
 Budgets are those of tests/test_pallas_bilstm_train.py: out atol 2e-5,
 gradients atol 3e-5 × max |gradient| (their sizes span ~4 orders through the
@@ -134,35 +135,3 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         K5._core_dims(torch.zeros(2, 3, 4, 4 * 64))
     assert K5._core_dims(torch.zeros(2, 3, 4, 4 * 256)) == (3, 4, 256)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("steps,rows,hid", [
-    (5, 7, 128), (3, 1061, 256), (64, 100, 256),
-    # the cluster tiling's edges at both widths: one row; T = 2; T = 1 at one row more than a
-    # tile; more rows than one wave of resident clusters; T = 64 at 100 rows
-    (3, 1, 128), (2, 7, 128), (1, 33, 128), (3, 2113, 128), (64, 100, 128),
-    (3, 1, 256), (2, 7, 256), (1, 17, 256), (3, 257, 256)])
-def test_cuda_kernels_match_plain(cuda, steps, rows, hid):
-    xp, w_hh, dout = (torch.from_numpy(a).to(cuda) for a in _inputs(steps, rows, hid, seed=9))
-    xp.requires_grad_()
-    w_hh.requires_grad_()
-    fwd, bwd = K5.FWD_LAUNCHES, K5.BWD_LAUNCHES
-    out = K5.bilstm_core(xp, w_hh)
-    got = torch.autograd.grad(out, (xp, w_hh), dout)
-    assert (K5.FWD_LAUNCHES, K5.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
-    ref = K5.bilstm_core_plain(xp, w_hh)
-    want = torch.autograd.grad(ref, (xp, w_hh), dout)
-    assert float((out - ref).abs().max()) < 1e-4
-    for g, w in zip(got, want):
-        assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-4
-    # the partial sums are added in a fixed order: the same inputs give the same bits
-    assert torch.equal(got[0], torch.autograd.grad(K5.bilstm_core(xp, w_hh), (xp,), dout)[0])

@@ -92,8 +92,8 @@ def test_overlap_path_and_decode_match_jax(flagship):
                                 raw_pca=True, method=JModel.forward_windows)
     with torch.no_grad():
         tz = tmodel.encode_frames(torch.from_numpy(clip))
-        tpreds, _ = tmodel.forward_windows(tz, torch.from_numpy(frame_idx).long(),
-                                           torch.from_numpy(spk).long())
+        tpreds, _, _ = tmodel.forward_windows(tz, torch.from_numpy(frame_idx).long(),
+                                              torch.from_numpy(spk).long(), raw_pca=True)
         assert float(np.abs(tz.numpy() - np.asarray(z)).max()) < BUDGET
         for key in ("dgrad_3d_scale_pca", "dgrad_3d_rotat_pca"):
             assert float(np.abs(tpreds[key].numpy() - np.asarray(jpreds[key])).max()) < BUDGET
@@ -101,6 +101,50 @@ def test_overlap_path_and_decode_match_jax(flagship):
             want = np.asarray(jmodel.decode_to_anime(variables, jpreds, planes=planes))
             got = tmodel.decode_to_anime(tpreds, planes=planes).numpy()
             assert float(np.abs(got - want).max()) < BUDGET
+
+
+def test_encode_frames_batch_matches_per_clip_and_jax(flagship):
+    """``encode_frames_batch`` on (B, T, F, C) is ``encode_frames`` per clip
+    (the prefix is per frame; only the batch a product runs at differs) and
+    the JAX method's output."""
+    jmodel, variables, tmodel, _, _ = flagship
+    clips = np.random.default_rng(6).normal(0.4, 0.2, (3, 24, 128, 3)).astype(np.float32)
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(clips),
+                                   method=JModel.encode_frames_batch))
+    with torch.no_grad():
+        got = tmodel.encode_frames_batch(torch.from_numpy(clips)).numpy()
+        each = np.stack([tmodel.encode_frames(torch.from_numpy(c)).numpy() for c in clips])
+    assert got.shape == want.shape == each.shape == (3, 24, 256)
+    assert float(np.abs(got - each).max()) < 1e-5
+    assert float(np.abs(got - want).max()) < BUDGET
+
+
+def test_forward_windows_returns_latent_and_decoded_preds(flagship):
+    """``forward_windows`` returns (preds, z, aligns) as the reference does;
+    without ``raw_pca`` the predictions are the decoded flat frames, and
+    ``decode_to_anime`` takes either kind by its keys."""
+    jmodel, variables, tmodel, _, _ = flagship
+    rng = np.random.default_rng(7)
+    clip = rng.normal(0.4, 0.2, (70, 128, 3)).astype(np.float32)
+    frame_idx = (np.arange(3)[:, None] * 2 + np.arange(64)[None, :]).astype(np.int32)
+    spk = np.asarray([1, 3, 5], np.int32)
+    z = jmodel.apply(variables, jnp.asarray(clip), method=JModel.encode_frames)
+    jpreds, jz, jal = jmodel.apply(variables, z, jnp.asarray(frame_idx), jnp.asarray(spk),
+                                   method=JModel.forward_windows)
+    with torch.no_grad():
+        tz = tmodel.encode_frames(torch.from_numpy(clip))
+        args = (tz, torch.from_numpy(frame_idx).long(), torch.from_numpy(spk).long())
+        preds, z_audio, aligns = tmodel.forward_windows(*args)
+        raw, _, _ = tmodel.forward_windows(*args, raw_pca=True)
+        assert set(preds) == set(jpreds) == {"dgrad_3d_scale", "dgrad_3d_rotat"}
+        for key in preds:
+            assert float(np.abs(preds[key].numpy() - np.asarray(jpreds[key])).max()) < BUDGET
+        assert float(np.abs(z_audio.numpy() - np.asarray(jz)).max()) < BUDGET
+        assert list(aligns) == list(jal)
+        for key in aligns:
+            assert float(np.abs(aligns[key].numpy() - np.asarray(jal[key])).max()) < BUDGET
+        np.testing.assert_array_equal(tmodel.decode_to_anime(preds).numpy(),
+                                      tmodel.decode_to_anime(raw).numpy())
 
 
 def test_init_params_is_seeded(flagship):

@@ -1,0 +1,94 @@
+"""Each hand-written kernel on the card against its plain PyTorch version on
+the same inputs: the serving kernels (flagship widths for the LSTMs, a small
+mesh for decode + solve; max |diff| < 1e-4, decode + solve < 1e-5 m) and the
+training core, forward and backward, at the cluster tiling's edges (forward
+< 1e-4; gradients < 1e-4 of max |reference|; the backward repeats bit for
+bit)."""
+
+import numpy as np
+import pytest
+import torch
+
+from sdfa_tpu_torch.mesh import synthetic_template
+from sdfa_tpu_torch.ops import bilstm2 as K2
+from sdfa_tpu_torch.ops import bilstm_core as K5
+from sdfa_tpu_torch.ops import bilstm_layer as K4
+from sdfa_tpu_torch.ops import decode_solve as K3
+from sdfa_tpu_torch.ops import freq_lstm as K1
+from sdfa_tpu_torch.ops.deform_solver import DeformationSolver
+
+pytestmark = pytest.mark.gpu
+
+
+def _rand(rng, shape, scale):
+    return rng.normal(0, scale, shape).astype(np.float32)
+
+
+def _k1_args(rng, rows, F, C, H, out, bias=True):
+    return [_rand(rng, (rows, F, C), 1.0), _rand(rng, (2, C, 4 * H), 0.1),
+            _rand(rng, (2, H, 4 * H), 0.1), _rand(rng, (2, 4 * H), 0.1) if bias else None,
+            _rand(rng, (F * 2 * H, out), 0.02), _rand(rng, (out,), 0.1) if bias else None]
+
+
+def _core_inputs(steps, rows, hid, seed=0):
+    rng = np.random.default_rng(seed)
+    xp = (0.5 * rng.standard_normal((2, steps, rows, 4 * hid))).astype(np.float32)
+    w_hh = (rng.standard_normal((2, hid, 4 * hid)) / np.sqrt(hid)).astype(np.float32)
+    dout = rng.standard_normal((steps, rows, 2 * hid)).astype(np.float32)
+    return xp, w_hh, dout
+
+
+def test_cuda_kernels_match_plain(cuda):
+    """Each serving kernel on the card against its plain version on the same
+    inputs (flagship widths for the LSTMs, a small mesh for decode+solve)."""
+    rng = np.random.default_rng(4)
+    x1 = [None if a is None else torch.from_numpy(a).to(cuda)
+          for a in _k1_args(rng, 45, 32, 64, 128, 256)]
+    assert float((K1.freq_lstm(*x1) - K1.freq_lstm_plain(*x1)).abs().max()) < 1e-4
+    x2 = [torch.from_numpy(a).to(cuda) for a in (
+        _rand(rng, (7, 64, 256), 0.5), _rand(rng, (2, 256, 1024), 0.06),
+        _rand(rng, (2, 256, 1024), 0.06), _rand(rng, (2, 1024), 0.06),
+        _rand(rng, (2, 512, 1024), 0.06), _rand(rng, (2, 256, 1024), 0.06),
+        _rand(rng, (2, 1024), 0.06))]
+    assert float((K2.bilstm2(*x2) - K2.bilstm2_plain(*x2)).abs().max()) < 1e-4
+    for x4 in (x2[:4], [torch.from_numpy(_rand(rng, (7, 64, 512), 0.5)).to(cuda), *x2[4:6],
+                        None]):
+        assert float((K4.bilstm_layer(*x4) - K4.bilstm_layer_plain(*x4)).abs().max()) < 1e-4
+    # ragged: a second row tile of one row, T = 3, an input width off the product's K tile
+    x2r = [torch.from_numpy(_rand(rng, (33, 3, 100), 0.5)).to(cuda),
+           torch.from_numpy(_rand(rng, (2, 100, 1024), 0.06)).to(cuda), x2[2], None, *x2[4:6], None]
+    assert float((K2.bilstm2(*x2r) - K2.bilstm2_plain(*x2r)).abs().max()) < 1e-4
+    assert float((K4.bilstm_layer(*x2r[:4]) - K4.bilstm_layer_plain(*x2r[:4])).abs().max()) < 1e-4
+    verts, faces, cnst = synthetic_template(0, n_major=8, n_minor=10, n_extra=3, n_free=30)
+    tsolver = DeformationSolver(verts, faces, cnst)
+    n = tsolver.n_tris
+    dsc = K3.prep_consts(_rand(rng, (6 * n, 85), 0.01), _rand(rng, (6 * n,), 0.01),
+                         _rand(rng, (3 * n, 180), 0.01), _rand(rng, (3 * n,), 0.01),
+                         tsolver, cuda)
+    cs = torch.from_numpy(_rand(rng, (11, 85), 1.0)).to(cuda)
+    cr = torch.from_numpy(_rand(rng, (11, 180), 1.0)).to(cuda)
+    err = (K3.decode_solve(cs, cr, dsc) - K3.decode_solve_plain(cs, cr, dsc)).abs().max()
+    assert float(err) < 1e-5
+
+
+@pytest.mark.parametrize("steps,rows,hid", [
+    (5, 7, 128), (3, 1061, 256), (64, 100, 256),
+    # the cluster tiling's edges at both widths: one row; T = 2; T = 1 at one row more than a
+    # tile; more rows than one wave of resident clusters; T = 64 at 100 rows
+    (3, 1, 128), (2, 7, 128), (1, 33, 128), (3, 2113, 128), (64, 100, 128),
+    (3, 1, 256), (2, 7, 256), (1, 17, 256), (3, 257, 256)])
+def test_cuda_training_core_matches_plain(cuda, steps, rows, hid):
+    xp, w_hh, dout = (torch.from_numpy(a).to(cuda) for a in _core_inputs(steps, rows, hid, seed=9))
+    xp.requires_grad_()
+    w_hh.requires_grad_()
+    fwd, bwd = K5.FWD_LAUNCHES, K5.BWD_LAUNCHES
+    out = K5.bilstm_core(xp, w_hh)
+    got = torch.autograd.grad(out, (xp, w_hh), dout)
+    assert (K5.FWD_LAUNCHES, K5.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    ref = K5.bilstm_core_plain(xp, w_hh)
+    want = torch.autograd.grad(ref, (xp, w_hh), dout)
+    assert float((out - ref).abs().max()) < 1e-4
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-4
+    # the partial sums are added in a fixed order: the same inputs give the same bits
+    assert torch.equal(got[0], torch.autograd.grad(K5.bilstm_core(xp, w_hh), (xp,), dout)[0])
