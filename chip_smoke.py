@@ -3,8 +3,8 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py            # about a minute
-    python3 chip_smoke.py --profile  # about two. Also torch.profiler breakdowns: a request
+    python3 chip_smoke.py            # one to two minutes
+    python3 chip_smoke.py --profile  # two to three. Also torch.profiler breakdowns: a request
                                      # (with its host-to-device copies counted), a server tick,
                                      # a train step; the biLSTM step kernel's SM clocks by part
                                      # of a step; the other tile choices of the training core,
@@ -58,8 +58,26 @@ Phases, each printed as one JSON line:
    each read 15, parameters must change, the checkpoint must load back equal,
    and one step through the plain versions from the same state and dropout
    seed must give the same loss and gradients.
+12. data_train: ``synthetic.generate`` writes a dataset (2 speakers x 1
+   sentence x 2 s at FLAME's counts, PCA bases fitted on it);
+   ``api.train_model`` trains 30 steps on it in raw mode (the reader on a
+   prefetch thread, the features made on the card), and the ``bilstm_core``
+   counters must read 90 and 90, every epoch loss be finite and ``last.ckpt``
+   exist; the median interval between step dispatches and the share of wall
+   time the ``Trainer`` waited on its loader are printed. Then the device
+   frontend on one training batch against the host features with the same
+   knobs, 2 steps on host features, two ``PrefetchLoader`` batches from
+   forkserver workers in this CUDA process, and the trained checkpoint served
+   with the dataset's bases: a 3 s request against the float64 solve and the
+   plain versions, the same request through the host frontend
+   (``device_frontend=False``), and fault C4: K3 at the dataset's own
+   projected coefficients (every frame of one sentence) against its plain
+   version and the float64 decode + solve. The loader's forkserver and
+   resource tracker are stopped before the phase ends.
 
-Any failure raises, so the script exits non-zero and prints no result
+Before its last lines the script checks that no process it started is left
+(every process of its process group that was not there when it began). Any
+failure raises, so the script exits non-zero and prints no result
 line. The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -82,11 +100,13 @@ K1_LIVE_ROWS = (12, 128, 512)  # a stream's first block; a block round at capaci
 LIVE_WINDOWS = (128, 512)      # a full tick's suffix call at capacity 8 and 32
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
 TRAIN_STEPS = 5
+DATA_TRAIN_STEPS = 30  # api.train_model from a generated dataset: 6 epochs of 5 batches
 TOL = {"freq_lstm": 1e-4, "bilstm2": 1e-4, "decode_solve": 1e-5, "bilstm_layer": 1e-4,
        "bilstm_core_fwd": 1e-4}  # max |kernel - plain|
 BWD_REL_TOL = 1e-4    # bilstm_core_bwd: max |diff| / max |reference|, for d(xp) and d(w_hh)
 PLAIN_TOL_M = 1e-4    # wav -> vertices through kernels vs through plain versions
 ORACLE_TOL_M = 1e-4   # sampled frames vs the float64 host solve
+FRONTEND_TOL, FRONTEND_CH0_TOL = 2e-3, 5e-4  # device training frontend vs host features
 WIRE_TOL_M = {"f32": 0.0, "i16": 5e-6 + 1e-7, "i8d": 2e-5 + 1e-7}  # a wire vs the f32 wire
 COEF_ORACLE_TOL_M = 1e-6  # the coef wire, decoded on the host, vs the float64 host solve
 STREAM_TOL_M = 1e-5   # streamed vs offline on the same audio (f32 and decoded coef frames)
@@ -101,6 +121,36 @@ HBM_RATE = 3.35e12    # H100 SXM, bytes/s (data sheet)
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def group_processes():
+    """pid -> (state, command line) of every other process in this script's
+    process group, read from /proc."""
+    group, me = os.getpgrp(), os.getpid()
+    found = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == me:
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fp:
+                stat = fp.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as fp:
+                cmd = fp.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:  # it exited while we looked
+            continue
+        state, _ppid, pgrp = stat[stat.rindex(")") + 2:].split()[:3]
+        if int(pgrp) == group:
+            found[int(entry)] = (state, cmd[:200])
+    return found
+
+
+def check_no_process_left(before):
+    """Raises if a process that was not in the group when the script began
+    is still there (running or unreaped)."""
+    left = {pid: v for pid, v in group_processes().items() if pid not in before}
+    emit({"phase": "processes_left", "count": len(left)})
+    if left:
+        raise RuntimeError(f"processes this script started are still there: {left}")
 
 
 def nvidia_smi_line() -> str:
@@ -207,6 +257,7 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; this needs a GPU")
+    processes_before = group_processes()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -603,6 +654,7 @@ def main():
     ts1, v1 = task1.generate_vertices(sig1, 2)
     wall1 = time.perf_counter() - t0
     launches["bilstm_layer"] = bilstm_layer.LAUNCHES
+    path_launches["k4_path"] = {"bilstm_layer": launches["bilstm_layer"]}
     with ops.plain_versions():
         _, v1_plain = task1.generate_vertices(sig1, 2)
     k4_err = float(np.abs(v1 - v1_plain).max())
@@ -655,6 +707,7 @@ def main():
         trainer.train()
         launches["bilstm_core_fwd"] = bilstm_core.FWD_LAUNCHES
         launches["bilstm_core_bwd"] = bilstm_core.BWD_LAUNCHES
+        path_launches["train"] = {k: launches[k] for k in ("bilstm_core_fwd", "bilstm_core_bwd")}
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         step_ms = sorted(1e3 * (b - a) for a, b in zip(stamps, stamps[1:]))
         for i, m in enumerate(trainer.step_metrics):
@@ -732,6 +785,10 @@ def main():
         if "--profile" in sys.argv[1:]:
             profile_train_step(exp, batches, smi, step_ms[len(step_ms) // 2])
 
+    # --- training from a dataset on disk, then its checkpoint served -----------
+    path_launches["data_train"] = data_train_phase(task, sig0, spk0, solver, dev, smi)
+    check_no_process_left(processes_before)
+
     kernels = []
     for name, entry in report.items():
         entry["launches"] = launches[name]
@@ -744,6 +801,226 @@ def main():
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def data_train_phase(task_seeded, sig, spk, solver, dev, smi):
+    """``synthetic.generate`` → ``api.train_model`` (raw mode, thread prefetch,
+    30 steps) → the device frontend against the host features on one batch →
+    2 steps on host features and two ``PrefetchLoader`` batches from forkserver
+    workers → the trained checkpoint served with the dataset's fitted PCA bases
+    → K3 at the dataset's own coefficients (fault C4). Returns the launch
+    counts of the phase's own path (the comparisons after it not counted)."""
+    from sdfa_tpu_torch.ops import bilstm2, decode_solve, freq_lstm
+
+    from sdfa_tpu_torch.data import prefetch
+
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
+    out = {"phase": "data_train", "card": smi}
+    try:
+        return _data_train(out, task_seeded, sig, spk, solver, dev, counters)
+    finally:
+        # the loader's forkserver and resource tracker would only exit after this
+        # process; stop them now, and wait for them
+        prefetch.stop_servers()
+        emit(out)  # what was measured, also when a check failed
+
+
+def _data_train(out, task_seeded, sig, spk, solver, dev, counters):
+    import csv
+
+    import numpy as np
+    import torch
+
+    from sdfa_tpu_torch import api, ops
+    from sdfa_tpu_torch.config import configure
+    from sdfa_tpu_torch.data import DatasetSlidingWindow, synthetic
+    from sdfa_tpu_torch.data import device_features as dfeat
+    from sdfa_tpu_torch.data.prefetch import PrefetchLoader
+    from sdfa_tpu_torch.mesh import FLAME_COUNTS
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import bilstm_core, decode_solve
+    from sdfa_tpu_torch.task import AnimationTask
+    from sdfa_tpu_torch.train import checkpoints
+    from sdfa_tpu_torch.train.trainer import RAW_KEYS
+
+    with tempfile.TemporaryDirectory(prefix="sdfa_chip_data_") as tmp:
+        t0 = time.perf_counter()
+        root = synthetic.generate(os.path.join(tmp, "voca"), "dgrad_3d", speakers=["m0", "f0"],
+                                  sentences_per_speaker=1, seconds_per_sentence=2.0, seed=SEED)
+        pca_on = {"trainer": {"pca_targets": True}}
+        hp = configure("dgrad", dataset_root=root, overrides=pca_on)
+        out["generate_s"] = time.perf_counter() - t0
+        out["train_windows"] = len(DatasetSlidingWindow(hp, training=True))
+
+        # 1. api.train_model: raw mode, thread prefetch, 30 steps; training launches
+        #    bilstm_core only (no validation pass runs K1 / K2, no request K3)
+        bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+        reset_counts(counters)
+        run = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        exp = api.train_model("dgrad", dataset_root=root, log_dir=run, max_steps=DATA_TRAIN_STEPS,
+                              overrides=pca_on, device=dev)
+        out["train_model_s"] = time.perf_counter() - t0
+        path = read_counts(counters, "data_train train_model", zero=tuple(counters))
+        core = (bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES)
+        out["bilstm_core_launches"] = list(core)
+        if core != (3 * DATA_TRAIN_STEPS,) * 2 or exp.step != DATA_TRAIN_STEPS:
+            raise RuntimeError(f"train_model: {exp.step} steps, bilstm_core launches {core}")
+        ckpt = os.path.join(run, "last.ckpt")
+        if not os.path.exists(ckpt):
+            raise RuntimeError("train_model wrote no last.ckpt")
+        with open(os.path.join(run, "train_log", "loss", "epoch-loss.csv"), newline="") as fp:
+            rows = list(csv.DictReader(fp))
+        bad = [(r["epoch"], k) for r in rows for k, v in r.items()
+               if k != "epoch" and not np.isfinite(float(v))]
+        if bad or not rows:
+            raise RuntimeError(f"train_model: non-finite epoch losses {bad} ({len(rows)} rows)")
+        timing = [json.loads(line) for line in open(os.path.join(run, "train_log",
+                                                                  "metrics.jsonl"))]
+        timing = [t for t in timing if t["tag"] == "timing"]
+        out.update(epochs=len(rows), first_epoch_loss=float(rows[0]["train_total"]),
+                   last_epoch_loss=float(rows[-1]["train_total"]),
+                   step_interval_median_ms_by_epoch=[1e3 * t["step_interval_median_s"]
+                                                     for t in timing],
+                   step_interval_median_ms=1e3 * float(np.median(
+                       [t["step_interval_median_s"] for t in timing])),
+                   loader_wait_share=sum(t["loader_wait_s"] for t in timing)
+                   / sum(t["wall_s"] for t in timing))
+
+        # 2. the device frontend on one training batch against the host features
+        ds = DatasetSlidingWindow(hp, training=True)
+        batch = next(ds.raw_batches(int(hp.trainer.anime_loader.batch_size)))
+        with torch.no_grad():
+            got = dfeat.device_train_features(
+                *(torch.from_numpy(batch[k]).to(dev) for k in RAW_KEYS),
+                spec=dfeat.FeatureSpec.from_hparams(hp)).cpu().numpy()
+        want = np.stack([dfeat.host_train_features(
+            *(batch[k][i] for k in RAW_KEYS[:7]), mel_cfg=ds._mel_cfg, sr=ds._sr)
+            for i in range(len(got))])
+        out["frontend"] = {"windows": len(got), "max_abs": float(np.abs(got - want).max()),
+                           "channel0_max_abs": float(np.abs(got[..., 0] - want[..., 0]).max()),
+                           "tol": FRONTEND_TOL, "channel0_tol": FRONTEND_CH0_TOL}
+        if not (out["frontend"]["max_abs"] <= FRONTEND_TOL
+                and out["frontend"]["channel0_max_abs"] <= FRONTEND_CH0_TOL):
+            raise RuntimeError(f"device frontend vs host features: {out['frontend']}")
+
+        # 3. host features: two steps, then two batches from forkserver workers
+        t0 = time.perf_counter()
+        host_exp = api.train_model("dgrad", dataset_root=root, log_dir=os.path.join(tmp, "host"),
+                                   max_steps=2, device=dev,
+                                   overrides={"trainer": {"pca_targets": True,
+                                                          "host_features": True}})
+        out["host_features_train_s"] = time.perf_counter() - t0
+        if host_exp.step != 2:
+            raise RuntimeError(f"host-feature training took {host_exp.step} steps, not 2")
+        want = ds.collate([ds[0], ds[1]])
+        schema = {k: (v.shape[1:], v.dtype) for k, v in want.items()}
+        loader = PrefetchLoader(ds, 4, num_workers=2)
+        got = []
+        t0 = time.perf_counter()
+        for b in loader:
+            got.append(b)
+            if len(got) == 2:
+                break
+        out["prefetch_two_batches_s"] = time.perf_counter() - t0
+        loader.close()  # the loop broke out of the epoch: stop its workers now
+        for b in got:
+            if ({k: (v.shape[1:], v.dtype) for k, v in b.items()} != schema
+                    or len(b["audio_feat"]) != 8):
+                raise RuntimeError("PrefetchLoader batch schema "
+                                   f"{[(k, v.shape, v.dtype) for k, v in b.items()]}")
+        out["prefetch_batch_keys"] = sorted(schema)
+
+        # 4. the trained checkpoint, served with the dataset's fitted PCA bases
+        hp_s = configure("dgrad", dataset_root=root)
+        model = build_model(hp_s)
+        model.load_state_dict(checkpoints.load_checkpoint(ckpt)["model"])
+        served = AnimationTask(hp_s, model, dev)
+        served.warmup(3.0)
+        clip = signal(3.0, int(hp_s.audio.sample_rate), 30)
+        reset_counts(counters)
+        ts, v = served.generate_vertices(clip, 1)
+        for name, n in read_counts(counters, "data_train serve").items():
+            path[name] += n
+        host_task = AnimationTask(hp_s, model, dev, device_frontend=False)
+        reset_counts(counters)
+        ts_h, v_h = host_task.generate_vertices(clip, 1)
+        # the host features take the per-window path, which solves through
+        # frames_to_meshes, not K3
+        for name, n in read_counts(counters, "data_train host frontend",
+                                   zero=("decode_solve",)).items():
+            path[name] += n
+        path["bilstm_core_fwd"], path["bilstm_core_bwd"] = (bilstm_core.FWD_LAUNCHES,
+                                                            bilstm_core.BWD_LAUNCHES)
+        if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
+            raise RuntimeError(f"trained checkpoint: bad output {v.shape}")
+        if ts_h != ts or v_h.shape != v.shape or not np.isfinite(v_h).all():
+            raise RuntimeError(f"host frontend request: bad output {v_h.shape}")
+        with ops.plain_versions():
+            _, v_plain = served.generate_vertices(clip, 1)
+        solver_, consts, dsc = served._decode_consts()
+        sample = sorted({int(i) for i in np.linspace(0, len(ts) - 1, 8)})
+        with torch.inference_mode():
+            frame_idx, _, z, _ = served._overlap_prefix(clip)
+            spk_t = torch.full((len(frame_idx),), 1, dtype=torch.long, device=dev)
+            preds, _, _ = model.forward_windows(z, torch.from_numpy(frame_idx).long().to(dev),
+                                                spk_t, raw_pca=True)
+            dgrad = model.decode_to_anime(preds)[sample, 0].double().cpu().numpy()
+            dt_request = float(decode_solve.delta_transforms(
+                preds["dgrad_3d_scale_pca"][:, 0], preds["dgrad_3d_rotat_pca"][:, 0],
+                dsc).abs().max())
+            # the seeded bases of the serve phase on their first request, for scale
+            idx0, _, z0, _ = task_seeded._overlap_prefix(sig)
+            p0, _, _ = task_seeded.model.forward_windows(
+                z0, torch.from_numpy(idx0).long().to(dev),
+                torch.full((len(idx0),), spk, dtype=torch.long, device=dev), raw_pca=True)
+            dt_seeded = float(decode_solve.delta_transforms(
+                p0["dgrad_3d_scale_pca"][:, 0], p0["dgrad_3d_rotat_pca"][:, 0],
+                task_seeded._decode_consts()[2]).abs().max())
+        oracle = np.stack([solver.solve_host(d) for d in dgrad])
+        out["serve"] = {"audio_s": 3.0, "windows": len(ts),
+                        "oracle_frames": sample,
+                        "oracle_max_abs_m": float(np.abs(v[sample] - oracle).max()),
+                        "plain_max_abs_m": float(np.abs(v - v_plain).max()),
+                        "host_frontend_max_abs_m_vs_device_frontend": float(np.abs(v_h - v).max()),
+                        "max_abs_T_minus_T0": dt_request, "tol_m": ORACLE_TOL_M}
+        if not (out["serve"]["oracle_max_abs_m"] <= ORACLE_TOL_M
+                and out["serve"]["plain_max_abs_m"] <= PLAIN_TOL_M):
+            raise RuntimeError(f"trained checkpoint: {out['serve']}")
+
+        # 5. fault C4: K3 at the dataset's own projected coefficients, every frame of one
+        #    sentence, against its plain version and the float64 decode + solve
+        info = ds.info_list[0]
+        coefs = np.asarray(ds._frame_store(info["npy_data_path:path"], int(info["anime_minfi:int"]),
+                                           int(info["anime_maxfi:int"]))[3], np.float32)
+        ks = model.scale_pca.compT.shape[1]
+        cs = torch.from_numpy(np.ascontiguousarray(coefs[:, :ks])).to(dev)
+        cr = torch.from_numpy(np.ascontiguousarray(coefs[:, ks:])).to(dev)
+        with torch.inference_mode():
+            x_kernel = decode_solve.decode_solve(cs, cr, dsc)
+            torch.cuda.synchronize()
+            x_plain = decode_solve.decode_solve_plain(cs, cr, dsc)
+            verts = decode_solve.assemble_from_free(consts, solver_.spec, x_kernel,
+                                                    consts.template_cnst).cpu().numpy()
+            dt_data = float(decode_solve.delta_transforms(cs, cr, dsc).abs().max())
+        c64 = coefs.astype(np.float64)
+        comp = {n: getattr(model, f"{n}_pca") for n in ("scale", "rotat")}
+        dec = [c64[:, sl] @ comp[n].compT.double().cpu().numpy().T
+               + comp[n].means.double().cpu().numpy()
+               for n, sl in (("scale", slice(0, ks)), ("rotat", slice(ks, None)))]
+        frames64 = np.concatenate([dec[0].reshape(len(c64), -1, 6),
+                                   dec[1].reshape(len(c64), -1, 3)], axis=-1)
+        oracle = np.stack([solver.solve_host(f) for f in frames64])
+        out["c4"] = {"frames": len(coefs), "max_abs_coef": float(np.abs(coefs).max()),
+                     "max_abs_T_minus_T0": dt_data,
+                     "seeded_bases_max_abs_T_minus_T0": dt_seeded,
+                     "kernel_vs_plain_max_abs_m": float((x_kernel - x_plain).abs().max()),
+                     "kernel_vs_float64_max_abs_m": float(np.abs(verts - oracle).max()),
+                     "plain_tol_m": TOL["decode_solve"], "oracle_tol_m": ORACLE_TOL_M}
+        if not (out["c4"]["kernel_vs_plain_max_abs_m"] <= TOL["decode_solve"]
+                and out["c4"]["kernel_vs_float64_max_abs_m"] <= ORACLE_TOL_M):
+            raise RuntimeError(f"C4: K3 at trained magnitudes {out['c4']}")
+    return path
 
 
 def reset_counts(counters):

@@ -64,6 +64,12 @@ class ConfigDict(dict):
     def set_key(self, key, value):
         super().__setitem__(str(key), self._wrap(value))
 
+    def __reduce__(self):
+        # dict-subclass pickling replays items through the (blocked)
+        # __setitem__; rebuild through __init__ instead, so that a ConfigDict
+        # crosses into the worker processes of data/prefetch.py
+        return (ConfigDict, (dict(self),))
+
     def overwrite_by(self, other: Optional[dict]) -> "ConfigDict":
         """Recursive merge; a sub-dict with ``__entirety__: True`` replaces
         the whole subtree instead of merging."""

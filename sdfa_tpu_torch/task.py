@@ -11,6 +11,10 @@ on the vertex wires, the decode + solve kernel from PCA coefficients to
 vertices. The coefficient wires stop at the heads: the client decodes
 (``streaming.CoefDecoder``).
 
+With ``device_frontend=False`` the per-window features come from the host
+(``DatasetSlidingWindow.fetch_audio_features``, numpy) and the request takes
+the per-window path.
+
 Shape policy: the clip's frame count is rounded up to a multiple of 256
 exactly as the JAX package does (``frame_idx`` and ``ts_list`` are
 identical; the extra frames are trailing silence no window reads). The
@@ -34,6 +38,7 @@ from . import ops
 from .audio import dsp
 from .audio.pipeline import (WindowSpec, clip_frame_features_padded, fetch_audio_features_device,
                              mel_from_frames)
+from .data.sliding_window import DatasetSlidingWindow
 from .models.sdfa import SpeechDrivenAnimation
 from .ops.decode_solve import decode_solve_fused, prep_consts
 from .viewer import frame as frame_mod
@@ -108,19 +113,22 @@ class AnimationTask:
                  device_frontend: Optional[bool] = None,
                  overlap_frontend: Optional[bool] = None):
         ops.full_float32()
-        if device_frontend is not None and not device_frontend:
-            raise NotImplementedError("the host-numpy frontend is not ported (ROADMAP queue A4: "
-                                      "it needs data/sliding_window.py)")
         self.hp = hparams
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.wspec = WindowSpec(hparams)
         self.bs = int(batch_windows)
+        # the device frontend unless the caller asks for the host-numpy one
+        # (``DatasetSlidingWindow.fetch_audio_features``, the reference's own
+        # per-window features)
+        self.device_frontend = device_frontend is None or bool(device_frontend)
         # window-overlap path: the per-frame encoder prefix once per clip, the
-        # temporal suffix per window. On whenever the encoder has a usable
-        # prefix; ``overlap_frontend=False`` restores exact per-window semantics.
-        self.overlap_frontend = (overlap_frontend is None or bool(overlap_frontend)) \
-            and model.split > 0
+        # temporal suffix per window. On with the device frontend whenever the
+        # encoder has a usable prefix; ``overlap_frontend=False`` restores exact
+        # per-window semantics.
+        if overlap_frontend is None:
+            overlap_frontend = self.device_frontend
+        self.overlap_frontend = bool(overlap_frontend) and model.split > 0
         self._signal_cache: Tuple[Optional[tuple], Optional[tuple]] = (None, None)
         self._decode = None  # (solver, DeformConsts, DecodeSolveConsts), built on first use
         self._host = HostBuffer()
@@ -240,16 +248,22 @@ class AnimationTask:
             return tslist, animes, others
 
         # per-window path: the features of the last signal are kept (on the
-        # device), keyed on the signal and the ensembling shift
+        # device, or on the host from the host frontend), keyed on the signal
+        # and the ensembling shift
         cache_key = (signal.tobytes(), float(ensembling_ms or 0))
         if self._signal_cache[0] == cache_key:
             features_tuple = self._signal_cache[1]
         else:
-            with torch.inference_mode():
-                features_tuple = (fetch_audio_features_device(signal, self.wspec, self.device),)
-                if ensemble:
-                    features_tuple += (fetch_audio_features_device(
-                        self._shifted(signal, ensembling_ms), self.wspec, self.device),)
+            if self.device_frontend:
+                def fetch(sig):
+                    with torch.inference_mode():
+                        return fetch_audio_features_device(sig, self.wspec, self.device)
+            else:
+                def fetch(sig):
+                    return DatasetSlidingWindow.fetch_audio_features(sig, self.hp)
+            features_tuple = (fetch(signal),)
+            if ensemble:
+                features_tuple += (fetch(self._shifted(signal, ensembling_ms)),)
             self._signal_cache = (cache_key, features_tuple)
         anime_sum, others = self.feature_to_anime(features_tuple[0]["audio_feat"], speaker)
         for extra in features_tuple[1:]:

@@ -10,11 +10,21 @@ tensors: ``audio_feat`` (N, T, F, C), ``speaker_id`` (N,), and the targets
 either as ``dgrad_3d_scale`` / ``dgrad_3d_rotat`` or as PCA coefficients
 ``dgrad_3d_scale_coef`` / ``dgrad_3d_rotat_coef``, decoded on the device
 inside the loss. The first half of a batch is frame i, the second half
-frame i + 1.
+frame i + 1. A raw-mode batch (``DatasetSlidingWindow.raw_batches``)
+carries ``raw_wav`` and the augmentation knobs instead of ``audio_feat``;
+the loss computes the features on the device first
+(``data/device_features.py``).
+
+Batches reach the device through two pinned host buffers that take turns
+(``PinnedUploads``), and the ``Trainer`` fetches batch k + 1 and enqueues its
+upload right after step k is dispatched, before anything of step k is read,
+so that the host's batch preparation overlaps the device's step.
 
 Run directory: ``hparams.json``, ``params_info.txt``,
-``train_log/metrics.jsonl``, ``train_log/loss/epoch-loss.csv`` and the
-checkpoints of ``checkpoints.py``.
+``train_log/metrics.jsonl`` (with one ``timing`` line per epoch: wall time,
+the time the ``Trainer`` waited on its loader, the median interval between
+step dispatches), ``train_log/loss/epoch-loss.csv`` and the checkpoints of
+``checkpoints.py``.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from torch.profiler import record_function
 
 from .. import ops
 from ..compat.from_flax import init_params
+from ..data.device_features import FeatureSpec, device_train_features
 from ..models import losses as L
 from ..models.sdfa import SpeechDrivenAnimation
 from ..nn.layers import set_dropout_generator
@@ -42,6 +53,9 @@ log = logging.getLogger(__name__)
 
 SCALER_NAMES = ("dyn_p_scale", "dyn_m_scale", "dyn_p_rotat", "dyn_m_rotat", "dyn_e")
 METRICS_EVERY = 50  # steps between lines of metrics.jsonl
+RAW_KEYS = ("raw_wav", "preemph", "t_idx", "f_idx", "feat_scale", "drop_rows", "drop_is_max",
+            "drop_thres")  # a raw-mode batch's frontend inputs, in device_train_features' order
+HOST_ONLY = ("signal",)  # batch entries that never go to the device (summary audio clips)
 
 
 def make_loss_fn(model: SpeechDrivenAnimation, hparams):
@@ -56,9 +70,17 @@ def make_loss_fn(model: SpeechDrivenAnimation, hparams):
     p_scale = float(hp_loss.get("ploss_scale", 1))
     m_scale = float(hp_loss.get("mloss_scale", 1))
     weight_key = hp_loss.get("anime_loss_weight")
+    feat_spec = None  # built on the first raw batch: a run on features needs no mel config
 
     def loss_fn(scalers: Dict[str, L.ScalerState], batch, training: bool):
-        audio_feat = batch["audio_feat"]
+        nonlocal feat_spec
+        if "raw_wav" in batch:
+            # the host shipped raw windows and augmentation knobs only
+            if feat_spec is None:
+                feat_spec = FeatureSpec.from_hparams(hparams)
+            audio_feat = device_train_features(*(batch[k] for k in RAW_KEYS), spec=feat_spec)
+        else:
+            audio_feat = batch["audio_feat"]
         preds, _ = model(audio_feat, batch["speaker_id"], decode=is_face_data)
         weights = batch.get(weight_key) if weight_key else None
         if weights is None:
@@ -141,6 +163,52 @@ def step_seed(seed: int, step: int) -> int:
     return (int(seed) * 1_000_003 + int(step)) % (2 ** 63 - 1)
 
 
+class PinnedUploads:
+    """Host → device copies of batches through two pinned buffers that take
+    turns. A batch's arrays are packed into one buffer, each copied with
+    ``non_blocking`` on the current stream, and an event is recorded after the
+    copies; a buffer is refilled only once its event has passed, so no copy
+    still in flight reads a rewritten buffer. Tensors already on a device pass
+    through; for a CPU device the arrays are taken as they are."""
+
+    ALIGN = 256  # bytes between two arrays in a buffer
+
+    def __init__(self):
+        self._bufs: List[Optional[torch.Tensor]] = [None, None]
+        self._done: List[Optional[torch.cuda.Event]] = [None, None]
+        self._turn = 0
+
+    def put(self, batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+        if device.type != "cuda":
+            return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        out, host = {}, {}
+        for key, val in batch.items():
+            if torch.is_tensor(val) and val.device.type != "cpu":
+                out[key] = val.to(device, non_blocking=True)
+            else:
+                host[key] = val.numpy() if torch.is_tensor(val) else np.asarray(val)
+        if not host:
+            return out
+        i, self._turn = self._turn, self._turn ^ 1
+        if self._done[i] is not None:
+            self._done[i].synchronize()
+        offsets, n = {}, 0
+        for key, arr in host.items():
+            offsets[key] = n
+            n += -(-arr.nbytes // self.ALIGN) * self.ALIGN
+        if self._bufs[i] is None or self._bufs[i].numel() < n:
+            self._bufs[i] = torch.empty(max(n, 1), dtype=torch.uint8, pin_memory=True)
+        for key, arr in host.items():
+            dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+            staged = self._bufs[i][offsets[key]:offsets[key] + arr.nbytes].view(dtype)
+            staged = staged.view(arr.shape)
+            staged.numpy()[...] = arr
+            out[key] = staged.to(device, non_blocking=True)
+        self._done[i] = torch.cuda.Event()
+        self._done[i].record(torch.cuda.current_stream(device))
+        return out
+
+
 class Experiment:
     """Composition root: run directory, model and optimizer state, the train
     and eval steps, checkpoints, metric writers."""
@@ -165,6 +233,7 @@ class Experiment:
         self.dropout_gen = torch.Generator(device=self.device)
         set_dropout_generator(self.model, self.dropout_gen)
         self.loss_fn = make_loss_fn(self.model, hparams)
+        self._uploads = PinnedUploads()
         self._dump_params_info()
         if load_from:
             self.load(load_from)
@@ -181,9 +250,11 @@ class Experiment:
 
     # -- steps ---------------------------------------------------------------
     def put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Host batch (numpy arrays or tensors) → tensors on the device."""
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        """Host batch (numpy arrays or tensors) → tensors on the device, through
+        pinned memory on a card; tensors already on the device pass through,
+        host-only entries are left out."""
+        return self._uploads.put({k: v for k, v in batch.items() if k not in HOST_ONLY},
+                                 self.device)
 
     def current_lr(self) -> Tuple[float, float]:
         """(lr, beta1) for the next step. In step mode the schedule is read
@@ -326,6 +397,7 @@ class Trainer:
         self.step_metrics: List[Dict[str, float]] = []  # the last epoch's, one dict per step
         self._history: Optional[List[dict]] = None
         self._steps_seen = 0
+        self.loader_wait_s = 0.0  # time spent waiting on the train loader, over the run
 
     def _load_loss_history(self):
         """Prior epochs' loss rows from the run directory; rows at or past the
@@ -395,12 +467,29 @@ class Trainer:
                      time.time() - t0, train_metrics.get("scalar_ploss", float("nan")))
         exp.save()
 
+    def _fetch_put(self, loader_it) -> Optional[Dict[str, torch.Tensor]]:
+        """The next batch with its upload enqueued, or None at the end of the
+        epoch; the wait on the loader is counted in ``loader_wait_s``."""
+        t0 = time.perf_counter()
+        batch = next(loader_it, None)
+        self.loader_wait_s += time.perf_counter() - t0
+        if batch is None:
+            return None
+        return self.exp.put_batch(batch)
+
     def _train_epoch(self) -> Dict[str, float]:
         exp = self.exp
         device_metrics = []  # stay on the device; fetched once at the epoch's end
         self._run_hooks("prev_train", epoch=exp.epoch)
-        for batch in self.train_loader:
+        t_start, wait_start, stamps = time.perf_counter(), self.loader_wait_s, []
+        loader_it = iter(self.train_loader)
+        batch = self._fetch_put(loader_it)
+        while batch is not None:
+            stamps.append(time.perf_counter())
             metrics = exp.train_step(batch)
+            # batch k + 1 is fetched and its upload enqueued behind step k's
+            # kernels before anything of step k is read
+            batch = self._fetch_put(loader_it)
             device_metrics.append(metrics)
             self._steps_seen += 1
             if self.save_gap_steps and self._steps_seen % self.save_gap_steps == 0:
@@ -409,6 +498,13 @@ class Trainer:
                 exp.write_metrics("train", _to_host([metrics])[0], exp.step)
         self._run_hooks("post_train", epoch=exp.epoch)
         self.step_metrics = _to_host(device_metrics)
+        if stamps:
+            intervals = np.diff(stamps)
+            exp.write_metrics("timing", {
+                "wall_s": time.perf_counter() - t_start, "steps": len(stamps),
+                "loader_wait_s": self.loader_wait_s - wait_start,
+                "step_interval_median_s": float(np.median(intervals)) if len(intervals)
+                else float("nan")}, exp.step)
         return _mean(self.step_metrics)
 
     def _validate(self) -> Dict[str, float]:

@@ -135,16 +135,18 @@ def test_generate_vertices_matches_jax(tasks, seconds, speaker):
 
 def test_warmup_and_unported_wires(tasks):
     """``warmup`` takes the reference's arguments; a wire neither side knows is
-    a ``ValueError`` with the reference's text; the host-numpy frontend, the
-    one piece of the task that is not ported, says so."""
+    a ``ValueError`` with the reference's text; the host-numpy frontend builds
+    and takes the per-window path, as the JAX task's does (its parity:
+    ``tests/test_torch_data.py::test_host_frontend_task_matches_jax``)."""
     jtask, ttask, _ = tasks
     assert ttask.warmup(seconds=0.3) >= 0.0
     assert ttask.warmup(0.3, "i16", 1) >= 0.0
     for task in (jtask, ttask):
         with pytest.raises(ValueError, match="unknown wire format 'i4'"):
             task.generate_vertices(_signal(0.3, 1), 0, wire="i4")
-    with pytest.raises(NotImplementedError, match="A4"):
-        TTask(ttask.hp, ttask.model, "cpu", device_frontend=False)
+    host = TTask(ttask.hp, ttask.model, "cpu", device_frontend=False)
+    assert not host.device_frontend and not host.overlap_frontend
+    assert ttask.device_frontend and ttask.overlap_frontend
 
 
 def test_task_switches_tf32_off(tasks):

@@ -159,3 +159,66 @@ def test_k_parts_small_solver():
     """The small solver's K is a few k tiles: one part."""
     assert K3.k_parts(48, 128, 3 * 256, 264) == 1
     assert K3.k_parts(3, 128, 3 * 128 * 16, 264) == 3 * 128 * 16 // K3.K_TILE // K3.MIN_PART_TILES
+
+
+@pytest.fixture(scope="module")
+def fitted(tmp_path_factory):
+    """Fault C4: PCA bases fitted by the port's ``synthetic._fit_pca`` on frames
+    made as ``synthetic.generate`` makes them, at the small solver's triangle
+    count, and the reader's own projected target coefficients of every frame
+    (the magnitudes training aims at)."""
+    from sdfa_tpu_torch.config import configure
+    from sdfa_tpu_torch.data import DatasetSlidingWindow, synthetic
+
+    verts, faces, cnst = synthetic_template(0, n_major=8, n_minor=10, n_extra=3, n_free=30)
+    solver = DeformationSolver(verts, faces, cnst)
+    root = str(tmp_path_factory.mktemp("c4") / "voca")
+    saved = synthetic.N_TRIS
+    synthetic.N_TRIS = solver.n_tris
+    try:
+        synthetic.generate(root, "dgrad_3d", speakers=["m0", "f0"], sentences_per_speaker=1,
+                           seconds_per_sentence=2.0)  # the shipped 85 + 180 coefficients
+    finally:
+        synthetic.N_TRIS = saved
+    reader = DatasetSlidingWindow(configure("dgrad", dataset_root=root,
+                                            overrides={"trainer": {"pca_targets": True}}), True)
+    coefs = np.concatenate([np.asarray(reader._frame_store(
+        info["npy_data_path:path"], info["anime_minfi:int"], info["anime_maxfi:int"])[3])
+        for info in reader.info_list])
+    (sc, sm), (rc, rm) = reader._pca_mats
+    dsc = K3.prep_consts(sc, sm, rc, rm, solver, "cpu")
+    ks = sc.shape[1]
+    return dict(dsc=dsc, cs=torch.from_numpy(coefs[:, :ks].copy()),
+                cr=torch.from_numpy(coefs[:, ks:].copy()), n_frames=len(coefs))
+
+
+def test_fitted_bases_rounded_product_within_budgets(fitted, small):
+    """K3's TF32 product at trained magnitudes: within 1e-5 m of the plain
+    version and 1e-4 m of the float64 decode + product, on every frame."""
+    dsc, cs, cr = fitted["dsc"], fitted["cs"], fitted["cr"]
+    assert fitted["n_frames"] == 240 and cs.shape[1] == 85 and cr.shape[1] == 180
+    got = K3.decode_solve_rounded(cs, cr, dsc)
+    plain = K3.decode_solve_plain(cs, cr, dsc)
+    exact = K3.decode_solve_plain(cs.double(), cr.double(),
+                                  K3.DecodeSolveConsts(*(t.double() for t in dsc)))
+    assert float((got - plain).abs().max()) <= KERNEL_TOL_M
+    assert float((got.double() - exact).abs().max()) <= 1e-4
+    # the fitted bases reach further from T0 than the seeded ones the card held before
+    dt_fitted = float(K3.delta_transforms(cs, cr, dsc).abs().max())
+    dt_seeded = float(K3.delta_transforms(small["cs"], small["cr"], small["dsc"]).abs().max())
+    assert np.isfinite(dt_fitted) and dt_fitted > 0.05 and dt_seeded > 0
+
+
+def test_fitted_bases_truncation_would_err_further(fitted):
+    """At trained magnitudes, as at seeded ones: operands left to the tensor
+    cores' truncation err further from the float64 product than rounded ones."""
+    dsc, cs, cr = fitted["dsc"], fitted["cs"], fitted["cr"]
+    _, tp, nf = dsc.p.shape
+    exact = K3.decode_solve_plain(cs.double(), cr.double(),
+                                  K3.DecodeSolveConsts(*(t.double() for t in dsc)))
+    truncated_p = dsc._replace(p_t=torch.nn.functional.pad(
+        K3.truncate_tf32(dsc.p.reshape(3 * tp, nf).T), (0, 0, 0, dsc.p_t.shape[0] - nf)))
+    err_round = (K3.decode_solve_rounded(cs, cr, dsc).double() - exact).abs()
+    err_trunc = (K3.decode_solve_rounded(cs, cr, truncated_p, rounding=K3.truncate_tf32)
+                 .double() - exact).abs()
+    assert float(err_trunc.mean()) > 1.5 * float(err_round.mean())
