@@ -6,6 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py            # one to two minutes
     python3 chip_smoke.py --profile  # two to three. Also torch.profiler breakdowns: a request
                                      # (with its host-to-device copies counted), a server tick,
+                                     # both also for the offsets model,
                                      # a train step; the biLSTM step kernel's SM clocks by part
                                      # of a step; the other tile choices of the training core,
                                      # of FreqLstm's step loop and of the solve product
@@ -74,6 +75,20 @@ Phases, each printed as one JSON line:
    projected coefficients (every frame of one sentence) against its plain
    version and the float64 decode + solve. The loader's forkserver and
    resource tracker are stopped before the phase ends.
+13. offsets: the shipped ``offsets`` config (``verts_off_3d``) at full width, seeded
+   weights and seeded PCA bases at 15069 x 59, over the same template: three 3 s
+   requests, each with ``freq_lstm`` / ``bilstm2`` / ``decode_solve`` launched 1 / 1 /
+   0 times, against the plain versions and against a float64 host decode of the
+   card's own coefficients; the first request on i16 and i8d against f32, the coef
+   wire refused; one ``StreamingSession`` against the offline request
+   (``offsets_session`` line); ``StreamingServer(capacity=8)`` on i16, each stream
+   against its own offline request (``offsets_server`` line). ``decode_solve`` must
+   stay at 0 throughout.
+14. offsets_train: ``synthetic.generate`` of a ``verts_off_3d`` dataset at the
+   ``data_train`` size (PCA fitted on it, 59 components); ``api.train_model("offsets")``
+   for 30 raw-mode steps with PCA targets (``bilstm_core`` 90 and 90, K1 / K2 / K3 0,
+   the epoch position loss falling); the trained checkpoint serving a 3 s request
+   against the float64 host decode and the plain versions.
 
 Before its last lines the script checks that no process it started is left
 (every process of its process group that was not there when it began). Any
@@ -109,6 +124,8 @@ ORACLE_TOL_M = 1e-4   # sampled frames vs the float64 host solve
 FRONTEND_TOL, FRONTEND_CH0_TOL = 2e-3, 5e-4  # device training frontend vs host features
 WIRE_TOL_M = {"f32": 0.0, "i16": 5e-6 + 1e-7, "i8d": 2e-5 + 1e-7}  # a wire vs the f32 wire
 COEF_ORACLE_TOL_M = 1e-6  # the coef wire, decoded on the host, vs the float64 host solve
+OFFSETS_PLAIN_TOL_M = 1e-5  # the offsets model: a request through kernels vs plain versions
+OFFSETS_HOST_TOL_M = 1e-6   # ... and vs its coefficients decoded on the host in float64
 STREAM_TOL_M = 1e-5   # streamed vs offline on the same audio (f32 and decoded coef frames)
 SOCKET_TIMEOUT_S = 120.0
 STEP_LOSS_RTOL = 1e-5  # train step, kernels vs plain versions: total loss
@@ -787,6 +804,10 @@ def main():
 
     # --- training from a dataset on disk, then its checkpoint served -----------
     path_launches["data_train"] = data_train_phase(task, sig0, spk0, solver, dev, smi)
+
+    # --- the offsets model family: served, streamed, then trained from disk and served ---
+    path_launches["offsets"] = offsets_phase(dev, sr, smi)
+    path_launches["offsets_train"] = offsets_train_phase(dev, smi)
     check_no_process_left(processes_before)
 
     kernels = []
@@ -875,17 +896,8 @@ def _data_train(out, task_seeded, sig, spk, solver, dev, counters):
                if k != "epoch" and not np.isfinite(float(v))]
         if bad or not rows:
             raise RuntimeError(f"train_model: non-finite epoch losses {bad} ({len(rows)} rows)")
-        timing = [json.loads(line) for line in open(os.path.join(run, "train_log",
-                                                                  "metrics.jsonl"))]
-        timing = [t for t in timing if t["tag"] == "timing"]
         out.update(epochs=len(rows), first_epoch_loss=float(rows[0]["train_total"]),
-                   last_epoch_loss=float(rows[-1]["train_total"]),
-                   step_interval_median_ms_by_epoch=[1e3 * t["step_interval_median_s"]
-                                                     for t in timing],
-                   step_interval_median_ms=1e3 * float(np.median(
-                       [t["step_interval_median_s"] for t in timing])),
-                   loader_wait_share=sum(t["loader_wait_s"] for t in timing)
-                   / sum(t["wall_s"] for t in timing))
+                   last_epoch_loss=float(rows[-1]["train_total"]), **train_timing(run))
 
         # 2. the device frontend on one training batch against the host features
         ds = DatasetSlidingWindow(hp, training=True)
@@ -1023,6 +1035,253 @@ def _data_train(out, task_seeded, sig, spk, solver, dev, counters):
     return path
 
 
+def train_timing(run) -> dict:
+    """The ``Trainer``'s timing lines of a run directory: the median interval
+    between step dispatches, by epoch and over the run, and the share of wall
+    time spent waiting on the loader."""
+    import numpy as np
+
+    with open(os.path.join(run, "train_log", "metrics.jsonl")) as fp:
+        timing = [t for t in map(json.loads, fp) if t["tag"] == "timing"]
+    by_epoch = [1e3 * t["step_interval_median_s"] for t in timing]
+    return {"step_interval_median_ms_by_epoch": by_epoch,
+            "step_interval_median_ms": float(np.median(by_epoch)),
+            "loader_wait_share": sum(t["loader_wait_s"] for t in timing)
+            / sum(t["wall_s"] for t in timing)}
+
+
+def offsets_host_decode(task, sig, spk):
+    """A request's vertices decoded on the host in float64 from the card's own
+    coefficients: coefficients · compTᵀ + means (+ the template for offsets)."""
+    import numpy as np
+    import torch
+
+    from sdfa_tpu_torch.viewer import frame
+
+    model = task.model
+    with torch.inference_mode():
+        frame_idx, _, z, _ = task._overlap_prefix(sig)
+        spk_t = torch.full((len(frame_idx),), spk, dtype=torch.long, device=task.device)
+        preds, _, _ = model.forward_windows(z, torch.from_numpy(frame_idx).long().to(task.device),
+                                            spk_t, raw_pca=True)
+    coefs = preds[f"{model.face_type}_pca"][:, 0].double().cpu().numpy()
+    flat = (coefs @ model.pca.compT.detach().double().cpu().numpy().T
+            + model.pca.means.detach().double().cpu().numpy())
+    if model.face_type == "verts_off_3d":
+        flat = flat + frame.template()[0].astype(np.float64).reshape(-1)
+    return flat.reshape(len(frame_idx), -1, 3)
+
+
+def offsets_phase(dev, sr, smi):
+    """The shipped offsets model (``configs/model/offsets.py``) at full width,
+    seeded, over the template the dgrad phases installed: three 3 s requests on
+    the f32 wire, each against the plain versions and against a float64 host
+    decode of the card's own coefficients, with K1 / K2 / K3 counted per
+    request (1 / 1 / 0: the offsets decode is one PCA product, no solve); the
+    first request on i16 and i8d against f32, coef refused; one
+    ``StreamingSession`` against the offline request; a ``StreamingServer`` at
+    capacity 8 on i16, each stream against its own offline request. Returns
+    the launch counts of the requests, the session and the server."""
+    import numpy as np
+
+    from sdfa_tpu_torch import ops
+    from sdfa_tpu_torch.compat import init_params
+    from sdfa_tpu_torch.config import configure
+    from sdfa_tpu_torch.mesh import FLAME_COUNTS
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import bilstm2, decode_solve, freq_lstm
+    from sdfa_tpu_torch.streaming import StreamingServer
+    from sdfa_tpu_torch.task import AnimationTask
+    from sdfa_tpu_torch.viewer import frame
+
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
+    hp = configure("offsets")
+    rng = np.random.default_rng(SEED + 1)
+    n3 = 3 * FLAME_COUNTS[0]
+    # offsets of a few millimetres: 59 seeded components around seeded means
+    pca = {"compT": rng.normal(0, 0.002, (n3, 59)).astype(np.float32),
+           "means": rng.normal(0, 0.002, (n3,)).astype(np.float32)}
+    model = init_params(build_model(hp, pca=pca), SEED)
+    task = AnimationTask(hp, model, dev)
+    warm_s = task.warmup(3.0)
+    out = {"phase": "offsets", "params": sum(p.numel() for p in model.parameters()),
+           "output_dim": int(model.pca.compT.shape[0]),
+           "coefficients": int(model.pca.compT.shape[1]), "warmup_s": warm_s, "card": smi}
+    path = {name: 0 for name in counters}
+
+    def add(counts):
+        for name, n in counts.items():
+            path[name] += n
+
+    requests = [(signal(3.0, sr, 50 + i), spk) for i, spk in enumerate((1, 4, 7))]
+    outs, walls, plain_errs, host_errs = [], [], [], []
+    for k, (sig, spk) in enumerate(requests):
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        ts, v = task.generate_vertices(sig, spk)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        counts = read_counts(counters, f"offsets request {k}", zero=("decode_solve",))
+        if (counts["freq_lstm"], counts["bilstm2"]) != (1, 1):
+            raise RuntimeError(f"offsets request {k}: launches {counts}, expected K1 1 / K2 1")
+        add(counts)
+        if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
+            raise RuntimeError(f"offsets request {k}: bad output {v.shape}")
+        with ops.plain_versions():
+            _, v_plain = task.generate_vertices(sig, spk)
+        plain_errs.append(max_err(v, v_plain))
+        host_errs.append(float(np.abs(v - offsets_host_decode(task, sig, spk)).max()))
+        outs.append((ts, v))
+    out.update(requests=len(requests), audio_s_each=3.0, windows=[len(ts) for ts, _ in outs],
+               request_wall_ms=walls, launches_per_request={"freq_lstm": 1, "bilstm2": 1,
+                                                            "decode_solve": 0},
+               plain_max_abs_m=plain_errs, plain_tol_m=OFFSETS_PLAIN_TOL_M,
+               float64_max_abs_m=host_errs, float64_tol_m=OFFSETS_HOST_TOL_M,
+               offsets_max_abs_m=float(np.abs(outs[0][1] - frame.template()[0]).max()))
+    if not max(plain_errs) <= OFFSETS_PLAIN_TOL_M:
+        raise RuntimeError(f"offsets, kernels vs plain versions: {plain_errs} m")
+    if not max(host_errs) <= OFFSETS_HOST_TOL_M:
+        raise RuntimeError(f"offsets vs the float64 host decode: {host_errs} m")
+
+    (ts0, v0), (sig0, spk0) = outs[0], requests[0]
+    wires = {}
+    for wire in ("i16", "i8d"):
+        task.generate_vertices(sig0, spk0, wire=wire)  # the wire's own first call
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        ts, v = task.generate_vertices(sig0, spk0, wire=wire)
+        wall = 1e3 * (time.perf_counter() - t0)
+        add(read_counts(counters, f"offsets wire {wire}", zero=("decode_solve",)))
+        wires[wire] = {"max_abs_m_vs_f32": max_err(v, v0), "tol_m": WIRE_TOL_M[wire],
+                       "wall_ms": wall}
+        if ts != ts0 or not wires[wire]["max_abs_m_vs_f32"] <= WIRE_TOL_M[wire]:
+            raise RuntimeError(f"offsets wire {wire}: {wires[wire]}")
+    try:
+        task.generate_vertices(sig0, spk0, wire="coef")
+    except ValueError as exc:
+        wires["coef"] = f"refused: {exc}"
+    else:
+        raise RuntimeError("offsets: the coef wire was not refused")
+    out["wires"] = wires
+    emit(out)
+
+    add(session_phase(task, counters, sig0, spk0, ts0, v0, smi, phase="offsets_session",
+                      zero=("decode_solve",)))
+
+    n, emit_batch, block = 8, 16, 16
+    per_tick = 2 * block * task.wspec.hop_size
+    clips = [signal(2.0 + 0.125 * k, sr, 140 + k) for k in range(n)]
+    offline = [task.generate_vertices(c, k) for k, c in enumerate(clips)]
+    srv = StreamingServer(task, capacity=n, emit_batch=emit_batch, block_frames=block, wire="i16")
+    drive_server(srv, clips[:2], [0, 1], per_tick)  # warm-up on the same server
+    reset_counts(counters)
+    got, tick_ms, tick_frames = drive_server(srv, clips, list(range(n)), per_tick)
+    add(read_counts(counters, "offsets server", zero=("decode_solve",)))
+    tol = WIRE_TOL_M["i16"] + STREAM_TOL_M
+    errs = []
+    for k, frames in enumerate(got):
+        ts_ref, v_ref = offline[k]
+        if [t for t, _ in frames] != list(ts_ref):
+            raise RuntimeError(f"offsets server: stream {k}'s timeline differs from offline")
+        errs.append(max_err(np.stack([v for _, v in frames]), v_ref))
+    full = sorted(ms for ms, fr in zip(tick_ms, tick_frames) if fr >= n * (emit_batch - 2))
+    fps = sum(tick_frames) / (sum(tick_ms) / 1e3)
+    emit({"phase": "offsets_server", "capacity": n, "wire": "i16", "streams": n,
+          "max_abs_m_vs_offline": max(errs), "tol_m": tol, "ticks": len(tick_ms),
+          "full_ticks": len(full),
+          "full_tick_wall_ms_median": full[len(full) // 2] if full else None,
+          "full_tick_wall_ms_min_max": [full[0], full[-1]] if full else None,
+          "frames_per_s": fps, "times_real_time": fps / (60.0 * n), "card": smi})
+    if not max(errs) <= tol:
+        raise RuntimeError(f"offsets server: {max(errs)} m from offline > {tol}")
+    if path["decode_solve"] != 0:
+        raise RuntimeError(f"offsets: decode_solve launched {path['decode_solve']} times")
+    if "--profile" in sys.argv[1:]:
+        profile_serving(task, requests, sorted(walls)[1], smi, phase="profile_offsets_serve")
+        profile_server_tick(task, sr, smi, phase="profile_offsets_server_tick")
+    return path
+
+
+def offsets_train_phase(dev, smi):
+    """``synthetic.generate(face_type="verts_off_3d")`` at FLAME's counts (the
+    ``data_train`` size, PCA fitted on the data: 59 components) →
+    ``api.train_model("offsets")`` for 30 raw-mode steps with PCA targets (the
+    ``bilstm_core`` counters must read 90 and 90, K1 / K2 / K3 0, the
+    position loss must fall) → the trained checkpoint serving a 3 s request against the
+    float64 host decode and the plain versions. Returns the phase's launch
+    counts (the comparison with the plain versions not counted)."""
+    import csv
+
+    import numpy as np
+
+    from sdfa_tpu_torch import api, ops
+    from sdfa_tpu_torch.config import configure
+    from sdfa_tpu_torch.data import synthetic
+    from sdfa_tpu_torch.mesh import FLAME_COUNTS
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import bilstm2, bilstm_core, decode_solve, freq_lstm
+    from sdfa_tpu_torch.task import AnimationTask
+    from sdfa_tpu_torch.train import checkpoints
+
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
+    out = {"phase": "offsets_train", "card": smi}
+    with tempfile.TemporaryDirectory(prefix="sdfa_chip_offsets_") as tmp:
+        t0 = time.perf_counter()
+        root = synthetic.generate(os.path.join(tmp, "voca"), "verts_off_3d",
+                                  speakers=["m0", "f0"], sentences_per_speaker=1,
+                                  seconds_per_sentence=2.0, seed=SEED)
+        out["generate_s"] = time.perf_counter() - t0
+        pca_on = {"trainer": {"pca_targets": True}}
+        bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+        reset_counts(counters)
+        run = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        exp = api.train_model("offsets", dataset_root=root, log_dir=run,
+                              max_steps=DATA_TRAIN_STEPS, overrides=pca_on, device=dev)
+        out["train_model_s"] = time.perf_counter() - t0
+        path = read_counts(counters, "offsets_train train_model", zero=tuple(counters))
+        core = (bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES)
+        path.update(bilstm_core_fwd=core[0], bilstm_core_bwd=core[1])
+        out["bilstm_core_launches"] = list(core)
+        if core != (3 * DATA_TRAIN_STEPS,) * 2 or exp.step != DATA_TRAIN_STEPS:
+            raise RuntimeError(f"offsets train_model: {exp.step} steps, bilstm_core {core}")
+        with open(os.path.join(run, "train_log", "loss", "epoch-loss.csv"), newline="") as fp:
+            rows = list(csv.DictReader(fp))
+        losses = [float(r["train_total"]) for r in rows]
+        ploss = [float(r["train_scalar_ploss"]) for r in rows]
+        out.update(epochs=len(rows), epoch_loss=losses, epoch_scalar_ploss=ploss,
+                   scalers=sorted(exp.scalers), **train_timing(run))
+        # the total is divided by each term's running RMS (dynamic scalers), so the
+        # raw position loss is what must fall
+        if not (rows and np.isfinite(losses).all() and ploss[-1] < ploss[0]):
+            raise RuntimeError(f"offsets train_model: the loss did not fall: {ploss}")
+
+        hp_s = configure("offsets", dataset_root=root)
+        model = build_model(hp_s)
+        model.load_state_dict(checkpoints.load_checkpoint(os.path.join(run, "last.ckpt"))["model"])
+        served = AnimationTask(hp_s, model, dev)
+        served.warmup(3.0)
+        clip = signal(3.0, int(hp_s.audio.sample_rate), 70)
+        reset_counts(counters)
+        ts, v = served.generate_vertices(clip, 1)
+        for name, n in read_counts(counters, "offsets_train serve",
+                                   zero=("decode_solve",)).items():
+            path[name] += n
+        if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
+            raise RuntimeError(f"offsets trained checkpoint: bad output {v.shape}")
+        with ops.plain_versions():
+            _, v_plain = served.generate_vertices(clip, 1)
+        out["serve"] = {"audio_s": 3.0, "windows": len(ts),
+                        "float64_max_abs_m": float(np.abs(
+                            v - offsets_host_decode(served, clip, 1)).max()),
+                        "plain_max_abs_m": max_err(v, v_plain),
+                        "float64_tol_m": OFFSETS_HOST_TOL_M, "plain_tol_m": OFFSETS_PLAIN_TOL_M}
+        emit(out)
+        if not (out["serve"]["float64_max_abs_m"] <= OFFSETS_HOST_TOL_M
+                and out["serve"]["plain_max_abs_m"] <= OFFSETS_PLAIN_TOL_M):
+            raise RuntimeError(f"offsets trained checkpoint: {out['serve']}")
+    return path
+
+
 def reset_counts(counters):
     for mod in counters.values():
         mod.LAUNCHES = 0
@@ -1113,8 +1372,9 @@ def wires_phase(task, counters, sig, spk, v_f32, sample, oracle, smi):
     return launches["i16"]
 
 
-def session_phase(task, counters, sig, spk, ts_ref, v_ref, smi):
-    """One ``StreamingSession`` fed the clip in uneven chunks, then flushed."""
+def session_phase(task, counters, sig, spk, ts_ref, v_ref, smi, phase="session", zero=()):
+    """One ``StreamingSession`` fed the clip in uneven chunks, then flushed;
+    the counters named in ``zero`` must not move."""
     import numpy as np
 
     def run():
@@ -1133,14 +1393,14 @@ def session_phase(task, counters, sig, spk, ts_ref, v_ref, smi):
     t0 = time.perf_counter()
     got, live = run()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    launches = read_counts(counters, "session")
+    launches = read_counts(counters, phase, zero=zero)
     err = max_err(np.stack([v for _, v in got]), v_ref)
-    emit({"phase": "session", "frames": len(got), "frames_before_flush": live,
+    emit({"phase": phase, "frames": len(got), "frames_before_flush": live,
           "timeline_equal": [t for t, _ in got] == list(ts_ref), "max_abs_m_vs_offline": err,
           "tol_m": STREAM_TOL_M, "wall_ms": wall_ms, "wall_ms_per_frame": wall_ms / len(got),
           "launches": launches, "card": smi})
     if [t for t, _ in got] != list(ts_ref) or not err <= STREAM_TOL_M:
-        raise RuntimeError(f"session vs offline: timeline or vertices differ ({err} m)")
+        raise RuntimeError(f"{phase} vs offline: timeline or vertices differ ({err} m)")
     return launches
 
 
@@ -1328,7 +1588,7 @@ def tcp_phase(task, counters, sr, smi):
     return launches
 
 
-def profile_server_tick(task, sr, smi):
+def profile_server_tick(task, sr, smi, phase="profile_server_tick"):
     """Full ticks of an i16 server at capacity 8 under ``torch.profiler``:
     device time by kernel per tick (two block rounds, one suffix call of up to
     128 windows, one download)."""
@@ -1374,7 +1634,7 @@ def profile_server_tick(task, sr, smi):
         rounds(ticks)
         torch.cuda.synchronize()
     device, busy_ms = device_kernels(prof)
-    emit({"phase": "profile_server_tick", "capacity": n, "wire": "i16", "ticks": ticks,
+    emit({"phase": phase, "capacity": n, "wire": "i16", "ticks": ticks,
           "frames_per_tick": frames / ticks, "tick_wall_ms_unprofiled": unprofiled_ms,
           "tick_host_ms_unprofiled_by_half": unprofiled,
           "device_busy_ms_per_tick": busy_ms / ticks,
@@ -1394,7 +1654,7 @@ def device_kernels(prof, spans=()):
     return device, sum(ms for _, ms, _ in device)
 
 
-def profile_serving(task, requests, wall_ms_unprofiled, smi):
+def profile_serving(task, requests, wall_ms_unprofiled, smi, phase="profile_serve"):
     """The serve phase's requests once more under ``torch.profiler``: device
     time by kernel per request and the busy share of an unprofiled request."""
     import torch
@@ -1412,7 +1672,7 @@ def profile_serving(task, requests, wall_ms_unprofiled, smi):
     if h2d > 2:
         raise RuntimeError(f"a warm request makes {h2d} host-to-device copies; the signal's and "
                            "the window indices' are the two it may make")
-    emit({"phase": "profile_serve", "requests": n, "device_busy_ms_per_request": busy_ms / n,
+    emit({"phase": phase, "requests": n, "device_busy_ms_per_request": busy_ms / n,
           "h2d_copies_per_request": h2d,
           "wall_ms_unprofiled_median": wall_ms_unprofiled,
           "device_busy_share": busy_ms / n / wall_ms_unprofiled,

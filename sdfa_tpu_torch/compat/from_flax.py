@@ -46,8 +46,9 @@ def load_flax_variables(model: torch.nn.Module, variables: dict) -> torch.nn.Mod
 
 def flax_variables_from_model(model: torch.nn.Module) -> dict:
     """The model's state as nested flax collections of numpy arrays:
-    parameters → ``params``, BatchNorm running statistics → ``batch_stats``,
-    every other buffer (the frozen PCA bases) → ``constants``."""
+    parameters → ``params`` (trainable PCA bases and a learned speaker table
+    among them, as flax keeps them), BatchNorm running statistics →
+    ``batch_stats``, every other buffer (the frozen PCA bases) → ``constants``."""
     from ..nn.layers import BatchNorm
 
     out: Dict[str, dict] = {col: {} for col in COLLECTIONS}
@@ -70,7 +71,9 @@ def init_params(model: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Seeded init of every learned parameter (no jax needed): each module
     that owns parameters resets them from one CPU generator, in module
     order, with the JAX package's init rules (kaiming/glorot kernels,
-    weight-norm g = ‖v‖, LSTM uniform ±1/√H, zero biases, identity BN)."""
+    weight-norm g = ‖v‖, LSTM uniform ±1/√H, zero biases, identity BN, a
+    learned speaker table normal with variance 1/features). PCA bases,
+    trainable or not, keep what they were loaded with."""
     gen = torch.Generator().manual_seed(int(seed))
     for module in model.modules():
         reset = getattr(module, "reset_parameters", None)

@@ -1,3 +1,3 @@
-from .sdfa import PcaInversion, SpeakerEmbedding, SpeechDrivenAnimation, build_model
+from .sdfa import Embed, PcaInversion, SpeakerEmbedding, SpeechDrivenAnimation, build_model
 
-__all__ = ["PcaInversion", "SpeakerEmbedding", "SpeechDrivenAnimation", "build_model"]
+__all__ = ["Embed", "PcaInversion", "SpeakerEmbedding", "SpeechDrivenAnimation", "build_model"]

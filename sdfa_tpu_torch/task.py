@@ -8,8 +8,9 @@ features (frontend), the per-frame encoder prefix once per clip (convs +
 FreqLstm kernel), then per window the temporal suffix (2-layer biLSTM kernel,
 or the per-layer kernel for a stack of another depth, attention, heads) and,
 on the vertex wires, the decode + solve kernel from PCA coefficients to
-vertices. The coefficient wires stop at the heads: the client decodes
-(``streaming.CoefDecoder``).
+vertices (dgrad), or the PCA product and the template (offsets; positions
+without the template). The coefficient wires (dgrad only) stop at the heads:
+the client decodes (``streaming.CoefDecoder``).
 
 With ``device_frontend=False`` the per-window features come from the host
 (``DatasetSlidingWindow.fetch_audio_features``, numpy) and the request takes
@@ -130,7 +131,8 @@ class AnimationTask:
             overlap_frontend = self.device_frontend
         self.overlap_frontend = bool(overlap_frontend) and model.split > 0
         self._signal_cache: Tuple[Optional[tuple], Optional[tuple]] = (None, None)
-        self._decode = None  # (solver, DeformConsts, DecodeSolveConsts), built on first use
+        self._decode = None  # dgrad: (solver, DeformConsts, DecodeSolveConsts), built on first use
+        self._template = None  # offsets: the template's flat vertices on the device
         self._host = HostBuffer()
         self._stream_fns = {}  # block_frames → (fused_first, fused_steady)
         self._ring_fns = {}    # block_frames → (first_ring, batched_ring)
@@ -150,11 +152,16 @@ class AnimationTask:
             bool(self.hp.model.output.get("using_pca", False))
 
     def _decode_consts(self):
+        """(solver, its device constants, the decode + solve kernel's constants)
+        of a dgrad model, built on first use."""
+        if self.model.face_type != "dgrad_3d":
+            raise ValueError("decode + solve constants exist for dgrad_3d models only")
         if self._decode is None:
             solver = frame_mod.get_solver()
             m = self.model
-            dsc = prep_consts(m.scale_pca.compT, m.scale_pca.means, m.rotat_pca.compT,
-                              m.rotat_pca.means, solver, self.device)
+            dsc = prep_consts(m.scale_pca.compT.detach(), m.scale_pca.means.detach(),
+                              m.rotat_pca.compT.detach(), m.rotat_pca.means.detach(), solver,
+                              self.device)
             self._decode = (solver, frame_mod.device_consts(self.device), dsc)
         return self._decode
 
@@ -317,7 +324,7 @@ class AnimationTask:
                 continue
             host = self._host.download(fn(z_frames, idx[sl], spk))
             chunks.append(host.astype(np.float32) * WIRE_LSB if wire == "i16" else host)
-        n_verts = frame_mod.get_solver().n_verts
+        n_verts = len(frame_mod.template()[0])
         if not chunks:
             return ts_list, np.zeros((0, n_verts, 3), np.float32)
         if wire == "i8d":
@@ -353,11 +360,23 @@ class AnimationTask:
 
     def _verts_base_fn(self):
         """fn(z_frames, frame_idx, spk) → flat float32 vertices (W, V·3) on the
-        device: the suffix, then the decode + solve kernel. ``z_frames`` is any
-        table of encoded frames (a clip's grid, a session's slice, the
-        server's ring)."""
-        if self.hp.model.face_data_type != "dgrad_3d":
-            raise NotImplementedError("only the dgrad_3d PCA model is ported")
+        device: the suffix, then for dgrad the decode + solve kernel, for the
+        vertex face types the PCA product and, for offsets, the template.
+        ``z_frames`` is any table of encoded frames (a clip's grid, a session's
+        slice, the server's ring)."""
+        face_type = self.model.face_type
+        if face_type != "dgrad_3d":
+            if self._template is None:
+                self._template = torch.from_numpy(
+                    np.asarray(frame_mod.template()[0], np.float32).reshape(-1)).to(self.device)
+            tmpl = self._template if face_type == "verts_off_3d" else None
+
+            def fn(z_frames, frame_idx, spk):
+                preds, _, _ = self.model.forward_windows(z_frames, frame_idx, spk, raw_pca=True)
+                anime = self.model.decode_to_anime(preds)[:, 0]
+                return anime if tmpl is None else anime + tmpl
+
+            return fn
         solver, consts, dsc = self._decode_consts()
 
         def fn(z_frames, frame_idx, spk):
@@ -382,7 +401,8 @@ class AnimationTask:
         if wire in ("coef", "coef16"):
             if not self._has_coef_heads():
                 raise ValueError("the coefficient wire needs dgrad_3d PCA heads (85+180 "
-                                 f"coefficients), not {self.hp.model.face_data_type!r}")
+                                 "coefficients); use a vertex wire for face type "
+                                 f"{self.hp.model.face_data_type!r}")
 
             def fn(z_frames, frame_idx, spk):
                 preds, _, _ = self.model.forward_windows(z_frames, frame_idx, spk, raw_pca=True)

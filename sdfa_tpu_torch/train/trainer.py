@@ -7,9 +7,11 @@ their dynamic scalers, backward — the recurrences through the
 ``bilstm_core`` kernels on a card — the gradient norm, optional clipping and
 Adam. The ``Trainer`` takes any iterable of batch dicts, as numpy arrays or
 tensors: ``audio_feat`` (N, T, F, C), ``speaker_id`` (N,), and the targets
-either as ``dgrad_3d_scale`` / ``dgrad_3d_rotat`` or as PCA coefficients
-``dgrad_3d_scale_coef`` / ``dgrad_3d_rotat_coef``, decoded on the device
-inside the loss. The first half of a batch is frame i, the second half
+either as face data (``dgrad_3d_scale`` / ``dgrad_3d_rotat``; ``verts_off_3d``
+and the like for the other face types, whose loss has one branch and one pair
+of scalers) or as PCA coefficients (``dgrad_3d_scale_coef`` /
+``dgrad_3d_rotat_coef``, ``verts_off_3d_coef``), decoded on the device inside
+the loss. The first half of a batch is frame i, the second half
 frame i + 1. A raw-mode batch (``DatasetSlidingWindow.raw_batches``)
 carries ``raw_wav`` and the augmentation knobs instead of ``audio_feat``;
 the loss computes the features on the device first
@@ -51,11 +53,17 @@ from . import lr_schedules
 
 log = logging.getLogger(__name__)
 
-SCALER_NAMES = ("dyn_p_scale", "dyn_m_scale", "dyn_p_rotat", "dyn_m_rotat", "dyn_e")
+SCALER_NAMES = ("dyn_p_scale", "dyn_m_scale", "dyn_p_rotat", "dyn_m_rotat", "dyn_e")  # dgrad's
 METRICS_EVERY = 50  # steps between lines of metrics.jsonl
 RAW_KEYS = ("raw_wav", "preemph", "t_idx", "f_idx", "feat_scale", "drop_rows", "drop_is_max",
             "drop_thres")  # a raw-mode batch's frontend inputs, in device_train_features' order
 HOST_ONLY = ("signal",)  # batch entries that never go to the device (summary audio clips)
+
+
+def scaler_names(face_type: str) -> Tuple[str, ...]:
+    """The dynamic loss scalers of a face type: one pair per dgrad branch, one
+    pair for the others."""
+    return SCALER_NAMES if face_type == "dgrad_3d" else ("dyn_p", "dyn_m", "dyn_e")
 
 
 def make_loss_fn(model: SpeechDrivenAnimation, hparams):
@@ -63,36 +71,24 @@ def make_loss_fn(model: SpeechDrivenAnimation, hparams):
     holds tensors on the model's device and the model's mode is the
     caller's to set."""
     hp_loss = hparams.loss
-    pred_type = hparams.model.get("prediction_type", "face_data")
-    is_face_data = pred_type == "face_data"
-    postfix = "_pca" if pred_type.startswith("pca") else ""
+    face_type = model.face_type
+    is_face_data = model.pred_type == "face_data"
+    postfix = "_pca" if model.return_pca else ""
     dyn = bool(hp_loss.get("dynamic_scalar", False))
     p_scale = float(hp_loss.get("ploss_scale", 1))
     m_scale = float(hp_loss.get("mloss_scale", 1))
     weight_key = hp_loss.get("anime_loss_weight")
     feat_spec = None  # built on the first raw batch: a run on features needs no mel config
 
-    def loss_fn(scalers: Dict[str, L.ScalerState], batch, training: bool):
-        nonlocal feat_spec
-        if "raw_wav" in batch:
-            # the host shipped raw windows and augmentation knobs only
-            if feat_spec is None:
-                feat_spec = FeatureSpec.from_hparams(hparams)
-            audio_feat = device_train_features(*(batch[k] for k in RAW_KEYS), spec=feat_spec)
-        else:
-            audio_feat = batch["audio_feat"]
-        preds, _ = model(audio_feat, batch["speaker_id"], decode=is_face_data)
-        weights = batch.get(weight_key) if weight_key else None
-        if weights is None:
-            weights = audio_feat.new_ones(audio_feat.shape[0])
-
+    def dgrad_terms(preds, batch, weights):
+        """(scalars, [(term, value, scaler, scale)]) of the two dgrad branches."""
         pred_s = preds[f"dgrad_3d_scale{postfix}"]
         pred_r = preds[f"dgrad_3d_rotat{postfix}"]
         if "dgrad_3d_scale_coef" in batch:
             # PCA-coefficient targets decode on the device: 85 + 180 floats per
             # frame cross the bus instead of 89,784
-            true_s = model.scale_pca(batch["dgrad_3d_scale_coef"].float())
-            true_r = model.rotat_pca(batch["dgrad_3d_rotat_coef"].float())
+            true_s = model.scale_pca.decode_targets(batch["dgrad_3d_scale_coef"])
+            true_r = model.rotat_pca.decode_targets(batch["dgrad_3d_rotat_coef"])
         else:
             true_s = batch[f"dgrad_3d_scale{postfix}"].float()
             true_r = batch[f"dgrad_3d_rotat{postfix}"].float()
@@ -111,18 +107,47 @@ def make_loss_fn(model: SpeechDrivenAnimation, hparams):
             mr = L.mloss(pred_r, true_r, weights, **kw)
         scalars = dict(scalar_ps=ps, scalar_ms=ms, scalar_pr=pr, scalar_mr=mr,
                        scalar_ploss=ps + pr, scalar_mloss=ms + mr)
+        terms = [("ps", ps, "dyn_p_scale", p_scale), ("ms", ms, "dyn_m_scale", m_scale),
+                 ("pr", pr, "dyn_p_rotat", p_scale), ("mr", mr, "dyn_m_rotat", m_scale)]
+        return scalars, terms
+
+    def single_terms(preds, batch, weights):
+        """The same for the one branch of the other face types."""
+        pred = preds[f"{face_type}{postfix}"]
+        if f"{face_type}_coef" in batch:
+            # decoded on the device: 59 floats per frame cross the bus for offsets
+            true = model.pca.decode_targets(batch[f"{face_type}_coef"])
+        else:
+            true = batch[f"{face_type}{postfix}"].float()
+        kw = dict(is_dgrad=False, is_face_data=is_face_data)
+        pl, ml = L.ploss(pred, true, weights, **kw), L.mloss(pred, true, weights, **kw)
+        return (dict(scalar_ploss=pl, scalar_mloss=ml),
+                [("ploss", pl, "dyn_p", p_scale), ("mloss", ml, "dyn_m", m_scale)])
+
+    def loss_fn(scalers: Dict[str, L.ScalerState], batch, training: bool):
+        nonlocal feat_spec
+        if "raw_wav" in batch:
+            # the host shipped raw windows and augmentation knobs only
+            if feat_spec is None:
+                feat_spec = FeatureSpec.from_hparams(hparams)
+            audio_feat = device_train_features(*(batch[k] for k in RAW_KEYS), spec=feat_spec)
+        else:
+            audio_feat = batch["audio_feat"]
+        preds, _ = model(audio_feat, batch["speaker_id"], decode=is_face_data)
+        weights = batch.get(weight_key) if weight_key else None
+        if weights is None:
+            weights = audio_feat.new_ones(audio_feat.shape[0])
+
+        terms_fn = dgrad_terms if face_type == "dgrad_3d" else single_terms
+        scalars, terms = terms_fn(preds, batch, weights)
         loss_terms: Dict[str, torch.Tensor] = {}
         new_scalers = dict(scalers)
-        if dyn:
-            for key, val, sname, scl in (("dyn_ps", ps, "dyn_p_scale", p_scale),
-                                         ("dyn_ms", ms, "dyn_m_scale", m_scale),
-                                         ("dyn_pr", pr, "dyn_p_rotat", p_scale),
-                                         ("dyn_mr", mr, "dyn_m_rotat", m_scale)):
+        for key, val, sname, scl in terms:
+            if dyn:
                 scaled, new_scalers[sname] = L.dynamic_scale(val, scalers[sname], training)
-                loss_terms[key] = scaled * scl
-        else:
-            loss_terms.update(loss_ps=ps * p_scale, loss_ms=ms * m_scale,
-                              loss_pr=pr * p_scale, loss_mr=mr * m_scale)
+                loss_terms[f"dyn_{key}"] = scaled * scl
+            else:
+                loss_terms[f"loss_{key}"] = val * scl
         total = sum(loss_terms.values())
         scalars["total"] = total
         return total, dict(new_scalers=new_scalers, scalars=scalars, loss_terms=loss_terms)
@@ -227,7 +252,8 @@ class Experiment:
         (self.optimizer, self.lr_fn, self.beta1_fn, self.sched_mode,
          self.base_lr) = make_optimizer(hparams, self.params)
         self.grad_clip = (hparams.get("trainer") or {}).get("grad_clip")
-        self.scalers = {name: L.ScalerState.init(self.device) for name in SCALER_NAMES}
+        self.scalers = {name: L.ScalerState.init(self.device)
+                        for name in scaler_names(self.model.face_type)}
         self.step = 0   # global optimization steps taken
         self.epoch = 0
         self.dropout_gen = torch.Generator(device=self.device)
@@ -336,6 +362,11 @@ class Experiment:
         # read on the host: load_state_dict moves tensors to their parameters' device
         # and leaves Adam's step counters on the host, where a fresh optimizer has them
         payload = ckpt_io.load_checkpoint(path)
+        if sorted(payload["scalers"]) != sorted(self.scalers):
+            raise ValueError(
+                f"{path} was trained with the loss scalers {sorted(payload['scalers'])}, of "
+                f"another face type than this {self.model.face_type!r} model's "
+                f"{sorted(self.scalers)}")
         self.model.load_state_dict(payload["model"], strict=True)
         self.optimizer.load_state_dict(payload["optimizer"])
         self.scalers = {k: L.ScalerState(vt=v[0].to(self.device), beta_t=v[1].to(self.device))

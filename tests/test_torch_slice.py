@@ -61,28 +61,42 @@ def narrow_model():
 
 
 @contextlib.contextmanager
-def task_pair(root, narrow=False, **port_kwargs):
+def task_pair(root, narrow=False, face_type="dgrad_3d", **port_kwargs):
     """(JAX task, port task, n_verts) on the same weights over a small
     synthetic template installed on both sides; both template states are
     restored on exit. Shared by the other ``test_torch_*`` serving files,
     which pass ``narrow=True`` (``narrow_model``); this file runs the full
-    widths."""
+    widths. ``face_type`` "verts_off_3d" or "verts_pos_3d" builds the offsets
+    config instead (59 coefficients over 3 floats a vertex, the narrow trunk
+    ending in them)."""
     verts, faces, cnst = synthetic_template(2, n_major=10, n_minor=12, n_extra=5, n_free=50)
     n = len(faces)
     rng = np.random.default_rng(0)
     (root / "pca").mkdir()
-    for name, shape in (("scale_compT", (6 * n, 85)), ("scale_means", (6 * n,)),
-                        ("rotat_compT", (3 * n, 180)), ("rotat_means", (3 * n,))):
-        np.save(root / "pca" / f"{name}.npy", rng.normal(0, 0.02, shape).astype(np.float32))
+    if face_type == "dgrad_3d":
+        config = "dgrad"
+        bases = (("scale_compT", (6 * n, 85), 0.02), ("scale_means", (6 * n,), 0.02),
+                 ("rotat_compT", (3 * n, 180), 0.02), ("rotat_means", (3 * n,), 0.02))
+        dims = {"model": {"output": {"output_dim_scale": 6 * n, "output_dim_rotat": 3 * n}}}
+    else:  # offsets of a few millimetres
+        config = "offsets"
+        bases = (("compT", (3 * len(verts), 59), 0.002), ("means", (3 * len(verts),), 0.002))
+        dims = {"model": {"face_data_type": face_type,
+                          "output": {"output_dim": 3 * len(verts)}}}
+    for name, shape, scale in bases:
+        np.save(root / "pca" / f"{name}.npy", rng.normal(0, scale, shape).astype(np.float32))
     write_ply(str(root / "template.ply"), verts, faces)
     (root / "cnst.txt").write_text(" ".join(str(int(i)) for i in cnst))
-    dims = {"model": {"output": {"output_dim_scale": 6 * n, "output_dim_rotat": 3 * n}}}
     if narrow:
         net = narrow_model()
         dims["model"]["audio_encoder"] = net["audio_encoder"]
-        dims["model"]["output"].update(net["output"])
+        if face_type == "dgrad_3d":
+            dims["model"]["output"].update(net["output"])
+        else:
+            dims["model"]["output"]["layers"] = net["output"]["layers"] + [
+                ("fc", 24, 16, "act=tanh"), ("fc", 16, 59, "act=linear")]
 
-    jhp = jconfigure("dgrad", overrides=dims, dataset_root=str(root))
+    jhp = jconfigure(config, overrides=dims, dataset_root=str(root))
     jmodel = jbuild(jhp, load_pca=True)
     k = jax.random.PRNGKey(0)
     variables = jax.device_get(jmodel.init({"params": k, "dropout": k},
@@ -97,10 +111,9 @@ def task_pair(root, narrow=False, **port_kwargs):
         jframe.set_template_mesh(str(root / "template.ply"), str(root / "cnst.txt"))
         tframe.set_template_mesh(verts, faces, cnst)
         jtask = JTask(jhp, jmodel, variables, device_frontend=True, overlap_frontend=True)
-        tmodel = load_flax_variables(tbuild(tconfigure("dgrad", overrides=dims,
-                                                       dataset_root=str(root))), variables)
-        yield jtask, TTask(tconfigure("dgrad", overrides=dims, dataset_root=str(root)),
-                           tmodel, "cpu", **port_kwargs), len(verts)
+        thp = tconfigure(config, overrides=dims, dataset_root=str(root))
+        tmodel = load_flax_variables(tbuild(thp), variables)
+        yield jtask, TTask(thp, tmodel, "cpu", **port_kwargs), len(verts)
     finally:
         jframe._state.clear()
         jframe._state.update(saved_j)
