@@ -89,6 +89,20 @@ Phases, each printed as one JSON line:
    for 30 raw-mode steps with PCA targets (``bilstm_core`` 90 and 90, K1 / K2 / K3 0,
    the epoch position loss falling); the trained checkpoint serving a 3 s request
    against the float64 host decode and the plain versions.
+15. cli: ``python -m sdfa_tpu_torch`` on the ``data_train`` phase's dataset and
+   checkpoint. ``train`` in process for 16 steps with ``--profile_dir`` (K5 48 / 48,
+   ``last.ckpt``, one trace file of steps 10-14 that names the training core's
+   kernels); ``trace`` in process, then the same 3 s request through
+   ``load_traced``, ``load_task`` and the trained task in memory (K1 / K2 / K3 1 / 1
+   / 1 each, within 1e-7 m of each other; ``load_task``'s through the plain
+   versions too, within 1e-5 m); ``evaluate`` as a subprocess (``evaluate.sh``'s
+   command with the port's module) on a 1 s wav over the template written to a
+   ``.ply``, its meshes within 1e-5 m of the same evaluation in process through
+   the plain versions and within 1e-4 m of the float64 solve of its own frames;
+   ``serve`` as a subprocess answering one ``StreamClient`` within the i16 wire's
+   5.1e-6 m of the offline request, then terminated and reaped. Both subprocesses
+   start first, so that their start-up overlaps the in-process modes. Wall
+   seconds by mode.
 
 Before its last lines the script checks that no process it started is left
 (every process of its process group that was not there when it began). Any
@@ -98,6 +112,7 @@ line. The last line is ``{"ok": true, "device": {...}}``.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -128,6 +143,13 @@ OFFSETS_PLAIN_TOL_M = 1e-5  # the offsets model: a request through kernels vs pl
 OFFSETS_HOST_TOL_M = 1e-6   # ... and vs its coefficients decoded on the host in float64
 STREAM_TOL_M = 1e-5   # streamed vs offline on the same audio (f32 and decoded coef frames)
 SOCKET_TIMEOUT_S = 120.0
+CLI_TRAIN_STEPS = 16   # `python -m sdfa_tpu_torch train`: the profiler window is steps 10-14
+CLI_SAME_TOL_M = 1e-7  # load_traced / load_task / the task in memory: the same weights
+CLI_SERVE_TOL_M = 5e-6 + 1e-7  # a served stream on i16 vs the offline f32 request
+CLI_SUBPROCESS_TIMEOUT_S = 300
+# what the train window's trace must name: the training core's kernels, by their CUDA
+# names (the backward; the forward runs bilstm_layer.cuh's step kernel), and a span
+CLI_TRACE_NAMES = ("core_bwd_kernel", "steps_kernel", "train/backward")
 STEP_LOSS_RTOL = 1e-5  # train step, kernels vs plain versions: total loss
 STEP_GRAD_RTOL = 1e-4  # ... and every gradient: max |diff| over the model's largest |gradient|;
                        # the recurrent layers' gradients also over their own largest |value|
@@ -802,8 +824,13 @@ def main():
         if "--profile" in sys.argv[1:]:
             profile_train_step(exp, batches, smi, step_ms[len(step_ms) // 2])
 
-    # --- training from a dataset on disk, then its checkpoint served -----------
-    path_launches["data_train"] = data_train_phase(task, sig0, spk0, solver, dev, smi)
+    # --- training from a dataset on disk, then its checkpoint served; then the CLI on
+    #     the same dataset and checkpoint --------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="sdfa_chip_data_") as data_tmp:
+        path_launches["data_train"], trained = data_train_phase(task, sig0, spk0, solver, dev,
+                                                                smi, data_tmp)
+        path_launches["cli"] = cli_phase(trained, root, dev, smi)
+    del trained
 
     # --- the offsets model family: served, streamed, then trained from disk and served ---
     path_launches["offsets"] = offsets_phase(dev, sr, smi)
@@ -824,13 +851,15 @@ def main():
                                  "count": torch.cuda.device_count()}})
 
 
-def data_train_phase(task_seeded, sig, spk, solver, dev, smi):
+def data_train_phase(task_seeded, sig, spk, solver, dev, smi, tmp):
     """``synthetic.generate`` → ``api.train_model`` (raw mode, thread prefetch,
     30 steps) → the device frontend against the host features on one batch →
     2 steps on host features and two ``PrefetchLoader`` batches from forkserver
     workers → the trained checkpoint served with the dataset's fitted PCA bases
     → K3 at the dataset's own coefficients (fault C4). Returns the launch
-    counts of the phase's own path (the comparisons after it not counted)."""
+    counts of the phase's own path (the comparisons after it not counted) and
+    what the ``cli`` phase reuses: the dataset root, the trained checkpoint
+    and the task serving it. Works in ``tmp``."""
     from sdfa_tpu_torch.ops import bilstm2, decode_solve, freq_lstm
 
     from sdfa_tpu_torch.data import prefetch
@@ -838,7 +867,7 @@ def data_train_phase(task_seeded, sig, spk, solver, dev, smi):
     counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
     out = {"phase": "data_train", "card": smi}
     try:
-        return _data_train(out, task_seeded, sig, spk, solver, dev, counters)
+        return _data_train(out, task_seeded, sig, spk, solver, dev, counters, tmp)
     finally:
         # the loader's forkserver and resource tracker would only exit after this
         # process; stop them now, and wait for them
@@ -846,7 +875,7 @@ def data_train_phase(task_seeded, sig, spk, solver, dev, smi):
         emit(out)  # what was measured, also when a check failed
 
 
-def _data_train(out, task_seeded, sig, spk, solver, dev, counters):
+def _data_train(out, task_seeded, sig, spk, solver, dev, counters, tmp):
     import csv
 
     import numpy as np
@@ -864,174 +893,415 @@ def _data_train(out, task_seeded, sig, spk, solver, dev, counters):
     from sdfa_tpu_torch.train import checkpoints
     from sdfa_tpu_torch.train.trainer import RAW_KEYS
 
-    with tempfile.TemporaryDirectory(prefix="sdfa_chip_data_") as tmp:
-        t0 = time.perf_counter()
-        root = synthetic.generate(os.path.join(tmp, "voca"), "dgrad_3d", speakers=["m0", "f0"],
-                                  sentences_per_speaker=1, seconds_per_sentence=2.0, seed=SEED)
-        pca_on = {"trainer": {"pca_targets": True}}
-        hp = configure("dgrad", dataset_root=root, overrides=pca_on)
-        out["generate_s"] = time.perf_counter() - t0
-        out["train_windows"] = len(DatasetSlidingWindow(hp, training=True))
+    t0 = time.perf_counter()
+    root = synthetic.generate(os.path.join(tmp, "voca"), "dgrad_3d", speakers=["m0", "f0"],
+                              sentences_per_speaker=1, seconds_per_sentence=2.0, seed=SEED)
+    pca_on = {"trainer": {"pca_targets": True}}
+    hp = configure("dgrad", dataset_root=root, overrides=pca_on)
+    out["generate_s"] = time.perf_counter() - t0
+    out["train_windows"] = len(DatasetSlidingWindow(hp, training=True))
 
-        # 1. api.train_model: raw mode, thread prefetch, 30 steps; training launches
-        #    bilstm_core only (no validation pass runs K1 / K2, no request K3)
+    # 1. api.train_model: raw mode, thread prefetch, 30 steps; training launches
+    #    bilstm_core only (no validation pass runs K1 / K2, no request K3)
+    bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+    reset_counts(counters)
+    run = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    exp = api.train_model("dgrad", dataset_root=root, log_dir=run, max_steps=DATA_TRAIN_STEPS,
+                          overrides=pca_on, device=dev)
+    out["train_model_s"] = time.perf_counter() - t0
+    path = read_counts(counters, "data_train train_model", zero=tuple(counters))
+    core = (bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES)
+    out["bilstm_core_launches"] = list(core)
+    if core != (3 * DATA_TRAIN_STEPS,) * 2 or exp.step != DATA_TRAIN_STEPS:
+        raise RuntimeError(f"train_model: {exp.step} steps, bilstm_core launches {core}")
+    ckpt = os.path.join(run, "last.ckpt")
+    if not os.path.exists(ckpt):
+        raise RuntimeError("train_model wrote no last.ckpt")
+    with open(os.path.join(run, "train_log", "loss", "epoch-loss.csv"), newline="") as fp:
+        rows = list(csv.DictReader(fp))
+    bad = [(r["epoch"], k) for r in rows for k, v in r.items()
+           if k != "epoch" and not np.isfinite(float(v))]
+    if bad or not rows:
+        raise RuntimeError(f"train_model: non-finite epoch losses {bad} ({len(rows)} rows)")
+    out.update(epochs=len(rows), first_epoch_loss=float(rows[0]["train_total"]),
+               last_epoch_loss=float(rows[-1]["train_total"]), **train_timing(run))
+
+    # 2. the device frontend on one training batch against the host features
+    ds = DatasetSlidingWindow(hp, training=True)
+    batch = next(ds.raw_batches(int(hp.trainer.anime_loader.batch_size)))
+    with torch.no_grad():
+        got = dfeat.device_train_features(
+            *(torch.from_numpy(batch[k]).to(dev) for k in RAW_KEYS),
+            spec=dfeat.FeatureSpec.from_hparams(hp)).cpu().numpy()
+    want = np.stack([dfeat.host_train_features(
+        *(batch[k][i] for k in RAW_KEYS[:7]), mel_cfg=ds._mel_cfg, sr=ds._sr)
+        for i in range(len(got))])
+    out["frontend"] = {"windows": len(got), "max_abs": float(np.abs(got - want).max()),
+                       "channel0_max_abs": float(np.abs(got[..., 0] - want[..., 0]).max()),
+                       "tol": FRONTEND_TOL, "channel0_tol": FRONTEND_CH0_TOL}
+    if not (out["frontend"]["max_abs"] <= FRONTEND_TOL
+            and out["frontend"]["channel0_max_abs"] <= FRONTEND_CH0_TOL):
+        raise RuntimeError(f"device frontend vs host features: {out['frontend']}")
+
+    # 3. host features: two steps, then two batches from forkserver workers
+    t0 = time.perf_counter()
+    host_exp = api.train_model("dgrad", dataset_root=root, log_dir=os.path.join(tmp, "host"),
+                               max_steps=2, device=dev,
+                               overrides={"trainer": {"pca_targets": True,
+                                                      "host_features": True}})
+    out["host_features_train_s"] = time.perf_counter() - t0
+    if host_exp.step != 2:
+        raise RuntimeError(f"host-feature training took {host_exp.step} steps, not 2")
+    want = ds.collate([ds[0], ds[1]])
+    schema = {k: (v.shape[1:], v.dtype) for k, v in want.items()}
+    loader = PrefetchLoader(ds, 4, num_workers=2)
+    got = []
+    t0 = time.perf_counter()
+    for b in loader:
+        got.append(b)
+        if len(got) == 2:
+            break
+    out["prefetch_two_batches_s"] = time.perf_counter() - t0
+    loader.close()  # the loop broke out of the epoch: stop its workers now
+    for b in got:
+        if ({k: (v.shape[1:], v.dtype) for k, v in b.items()} != schema
+                or len(b["audio_feat"]) != 8):
+            raise RuntimeError("PrefetchLoader batch schema "
+                               f"{[(k, v.shape, v.dtype) for k, v in b.items()]}")
+    out["prefetch_batch_keys"] = sorted(schema)
+
+    # 4. the trained checkpoint, served with the dataset's fitted PCA bases
+    hp_s = configure("dgrad", dataset_root=root)
+    model = build_model(hp_s)
+    model.load_state_dict(checkpoints.load_checkpoint(ckpt)["model"])
+    served = AnimationTask(hp_s, model, dev)
+    served.warmup(3.0)
+    clip = signal(3.0, int(hp_s.audio.sample_rate), 30)
+    reset_counts(counters)
+    ts, v = served.generate_vertices(clip, 1)
+    for name, n in read_counts(counters, "data_train serve").items():
+        path[name] += n
+    host_task = AnimationTask(hp_s, model, dev, device_frontend=False)
+    reset_counts(counters)
+    ts_h, v_h = host_task.generate_vertices(clip, 1)
+    # the host features take the per-window path, which solves through
+    # frames_to_meshes, not K3
+    for name, n in read_counts(counters, "data_train host frontend",
+                               zero=("decode_solve",)).items():
+        path[name] += n
+    path["bilstm_core_fwd"], path["bilstm_core_bwd"] = (bilstm_core.FWD_LAUNCHES,
+                                                        bilstm_core.BWD_LAUNCHES)
+    if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
+        raise RuntimeError(f"trained checkpoint: bad output {v.shape}")
+    if ts_h != ts or v_h.shape != v.shape or not np.isfinite(v_h).all():
+        raise RuntimeError(f"host frontend request: bad output {v_h.shape}")
+    with ops.plain_versions():
+        _, v_plain = served.generate_vertices(clip, 1)
+    solver_, consts, dsc = served._decode_consts()
+    sample = sorted({int(i) for i in np.linspace(0, len(ts) - 1, 8)})
+    with torch.inference_mode():
+        frame_idx, _, z, _ = served._overlap_prefix(clip)
+        spk_t = torch.full((len(frame_idx),), 1, dtype=torch.long, device=dev)
+        preds, _, _ = model.forward_windows(z, torch.from_numpy(frame_idx).long().to(dev),
+                                            spk_t, raw_pca=True)
+        dgrad = model.decode_to_anime(preds)[sample, 0].double().cpu().numpy()
+        dt_request = float(decode_solve.delta_transforms(
+            preds["dgrad_3d_scale_pca"][:, 0], preds["dgrad_3d_rotat_pca"][:, 0],
+            dsc).abs().max())
+        # the seeded bases of the serve phase on their first request, for scale
+        idx0, _, z0, _ = task_seeded._overlap_prefix(sig)
+        p0, _, _ = task_seeded.model.forward_windows(
+            z0, torch.from_numpy(idx0).long().to(dev),
+            torch.full((len(idx0),), spk, dtype=torch.long, device=dev), raw_pca=True)
+        dt_seeded = float(decode_solve.delta_transforms(
+            p0["dgrad_3d_scale_pca"][:, 0], p0["dgrad_3d_rotat_pca"][:, 0],
+            task_seeded._decode_consts()[2]).abs().max())
+    oracle = np.stack([solver.solve_host(d) for d in dgrad])
+    out["serve"] = {"audio_s": 3.0, "windows": len(ts),
+                    "oracle_frames": sample,
+                    "oracle_max_abs_m": float(np.abs(v[sample] - oracle).max()),
+                    "plain_max_abs_m": float(np.abs(v - v_plain).max()),
+                    "host_frontend_max_abs_m_vs_device_frontend": float(np.abs(v_h - v).max()),
+                    "max_abs_T_minus_T0": dt_request, "tol_m": ORACLE_TOL_M}
+    if not (out["serve"]["oracle_max_abs_m"] <= ORACLE_TOL_M
+            and out["serve"]["plain_max_abs_m"] <= PLAIN_TOL_M):
+        raise RuntimeError(f"trained checkpoint: {out['serve']}")
+
+    # 5. fault C4: K3 at the dataset's own projected coefficients, every frame of one
+    #    sentence, against its plain version and the float64 decode + solve
+    info = ds.info_list[0]
+    coefs = np.asarray(ds._frame_store(info["npy_data_path:path"], int(info["anime_minfi:int"]),
+                                       int(info["anime_maxfi:int"]))[3], np.float32)
+    ks = model.scale_pca.compT.shape[1]
+    cs = torch.from_numpy(np.ascontiguousarray(coefs[:, :ks])).to(dev)
+    cr = torch.from_numpy(np.ascontiguousarray(coefs[:, ks:])).to(dev)
+    with torch.inference_mode():
+        x_kernel = decode_solve.decode_solve(cs, cr, dsc)
+        torch.cuda.synchronize()
+        x_plain = decode_solve.decode_solve_plain(cs, cr, dsc)
+        verts = decode_solve.assemble_from_free(consts, solver_.spec, x_kernel,
+                                                consts.template_cnst).cpu().numpy()
+        dt_data = float(decode_solve.delta_transforms(cs, cr, dsc).abs().max())
+    c64 = coefs.astype(np.float64)
+    comp = {n: getattr(model, f"{n}_pca") for n in ("scale", "rotat")}
+    dec = [c64[:, sl] @ comp[n].compT.double().cpu().numpy().T
+           + comp[n].means.double().cpu().numpy()
+           for n, sl in (("scale", slice(0, ks)), ("rotat", slice(ks, None)))]
+    frames64 = np.concatenate([dec[0].reshape(len(c64), -1, 6),
+                               dec[1].reshape(len(c64), -1, 3)], axis=-1)
+    oracle = np.stack([solver.solve_host(f) for f in frames64])
+    out["c4"] = {"frames": len(coefs), "max_abs_coef": float(np.abs(coefs).max()),
+                 "max_abs_T_minus_T0": dt_data,
+                 "seeded_bases_max_abs_T_minus_T0": dt_seeded,
+                 "kernel_vs_plain_max_abs_m": float((x_kernel - x_plain).abs().max()),
+                 "kernel_vs_float64_max_abs_m": float(np.abs(verts - oracle).max()),
+                 "plain_tol_m": TOL["decode_solve"], "oracle_tol_m": ORACLE_TOL_M}
+    if not (out["c4"]["kernel_vs_plain_max_abs_m"] <= TOL["decode_solve"]
+            and out["c4"]["kernel_vs_float64_max_abs_m"] <= ORACLE_TOL_M):
+        raise RuntimeError(f"C4: K3 at trained magnitudes {out['c4']}")
+    return path, {"tmp": tmp, "root": root, "ckpt": ckpt, "config": "dgrad", "task": served,
+                  "clip": clip}
+
+
+def obj_vertices(path):
+    """The ``v`` lines of an ``.obj`` as (V, 3) float64: what ``mesh.read_obj``
+    reads, parsed by numpy in one call."""
+    import numpy as np
+
+    with open(path) as fp:
+        rows = [line[2:] for line in fp if line.startswith("v ")]
+    return np.array(" ".join(rows).split(), np.float64).reshape(-1, 3)
+
+
+def cli_phase(trained, repo, dev, smi):
+    """``python -m sdfa_tpu_torch`` on the ``data_train`` phase's dataset and
+    checkpoint. ``serve`` and ``evaluate`` (on a 1 s wav over the template
+    written to a ``.ply``) start first as subprocesses, so that their start-up
+    overlaps the modes run in process: ``train`` for 16 steps with
+    ``--profile_dir`` (K5 48 / 48, ``last.ckpt``, a trace file that names the
+    training core's kernels); ``trace``, then one 3 s request each through
+    ``load_traced``, ``load_task`` and the trained task in memory (K1 / K2 / K3
+    1 / 1 / 1 each, within ``CLI_SAME_TOL_M`` of each other, ``load_task``'s also
+    through the plain versions); the same evaluation as the subprocess's, in
+    process, through the kernels for its K1 / K2 / K3 counts (K3 0) and through
+    the plain versions for its meshes. Then the subprocess's meshes against the
+    plain versions' and against the float64 solve of its own frames, and one
+    ``StreamClient`` on the served port against the offline request on the i16
+    wire's budget; the server is terminated and reaped. Returns the launch
+    counts of the modes run in process (the plain-version runs not counted)."""
+    import numpy as np
+
+    from sdfa_tpu_torch import api, ops
+    from sdfa_tpu_torch.__main__ import main as cli_main
+    from sdfa_tpu_torch.audio import io as audio_io
+    from sdfa_tpu_torch.mesh import FLAME_COUNTS, synthetic_template, write_ply
+    from sdfa_tpu_torch.ops import bilstm2, bilstm_core, decode_solve, freq_lstm
+    from sdfa_tpu_torch.serve import StreamClient
+    from sdfa_tpu_torch.viewer import frame
+
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
+    tmp, root, ckpt, config = trained["tmp"], trained["root"], trained["ckpt"], trained["config"]
+    platform = ["--platform", "cpu" if str(dev) == "cpu" else "gpu"]
+    dgrad = ["--custom_hparams", config, "--dataset_root", root] + platform
+    out = {"phase": "cli", "card": smi, "wall_s": {}}
+    path = {name: 0 for name in counters}
+    saved_frame = dict(frame._state)
+    procs, t_phase = {}, time.perf_counter()
+    try:
+        # 0. the inputs on disk; serve and evaluate start as subprocesses
+        sr = int(trained["task"].hp.audio.sample_rate)
+        wav, ply, cnst_txt = (os.path.join(tmp, name) for name in (
+            "cli.wav", "template.ply", "constraints.txt"))
+        audio_io.save(wav, signal(1.0, sr, 40), sr)
+        verts, faces, cnst = synthetic_template(SEED)
+        write_ply(ply, verts, faces)
+        with open(cnst_txt, "w") as fp:
+            fp.write(" ".join(str(int(i)) for i in cnst))
+        template = ["--template_mesh", ply, "--mesh_constraints", cnst_txt]
+        # evaluate.sh's command with the port's module
+        evaluate = ["evaluate", "--load_from", ckpt, "--eval_input", wav, "--eval_spk_cond", "m0",
+                    "--no-save_video"] + template + dgrad
+        commands = {
+            # port 0: the server binds a free port and logs the one it bound
+            "serve": ["serve", "--load_from", ckpt, "--port", "0", "--capacity", "2",
+                      "--device_wire", "i16"] + template + platform,
+            "evaluate": evaluate + ["--output_dir", os.path.join(tmp, "cli_eval")]}
+        t_start = time.perf_counter()
+        for name, args in commands.items():
+            with open(os.path.join(tmp, f"cli_{name}.log"), "w") as logs:
+                procs[name] = subprocess.Popen([sys.executable, "-m", "sdfa_tpu_torch"] + args,
+                                               cwd=repo, stdout=logs, stderr=subprocess.STDOUT)
+
+        def failed(name):
+            with open(os.path.join(tmp, f"cli_{name}.log")) as fp:
+                return RuntimeError(f"cli {name} exited {procs[name].returncode}: "
+                                    f"{fp.read()[-3000:]}")
+
+        # 1. train, in process, with the profiler window of --profile_dir
         bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
         reset_counts(counters)
-        run = os.path.join(tmp, "run")
+        prof_dir, run = os.path.join(tmp, "cli_profile"), os.path.join(tmp, "cli_run")
         t0 = time.perf_counter()
-        exp = api.train_model("dgrad", dataset_root=root, log_dir=run, max_steps=DATA_TRAIN_STEPS,
-                              overrides=pca_on, device=dev)
-        out["train_model_s"] = time.perf_counter() - t0
-        path = read_counts(counters, "data_train train_model", zero=tuple(counters))
+        exp = cli_main(["train", "--max_steps", str(CLI_TRAIN_STEPS), "--log_dir", run,
+                        "--profile_dir", prof_dir,
+                        "--overrides", json.dumps({"trainer": {"pca_targets": True}})] + dgrad)
+        out["wall_s"]["train"] = time.perf_counter() - t0
+        read_counts(counters, "cli train", zero=tuple(counters))
         core = (bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES)
-        out["bilstm_core_launches"] = list(core)
-        if core != (3 * DATA_TRAIN_STEPS,) * 2 or exp.step != DATA_TRAIN_STEPS:
-            raise RuntimeError(f"train_model: {exp.step} steps, bilstm_core launches {core}")
-        ckpt = os.path.join(run, "last.ckpt")
-        if not os.path.exists(ckpt):
-            raise RuntimeError("train_model wrote no last.ckpt")
-        with open(os.path.join(run, "train_log", "loss", "epoch-loss.csv"), newline="") as fp:
-            rows = list(csv.DictReader(fp))
-        bad = [(r["epoch"], k) for r in rows for k, v in r.items()
-               if k != "epoch" and not np.isfinite(float(v))]
-        if bad or not rows:
-            raise RuntimeError(f"train_model: non-finite epoch losses {bad} ({len(rows)} rows)")
-        out.update(epochs=len(rows), first_epoch_loss=float(rows[0]["train_total"]),
-                   last_epoch_loss=float(rows[-1]["train_total"]), **train_timing(run))
+        traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
+        text = open(os.path.join(prof_dir, traces[0])).read() if len(traces) == 1 else ""
+        named = {k: k in text for k in CLI_TRACE_NAMES}
+        out["train"] = {"steps": exp.step, "bilstm_core_launches": list(core),
+                        "last_ckpt": os.path.exists(os.path.join(run, "last.ckpt")),
+                        "trace_files": len(traces), "trace_mbytes": len(text) / 1e6,
+                        "trace_names": named}
+        path["bilstm_core_fwd"], path["bilstm_core_bwd"] = core
+        if (exp.step, core) != (CLI_TRAIN_STEPS, (3 * CLI_TRAIN_STEPS,) * 2) or \
+                not out["train"]["last_ckpt"] or not all(named.values()):
+            raise RuntimeError(f"cli train: {out['train']}")
+        del exp, text
 
-        # 2. the device frontend on one training batch against the host features
-        ds = DatasetSlidingWindow(hp, training=True)
-        batch = next(ds.raw_batches(int(hp.trainer.anime_loader.batch_size)))
-        with torch.no_grad():
-            got = dfeat.device_train_features(
-                *(torch.from_numpy(batch[k]).to(dev) for k in RAW_KEYS),
-                spec=dfeat.FeatureSpec.from_hparams(hp)).cpu().numpy()
-        want = np.stack([dfeat.host_train_features(
-            *(batch[k][i] for k in RAW_KEYS[:7]), mel_cfg=ds._mel_cfg, sr=ds._sr)
-            for i in range(len(got))])
-        out["frontend"] = {"windows": len(got), "max_abs": float(np.abs(got - want).max()),
-                           "channel0_max_abs": float(np.abs(got[..., 0] - want[..., 0]).max()),
-                           "tol": FRONTEND_TOL, "channel0_tol": FRONTEND_CH0_TOL}
-        if not (out["frontend"]["max_abs"] <= FRONTEND_TOL
-                and out["frontend"]["channel0_max_abs"] <= FRONTEND_CH0_TOL):
-            raise RuntimeError(f"device frontend vs host features: {out['frontend']}")
-
-        # 3. host features: two steps, then two batches from forkserver workers
-        t0 = time.perf_counter()
-        host_exp = api.train_model("dgrad", dataset_root=root, log_dir=os.path.join(tmp, "host"),
-                                   max_steps=2, device=dev,
-                                   overrides={"trainer": {"pca_targets": True,
-                                                          "host_features": True}})
-        out["host_features_train_s"] = time.perf_counter() - t0
-        if host_exp.step != 2:
-            raise RuntimeError(f"host-feature training took {host_exp.step} steps, not 2")
-        want = ds.collate([ds[0], ds[1]])
-        schema = {k: (v.shape[1:], v.dtype) for k, v in want.items()}
-        loader = PrefetchLoader(ds, 4, num_workers=2)
-        got = []
-        t0 = time.perf_counter()
-        for b in loader:
-            got.append(b)
-            if len(got) == 2:
-                break
-        out["prefetch_two_batches_s"] = time.perf_counter() - t0
-        loader.close()  # the loop broke out of the epoch: stop its workers now
-        for b in got:
-            if ({k: (v.shape[1:], v.dtype) for k, v in b.items()} != schema
-                    or len(b["audio_feat"]) != 8):
-                raise RuntimeError("PrefetchLoader batch schema "
-                                   f"{[(k, v.shape, v.dtype) for k, v in b.items()]}")
-        out["prefetch_batch_keys"] = sorted(schema)
-
-        # 4. the trained checkpoint, served with the dataset's fitted PCA bases
-        hp_s = configure("dgrad", dataset_root=root)
-        model = build_model(hp_s)
-        model.load_state_dict(checkpoints.load_checkpoint(ckpt)["model"])
-        served = AnimationTask(hp_s, model, dev)
-        served.warmup(3.0)
-        clip = signal(3.0, int(hp_s.audio.sample_rate), 30)
+        # 2. trace, in process; then one request each through the dump, the
+        #    checkpoint and the trained task in memory
         reset_counts(counters)
-        ts, v = served.generate_vertices(clip, 1)
-        for name, n in read_counts(counters, "data_train serve").items():
+        t0 = time.perf_counter()
+        dump = cli_main(["trace", "--load_from", ckpt,
+                         "--traced_dump_path", os.path.join(tmp, "cli_dump")] + dgrad)
+        out["wall_s"]["trace"] = time.perf_counter() - t0
+        warm = read_counts(counters, "cli trace", zero=("decode_solve",))
+        for name, n in warm.items():
             path[name] += n
-        host_task = AnimationTask(hp_s, model, dev, device_frontend=False)
-        reset_counts(counters)
-        ts_h, v_h = host_task.generate_vertices(clip, 1)
-        # the host features take the per-window path, which solves through
-        # frames_to_meshes, not K3
-        for name, n in read_counts(counters, "data_train host frontend",
-                                   zero=("decode_solve",)).items():
-            path[name] += n
-        path["bilstm_core_fwd"], path["bilstm_core_bwd"] = (bilstm_core.FWD_LAUNCHES,
-                                                            bilstm_core.BWD_LAUNCHES)
-        if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
-            raise RuntimeError(f"trained checkpoint: bad output {v.shape}")
-        if ts_h != ts or v_h.shape != v.shape or not np.isfinite(v_h).all():
-            raise RuntimeError(f"host frontend request: bad output {v_h.shape}")
+        clip, speaker = trained["clip"], 1
+        tasks = {"load_traced": api.load_traced(dump, device=dev),
+                 "load_task": api.load_task(ckpt, device=dev), "in_memory": trained["task"]}
+        got, per_request, walls = {}, {}, {}
+        for name, task in tasks.items():
+            task.warmup(1.0)
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            ts, got[name] = task.generate_vertices(clip, speaker)
+            walls[name] = time.perf_counter() - t0
+            per_request[name] = read_counts(counters, f"cli {name} request")
+            for k, n in per_request[name].items():
+                path[k] += n
         with ops.plain_versions():
-            _, v_plain = served.generate_vertices(clip, 1)
-        solver_, consts, dsc = served._decode_consts()
-        sample = sorted({int(i) for i in np.linspace(0, len(ts) - 1, 8)})
-        with torch.inference_mode():
-            frame_idx, _, z, _ = served._overlap_prefix(clip)
-            spk_t = torch.full((len(frame_idx),), 1, dtype=torch.long, device=dev)
-            preds, _, _ = model.forward_windows(z, torch.from_numpy(frame_idx).long().to(dev),
-                                                spk_t, raw_pca=True)
-            dgrad = model.decode_to_anime(preds)[sample, 0].double().cpu().numpy()
-            dt_request = float(decode_solve.delta_transforms(
-                preds["dgrad_3d_scale_pca"][:, 0], preds["dgrad_3d_rotat_pca"][:, 0],
-                dsc).abs().max())
-            # the seeded bases of the serve phase on their first request, for scale
-            idx0, _, z0, _ = task_seeded._overlap_prefix(sig)
-            p0, _, _ = task_seeded.model.forward_windows(
-                z0, torch.from_numpy(idx0).long().to(dev),
-                torch.full((len(idx0),), spk, dtype=torch.long, device=dev), raw_pca=True)
-            dt_seeded = float(decode_solve.delta_transforms(
-                p0["dgrad_3d_scale_pca"][:, 0], p0["dgrad_3d_rotat_pca"][:, 0],
-                task_seeded._decode_consts()[2]).abs().max())
-        oracle = np.stack([solver.solve_host(d) for d in dgrad])
-        out["serve"] = {"audio_s": 3.0, "windows": len(ts),
-                        "oracle_frames": sample,
-                        "oracle_max_abs_m": float(np.abs(v[sample] - oracle).max()),
-                        "plain_max_abs_m": float(np.abs(v - v_plain).max()),
-                        "host_frontend_max_abs_m_vs_device_frontend": float(np.abs(v_h - v).max()),
-                        "max_abs_T_minus_T0": dt_request, "tol_m": ORACLE_TOL_M}
-        if not (out["serve"]["oracle_max_abs_m"] <= ORACLE_TOL_M
-                and out["serve"]["plain_max_abs_m"] <= PLAIN_TOL_M):
-            raise RuntimeError(f"trained checkpoint: {out['serve']}")
+            _, v_plain = tasks["load_task"].generate_vertices(clip, speaker)
+        ref = got["in_memory"]
+        out["requests"] = {
+            "audio_s": 3.0, "windows": len(ts), "wall_s": walls, "launches": per_request,
+            "max_abs_m_vs_in_memory": {k: max_err(v, ref) for k, v in got.items()},
+            "load_task_plain_max_abs_m": max_err(got["load_task"], v_plain),
+            "tol_m": CLI_SAME_TOL_M, "plain_tol_m": OFFSETS_PLAIN_TOL_M}
+        if ref.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(ref).all() or \
+                any(c != {k: 1 for k in counters} for c in per_request.values()) or \
+                max(out["requests"]["max_abs_m_vs_in_memory"].values()) > CLI_SAME_TOL_M or \
+                not out["requests"]["load_task_plain_max_abs_m"] <= OFFSETS_PLAIN_TOL_M:
+            raise RuntimeError(f"cli requests: {out['requests']}")
+        del tasks
 
-        # 5. fault C4: K3 at the dataset's own projected coefficients, every frame of one
-        #    sentence, against its plain version and the float64 decode + solve
-        info = ds.info_list[0]
-        coefs = np.asarray(ds._frame_store(info["npy_data_path:path"], int(info["anime_minfi:int"]),
-                                           int(info["anime_maxfi:int"]))[3], np.float32)
-        ks = model.scale_pca.compT.shape[1]
-        cs = torch.from_numpy(np.ascontiguousarray(coefs[:, :ks])).to(dev)
-        cr = torch.from_numpy(np.ascontiguousarray(coefs[:, ks:])).to(dev)
-        with torch.inference_mode():
-            x_kernel = decode_solve.decode_solve(cs, cr, dsc)
-            torch.cuda.synchronize()
-            x_plain = decode_solve.decode_solve_plain(cs, cr, dsc)
-            verts = decode_solve.assemble_from_free(consts, solver_.spec, x_kernel,
-                                                    consts.template_cnst).cpu().numpy()
-            dt_data = float(decode_solve.delta_transforms(cs, cr, dsc).abs().max())
-        c64 = coefs.astype(np.float64)
-        comp = {n: getattr(model, f"{n}_pca") for n in ("scale", "rotat")}
-        dec = [c64[:, sl] @ comp[n].compT.double().cpu().numpy().T
-               + comp[n].means.double().cpu().numpy()
-               for n, sl in (("scale", slice(0, ks)), ("rotat", slice(ks, None)))]
-        frames64 = np.concatenate([dec[0].reshape(len(c64), -1, 6),
-                                   dec[1].reshape(len(c64), -1, 3)], axis=-1)
-        oracle = np.stack([solver.solve_host(f) for f in frames64])
-        out["c4"] = {"frames": len(coefs), "max_abs_coef": float(np.abs(coefs).max()),
-                     "max_abs_T_minus_T0": dt_data,
-                     "seeded_bases_max_abs_T_minus_T0": dt_seeded,
-                     "kernel_vs_plain_max_abs_m": float((x_kernel - x_plain).abs().max()),
-                     "kernel_vs_float64_max_abs_m": float(np.abs(verts - oracle).max()),
-                     "plain_tol_m": TOL["decode_solve"], "oracle_tol_m": ORACLE_TOL_M}
-        if not (out["c4"]["kernel_vs_plain_max_abs_m"] <= TOL["decode_solve"]
-                and out["c4"]["kernel_vs_float64_max_abs_m"] <= ORACLE_TOL_M):
-            raise RuntimeError(f"C4: K3 at trained magnitudes {out['c4']}")
+        # 3. the subprocess's evaluation again in process, over the same template file:
+        #    through the kernels for its launch counts, through the plain versions for
+        #    its meshes
+        frame.set_template_mesh(template_path=ply, constraints_path=cnst_txt)
+
+        def evaluate_in_process(name, export):
+            return api.evaluate_model(config, load_from=ckpt, eval_input=wav,
+                                      eval_spk_cond="m0", output_dir=os.path.join(tmp, name),
+                                      dataset_root=root, device=dev, save_video=False,
+                                      export_mesh_frames=export)
+
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        (kernel_run,) = evaluate_in_process("cli_eval_kernels", export=False)
+        out["wall_s"]["evaluate_in_process_no_export"] = time.perf_counter() - t0
+        eval_launches = read_counts(counters, "cli evaluate", zero=("decode_solve",))
+        for k, n in eval_launches.items():
+            path[k] += n
+        with ops.plain_versions():
+            (plain_run,) = evaluate_in_process("cli_eval_plain", export=True)
+
+        # 4. the evaluate subprocess's exports against the plain versions' and the
+        #    float64 solve of its own frames
+        try:
+            procs["evaluate"].wait(timeout=CLI_SUBPROCESS_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError("cli evaluate: no exit within its time limit")
+        out["wall_s"]["evaluate_subprocess"] = time.perf_counter() - t_start
+        if procs["evaluate"].returncode != 0:
+            raise failed("evaluate")
+        d_sub, d_plain = (os.path.join(tmp, name, "cli") for name in ("cli_eval",
+                                                                      "cli_eval_plain"))
+        objs = sorted(f for f in os.listdir(d_sub) if f.endswith(".obj"))
+        v_sub = np.stack([obj_vertices(os.path.join(d_sub, f)) for f in objs])
+        v_plain = np.stack([obj_vertices(os.path.join(d_plain, f)) for f in objs])
+        solver = frame.get_solver()
+        sample = sorted({int(i) for i in np.linspace(0, len(objs) - 1, 8)})
+        oracle = np.stack([solver.solve_host(np.load(os.path.join(
+            d_sub, f"{i:06d}_dgrad_3d.npy")).astype(np.float64)) for i in sample])
+        out["evaluate"] = {
+            "audio_s": 1.0, "frames": len(objs), "launches_in_process": eval_launches,
+            "files": sorted({f.rsplit(".", 1)[1] for f in os.listdir(d_sub)}),
+            "max_abs_m_vs_plain": float(np.abs(v_sub - v_plain).max()),
+            "in_process_frames_kernels_vs_plain_max_abs": max_err(kernel_run["animes"],
+                                                                  plain_run["animes"]),
+            "oracle_frames": sample,
+            "max_abs_m_vs_float64": float(np.abs(v_sub[sample] - oracle).max()),
+            "plain_tol_m": OFFSETS_PLAIN_TOL_M, "oracle_tol_m": ORACLE_TOL_M}
+        if not objs or sorted(f for f in os.listdir(d_plain) if f.endswith(".obj")) != objs or \
+                not os.path.exists(os.path.join(d_sub, "audio.wav")) or \
+                len([f for f in os.listdir(d_sub) if f.endswith(".npy")]) != len(objs) or \
+                v_sub.shape[1:] != (FLAME_COUNTS[0], 3) or \
+                not out["evaluate"]["max_abs_m_vs_plain"] <= OFFSETS_PLAIN_TOL_M or \
+                not out["evaluate"]["max_abs_m_vs_float64"] <= ORACLE_TOL_M:
+            raise RuntimeError(f"cli evaluate: {out['evaluate']}")
+
+        # 5. the served port, read from the server's log: one client streams 1 s
+        #    of audio; then the server is terminated and reaped
+        server = procs["serve"]
+        deadline = time.time() + CLI_SUBPROCESS_TIMEOUT_S
+        while True:
+            with open(os.path.join(tmp, "cli_serve.log")) as fp:
+                bound = re.search(r"streaming server on 127\.0\.0\.1:(\d+)", fp.read())
+            if bound:
+                port = int(bound.group(1))
+                break
+            if server.poll() is not None:
+                raise failed("serve")
+            if time.time() > deadline:
+                raise RuntimeError("cli serve: the server never logged its port")
+            time.sleep(0.25)
+        out["wall_s"]["serve_port_open_seen"] = time.perf_counter() - t_start
+        sig = signal(1.0, sr, 41)
+        t0 = time.perf_counter()
+        with StreamClient(("127.0.0.1", port)) as client:
+            client.sock.settimeout(SOCKET_TIMEOUT_S)
+            sid = client.open(speaker=speaker)
+            for lo in range(0, len(sig), 2000):
+                client.push(sid, sig[lo:lo + 2000])
+            client.flush(sid)
+            frames = list(client.frames(sid))
+        out["wall_s"]["serve_stream"] = time.perf_counter() - t0
+        alive = server.poll() is None
+        server.terminate()
+        server.wait(timeout=60)
+        ts_ref, v_ref = api.load_task(ckpt, device=dev).generate_vertices(sig, speaker)
+        out["serve"] = {"audio_s": 1.0, "frames": len(frames), "alive_until_terminated": alive,
+                        "timeline_equal": [t for t, _ in frames] == list(ts_ref),
+                        "max_abs_m_vs_offline": max_err(np.stack([v for _, v in frames]), v_ref)
+                        if frames else None, "tol_m": CLI_SERVE_TOL_M}
+        if not (alive and out["serve"]["timeline_equal"] and frames
+                and out["serve"]["max_abs_m_vs_offline"] <= CLI_SERVE_TOL_M):
+            raise RuntimeError(f"cli serve: {out['serve']}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        frame._state.clear()
+        frame._state.update(saved_frame)
+        out["wall_s"]["phase"] = time.perf_counter() - t_phase
+        emit(out)  # what was measured, also when a check failed
     return path
 
 

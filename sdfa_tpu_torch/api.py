@@ -1,8 +1,18 @@
-"""Top-level API: ``train_model`` (counterpart of ``sdfa_tpu/api.py``; the
-evaluate, trace and load entry points are not ported).
+"""Top-level API (counterpart of ``sdfa_tpu/api.py``; reference
+speech_anime/api.py:12-197):
 
-Reference: speech_anime/api.py:12-197. ``train_model``:
-configure → log dir → datasets → model → Experiment → Trainer.
+- ``train_model``: configure → log dir → datasets → model → Experiment → Trainer;
+- ``evaluate_model``: configure → restore → ``AnimationTask.evaluate``;
+- ``load_task``: a checkpoint on disk → an ``AnimationTask`` that serves, from
+  the port's own checkpoints and from the reference framework's;
+- ``trace_model`` / ``load_traced``: a self-contained dump (``hparams.json`` +
+  ``model.pt``, a port checkpoint) that ``load_task`` reads, checked at dump time
+  by one forward through the kernels on the card. XLA's ``hlo.txt`` and cost
+  analysis have no counterpart, and the dump is no TorchScript or
+  ``torch.export`` program: the kernels are ctypes launches from Python
+  wrappers, which neither can capture.
+
+Every entry point runs on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -10,12 +20,19 @@ from __future__ import annotations
 import datetime
 import logging
 import os
+import zipfile
 from typing import Optional
 
-from .config import configure
+import torch
+
+from .compat import convert_state_dict, init_params, load_flax_variables
+from .compat.torch_ckpt import reference_state
+from .config import ConfigDict, configure
 from .data import DatasetSlidingWindow
 from .models import build_model
+from .task import AnimationTask
 from .train import Experiment, Trainer
+from .utils import ArgumentParser
 from .utils.filesystem import maybe_in_dirs
 
 log = logging.getLogger(__name__)
@@ -118,3 +135,129 @@ def train_model(
 
     Trainer(exp, train_loader=train_loader, valid_loader=valid_loader).train()
     return exp
+
+
+def load_weights(model, ckpt_path: str):
+    """Fill ``model`` (on the host) from a checkpoint file, read with
+    ``weights_only=True``: the port's own (``train/checkpoints.py``, a payload
+    with ``"model"``) or the reference framework's ({epoch, global_step,
+    state} with ``_model.``-prefixed names, through ``compat/torch_ckpt.py``).
+    Both are ``torch.save`` zip files, so the payload's keys tell them apart.
+    The JAX package's msgpack checkpoints are refused."""
+    if not zipfile.is_zipfile(ckpt_path):
+        raise ValueError(
+            f"{ckpt_path} is not a torch checkpoint: a JAX (flax msgpack) checkpoint cannot "
+            "be read by the port; load it with sdfa_tpu and carry its variables over with "
+            "compat.load_flax_variables")
+    payload = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    if "model" in payload:
+        model.load_state_dict(payload["model"], strict=True)
+    elif "state" in payload:
+        state, meta = reference_state(payload)
+        params, stats, constants = convert_state_dict(state)
+        if meta:
+            log.info("reference checkpoint: epoch %s step %s", meta.get("epoch"),
+                     meta.get("global_step"))
+        load_flax_variables(model, {"params": params, "batch_stats": stats,
+                                    "constants": constants})
+    else:
+        raise ValueError(f"{ckpt_path}: neither a port checkpoint (\"model\") nor a reference "
+                         f"one (\"state\"); keys {sorted(payload)}")
+    return model
+
+
+def _restored_model(hp, load_from: Optional[str], seed: int = 1234):
+    """The configured model with ``load_from``'s weights, PCA bases included;
+    without a checkpoint, seeded weights and the config's bases."""
+    model = build_model(hp, load_pca=load_from is None)
+    if load_from is None:
+        return init_params(model, seed)
+    return load_weights(model, load_from)
+
+
+def evaluate_model(
+    custom_hparams: Optional[str] = None,
+    load_from: Optional[str] = None,
+    eval_input: Optional[str] = None,
+    eval_spk_cond: Optional[str] = None,
+    output_dir: Optional[str] = None,
+    dataset_root: Optional[str] = None,
+    overrides: Optional[dict] = None,
+    device="cuda",
+    **eval_kwargs,
+):
+    """Evaluate ``eval_input`` (a wav or a dataset sentence directory; else the
+    config's ``trainer.evaluate.test`` list) into ``output_dir``; see
+    ``AnimationTask.evaluate`` for ``eval_kwargs``."""
+    hp = configure(custom_hparams, overrides=overrides, dataset_root=dataset_root)
+    if eval_input is not None:
+        hp.trainer.evaluate.set_key("test", [(eval_input, f"speaker={eval_spk_cond or 'm1'}")])
+    task = AnimationTask(hp, _restored_model(hp, load_from), device)
+    sources = [ArgumentParser(*args) for args in hp.trainer.evaluate.test]
+    return task.evaluate(sources, output_dir=output_dir or "evaluate_results", **eval_kwargs)
+
+
+def trace_model(
+    custom_hparams: Optional[str] = None,
+    load_from: Optional[str] = None,
+    traced_dump_path: Optional[str] = None,
+    dataset_root: Optional[str] = None,
+    overrides: Optional[dict] = None,
+    device="cuda",
+) -> str:
+    """Dump ``hparams.json`` and ``model.pt`` (``{"model": state_dict}``, the
+    port's checkpoint payload) into ``traced_dump_path``, then
+    run the forward once on ``device`` on the JAX package's example input (one
+    window of zeros, speaker 0): on a card that builds the kernels and
+    launches them, so that a failure shows now rather than at the first
+    request. Returns the dump directory."""
+    hp = configure(custom_hparams, overrides=overrides, dataset_root=dataset_root)
+    model = _restored_model(hp, load_from)
+    out = traced_dump_path or "traced_model"
+    os.makedirs(out, exist_ok=True)
+    torch.save({"model": model.state_dict()}, os.path.join(out, "model.pt"))
+    hp.dump(os.path.join(out, "hparams.json"))
+
+    task = AnimationTask(hp, model, device)  # full float32, eval mode, on the device
+    frames, n_mels = int(hp.audio.feature.sliding_window_frames), int(hp.audio.mel.n_mels)
+    with torch.inference_mode():
+        preds, _, _ = task.model.forward_latent(
+            torch.zeros(1, frames, n_mels, 3, device=task.device),
+            torch.zeros(1, dtype=torch.long, device=task.device))
+        anime = task.model.decode_to_anime(preds)
+    if not bool(torch.isfinite(anime).all()):
+        raise RuntimeError("trace_model: the example forward gave non-finite values")
+    log.info("traced artifacts dumped to %s", out)
+    return out
+
+
+def load_task(ckpt_path: str, custom_hparams: Optional[str] = None,
+              dataset_root: Optional[str] = None, overrides: Optional[dict] = None,
+              device="cuda", **task_kwargs) -> AnimationTask:
+    """Checkpoint → an ``AnimationTask`` ready to serve on ``device``.
+
+    The hparams come from the run directory's ``hparams.json`` (``Experiment``
+    writes it beside every checkpoint) unless ``custom_hparams`` is given. A
+    pure reader: it writes nothing, builds no optimizer and reads no dataset
+    (the PCA bases come from the checkpoint), so a read-only mount serves."""
+    hp_json = os.path.join(os.path.dirname(os.path.abspath(ckpt_path)), "hparams.json")
+    if custom_hparams is not None:
+        hp = configure(custom_hparams, overrides=overrides, dataset_root=dataset_root)
+    elif os.path.exists(hp_json):
+        hp = ConfigDict.parse_file(hp_json)
+        if dataset_root is not None:
+            hp.dataset_anime.set_key("root", dataset_root)
+        if overrides:
+            hp.overwrite_by(overrides)
+    else:
+        raise FileNotFoundError(
+            f"no hparams.json next to {ckpt_path}: pass custom_hparams (the default config "
+            "would build a model unrelated to this checkpoint)")
+    model = load_weights(build_model(hp, load_pca=False), ckpt_path)
+    return AnimationTask(hp, model, device, **task_kwargs)
+
+
+def load_traced(dump_dir: str, device="cuda", **task_kwargs) -> AnimationTask:
+    """Rebuild an ``AnimationTask`` from a ``trace_model`` dump: ``load_task``
+    of its ``model.pt`` with the ``hparams.json`` beside it."""
+    return load_task(os.path.join(dump_dir, "model.pt"), device=device, **task_kwargs)

@@ -1,3 +1,4 @@
-from . import dsp, pipeline
+from . import dsp, io, pipeline, rms
+from .io import load, save
 
-__all__ = ["dsp", "pipeline"]
+__all__ = ["dsp", "io", "load", "pipeline", "rms", "save"]

@@ -1,13 +1,16 @@
-"""Audio DSP primitives, device part (counterpart of ``sdfa_tpu/audio/dsp.py``).
+"""Audio DSP primitives (counterpart of ``sdfa_tpu/audio/dsp.py``).
 
 Constants (windows, DFT bases, mel filters, Savitzky-Golay delta
 operators) are float32 numpy built on the host exactly as the JAX package
-builds them; the runtime ops take torch tensors on any device.
+builds them; the runtime ops take torch tensors on any device. ``resample``
+is the host's polyphase resampler that prepares a source before it reaches
+the device.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Tuple
 
 import numpy as np
@@ -105,3 +108,15 @@ def delta_matrix(n_frames: int, order: int, width: int = 9) -> np.ndarray:
     eye = np.eye(n_frames, dtype=np.float64)
     resp = savgol_filter(eye, width, polyorder=order, deriv=order, axis=-1, mode="interp")
     return resp.astype(np.float32)
+
+
+def resample(signal: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resampling on the host (scipy ``resample_poly`` in float64),
+    float32 out."""
+    if orig_sr == target_sr:
+        return np.asarray(signal, dtype=np.float32)
+    from scipy.signal import resample_poly
+
+    g = math.gcd(int(orig_sr), int(target_sr))
+    out = resample_poly(np.asarray(signal, dtype=np.float64), target_sr // g, orig_sr // g)
+    return out.astype(np.float32)

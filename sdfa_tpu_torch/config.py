@@ -9,6 +9,7 @@ overrides → ``{DATASET_ANIME_ROOT}`` substitution.
 from __future__ import annotations
 
 import importlib.util
+import json
 import os
 import re
 import warnings
@@ -108,13 +109,24 @@ class ConfigDict(dict):
             self.set_key(k, _sub(v))
         return self
 
+    def dump(self, path: str):
+        """Write the tree as JSON (``parse_file`` reads it back; tuples come
+        back as lists)."""
+        with open(path, "w") as fp:
+            json.dump(self, fp, indent=2, default=str)
+
     @staticmethod
     def parse_file(path: str) -> "ConfigDict":
-        """Load hparams from a ``.py`` module exposing ``hparams``."""
+        """Load hparams from a ``.py`` module exposing ``hparams`` or from a
+        ``.json`` file (a run directory's ``hparams.json``)."""
         path = os.path.abspath(os.path.expanduser(path))
         if not os.path.exists(path):
             raise FileNotFoundError(path)
-        if os.path.splitext(path)[1] != ".py":
+        ext = os.path.splitext(path)[1]
+        if ext == ".json":
+            with open(path) as fp:
+                return ConfigDict(json.load(fp))
+        if ext != ".py":
             raise ValueError(f"unsupported config file: {path}")
         spec = importlib.util.spec_from_file_location(
             "_sdfa_torch_config_" + re.sub(r"\W", "_", path), path)

@@ -1,8 +1,10 @@
-"""Mesh I/O (PLY, ascii + binary_little_endian) and a synthetic template
-(counterpart of ``sdfa_tpu/mesh/io.py``)."""
+"""Mesh I/O (PLY, ascii + binary_little_endian; OBJ) and a synthetic template
+(counterpart of ``sdfa_tpu/mesh/io.py``; ``write_obj`` writes the JAX
+package's text byte for byte)."""
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Tuple
 
@@ -100,6 +102,39 @@ def write_ply(path: str, verts: np.ndarray, faces: np.ndarray):
         fp.write(verts.astype("<f4").tobytes())
         for f in faces:
             fp.write(struct.pack("<B3i", 3, int(f[0]), int(f[1]), int(f[2])))
+
+
+def read_obj(path: str, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
+    """Return (verts (V,3) dtype, faces (F,3) int32) of the ``v`` / ``f`` lines."""
+    verts, faces = [], []
+    with open(path) as fp:
+        for line in fp:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+            elif line.startswith("f "):
+                faces.append([int(tok.split("/")[0]) - 1 for tok in line.split()[1:4]])
+    return np.asarray(verts, dtype=dtype), np.asarray(faces, np.int32)
+
+
+def write_obj(path: str, verts: np.ndarray, faces: np.ndarray):
+    verts = np.reshape(np.asarray(verts), (-1, 3))
+    faces = np.reshape(np.asarray(faces), (-1, 3))
+    with open(path, "w") as fp:
+        for v in verts:
+            fp.write(f"v {v[0]:.8f} {v[1]:.8f} {v[2]:.8f}\n")
+        for f in faces:
+            fp.write(f"f {f[0]+1} {f[1]+1} {f[2]+1}\n")
+
+
+def read_mesh(path: str, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
+    """``read_ply`` or ``read_obj`` by the file's extension."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".ply":
+        return read_ply(path, dtype)
+    if ext == ".obj":
+        return read_obj(path, dtype)
+    raise ValueError(f"unsupported mesh format: {ext}")
 
 
 def synthetic_template(seed: int = 0, n_major: int = 58, n_minor: int = 86,

@@ -249,11 +249,13 @@ class SpeechDrivenAnimation(nn.Module):
         return torch.cat([scale, rotat], dim=-1)[..., self._perm_on("interleave", scale.device)]
 
 
-def build_model(hparams, pca: Optional[Dict[str, np.ndarray]] = None) -> SpeechDrivenAnimation:
+def build_model(hparams, pca: Optional[Dict[str, np.ndarray]] = None,
+                load_pca: bool = True) -> SpeechDrivenAnimation:
     """Construct the network from a resolved hparams tree. ``pca``: optional
     arrays of the PCA bases, {"scale_compT", "scale_means", "rotat_compT",
     "rotat_means"} for dgrad, {"compT", "means"} for the other face types; by
-    default they are read from the config's .npy paths."""
+    default they are read from the config's .npy paths. ``load_pca=False``
+    leaves them at zero for a checkpoint to fill (``api.load_task``)."""
     mp = hparams.model
     out = mp.output
     face_type = mp.face_data_type
@@ -285,7 +287,7 @@ def build_model(hparams, pca: Optional[Dict[str, np.ndarray]] = None) -> SpeechD
                                       output_dim=int(out.output_dim),
                                       pca_coeffs=coeffs(out.layers), **kwargs)
         bases = {"pca": ("", out.get("pca"))}
-    if using_pca:
+    if using_pca and load_pca:
         for name, (prefix, paths) in bases.items():
             comp_t, means = ((pca[prefix + "compT"], pca[prefix + "means"]) if pca is not None
                              else (np.load(path) for path in paths))

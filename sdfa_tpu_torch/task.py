@@ -1,7 +1,8 @@
 """AnimationTask, the serving wrapper around the model (counterpart of
 ``sdfa_tpu/task.py``): offline requests on every wire, ensembling, the exact
-per-window path, and the device functions of live streaming
-(``streaming.StreamingSession`` / ``StreamingServer``).
+per-window path, the device functions of live streaming
+(``streaming.StreamingSession`` / ``StreamingServer``) and ``evaluate``, the
+evaluation of wav files or dataset sentences into mesh frames and video.
 
 Per request on the overlap path: the clip's frame grid and clip-level
 features (frontend), the per-frame encoder prefix once per clip (convs +
@@ -29,20 +30,27 @@ pinned host buffer results come down through.
 
 from __future__ import annotations
 
+import logging
+import os
+import re
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import ops
-from .audio import dsp
+from .audio import dsp, rms
+from .audio import io as audio_io
 from .audio.pipeline import (WindowSpec, clip_frame_features_padded, fetch_audio_features_device,
                              mel_from_frames)
 from .data.sliding_window import DatasetSlidingWindow
 from .models.sdfa import SpeechDrivenAnimation
 from .ops.decode_solve import decode_solve_fused, prep_consts
+from .utils import ArgumentParser
 from .viewer import frame as frame_mod
+
+log = logging.getLogger(__name__)
 
 MAX_WINDOW_BATCH = 2048  # decode scratch: 9·10112·4 B ≈ 364 KB per window
 
@@ -53,6 +61,21 @@ WIRE_LSB = 1e-5
 # no drift (see ``AnimationTask._get_verts_fn_i8d``).
 WIRE_LSB8 = 4e-5
 WIRES = ("f32", "i16", "i8d", "coef")  # what ``generate_vertices`` takes; servers add "coef16"
+
+
+def load_dataset_truth(path: str, fps: float) -> Dict:
+    """Truth track of a preprocessed sentence directory: {"title", "tslist",
+    "data" (F, D)} (the reference's eval_utils._load_source, dataset branch).
+
+    Frames sort by their number: the preprocessing writes negative-numbered
+    frames (-00001.npy) when speech starts late, which a lexical sort would
+    play out of order; ``tslist`` keeps each frame's real number, so the truth
+    track lines up with the audio."""
+    frames = sorted((f for f in os.listdir(path) if re.match(r"^-?\d+\.npy$", f)),
+                    key=lambda f: int(os.path.splitext(f)[0]))
+    frame_ids = [int(os.path.splitext(f)[0]) for f in frames]
+    data = np.stack([np.load(os.path.join(path, f)) for f in frames])
+    return dict(title="truth", tslist=[fi * 1000.0 / fps for fi in frame_ids], data=data)
 
 
 class HostBuffer:
@@ -577,3 +600,91 @@ class AnimationTask:
         from .streaming import StreamingSession
 
         return StreamingSession(self, speaker, emit_batch=emit_batch, block_frames=block_frames)
+
+    # -- evaluation ----------------------------------------------------------------
+    def evaluate(self, sources, output_dir: str = "evaluate_results",
+                 export_mesh_frames: bool = True, save_video: bool = True,
+                 grid_w: int = 512, grid_h: int = 512, font_size: int = 24,
+                 overwrite_video: bool = True, audio_target_db: Optional[float] = None,
+                 **kwargs):
+        """Evaluate sources (each a wav path or a dataset sentence directory,
+        with ``"speaker=..."`` arguments) into ``output_dir/<name>/`` mesh
+        frames and ``output_dir/<name>.avi`` (reference model.py:121-222).
+
+        A wav is read at 44.1 kHz, the side signal of the exports, and
+        resampled to the model's rate; a sentence directory gives its audio
+        blob and its truth track. The model's signal is normalized to
+        ``audio_target_db`` RMS. Video needs OpenCV (and matplotlib for
+        ``draw_latent``): without them ``save_video=True`` raises before any
+        inference."""
+        from .viewer import video as video_mod
+
+        if save_video:
+            video_mod.require_video(bool(kwargs.get("draw_latent")))
+        os.makedirs(output_dir, exist_ok=True)
+        sr = int(self.hp.audio.sample_rate)
+        fps = float(self.hp.anime.fps)
+        face_type = self.hp.model.face_data_type
+        if audio_target_db is None:
+            audio_target_db = self.hp.dataset_anime.get("audio_target_db", -24.5)
+
+        results = []
+        for src_args in sources:
+            if not isinstance(src_args, ArgumentParser):
+                src_args = ArgumentParser(*src_args)
+            path = src_args[0]
+            name = os.path.splitext(os.path.basename(path))[0]
+            truth = None
+            if os.path.isdir(path):
+                # a preprocessed sentence directory: its audio blob and truth frames
+                blob_path = path + "_audio.npz"
+                blob = np.load(blob_path if os.path.exists(blob_path)
+                               else os.path.join(path, "_audio.npz"))
+                sound_signal = np.asarray(blob["audio"], np.float32)
+                src_sr = int(blob["sr"])
+                signal = sound_signal if src_sr == sr else dsp.resample(sound_signal, src_sr, sr)
+                truth = load_dataset_truth(path, fps)
+                truth[face_type] = truth.pop("data")
+                sound_signal = dsp.resample(sound_signal, src_sr, 44100)
+            else:
+                sound_signal, _ = audio_io.load(path, sr=44100)
+                signal = dsp.resample(sound_signal, 44100, sr)
+            signal = rms.normalize(signal, audio_target_db)
+            speaker = src_args["speaker"] or 0
+            log.info("infer from %s", name)
+            tslist, animes, others = self.generate_animation(signal, speaker)
+
+            out_base = os.path.join(output_dir, name)
+            if export_mesh_frames:
+                video_mod.export_mesh_frames(out_base, tslist, animes, face_type, fps,
+                                             audio_signal=sound_signal, audio_sr=44100,
+                                             device=self.device)
+            video_path = None
+            if save_video and not overwrite_video and os.path.exists(out_base + ".avi"):
+                log.info("video exists, skipping: %s.avi", out_base)
+                video_path = out_base + ".avi"
+            elif save_video:
+                render_sources = []
+                if truth is not None and kwargs.get("draw_truth", True):
+                    render_sources.append(truth)
+                render_sources.append({"title": f"infer: {name}", face_type: animes,
+                                       "tslist": tslist})
+                # colour-mapped input and latent tracks (reference eval_utils.py:94-121)
+                if kwargs.get("draw_latent"):
+                    for key in ("inputs", "latent"):
+                        data = others.get(key)
+                        if data is None:
+                            continue
+                        if key == "inputs":  # (W, T, F, C) → the mel channel
+                            imgs = [video_mod.color_mapping(w[:, :, 0].T) for w in data]
+                        else:  # (W, D) latent → one column a window
+                            imgs = [video_mod.color_mapping(w.reshape(-1, 1)) for w in data]
+                        render_sources.append({"title": key, "images": np.asarray(imgs),
+                                               "tslist": tslist})
+                video_path = video_mod.render_video(
+                    sources=render_sources, video_fps=fps, audio_sr=44100,
+                    video_path=out_base + ".avi", grid_w=grid_w, grid_h=grid_h,
+                    font_size=font_size, audio_signal=sound_signal, device=self.device)
+            results.append(dict(name=name, tslist=tslist, animes=animes, video=video_path,
+                                others=others))
+        return results

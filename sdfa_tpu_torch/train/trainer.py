@@ -42,7 +42,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .. import ops
+from .. import ops, profiling
 from ..compat.from_flax import init_params
 from ..data.device_features import FeatureSpec, device_train_features
 from ..models import losses as L
@@ -244,8 +244,7 @@ class Experiment:
         self.hp, self.log_dir, self.seed = hparams, log_dir, int(seed)
         self.device = torch.device(device)
         os.makedirs(os.path.join(log_dir, "train_log", "loss"), exist_ok=True)
-        with open(os.path.join(log_dir, "hparams.json"), "w") as fp:
-            json.dump(hparams, fp, indent=2, default=str)
+        hparams.dump(os.path.join(log_dir, "hparams.json"))
 
         self.model = init_params(model, self.seed).to(self.device)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
@@ -429,6 +428,13 @@ class Trainer:
         self._history: Optional[List[dict]] = None
         self._steps_seen = 0
         self.loader_wait_s = 0.0  # time spent waiting on the train loader, over the run
+        # a profiler capture window: trainer.profile = {dir, start_step=10, num_steps=5}
+        prof = hp_tr.get("profile") or {}
+        self.profile_dir = prof.get("dir")
+        self.profile_start = int(prof.get("start_step", 10) or 0)
+        self.profile_steps = int(prof.get("num_steps", 5) or 5)
+        self.profile_trace: Optional[str] = None  # the trace file, once written
+        self._capture = None
 
     def _load_loss_history(self):
         """Prior epochs' loss rows from the run directory; rows at or past the
@@ -496,7 +502,14 @@ class Trainer:
             self._run_hooks("post_epoch", epoch=exp.epoch)
             log.info("epoch %d/%d done in %.1fs train_ploss=%.5f", exp.epoch, self.max_epochs,
                      time.time() - t0, train_metrics.get("scalar_ploss", float("nan")))
+        if self.profile_dir and self.profile_trace is None:
+            log.warning("profile window never opened: start_step=%d but only %d steps ran",
+                        self.profile_start, self._steps_seen)
         exp.save()
+
+    def _stop_profile(self):
+        self.profile_trace = profiling.stop_trace(self._capture)
+        self._capture = None
 
     def _fetch_put(self, loader_it) -> Optional[Dict[str, torch.Tensor]]:
         """The next batch with its upload enqueued, or None at the end of the
@@ -516,6 +529,10 @@ class Trainer:
         loader_it = iter(self.train_loader)
         batch = self._fetch_put(loader_it)
         while batch is not None:
+            if (self.profile_dir and self.profile_trace is None and self._capture is None
+                    and self._steps_seen == self.profile_start):
+                self._capture = profiling.start_trace(self.profile_dir,
+                                                      cuda=exp.device.type == "cuda")
             stamps.append(time.perf_counter())
             metrics = exp.train_step(batch)
             # batch k + 1 is fetched and its upload enqueued behind step k's
@@ -527,7 +544,12 @@ class Trainer:
                 exp.save()
             if len(device_metrics) % METRICS_EVERY == 0:
                 exp.write_metrics("train", _to_host([metrics])[0], exp.step)
+            if (self._capture is not None
+                    and self._steps_seen >= self.profile_start + self.profile_steps):
+                self._stop_profile()
         self._run_hooks("post_train", epoch=exp.epoch)
+        if self._capture is not None:  # the epoch ended inside the window: flush it
+            self._stop_profile()
         self.step_metrics = _to_host(device_metrics)
         if stamps:
             intervals = np.diff(stamps)

@@ -1,3 +1,4 @@
-from . import filesystem
+from . import argparser, filesystem, stream
+from .argparser import ArgumentParser
 
-__all__ = ["filesystem"]
+__all__ = ["ArgumentParser", "argparser", "filesystem", "stream"]

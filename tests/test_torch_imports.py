@@ -1,7 +1,11 @@
-"""sdfa_tpu_torch imports neither jax, flax, sdfa_tpu nor cv2 (the GPU host has
-no OpenCV), and importing it builds nothing. Checked in a fresh interpreter:
-this test process has jax loaded by conftest."""
+"""sdfa_tpu_torch imports neither jax, flax, sdfa_tpu, cv2 nor matplotlib (the
+GPU host has no OpenCV and no matplotlib), and importing it builds nothing.
+Checked in a fresh interpreter: this test process has jax loaded by conftest.
+The sources are also read statement by statement: no import of jax, flax or
+sdfa_tpu anywhere in the port or in ``chip_smoke.py``, and OpenCV and
+matplotlib only inside the functions that need them."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -14,9 +18,14 @@ DATA_MODULES = ["sdfa_tpu_torch.api", "sdfa_tpu_torch.utils.filesystem"] + [
     f"sdfa_tpu_torch.data.{m}" for m in ("csvio", "speech_anime", "synthetic", "features_host",
                                          "device_features", "sliding_window", "thread_prefetch",
                                          "prefetch")]
-_BAD = "('jax', 'jaxlib', 'flax', 'sdfa_tpu', 'cv2')"
+CLI_MODULES = ["sdfa_tpu_torch.__main__", "sdfa_tpu_torch.tools", "sdfa_tpu_torch.profiling",
+               "sdfa_tpu_torch.compat.torch_ckpt", "sdfa_tpu_torch.audio.io",
+               "sdfa_tpu_torch.audio.rms", "sdfa_tpu_torch.utils.argparser",
+               "sdfa_tpu_torch.utils.stream", "sdfa_tpu_torch.viewer.render",
+               "sdfa_tpu_torch.viewer.video"]
+_BAD = "('jax', 'jaxlib', 'flax', 'sdfa_tpu', 'cv2', 'matplotlib')"
 
-_SCRIPT = f"NEW = {DATA_MODULES!r}\n" + r"""
+_SCRIPT = f"NEW = {DATA_MODULES + CLI_MODULES!r}\n" + r"""
 import importlib, pkgutil, sys
 import sdfa_tpu_torch
 names = ["sdfa_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
@@ -24,7 +33,7 @@ names = ["sdfa_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdfa_tpu", "cv2"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdfa_tpu", "cv2", "matplotlib"))
 from sdfa_tpu_torch.ops import build
 missing = sorted(({"sdfa_tpu_torch.ops.bilstm_core", "sdfa_tpu_torch.ops.bilstm_layer",
                    "sdfa_tpu_torch.models.losses", "sdfa_tpu_torch.train.trainer",
@@ -47,7 +56,7 @@ def import_report():
 
 def test_every_module_imports_without_jax(import_report):
     n, bad, _ = import_report.split(" ", 2)
-    assert int(n) >= 42, import_report  # every subpackage walked; data/, api and utils included
+    assert int(n) >= 52, import_report  # every subpackage walked; data/, api, utils, the CLI
     assert bad == "[]", f"sdfa_tpu_torch pulled in {bad}"
 
 
@@ -78,3 +87,48 @@ def test_serving_module_alone_imports_without_jax(module):
     """Importing the live-serving modules on their own, as a service's
     process does, pulls in no jax, flax or sdfa_tpu either."""
     _alone(f"sdfa_tpu_torch.{module}")
+
+
+@pytest.mark.parametrize("module", ["__main__", "viewer.video", "compat.torch_ckpt"])
+def test_cli_module_alone_imports_without_jax_cv2_or_matplotlib(module):
+    """The CLI, the evaluation exports (renderer, video, template from paths)
+    and the reference checkpoint reader, each imported on its own, pull in
+    none of them."""
+    _alone(f"sdfa_tpu_torch.{module}")
+
+
+def _imports(path):
+    """(module name, whether the import statement is at module level) of every
+    import in the file."""
+    tree = ast.parse(open(path).read(), path)
+    top = {id(node) for node in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            yield name.split(".")[0], id(node) in top
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(REPO, "sdfa_tpu_torch")):
+        out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_sources_import_no_jax_and_no_cv2_at_module_level():
+    found = {os.path.relpath(p, REPO): list(_imports(p)) for p in _sources()}
+    assert "sdfa_tpu_torch/__main__.py" in found and len(found) >= 53
+    jax_like = {p: n for p, names in found.items() for n, _ in names
+                if n in ("jax", "jaxlib", "flax", "sdfa_tpu")}
+    assert not jax_like, jax_like
+    top_level = {p: n for p, names in found.items() for n, top in names
+                 if top and n in ("cv2", "matplotlib")}
+    assert not top_level, top_level
+    # the viewer does import them, inside its functions
+    assert ("cv2", False) in found["sdfa_tpu_torch/viewer/render.py"]
+    assert ("matplotlib", False) in found["sdfa_tpu_torch/viewer/video.py"]
