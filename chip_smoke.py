@@ -3,8 +3,8 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py            # one to two minutes
-    python3 chip_smoke.py --profile  # two to three. Also torch.profiler breakdowns: a request
+    python3 chip_smoke.py            # about four minutes
+    python3 chip_smoke.py --profile  # about five. Also torch.profiler breakdowns: a request
                                      # (with its host-to-device copies counted), a server tick,
                                      # both also for the offsets model,
                                      # a train step; the biLSTM step kernel's SM clocks by part
@@ -104,6 +104,27 @@ Phases, each printed as one JSON line:
    start first, so that their start-up overlaps the in-process modes. Wall
    seconds by mode.
 
+16. preprocess: ``python -m sdfa_tpu_torch preprocess --pitch_variants`` as a
+   subprocess on a raw tree in VOCASET's layout (6 sentences of 2 s at 22050 Hz
+   with a quiet head, two of them in the trim tables; 60 fps meshes of the
+   synthetic template, its non-face mask beside it as data), the seconds of each
+   stage; every dgrad file against the numpy float64 extraction (<= 1e-6), the
+   fitted components against a float64 numpy SVD with sklearn's sign rule (<=
+   1e-5, equal counts; the covariance route too, on the card, at the offsets'
+   15069 columns), four frames solved back to the template plus the smoothed
+   offsets (<= 1e-4 m); ``api.train_model`` for 8 raw-mode steps with
+   ``random_pitch_shift`` and the PCA heads at the fitted counts (K5 3 / 3 a
+   step); one 3 s request from the checkpoint (K1 / K2 / K3 1 / 1 / 1) within
+   1e-5 m of the plain versions and 1e-4 m of the float64 host decode + solve.
+17. retarget: the serve phase's model over the synthetic template with triangle
+   correspondences (two sources on every even triangle, none on every fifth):
+   the float64 solver build; one 3 s request on f32 / i16 / i8d (K1 / K2 / K3 1
+   / 1 / 0 each) against ``solve_host`` of its decoded dgrads; a session; a
+   capacity-8 server on coef with ``CoefDecoder`` (<= 1e-6 m to float64); the
+   request's device time by kernel and the f32 product over the equations
+   alone; the one-to-one file (the identity table: K3) and every equation twice
+   (the gather product) against the request without a file (<= 1e-5 m).
+
 Before its last lines the script checks that no process it started is left
 (every process of its process group that was not there when it began). Any
 failure raises, so the script exits non-zero and prints no result
@@ -153,6 +174,18 @@ CLI_TRACE_NAMES = ("core_bwd_kernel", "steps_kernel", "train/backward")
 STEP_LOSS_RTOL = 1e-5  # train step, kernels vs plain versions: total loss
 STEP_GRAD_RTOL = 1e-4  # ... and every gradient: max |diff| over the model's largest |gradient|;
                        # the recurrent layers' gradients also over their own largest |value|
+# preprocess: the raw tree's sentences (m3's 37th and 38th are in the trim tables, the
+# 38th also in the must-silent one; f4 validates, m5 tests), their audio, the train steps
+PRE_SENTENCES = (("m0", 1), ("m0", 2), ("m3", 37), ("m3", 38), ("f4", 21), ("m5", 21))
+PRE_AUDIO_S = 2.0
+PRE_TRAIN_STEPS = 8
+DGRAD_FILE_TOL = 1e-6  # a dgrad file (float64 on the card, saved float32) vs numpy float64
+PRE_CHECK_FRAMES = 16  # dgrad files of each sentence held against numpy, a seeded sample
+                       # (tests/test_torch_preprocess.py holds every file against JAX's)
+PCA_TOL = 1e-5         # fitted components vs a float64 numpy SVD with sklearn's sign rule
+PRE_ROUNDTRIP_TOL_M = 1e-4  # float32 dgrad files solved back (tests/test_deformation.py:168)
+PRE_PLAIN_TOL_M = 1e-5  # the preprocessed checkpoint's request, kernels vs plain versions
+IDENTITY_TOL_M = 1e-5   # an identity correspondence table vs no table
 F32_PEAK = 67e12      # H100 SXM, float32 outside the tensor cores, FLOP/s (data sheet)
 TF32_PEAK = 495e12    # H100 SXM, TF32 on the tensor cores, dense, FLOP/s (data sheet)
 HBM_RATE = 3.35e12    # H100 SXM, bytes/s (data sheet)
@@ -835,6 +868,13 @@ def main():
     # --- the offsets model family: served, streamed, then trained from disk and served ---
     path_launches["offsets"] = offsets_phase(dev, sr, smi)
     path_launches["offsets_train"] = offsets_train_phase(dev, smi)
+
+    # --- VOCASET preprocessing, training on its output; retargeting onto a template
+    #     with triangle correspondences ------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="sdfa_chip_pre_") as pre_tmp:
+        path_launches["preprocess"] = preprocess_phase(root, dev, smi, pre_tmp)
+        path_launches["retarget"] = retarget_phase(hp, model, sig0, spk0, v0, dev, sr, smi,
+                                                   pre_tmp)
     check_no_process_left(processes_before)
 
     kernels = []
@@ -1550,6 +1590,423 @@ def offsets_train_phase(dev, smi):
                 and out["serve"]["plain_max_abs_m"] <= OFFSETS_PLAIN_TOL_M):
             raise RuntimeError(f"offsets trained checkpoint: {out['serve']}")
     return path
+
+
+
+def write_raw_vocaset(tmp):
+    """A raw tree in VOCASET's layout under ``tmp/raw`` and a FLAME-layout
+    template (``mesh.synthetic_template``, its non-face mask beside it as
+    data) → (raw root, template path). Per sentence of ``PRE_SENTENCES``:
+    ``PRE_AUDIO_S`` of 22050 Hz audio with a quiet 0.4 s head (the VAD and the
+    trims act on it), 60 fps meshes over the same span moving six bumps of the
+    template's free band with seeded smooth coefficients, and the speaker's
+    template."""
+    import numpy as np
+
+    from sdfa_tpu_torch.audio import io as audio_io
+    from sdfa_tpu_torch.data.vocaset import config as vc
+    from sdfa_tpu_torch.mesh import read_ply, synthetic_template, write_ply
+
+    verts, faces, cnst = synthetic_template(SEED)
+    tpl = os.path.join(tmp, "flame", "template", "FLAME_sample.ply")
+    os.makedirs(os.path.dirname(tpl))
+    os.makedirs(os.path.join(tmp, "flame", "mask"))
+    write_ply(tpl, verts, faces)
+    is_cnst = np.zeros(len(verts), bool)
+    is_cnst[cnst] = True
+    tris = np.nonzero(is_cnst[faces].all(1))[0]
+    with open(os.path.join(tmp, "flame", "mask", "non_face.py"), "w") as fp:
+        fp.write(f"non_face_verts = {cnst.tolist()}\nnon_face_tris = {tris.tolist()}\n")
+    base = read_ply(tpl, dtype=np.float64)[0]
+    rng = np.random.default_rng(SEED)
+    free = np.nonzero(~is_cnst)[0]
+    bumps = [np.exp(-np.sum((base - base[c]) ** 2, 1) / (2 * 0.015 ** 2))[:, None]
+             * ~is_cnst[:, None] * rng.normal(size=3) for c in rng.choice(free, 6)]
+    sr, raw = 22050, os.path.join(tmp, "raw")
+    n, head = int(PRE_AUDIO_S * sr), int(0.4 * sr)
+    t = np.arange(n) / sr
+    for k, (spk, sent) in enumerate(PRE_SENTENCES):
+        alias = vc.SPEAKER_ALIAS[spk]
+        srng = np.random.default_rng(200 + k)
+        phase = np.cumsum(2 * np.pi * srng.uniform(110, 220) * (1 + 0.1 * np.sin(2.6 * t)) / sr)
+        voiced = sum(np.sin(h * phase) / h for h in range(1, 6))
+        wav = 0.2 * voiced * np.clip(np.sin(2 * np.pi * 3.1 * t) + 0.7, 0, None)
+        wav[:head] = 0.0
+        wav = (wav + srng.normal(0, 0.001, n)).astype(np.float32)
+        os.makedirs(os.path.join(raw, "audio", alias), exist_ok=True)
+        audio_io.save(os.path.join(raw, "audio", alias, f"sentence{sent:02d}.wav"), wav, sr)
+        os.makedirs(os.path.join(raw, "templates"), exist_ok=True)
+        write_ply(os.path.join(raw, "templates", f"{alias}.ply"), verts, faces)
+        mdir = os.path.join(raw, "unposedcleaneddata", alias, f"sentence{sent:02d}")
+        os.makedirs(mdir)
+        freqs, offs = srng.uniform(0.5, 4.0, 6), srng.uniform(0, 2 * np.pi, 6)
+        for fi in range(int(PRE_AUDIO_S * 60)):
+            amp = 0.004 * np.sin(2 * np.pi * freqs * fi / 60 + offs)
+            write_ply(os.path.join(mdir, f"sentence{sent:02d}.{fi:06d}.ply"),
+                      base + sum(a * b for a, b in zip(amp, bumps)), faces)
+    return raw, tpl
+
+
+def preprocess_phase(repo, dev, smi, tmp):
+    """``python -m sdfa_tpu_torch preprocess --pitch_variants`` as a subprocess
+    on a raw tree (``write_raw_vocaset``), its output held on the card's
+    host: ``PRE_CHECK_FRAMES`` seeded dgrad files of each sentence against the
+    numpy float64 plain version, the fitted
+    components against a float64 numpy SVD with sklearn's sign rule (and the
+    covariance route on the card at the offsets' 15069 columns), a few frames
+    solved back to the template plus the smoothed offsets. Then
+    ``api.train_model`` for ``PRE_TRAIN_STEPS`` raw-mode steps with
+    ``random_pitch_shift`` (the PCA heads at the fitted counts; K5 3 / 3 a
+    step) and one 3 s request from the checkpoint (K1 / K2 / K3 1 / 1 / 1)
+    against the plain versions and the float64 host decode + solve. Returns
+    the launch counts of the phase's path (its comparisons not counted)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from scipy.ndimage import gaussian_filter1d
+
+    from sdfa_tpu_torch import api, ops
+    from sdfa_tpu_torch.config import configure
+    from sdfa_tpu_torch.data.vocaset import config as vc
+    from sdfa_tpu_torch.data.vocaset import preload
+    from sdfa_tpu_torch.mesh import FLAME_COUNTS, read_ply
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import bilstm2, bilstm_core, decode_solve, freq_lstm
+    from sdfa_tpu_torch.ops.dgrad import deformation_gradients_np, rotation_cut_flips
+    from sdfa_tpu_torch.task import AnimationTask
+    from sdfa_tpu_torch.train import checkpoints
+    from sdfa_tpu_torch.viewer import frame
+
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
+    out = {"phase": "preprocess", "card": smi, "wall_s": {}}
+    t_phase = t0 = time.perf_counter()
+    raw, tpl = write_raw_vocaset(tmp)
+    out["wall_s"]["raw_tree"] = time.perf_counter() - t0
+
+    # 1. the CLI's preprocess mode as a user runs it
+    data = os.path.join(tmp, "data")
+    cmd = [sys.executable, "-m", "sdfa_tpu_torch", "preprocess", "--source_root", raw,
+           "--dataset_root", data, "--template_mesh", tpl, "--pitch_variants",
+           "--platform", "cpu" if str(dev) == "cpu" else "gpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                          timeout=CLI_SUBPROCESS_TIMEOUT_S)
+    out["wall_s"]["subprocess"] = time.perf_counter() - t0
+    if proc.returncode:
+        raise RuntimeError(f"preprocess exited {proc.returncode}: {proc.stderr[-3000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    root, out["stage_s"] = result["dataset_root"], result["stage_s"]
+    offsets_root = os.path.join(data, "offsets")
+
+    # 2. a seeded sample of each sentence's dgrad files against the numpy plain version
+    t0 = time.perf_counter()
+    pick_rng = np.random.default_rng(0)
+    _, faces = read_ply(tpl)
+    nf_verts, nf_tris = vc.non_face_masks(tpl)
+    jobs = []
+    for spk in sorted(os.listdir(os.path.join(offsets_root, "data"))):
+        template = read_ply(os.path.join(raw, "templates", f"{vc.SPEAKER_ALIAS[spk]}.ply"),
+                            dtype=np.float64)[0]
+        sdir = os.path.join(offsets_root, "data", spk, "neutral")
+        for sent in sorted(d for d in os.listdir(sdir) if os.path.isdir(os.path.join(sdir, d))):
+            files = sorted((f for f in os.listdir(os.path.join(sdir, sent))
+                            if preload._NPY_FRAME_RE.match(f)), key=lambda f: int(f[:-4]))
+            offs = gaussian_filter1d(np.stack([np.load(os.path.join(sdir, sent, f))
+                                               for f in files]), sigma=1.0, axis=0)
+            pick = sorted(pick_rng.choice(len(files), min(PRE_CHECK_FRAMES, len(files)),
+                                          replace=False))
+            jobs += [(template, offs[i], os.path.join(root, "data", spk, "neutral", sent,
+                                                      files[i])) for i in pick]
+
+    def plain_err(job):
+        template, offsets, path = job
+        want = deformation_gradients_np(template, template + offsets.reshape(-1, 3), faces)
+        want[nf_tris] = 0.0
+        got = np.load(path).reshape(-1, 9)
+        diff = np.abs(want.astype(np.float32) - got)
+        flips = rotation_cut_flips(want, got)  # rows the two SVDs put across the 1e-6 rad cut
+        diff[flips, 6:] = 0.0
+        return float(diff.max()), int(flips.sum())
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:  # numpy's SVD loop frees the GIL
+        errs = list(pool.map(plain_err, jobs))
+    out["dgrad_files"] = {"files": len(errs), "sentences": len(PRE_SENTENCES),
+                          "max_abs_vs_numpy_f64": max(e for e, _ in errs),
+                          "rotations_across_the_1e-6_rad_cut": sum(n for _, n in errs),
+                          "tol": DGRAD_FILE_TOL, "check_s": time.perf_counter() - t0}
+    if not (len(errs) == PRE_CHECK_FRAMES * len(PRE_SENTENCES)
+            and out["dgrad_files"]["max_abs_vs_numpy_f64"] <= DGRAD_FILE_TOL):
+        raise RuntimeError(f"dgrad files vs the numpy plain version: {out['dgrad_files']}")
+
+    # 3. the fits against a float64 numpy SVD with sklearn's selection and sign rule
+    t0 = time.perf_counter()
+    frames = {"offsets": preload._load_training_frames(offsets_root, 1)}
+    dg = preload._load_training_frames(root, 1).reshape(-1, vc.N_TRIS, 9)
+    frames["scale_"] = dg[:, :, :6].reshape(len(dg), -1)
+    frames["rotat_"] = dg[:, :, 6:].reshape(len(dg), -1)
+    pca, numpy_fit = {}, {}
+    for part, x in frames.items():
+        pdir = os.path.join(offsets_root if part == "offsets" else root, "pca")
+        prefix = "" if part == "offsets" else part
+        comp = np.load(os.path.join(pdir, f"{prefix}compT.npy")).T
+        means = np.load(os.path.join(pdir, f"{prefix}means.npy"))
+        want, want_mean = numpy_fit[part] = preload.fit_pca_np(x)
+        pca[part] = {"frames": len(x), "columns": x.shape[1], "components": len(comp),
+                     "numpy_components": len(want),
+                     "max_abs_vs_numpy": float(np.abs(comp - want).max())
+                     if comp.shape == want.shape else None,
+                     "means_max_abs_vs_numpy": float(np.abs(means - want_mean).max())}
+    # the covariance route, which the full dataset's 59856 columns take, at 15069
+    t1 = time.perf_counter()
+    gram, _ = preload.fit_pca(frames["offsets"], device=dev, route="gram")
+    pca["offsets"]["gram_route_s"] = time.perf_counter() - t1
+    want = numpy_fit["offsets"][0]
+    pca["offsets"]["gram_route_max_abs_vs_numpy"] = (
+        float(np.abs(gram - want).max()) if gram.shape == want.shape else None)
+    out["pca"], out["pca_check_s"], out["pca_tol"] = pca, time.perf_counter() - t0, PCA_TOL
+    for part, v in pca.items():
+        errs = [v["max_abs_vs_numpy"], v.get("gram_route_max_abs_vs_numpy", 0.0)]
+        if None in errs or max(errs) > PCA_TOL or not v["means_max_abs_vs_numpy"] <= 1e-7:
+            raise RuntimeError(f"PCA fit {part!r} vs numpy: {v}")
+    del frames, dg
+
+    # 4. dgrad files solved back to the template plus the smoothed offsets
+    solver = frame.set_template_mesh(template_path=tpl)  # constraints: the mask's vertices
+    template = read_ply(tpl, dtype=np.float64)[0]
+    picks = [jobs[i] for i in np.linspace(0, len(jobs) - 1, 4).astype(int)]
+    rt = [float(np.abs(solver.solve_host(np.load(path).reshape(-1, 9))
+                       - (template + offsets.reshape(-1, 3))).max())
+          for _, offsets, path in picks]
+    out["solve_back"] = {"frames": len(rt), "max_abs_m": max(rt), "tol_m": PRE_ROUNDTRIP_TOL_M}
+    if not max(rt) <= PRE_ROUNDTRIP_TOL_M:
+        raise RuntimeError(f"dgrad files solved back: {out['solve_back']}")
+
+    # 5. training on the preprocessed root: the PCA heads take the fitted counts
+    hp = configure("dgrad")
+    heads = {}
+    for part in ("scale", "rotat"):
+        k = int(np.load(os.path.join(root, "pca", f"{part}_compT.npy")).shape[1])
+        layers = [tuple(s) for s in hp.model.output[f"layers_{part}"]]
+        heads[f"layers_{part}"] = layers[:-1] + [layers[-1][:2] + (k,) + layers[-1][3:]]
+    out["pca_heads"] = {"scale": heads["layers_scale"][-1][2],
+                        "rotat": heads["layers_rotat"][-1][2],
+                        "note": "the only widths taken from the data"}
+    overrides = {"model": {"output": heads}, "trainer": {"pca_targets": True},
+                 "audio": {"feature": {"random_pitch_shift": True}}}
+    bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+    reset_counts(counters)
+    run = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    exp = api.train_model("dgrad", dataset_root=root, log_dir=run, max_steps=PRE_TRAIN_STEPS,
+                          overrides=overrides, device=dev)
+    out["wall_s"]["train_model"] = time.perf_counter() - t0
+    path = read_counts(counters, "preprocess train_model", zero=tuple(counters))
+    core = (bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES)
+    path.update(bilstm_core_fwd=core[0], bilstm_core_bwd=core[1])
+    out["train"] = {"steps": exp.step, "bilstm_core_launches": list(core),
+                    "per_step": [c / max(exp.step, 1) for c in core],
+                    "random_pitch_shift": bool(exp.hp.audio.feature.random_pitch_shift)}
+    if exp.step != PRE_TRAIN_STEPS or core != (3 * PRE_TRAIN_STEPS,) * 2:
+        raise RuntimeError(f"preprocess train_model: {out['train']}")
+
+    # 6. the trained checkpoint serves one 3 s request over the FLAME-layout template
+    hp_s = configure("dgrad", dataset_root=root, overrides={"model": {"output": heads}})
+    model = build_model(hp_s)
+    model.load_state_dict(checkpoints.load_checkpoint(os.path.join(run, "last.ckpt"))["model"])
+    served = AnimationTask(hp_s, model, dev)
+    served.warmup(3.0)
+    clip = signal(3.0, int(hp_s.audio.sample_rate), 90)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    ts, v = served.generate_vertices(clip, "m0")
+    out["wall_s"]["request"] = time.perf_counter() - t0
+    for name, n in read_counts(counters, "preprocess serve").items():
+        path[name] += n
+    out["serve_launches"] = {name: mod.LAUNCHES for name, mod in counters.items()}
+    if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
+        raise RuntimeError(f"preprocessed checkpoint: bad output {v.shape}")
+    with ops.plain_versions():
+        _, v_plain = served.generate_vertices(clip, "m0")
+    sample = sorted({int(i) for i in np.linspace(0, len(ts) - 1, 6)})
+    with torch.inference_mode():
+        frame_idx, _, z, _ = served._overlap_prefix(clip)
+        spk = dict(hp_s.dataset_anime.speakers)["m0"]
+        preds, _, _ = model.forward_windows(
+            z, torch.from_numpy(frame_idx[sample]).long().to(dev),
+            torch.full((len(sample),), spk, dtype=torch.long, device=dev), raw_pca=True)
+    dec = []
+    for part, per in (("scale", 6), ("rotat", 3)):
+        c = preds[f"dgrad_3d_{part}_pca"][:, 0].double().cpu().numpy()
+        pca_mod = getattr(model, f"{part}_pca")
+        dec.append((c @ pca_mod.compT.double().cpu().numpy().T
+                    + pca_mod.means.double().cpu().numpy()).reshape(len(c), -1, per))
+    oracle = np.stack([solver.solve_host(d) for d in np.concatenate(dec, axis=-1)])
+    out["serve"] = {"audio_s": 3.0, "windows": len(ts),
+                    "plain_max_abs_m": max_err(v, v_plain), "plain_tol_m": PRE_PLAIN_TOL_M,
+                    "f64_decode_solve_max_abs_m": float(np.abs(v[sample] - oracle).max()),
+                    "f64_tol_m": ORACLE_TOL_M, "vertex_motion_max_m": float(np.abs(
+                        v - template.astype(np.float32)).max())}
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    emit(out)
+    if not (out["serve"]["plain_max_abs_m"] <= PRE_PLAIN_TOL_M
+            and out["serve"]["f64_decode_solve_max_abs_m"] <= ORACLE_TOL_M):
+        raise RuntimeError(f"preprocessed checkpoint: {out['serve']}")
+    return path
+
+
+def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
+    """The shipped dgrad model (the serve phase's seeded weights and bases)
+    over ``mesh.synthetic_template`` with triangle correspondences in the
+    reference's file format (two sources on every even triangle, none on every
+    fifth, otherwise one to one): the float64 solver build; one 3 s request on
+    f32, i16 and i8d (K1 / K2 / K3 1 / 1 / 0 each) against ``solve_host`` of
+    its own decoded dgrads; a ``StreamingSession`` against the offline request;
+    a capacity-8 ``StreamingServer`` on coef decoded by ``CoefDecoder`` against
+    the float64 decode of the same coefficients; the request's device time by
+    kernel and the f32 product over the equations alone. Then the one-to-one
+    file (recognized as the identity table: K3) and the same table with every
+    equation twice (the gather and the product) against the serve phase's
+    request without a file. Returns the launch counts of the f32 request."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdfa_tpu_torch.mesh import FLAME_COUNTS, synthetic_template
+    from sdfa_tpu_torch.ops import bilstm2, decode_solve, freq_lstm
+    from sdfa_tpu_torch.ops.deform_solver import equation_entries
+    from sdfa_tpu_torch.streaming import CoefDecoder, StreamingServer
+    from sdfa_tpu_torch.task import AnimationTask
+    from sdfa_tpu_torch.viewer import frame
+
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
+    out = {"phase": "retarget", "card": smi}
+    t_phase = time.perf_counter()
+    verts, faces, cnst = synthetic_template(SEED)
+    nf = len(faces)
+
+    def corres(name, rows):
+        path = os.path.join(tmp, f"{name}.txt")
+        with open(path, "w") as fp:
+            fp.write(f"{len(rows)}\n" + "".join(f"{s},{d},0\n" for s, d in rows))
+        t0 = time.perf_counter()
+        solver = frame.set_template_mesh(verts, faces, cnst, corres_path=path)
+        return solver, time.perf_counter() - t0
+
+    rows = []
+    for i in range(nf):
+        if i % 5 != 4:
+            rows += [(i, i), ((i + 3) % nf, i)] if i % 2 == 0 else [(i, i)]
+    solver, out["solver_build_s"] = corres("fanout", rows)
+    out.update(n_tris=nf, n_eqs=solver.n_eqs, identity_rows=int((solver._eq_src < 0).sum()))
+    if solver.spec.identity_eq or solver.n_eqs != len(rows) + nf // 5:
+        raise RuntimeError(f"correspondence table: {solver.n_eqs} equations for {len(rows)} rows")
+    task = AnimationTask(hp, model, dev)
+    task.warmup(3.0)
+
+    # 1. one request a wire, against the float64 solve of its own decoded dgrads
+    lines, got = {}, {}
+    for wire in ("f32", "i16", "i8d"):
+        task.generate_vertices(sig, spk, wire=wire)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        ts, v = task.generate_vertices(sig, spk, wire=wire)
+        wall = 1e3 * (time.perf_counter() - t0)
+        counts = read_counts(counters, f"retarget {wire}", zero=("decode_solve",))
+        if counts != {"freq_lstm": 1, "bilstm2": 1, "decode_solve": 0}:
+            raise RuntimeError(f"retarget {wire}: launches {counts}")
+        if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
+            raise RuntimeError(f"retarget {wire}: bad output {v.shape}")
+        got[wire] = (ts, v)
+        lines[wire] = {"wall_ms": wall, "launches": counts}
+    ts, v = got["f32"]
+    sample = sorted({int(i) for i in np.linspace(0, len(ts) - 1, 6)})
+    with torch.inference_mode():
+        frame_idx, _, z, _ = task._overlap_prefix(sig)
+        preds, _, _ = model.forward_windows(
+            z, torch.from_numpy(frame_idx[sample]).long().to(dev),
+            torch.full((len(sample),), spk, dtype=torch.long, device=dev), raw_pca=True)
+        dgrad = model.decode_to_anime(preds)[:, 0].double().cpu().numpy()
+    oracle = np.stack([solver.solve_host(d) for d in dgrad])
+    for wire, (_, vw) in got.items():
+        lines[wire]["max_abs_m_vs_f64_solve"] = max_err(vw[sample], oracle)
+        lines[wire]["max_abs_m_vs_f32"] = max_err(vw, v)
+        if not (lines[wire]["max_abs_m_vs_f64_solve"] <= ORACLE_TOL_M + WIRE_TOL_M[wire]
+                and lines[wire]["max_abs_m_vs_f32"] <= WIRE_TOL_M[wire]):
+            raise RuntimeError(f"retarget {wire}: {lines[wire]}")
+    out["wires"] = lines
+    out["tol_m"] = {"vs_f64_solve": ORACLE_TOL_M, "vs_f32": WIRE_TOL_M}
+
+    # 2. the request's device time by kernel, and the product over the equations alone
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        task.generate_vertices(sig, spk)
+        torch.cuda.synchronize()
+    device, busy_ms = device_kernels(prof)
+    consts = task._decode_consts()[1]
+    w = len(ts)
+    t9 = torch.randn(w, 9, nf, device=dev)
+    t_eq = equation_entries(consts, solver.spec, t9).reshape(-1, 3 * solver.n_eqs)
+    p = consts.p.reshape(3 * solver.n_eqs, solver.n_free)
+    prod_ms = time_ms(lambda: t_eq @ p, 5)
+    flops = 2.0 * t_eq.shape[0] * t_eq.shape[1] * p.shape[1]
+    out["profile"] = {"device_busy_ms": busy_ms, "request_wall_ms": lines["f32"]["wall_ms"],
+                      "top_device_ms": [{"name": k[:80], "ms": ms, "calls": c}
+                                        for k, ms, c in device[:10]],
+                      "f32_product_over_n_eqs": {
+                          "shape": [list(t_eq.shape), list(p.shape)], "ms": prod_ms,
+                          "bound_ms": bound(flops, nbytes(t_eq, p) + 4 * t_eq.shape[0]
+                                            * p.shape[1])[0],
+                          "tflops": flops / prod_ms / 1e9}}
+    del t9, t_eq
+
+    # 3. a live session and a coef server on the correspondence template
+    reset_counts(counters)
+    out["session_launches"] = session_phase(task, counters, sig, spk, ts, v, smi,
+                                            phase="retarget_session", zero=("decode_solve",))
+    n = 8
+    clips = [signal(2.0 + 0.125 * k, sr, 140 + k) for k in range(n)]
+    decoder = CoefDecoder(task)
+    srv = StreamingServer(task, capacity=n, emit_batch=16, block_frames=16, wire="coef")
+    reset_counts(counters)
+    streams, tick_ms, _ = drive_server(srv, clips, list(range(n)), 2 * 16 * task.wspec.hop_size)
+    counts = read_counts(counters, "retarget server coef", zero=("decode_solve",))
+    errs = []
+    for k, frames in enumerate(streams):
+        coefs = np.stack([c for _, c in frames])
+        errs.append(max_err(decoder.decode(coefs), decoder.decode(coefs, precise=True)))
+        if [t for t, _ in frames] != list(task.generate_vertices(clips[k], k)[0]):
+            raise RuntimeError(f"retarget server: stream {k}'s timeline differs from offline")
+    out["server_coef"] = {"capacity": n, "streams": n, "max_abs_m_vs_f64": max(errs),
+                          "tol_m": COEF_ORACLE_TOL_M, "ticks": len(tick_ms),
+                          "tick_ms_median": sorted(tick_ms)[len(tick_ms) // 2],
+                          "launches": counts}
+    if not max(errs) <= COEF_ORACLE_TOL_M:
+        raise RuntimeError(f"retarget coef server: {out['server_coef']}")
+
+    # 4. identity tables: the one-to-one file (K3) and every equation twice (the product)
+    idents = {}
+    for name, table in (("one_to_one", [(i, i) for i in range(nf)]),
+                        ("doubled", [(i, i) for i in range(nf) for _ in range(2)])):
+        solver_i, build_s = corres(name, table)
+        task_i = AnimationTask(hp, model, dev)
+        task_i.warmup(3.0)
+        reset_counts(counters)
+        _, vi = task_i.generate_vertices(sig, spk)
+        counts = {k: m.LAUNCHES for k, m in counters.items()}
+        idents[name] = {"identity_table": solver_i.spec.identity_eq, "n_eqs": solver_i.n_eqs,
+                        "solver_build_s": build_s, "launches": counts,
+                        "max_abs_m_vs_no_file": max_err(vi, v_ref)}
+        want_k3 = 1 if name == "one_to_one" else 0
+        if (solver_i.spec.identity_eq != (name == "one_to_one") or counts["decode_solve"] != want_k3
+                or not idents[name]["max_abs_m_vs_no_file"] <= IDENTITY_TOL_M):
+            raise RuntimeError(f"identity table {name}: {idents[name]}")
+        del task_i
+    out["identity_tables"], out["identity_tol_m"] = idents, IDENTITY_TOL_M
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    torch.cuda.empty_cache()
+    return lines["f32"]["launches"]
 
 
 def reset_counts(counters):

@@ -1,4 +1,4 @@
-"""CLI: ``python -m sdfa_tpu_torch {train,evaluate,trace,synth,serve}``
+"""CLI: ``python -m sdfa_tpu_torch {train,evaluate,trace,preprocess,synth,serve}``
 (counterpart of ``sdfa_tpu/__main__.py``, with the same arguments and
 defaults; reference speech_anime/__main__.py:8-49).
 
@@ -6,8 +6,15 @@ Every mode runs on the card unless ``--platform cpu`` asks for the CPU.
 ``evaluate`` and ``serve`` install the template of ``--template_mesh`` /
 ``--mesh_constraints`` first (with neither, the one already installed; with
 none installed, or a path that does not exist, they fail before the model
-loads).
-``preprocess`` (the VOCASET pipeline) is not ported.
+loads); ``--mesh_tricorres`` adds triangle correspondences onto the
+template (cross-topology retargeting). ``preprocess`` runs the VOCASET
+pipeline from ``--source_root`` into ``--dataset_root``; it needs
+``--template_mesh`` (the FLAME template, ``mask/non_face.py`` beside its
+directory), since there is no default template, and prints one JSON line
+with the dataset root and the seconds of each stage.
+
+    python -m sdfa_tpu_torch preprocess --source_root vocaset --dataset_root data \\
+        --template_mesh vocaset/template/FLAME_sample.ply --pitch_variants
 
     python -m sdfa_tpu_torch evaluate --custom_hparams dgrad --load_from run/last.ckpt \\
         --eval_input clip.wav --eval_spk_cond m0 --template_mesh template.ply \\
@@ -39,8 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--overrides", type=str, default=None,
                         help="JSON dict merged over hparams")
     parser.add_argument("--max_steps", type=int, default=None)
-    # synth options
+    # preprocess / synth options
+    parser.add_argument("--source_root", type=str, default=None,
+                        help="raw VOCASET download root (preprocess)")
     parser.add_argument("--face_type", type=str, default="dgrad_3d")
+    parser.add_argument("--pitch_variants", action="store_true",
+                        help="also generate the ±2/±4-semitone audio blob variants consumed "
+                        "by random_pitch_shift (preprocess)")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="capture a torch.profiler trace of train steps 10-14 into this dir")
     # evaluate options (reference __main__.py:14-33)
@@ -160,9 +172,21 @@ def main(argv=None):
         return serve(task, host=args.host, port=args.port, capacity=args.capacity,
                      emit_batch=args.emit_batch, block_frames=args.block_frames,
                      wire=args.device_wire, pipeline=not args.no_pipeline)
-    raise NotImplementedError(
-        "preprocess (the VOCASET pipeline, sdfa_tpu/data/vocaset/) is not ported: ROADMAP "
-        "queue A, item 10; run `python -m sdfa_tpu preprocess` for it")
+    if args.mode == "preprocess":
+        from .data.vocaset import preload
+
+        for flag in ("source_root", "dataset_root", "template_mesh"):
+            if not getattr(args, flag):
+                parser.error(f"preprocess requires --{flag}")
+        if not os.path.exists(args.template_mesh):
+            raise FileNotFoundError(f"no template mesh at {args.template_mesh}")
+        root, seconds = preload.run_pipeline(
+            source_root=args.source_root, output_root=args.dataset_root,
+            template_path=args.template_mesh, face_type=args.face_type,
+            pitch_variants=args.pitch_variants, device=device)
+        print(json.dumps({"dataset_root": root, "stage_s": seconds}), flush=True)
+        return root
+    raise AssertionError(args.mode)  # argparse's choices hold every mode
 
 
 if __name__ == "__main__":

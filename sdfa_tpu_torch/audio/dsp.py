@@ -4,7 +4,9 @@ Constants (windows, DFT bases, mel filters, Savitzky-Golay delta
 operators) are float32 numpy built on the host exactly as the JAX package
 builds them; the runtime ops take torch tensors on any device. ``resample``
 is the host's polyphase resampler that prepares a source before it reaches
-the device.
+the device. The inverse spectrograms (Griffin-Lim) and the phase-vocoder
+time stretch and pitch shift are numpy on the host, as in the JAX package:
+the preprocessing writes its pitch-shifted audio variants with them.
 """
 
 from __future__ import annotations
@@ -33,6 +35,21 @@ def preemphasis(signal: torch.Tensor, a: float = 0.0) -> torch.Tensor:
     if a is None or a == 0:
         return signal
     return torch.cat([signal[..., :1], signal[..., 1:] - a * signal[..., :-1]], dim=-1)
+
+
+def deemphasis(signal: np.ndarray, a: float = 0.0) -> np.ndarray:
+    """Inverse of ``preemphasis`` on a host signal."""
+    if a is None or a == 0:
+        return signal
+    out = np.array(signal, dtype=np.float64)
+    for i in range(1, len(out)):
+        out[i] += out[i - 1] * a
+    return out.astype(np.float32)
+
+
+def num_frames(n_samples: int, win_size: int, hop_size: int) -> int:
+    """torch.stft(center=False) frame count."""
+    return 1 + (n_samples - win_size) // hop_size
 
 
 def frame_signal(signal: torch.Tensor, win_size: int, hop_size: int) -> torch.Tensor:
@@ -120,3 +137,134 @@ def resample(signal: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     g = math.gcd(int(orig_sr), int(target_sr))
     out = resample_poly(np.asarray(signal, dtype=np.float64), target_sr // g, orig_sr // g)
     return out.astype(np.float32)
+
+
+def _istft(spec: np.ndarray, win_size: int, hop_size: int, win_fn: str) -> np.ndarray:
+    """Overlap-add inverse of the centered STFT (host-side numpy)."""
+    window = get_window(win_fn, win_size).astype(np.float64)
+    n_frames = spec.shape[1]
+    out = np.zeros(win_size + hop_size * (n_frames - 1))
+    wsum = np.zeros_like(out)
+    frames = np.fft.irfft(spec, n=win_size, axis=0).T  # (frames, win)
+    for i in range(n_frames):
+        out[i * hop_size : i * hop_size + win_size] += frames[i] * window
+        wsum[i * hop_size : i * hop_size + win_size] += window**2
+    nz = wsum > 1e-10
+    out[nz] /= wsum[nz]
+    return out[win_size // 2 : -(win_size // 2)]
+
+
+def griffin_lim(
+    magnitude: np.ndarray,
+    win_size: int,
+    hop_size: int,
+    win_fn: str = "hamm",
+    n_iter: int = 50,
+    seed: int = 0,
+) -> np.ndarray:
+    """Phase reconstruction from a magnitude spectrogram (freq, frames)."""
+    rng = np.random.default_rng(seed)
+    angles = np.exp(2j * np.pi * rng.random(magnitude.shape))
+    mag = np.abs(magnitude).astype(np.float64)
+    window = get_window(win_fn, win_size).astype(np.float64)
+    for _ in range(n_iter):
+        signal = _istft(mag * angles, win_size, hop_size, win_fn)
+        padded = np.pad(signal, (win_size // 2, win_size // 2))
+        nf = num_frames(len(padded), win_size, hop_size)
+        idx = np.arange(nf)[:, None] * hop_size + np.arange(win_size)[None, :]
+        rebuilt = np.fft.rfft(padded[idx] * window, axis=1).T
+        rebuilt = rebuilt[:, : mag.shape[1]]
+        angles = np.exp(1j * np.angle(rebuilt))
+    return _istft(mag * angles, win_size, hop_size, win_fn).astype(np.float32)
+
+
+def inv_spectrogram(
+    spec, sr, win_size, hop_size, win_fn="hamm", ref_db=20, top_db=100,
+    normalize=False, n_iter=50, preemph=0.0,
+):
+    """Normalized-dB power spectrogram → waveform."""
+    db = np.asarray(spec, np.float64)
+    if normalize:
+        db = db * top_db - top_db + ref_db
+    amp = np.sqrt(np.power(10.0, 0.1 * db))
+    wav = griffin_lim(amp, win_size, hop_size, win_fn, n_iter)
+    return deemphasis(wav, preemph)
+
+
+def inv_mel_spectrogram(
+    mel, sr, win_size, hop_size, win_fn="hamm", n_mels=80, fmin=25, fmax=7600,
+    ref_db=20, top_db=100, normalize=False, n_iter=50, preemph=0.0,
+):
+    """Normalized-dB mel → waveform via pinv mel filters + Griffin-Lim."""
+    db = np.asarray(mel, np.float64)
+    if normalize:
+        db = db * top_db - top_db + ref_db
+    power = np.power(10.0, 0.1 * db)
+    inv_filt = np.linalg.pinv(mel_filters(sr, win_size, n_mels, fmin, fmax))
+    lin_power = np.maximum(inv_filt @ power, 1e-10)
+    wav = griffin_lim(np.sqrt(lin_power), win_size, hop_size, win_fn, n_iter)
+    return deemphasis(wav, preemph)
+
+
+# phase-vocoder time stretch and pitch shift: librosa.effects.pitch_shift's
+# algorithm (a phase-vocoder time stretch, then polyphase resampling back to
+# the original duration), which the reference's ±2/±4-semitone source
+# variants were made with
+def phase_vocoder(spec: np.ndarray, rate: float, hop_size: int) -> np.ndarray:
+    """Stretch a complex STFT (freq, frames) by ``rate`` (librosa semantics:
+    rate > 1 speeds up / fewer frames). Magnitudes are linearly interpolated
+    between columns; phases advance by the accumulated instantaneous
+    frequency so sinusoid continuity is preserved."""
+    n_bins, n_frames = spec.shape
+    time_steps = np.arange(0, n_frames, rate)
+    phi_advance = np.linspace(0, np.pi * hop_size, n_bins)
+    padded = np.pad(spec, ((0, 0), (0, 2)))
+    out = np.zeros((n_bins, len(time_steps)), np.complex128)
+    phase_acc = np.angle(spec[:, 0])
+    for t, step in enumerate(time_steps):
+        i = int(step)
+        alpha = step - i
+        c0, c1 = padded[:, i], padded[:, i + 1]
+        mag = (1.0 - alpha) * np.abs(c0) + alpha * np.abs(c1)
+        out[:, t] = mag * np.exp(1j * phase_acc)
+        dphase = np.angle(c1) - np.angle(c0) - phi_advance
+        dphase -= 2.0 * np.pi * np.round(dphase / (2.0 * np.pi))
+        phase_acc = phase_acc + phi_advance + dphase
+    return out
+
+
+def time_stretch(signal: np.ndarray, rate: float, win_size: int = 1024,
+                 hop_size: int = 256, win_fn: str = "hann") -> np.ndarray:
+    """Stretch ``signal`` to duration len/rate at the same pitch."""
+    assert rate > 0
+    y = np.asarray(signal, np.float64)
+    window = get_window(win_fn, win_size).astype(np.float64)
+    padded = np.pad(y, (win_size // 2, win_size // 2), mode="reflect")
+    nf = num_frames(len(padded), win_size, hop_size)
+    idx = np.arange(nf)[:, None] * hop_size + np.arange(win_size)[None, :]
+    spec = np.fft.rfft(padded[idx] * window, axis=1).T  # (freq, frames)
+    out = _istft(phase_vocoder(spec, rate, hop_size), win_size, hop_size, win_fn)
+    n_out = int(round(len(y) / rate))
+    if len(out) < n_out:
+        out = np.pad(out, (0, n_out - len(out)))
+    return out[:n_out].astype(np.float32)
+
+
+def pitch_shift(signal: np.ndarray, sr: int, n_steps: float,
+                bins_per_octave: int = 12) -> np.ndarray:
+    """Shift pitch by ``n_steps`` semitones, duration preserved
+    (librosa.effects.pitch_shift algorithm: stretch by 2^(−n/12), then
+    resample the stretched signal back to the original length)."""
+    from fractions import Fraction
+
+    from scipy.signal import resample_poly
+
+    rate = 2.0 ** (-float(n_steps) / bins_per_octave)
+    stretched = time_stretch(signal, rate)
+    frac = Fraction(rate).limit_denominator(1000)
+    out = resample_poly(stretched.astype(np.float64),
+                        frac.numerator, frac.denominator)
+    n = len(np.asarray(signal))
+    if len(out) < n:
+        out = np.pad(out, (0, n - len(out)))
+    return out[:n].astype(np.float32)

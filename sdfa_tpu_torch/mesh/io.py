@@ -5,7 +5,6 @@ package's text byte for byte)."""
 from __future__ import annotations
 
 import os
-import struct
 from typing import Tuple
 
 import numpy as np
@@ -71,15 +70,18 @@ def read_ply(path: str, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
             elif name == "face":
                 if len(props) != 1 or props[0][2] is None:
                     raise ValueError("face element must be one vertex-index list")
-                cnt_fmt, cnt_sz = _PLY_TYPES[props[0][2]]
-                idx_fmt, idx_sz = _PLY_TYPES[props[0][1]]
-                out = np.empty((count, 3), np.int32)
-                for i in range(count):
-                    (n,) = struct.unpack("<" + cnt_fmt, fp.read(cnt_sz))
-                    if n != 3:
-                        raise ValueError("only triangle meshes supported")
-                    out[i] = struct.unpack("<" + idx_fmt * n, fp.read(idx_sz * n))
-                faces = out
+                # triangles only: every record is a count of 3 and three indices,
+                # so the element reads as fixed-size records (a record with
+                # another count stops the read at the first such record)
+                dt = np.dtype([("n", "<" + _NP_CODES[_PLY_TYPES[props[0][2]][0]]),
+                               ("i", "<" + _NP_CODES[_PLY_TYPES[props[0][1]][0]], (3,))])
+                buf = fp.read(dt.itemsize * count)
+                if len(buf) != dt.itemsize * count:
+                    raise ValueError(f"truncated face element in {path}")
+                arr = np.frombuffer(buf, dtype=dt)
+                if (arr["n"] != 3).any():
+                    raise ValueError("only triangle meshes supported")
+                faces = arr["i"].astype(np.int32)
             else:
                 fp.read(sum(_PLY_TYPES[t][1] for _, t, _ in props) * count)
         if verts is None:
@@ -100,8 +102,9 @@ def write_ply(path: str, verts: np.ndarray, faces: np.ndarray):
         )
         fp.write(header.encode("ascii"))
         fp.write(verts.astype("<f4").tobytes())
-        for f in faces:
-            fp.write(struct.pack("<B3i", 3, int(f[0]), int(f[1]), int(f[2])))
+        rec = np.empty(len(faces), np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
+        rec["n"], rec["i"] = 3, faces
+        fp.write(rec.tobytes())
 
 
 def read_obj(path: str, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:

@@ -85,7 +85,12 @@ def transposed_p(p: torch.Tensor) -> torch.Tensor:
 def prep_consts(scale_comp_t, scale_means, rotat_comp_t, rotat_means,
                 solver: DeformationSolver, device) -> DecodeSolveConsts:
     """Build the kernel constants from the PCA inversions ((6T, Ks) and
-    (3T, Kr) components with their means) and the solver's host operator."""
+    (3T, Kr) components with their means) and the solver's host operator.
+    The kernel solves identity equation tables only (equation k reads
+    triangle k); a correspondence table goes through ``ops.solve_fn``."""
+    if not solver.spec.identity_eq:
+        raise ValueError("decode_solve takes identity equation tables only; this template "
+                         f"has {solver.n_eqs} correspondence equations")
     n = solver.n_tris
     tp = -(-n // T_ALIGN) * T_ALIGN
 

@@ -625,8 +625,11 @@ class CoefDecoder:
             raise ValueError(f"PCA basis of {self._sc_mean.shape[-1] // 6} triangles, "
                              f"template of {self.n_tris}")
         self._perm = _interleave_perm(self.n_tris)  # [6 scale | 3 rotat] per triangle
-        if not np.array_equal(solver._eq_src, np.arange(self.n_tris)):
-            raise NotImplementedError("the correspondence fan-out equations are not ported")
+        # the equation gather: row block k of the right-hand side is Tᵀ of
+        # triangle eq_src[k], or an appended identity where eq_src[k] < 0
+        # (a target triangle with no source); None for the identity table
+        self._eq_idx = None if solver.spec.identity_eq else np.where(
+            solver._eq_src < 0, self.n_tris, solver._eq_src)
         if solver.n_cnsts > 0:
             self._cnst = solver.template_verts[solver.cnst_indices]
             self._arc = np.asarray(solver._ar @ self._cnst)  # (3·n_eqs, 3)
@@ -703,9 +706,13 @@ class CoefDecoder:
 
     def _rhs_layout(self, tt, arc, xp):
         """Tᵀ (F, T, 3, 3) → the back-substitution's right-hand side before
-        Aᵀ, (3·n_eqs, F·3): equation k reads triangle k (the identity table,
-        checked at construction), less the constraint term, the frames side by
-        side."""
+        Aᵀ, (3·n_eqs, F·3): each equation's Tᵀ (the equation gather), less the
+        constraint term, the frames side by side."""
+        if self._eq_idx is not None:
+            eye = xp.zeros_like(tt[:, :1])
+            for i in range(3):
+                eye[:, :, i, i] = 1.0
+            tt = xp.concatenate([tt, eye], 1)[:, self._eq_idx]
         d = tt.reshape(tt.shape[0], -1, 3)
         if arc is not None:
             d = d - arc

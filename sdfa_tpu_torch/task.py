@@ -9,8 +9,10 @@ features (frontend), the per-frame encoder prefix once per clip (convs +
 FreqLstm kernel), then per window the temporal suffix (2-layer biLSTM kernel,
 or the per-layer kernel for a stack of another depth, attention, heads) and,
 on the vertex wires, the decode + solve kernel from PCA coefficients to
-vertices (dgrad), or the PCA product and the template (offsets; positions
-without the template). The coefficient wires (dgrad only) stop at the heads:
+vertices (dgrad; on a template with triangle correspondences the PCA decode,
+the equation gather and the product with P over the equations instead, as
+the JAX package routes it), or the PCA product and the template (offsets;
+positions without the template). The coefficient wires (dgrad only) stop at the heads:
 the client decodes (``streaming.CoefDecoder``).
 
 With ``device_frontend=False`` the per-window features come from the host
@@ -47,6 +49,7 @@ from .audio.pipeline import (WindowSpec, clip_frame_features_padded, fetch_audio
 from .data.sliding_window import DatasetSlidingWindow
 from .models.sdfa import SpeechDrivenAnimation
 from .ops.decode_solve import decode_solve_fused, prep_consts
+from .ops.deform_solver import solve_fn
 from .utils import ArgumentParser
 from .viewer import frame as frame_mod
 
@@ -176,15 +179,19 @@ class AnimationTask:
 
     def _decode_consts(self):
         """(solver, its device constants, the decode + solve kernel's constants)
-        of a dgrad model, built on first use."""
+        of a dgrad model, built on first use. The kernel's constants are None
+        on a template with triangle correspondences: the kernel solves
+        identity equation tables only, as the JAX package's does."""
         if self.model.face_type != "dgrad_3d":
             raise ValueError("decode + solve constants exist for dgrad_3d models only")
         if self._decode is None:
             solver = frame_mod.get_solver()
             m = self.model
-            dsc = prep_consts(m.scale_pca.compT.detach(), m.scale_pca.means.detach(),
-                              m.rotat_pca.compT.detach(), m.rotat_pca.means.detach(), solver,
-                              self.device)
+            dsc = None
+            if solver.spec.identity_eq:
+                dsc = prep_consts(m.scale_pca.compT.detach(), m.scale_pca.means.detach(),
+                                  m.rotat_pca.compT.detach(), m.rotat_pca.means.detach(),
+                                  solver, self.device)
             self._decode = (solver, frame_mod.device_consts(self.device), dsc)
         return self._decode
 
@@ -383,7 +390,8 @@ class AnimationTask:
 
     def _verts_base_fn(self):
         """fn(z_frames, frame_idx, spk) → flat float32 vertices (W, V·3) on the
-        device: the suffix, then for dgrad the decode + solve kernel, for the
+        device: the suffix, then for dgrad the decode + solve kernel (the
+        decode and ``solve_fn`` on a correspondence template), for the
         vertex face types the PCA product and, for offsets, the template.
         ``z_frames`` is any table of encoded frames (a clip's grid, a session's
         slice, the server's ring)."""
@@ -404,9 +412,13 @@ class AnimationTask:
 
         def fn(z_frames, frame_idx, spk):
             preds, _, _ = self.model.forward_windows(z_frames, frame_idx, spk, raw_pca=True)
-            verts = decode_solve_fused(preds["dgrad_3d_scale_pca"][:, 0].contiguous(),
-                                       preds["dgrad_3d_rotat_pca"][:, 0].contiguous(),
-                                       dsc, consts, solver.spec, consts.template_cnst)
+            if dsc is None:  # correspondences: decode, the equation gather, the product
+                planes = self.model.decode_to_anime(preds, planes=True)[:, 0]
+                verts = solve_fn(consts, planes, consts.template_cnst, solver.spec)
+            else:
+                verts = decode_solve_fused(preds["dgrad_3d_scale_pca"][:, 0].contiguous(),
+                                           preds["dgrad_3d_rotat_pca"][:, 0].contiguous(),
+                                           dsc, consts, solver.spec, consts.template_cnst)
             return verts.reshape(len(frame_idx), -1)
 
         return fn

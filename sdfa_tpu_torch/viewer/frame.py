@@ -7,14 +7,14 @@ template is not part of this repository, so with neither the caller is told
 to pass ``--template_mesh``.
 
 ``frames_to_meshes`` is the round-trip path (prediction frames on the host →
-vertices): dgrad frames go through the direct solve ``ops.solve_fn`` on the
-device the caller names, in bounded chunks; offsets add to the template;
-positions pass through.
+vertices): dgrad frames go through the direct solve ``ops.solve_fn`` (with
+the equation gather of a correspondence table) on the device the caller
+names, in bounded chunks; offsets add to the template; positions pass
+through.
 """
 
 from __future__ import annotations
 
-import ast
 import logging
 import os
 from typing import Optional, Tuple
@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..data.vocaset import config as vocaset_config
 from ..mesh import io as mesh_io
 from ..ops.deform_solver import DeformConsts, DeformationSolver, solve_fn
 
@@ -29,7 +30,7 @@ log = logging.getLogger(__name__)
 
 SOLVE_CHUNK = 256  # frames per solve call: about 40 live (frames, n_tris) float32 temporaries
 
-_state = dict(solver=None, verts=None, faces=None, consts={})
+_state = dict(solver=None, verts=None, faces=None)
 
 
 def default_constraints(template_path: str) -> np.ndarray:
@@ -37,18 +38,46 @@ def default_constraints(template_path: str) -> np.ndarray:
     (``template/FLAME_sample.ply`` beside ``mask/non_face.py``): the mask's
     ``non_face_verts`` list, read as data, never run. None, with a warning,
     where the mask is absent."""
-    vocaset = os.path.dirname(os.path.dirname(os.path.abspath(template_path)))
-    path = os.path.join(vocaset, "mask", "non_face.py")
+    path = vocaset_config.mask_path(template_path)
     if not os.path.exists(path):
         log.warning("non-face mask not found; using no constraints")
         return np.asarray([], np.int64)
+    return vocaset_config.read_mask(path, "non_face_verts")
+
+
+def read_correspondences(path: str, n_tris: int):
+    """(corr_count, corr_faces) of a triangle-correspondence file in the
+    reference's format: a count line, then that many ``src,dst,_`` rows (the
+    target triangle ``dst`` takes source triangle ``src``); a target triangle
+    with no row gets count 0 and one placeholder. A malformed line raises
+    ``ValueError`` naming it."""
+    sources = {}
     with open(path) as fp:
-        tree = ast.parse(fp.read(), path)
-    for node in tree.body:
-        if isinstance(node, ast.Assign) and any(
-                getattr(t, "id", None) == "non_face_verts" for t in node.targets):
-            return np.asarray(ast.literal_eval(node.value), np.int64)
-    raise ValueError(f"{path} assigns no literal non_face_verts list")
+        lines = fp.read().splitlines()
+    if not lines:
+        raise ValueError(f"{path}: empty correspondence file")
+    try:
+        count = int(lines[0].strip())
+    except ValueError:
+        raise ValueError(f"{path}:1: expected the row count, got {lines[0]!r}") from None
+    if len(lines) - 1 < count:
+        raise ValueError(f"{path}: {count} rows announced, {len(lines) - 1} present")
+    for no, line in enumerate(lines[1:count + 1], start=2):
+        parts = line.strip().split(",")
+        try:
+            src, dst = int(parts[0]), int(parts[1])
+        except (ValueError, IndexError):
+            raise ValueError(f"{path}:{no}: expected 'src,dst,_', got {line!r}") from None
+        if len(parts) != 3 or not (0 <= dst < n_tris):
+            raise ValueError(f"{path}:{no}: expected 'src,dst,_' with a target triangle "
+                             f"in 0..{n_tris - 1}, got {line!r}")
+        sources.setdefault(dst, []).append(src)
+    corr_count, corr_faces = [], []
+    for i in range(n_tris):
+        src = sources.get(i)
+        corr_count.append(len(src) if src else 0)
+        corr_faces.extend(src if src else [0])
+    return corr_count, corr_faces
 
 
 def set_template_mesh(verts: Optional[np.ndarray] = None, faces: Optional[np.ndarray] = None,
@@ -60,11 +89,10 @@ def set_template_mesh(verts: Optional[np.ndarray] = None, faces: Optional[np.nda
 
     Either arrays (``verts``, ``faces``, ``cnst_ids``) or paths: a mesh file
     (``template_path``) and a constraints file (``constraints_path``, else
-    ``default_constraints(template_path)``)."""
-    if corres_path is not None:
-        raise NotImplementedError(
-            "triangle correspondences (--mesh_tricorres) are not ported: the solver's "
-            "fan-out equations are ROADMAP queue A, item 8")
+    ``default_constraints(template_path)``). ``corres_path``: triangle
+    correspondences onto this template (``read_correspondences``) for
+    cross-topology retargeting; the dgrad frames then still have the
+    template's triangle count, and each equation reads its source's."""
     if verts is None:
         if faces is not None or cnst_ids is not None:
             raise ValueError("faces / cnst_ids given without verts")
@@ -81,9 +109,13 @@ def set_template_mesh(verts: Optional[np.ndarray] = None, faces: Optional[np.nda
             cnst_ids = default_constraints(template_path)
     elif template_path is not None or constraints_path is not None:
         raise ValueError("pass the template as arrays or as paths, not both")
-    solver = DeformationSolver(verts, faces, cnst_indices=cnst_ids, reg=reg)
+    corr_count = corr_faces = None
+    if corres_path is not None:
+        corr_count, corr_faces = read_correspondences(corres_path, len(np.reshape(faces, (-1, 3))))
+    solver = DeformationSolver(verts, faces, cnst_indices=cnst_ids, corr_count=corr_count,
+                               corr_faces=corr_faces, reg=reg)
     _state.update(solver=solver, verts=np.asarray(verts, np.float32).reshape(-1, 3),
-                  faces=np.asarray(faces, np.int64).reshape(-1, 3), consts={})
+                  faces=np.asarray(faces, np.int64).reshape(-1, 3))
     return solver
 
 
@@ -96,12 +128,9 @@ def get_solver() -> DeformationSolver:
 
 
 def device_consts(device) -> DeformConsts:
-    """The installed solver's direct-solve constants on ``device``, uploaded
-    once per device and template."""
-    solver, device = get_solver(), torch.device(device)
-    if device not in _state["consts"]:
-        _state["consts"][device] = solver.device_consts(device)
-    return _state["consts"][device]
+    """The installed solver's constants on ``device``, uploaded once per
+    device and template."""
+    return get_solver().device_consts(device)
 
 
 def template() -> Tuple[np.ndarray, np.ndarray]:

@@ -5,8 +5,9 @@ through ``api.load_task``), ``trace`` (``load_traced``, ``load_task`` and the
 trained model in memory give the same vertices), ``synth``, ``serve`` in a
 thread answering one ``StreamClient`` (its frames within the i16 wire's step
 of the offline request), the trainer's profiler window, and the stated
-refusals: ``preprocess``, ``--mesh_tricorres``, a missing template and
-``--platform gpu`` without a card.
+refusals: ``preprocess`` without ``--template_mesh`` or ``--source_root``, a
+malformed ``--mesh_tricorres`` file, a missing template and ``--platform gpu``
+without a card.
 
 The dgrad network at narrow widths (``test_torch_slice.py::narrow_model``) on a
 dataset cut to a small synthetic template's 240 triangles."""
@@ -194,14 +195,27 @@ def test_serve_answers_a_client(cli, monkeypatch):
     assert err <= STREAM_TOL_M + WIRE_TOL_M
 
 
-@pytest.mark.parametrize("case", ["preprocess", "tricorres", "no_template", "gpu"])
-def test_refusals(cli, case, monkeypatch):
+@pytest.mark.parametrize("case", ["preprocess", "preprocess_source", "tricorres", "no_template",
+                                  "gpu"])
+def test_refusals(cli, case, monkeypatch, capsys):
+    out = str(cli["tmp"] / f"refused_{case}")
     args = ["evaluate", "--load_from", cli["ckpt"], "--eval_input", cli["wav"], "--no-save_video",
-            "--output_dir", str(cli["tmp"] / f"refused_{case}")] + cli["common"]
-    if case == "preprocess":
-        args, err, match = ["preprocess", "--platform", "cpu"], NotImplementedError, "queue A"
-    elif case == "tricorres":
-        args, err, match = args + ["--mesh_tricorres", cli["wav"]], NotImplementedError, "item 8"
+            "--output_dir", out] + cli["common"]
+    if case.startswith("preprocess"):  # each required path named when it is missing
+        missing = "--template_mesh" if case == "preprocess" else "--source_root"
+        given = {"--source_root": str(cli["tmp"]), "--template_mesh": cli["template"][1]}
+        args = ["preprocess", "--platform", "cpu", "--dataset_root", out] + [
+            a for flag, value in given.items() if flag != missing for a in (flag, value)]
+        with pytest.raises(SystemExit):
+            main(args)
+        assert f"preprocess requires {missing}" in capsys.readouterr().err
+        assert not (cli["tmp"] / f"refused_{case}").exists()
+        return
+    if case == "tricorres":  # a malformed correspondence file: the line is named
+        bad = cli["tmp"] / "corres_bad.txt"
+        bad.write_text("2\n1,0,0\n3;1;0\n")
+        args = args + cli["template"] + ["--mesh_tricorres", str(bad)]
+        err, match = ValueError, "corres_bad.txt:3"
     elif case == "no_template":
         monkeypatch.setattr(frame, "_state", dict(solver=None, verts=None, faces=None, consts={}))
         err, match = FileNotFoundError, "--template_mesh"

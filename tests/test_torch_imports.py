@@ -1,9 +1,10 @@
-"""sdfa_tpu_torch imports neither jax, flax, sdfa_tpu, cv2 nor matplotlib (the
-GPU host has no OpenCV and no matplotlib), and importing it builds nothing.
+"""sdfa_tpu_torch imports neither jax, flax, sdfa_tpu, sklearn, cv2 nor
+matplotlib (the GPU host has no scikit-learn, no OpenCV and no matplotlib),
+and importing it builds nothing.
 Checked in a fresh interpreter: this test process has jax loaded by conftest.
-The sources are also read statement by statement: no import of jax, flax or
-sdfa_tpu anywhere in the port or in ``chip_smoke.py``, and OpenCV and
-matplotlib only inside the functions that need them."""
+The sources are also read statement by statement: no import of jax, flax,
+sdfa_tpu or sklearn anywhere in the port or in ``chip_smoke.py``, and OpenCV
+and matplotlib only inside the functions that need them."""
 
 import ast
 import os
@@ -23,9 +24,12 @@ CLI_MODULES = ["sdfa_tpu_torch.__main__", "sdfa_tpu_torch.tools", "sdfa_tpu_torc
                "sdfa_tpu_torch.audio.rms", "sdfa_tpu_torch.utils.argparser",
                "sdfa_tpu_torch.utils.stream", "sdfa_tpu_torch.viewer.render",
                "sdfa_tpu_torch.viewer.video"]
-_BAD = "('jax', 'jaxlib', 'flax', 'sdfa_tpu', 'cv2', 'matplotlib')"
+PREPROCESS_MODULES = ["sdfa_tpu_torch.data.vocaset.preload", "sdfa_tpu_torch.data.vocaset.config",
+                      "sdfa_tpu_torch.ops.dgrad", "sdfa_tpu_torch.ops.rotation",
+                      "sdfa_tpu_torch.audio.misc"]
+_BAD = "('jax', 'jaxlib', 'flax', 'sdfa_tpu', 'sklearn', 'cv2', 'matplotlib')"
 
-_SCRIPT = f"NEW = {DATA_MODULES + CLI_MODULES!r}\n" + r"""
+_SCRIPT = f"NEW = {DATA_MODULES + CLI_MODULES + PREPROCESS_MODULES!r}\n" + r"""
 import importlib, pkgutil, sys
 import sdfa_tpu_torch
 names = ["sdfa_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
@@ -33,7 +37,8 @@ names = ["sdfa_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdfa_tpu", "cv2", "matplotlib"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdfa_tpu", "sklearn", "cv2",
+                                    "matplotlib"))
 from sdfa_tpu_torch.ops import build
 missing = sorted(({"sdfa_tpu_torch.ops.bilstm_core", "sdfa_tpu_torch.ops.bilstm_layer",
                    "sdfa_tpu_torch.models.losses", "sdfa_tpu_torch.train.trainer",
@@ -89,6 +94,14 @@ def test_serving_module_alone_imports_without_jax(module):
     _alone(f"sdfa_tpu_torch.{module}")
 
 
+@pytest.mark.parametrize("module", PREPROCESS_MODULES)
+def test_preprocess_module_alone_imports_without_jax_or_sklearn(module):
+    """The preprocessing pipeline and the float64 extraction, each imported
+    on its own, pull in no jax, sdfa_tpu or sklearn: the PCA fit is the
+    port's own."""
+    _alone(module)
+
+
 @pytest.mark.parametrize("module", ["__main__", "viewer.video", "compat.torch_ckpt"])
 def test_cli_module_alone_imports_without_jax_cv2_or_matplotlib(module):
     """The CLI, the evaluation exports (renderer, video, template from paths)
@@ -124,7 +137,7 @@ def test_sources_import_no_jax_and_no_cv2_at_module_level():
     found = {os.path.relpath(p, REPO): list(_imports(p)) for p in _sources()}
     assert "sdfa_tpu_torch/__main__.py" in found and len(found) >= 53
     jax_like = {p: n for p, names in found.items() for n, _ in names
-                if n in ("jax", "jaxlib", "flax", "sdfa_tpu")}
+                if n in ("jax", "jaxlib", "flax", "sdfa_tpu", "sklearn")}
     assert not jax_like, jax_like
     top_level = {p: n for p, names in found.items() for n, top in names
                  if top and n in ("cv2", "matplotlib")}

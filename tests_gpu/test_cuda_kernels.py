@@ -92,3 +92,30 @@ def test_cuda_training_core_matches_plain(cuda, steps, rows, hid):
         assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-4
     # the partial sums are added in a fixed order: the same inputs give the same bits
     assert torch.equal(got[0], torch.autograd.grad(K5.bilstm_core(xp, w_hh), (xp,), dout)[0])
+
+
+def test_dgrad_extraction_on_card_matches_numpy(cuda):
+    """The preprocessing's float64 extraction on the card (cuSOLVER's batched
+    SVD) against its numpy plain version (LAPACK), at FLAME's counts over a
+    batch of frames: ≤ 1e-10 (a rotation within 1% of the 1e-6 rad cut may
+    land on either side of it), degenerate triangles zero on both sides."""
+    from sdfa_tpu_torch.ops.dgrad import (deformation_gradients_f64, deformation_gradients_np,
+                                          rotation_cut_flips)
+
+    verts, faces, _ = synthetic_template(0)
+    rng = np.random.default_rng(5)
+    frames = []
+    for k in range(8):
+        w = np.exp(-np.sum((verts - verts[rng.integers(1200)]) ** 2, 1) / (2 * 0.02 ** 2))
+        frames.append(verts + 0.004 * (k + 1) * w[:, None] * rng.normal(size=3))
+    frames[3][faces[0, 2]] = frames[3][faces[0, 0]] + 2.0 * (frames[3][faces[0, 1]]
+                                                             - frames[3][faces[0, 0]])
+    got = deformation_gradients_f64(torch.from_numpy(verts).to(cuda),
+                                    torch.from_numpy(np.stack(frames)).to(cuda),
+                                    torch.from_numpy(faces).to(cuda)).cpu().numpy()
+    want = np.stack([deformation_gradients_np(verts, f, faces) for f in frames])
+    diff = np.abs(got - want)
+    for k in range(len(frames)):  # rotations within 1% of the 1e-6 rad cut: either side
+        diff[k, rotation_cut_flips(want[k], got[k]), 6:] = 0.0
+    assert float(diff.max()) <= 1e-10
+    assert np.abs(got[3, 0]).max() == 0.0 and np.abs(got).max() > 1e-3
