@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py            # about four minutes
+    python3 chip_smoke.py            # about three minutes
     python3 chip_smoke.py --profile  # about five. Also torch.profiler breakdowns: a request
                                      # (with its host-to-device copies counted), a server tick,
                                      # both also for the offsets model,
@@ -26,7 +26,9 @@ Phases, each printed as one JSON line:
    computes the same function where there is one (``torch.nn.LSTM`` through
    cuDNN for the recurrences), as a yardstick that no path uses. ``freq_lstm``
    and ``decode_solve`` are timed at a request's own shape as well (768 rows,
-   216 windows). Every kernel is also held to its plain version, untimed, at
+   216 windows), ``bilstm_layer`` at H = 128 at the ``spec_variants`` phase's
+   shapes and ``bilstm2`` at H = 128 at 256 windows. Every kernel is also held
+   to its plain version, untimed, at
    ragged shapes that reach every edge of its tiling; ``freq_lstm``,
    ``decode_solve`` and ``bilstm_core``'s backward must give the same bits
    twice. One line times the solve's product as a single ``torch.matmul`` in
@@ -124,6 +126,22 @@ Phases, each printed as one JSON line:
    request's device time by kernel and the f32 product over the equations
    alone; the one-to-one file (the identity table: K3) and every equation twice
    (the gather product) against the request without a file (<= 1e-5 m).
+18. spec_variants: three models of layers the shipped configs do not use, at the
+   dgrad widths over the same template and bases: ``freq_last_gmm`` (FreqLstm
+   "last" through ``bilstm_layer`` at H = 128, a 3-layer time stack at H = 256,
+   GMM attention), ``lstm2d_prod`` (LSTM2d per window through ``bilstm_layer``
+   at H = 128, ``bilstm2``, dot-product attention) and ``gru_extras``
+   (``mul-noise`` and ``gradx`` after FreqLstm, a biGRU through cuDNN, a head fc
+   with pre-layer extras). Each serves a 3 s request (launches by kernel and
+   width, wall and device busy ms) within 1e-5 m of the plain versions and 1e-4
+   m of the float64 solve, then takes 10 train steps of 100 windows
+   (``bilstm_core`` launches counted; the first step's loss terms within 1e-5
+   and its gradient norm within 1e-4 of the plain versions'); ``freq_last_gmm``
+   then trains one epoch of 3 batches with an aux loader (``Trainer.aux_steps``
+   counted: one aux step after each main step, host steps = main + aux).
+
+At the end ``ops.PLAIN_ROUTES`` must read 0: no path this script drives has a
+recurrent shape that no kernel takes.
 
 Before its last lines the script checks that no process it started is left
 (every process of its process group that was not there when it began). Any
@@ -131,6 +149,7 @@ failure raises, so the script exits non-zero and prints no result
 line. The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import json
 import os
 import re
@@ -147,10 +166,15 @@ K2_WINDOWS = 256      # windows per suffix call
 K3_WINDOWS = 256
 K3_REQUEST_WINDOWS = 216  # one 3 s request's windows
 K4_ROWS = 256
+# K4 at H = 128, (rows, T, in): V1's FreqLstm "last" over a 3 s request's 768 frames; V2's
+# LSTM2d over its 216 windows (216 x 64 rows of 32 frequency steps, then 216 x 32 rows of 64)
+K4_H128_SHAPES = ((768, 32, 64), (216 * 64, 32, 64), (216 * 32, 64, 256))
 K1_LIVE_ROWS = (12, 128, 512)  # a stream's first block; a block round at capacity 8 and 32
 LIVE_WINDOWS = (128, 512)      # a full tick's suffix call at capacity 8 and 32
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
 TRAIN_STEPS = 5
+VARIANT_TRAIN_STEPS = 10  # spec_variants: train steps of 100 windows per variant
+VARIANT_PLAIN_TOL_M = 1e-5  # spec_variants: a request through kernels vs plain versions
 DATA_TRAIN_STEPS = 30  # api.train_model from a generated dataset: 6 epochs of 5 batches
 TOL = {"freq_lstm": 1e-4, "bilstm2": 1e-4, "decode_solve": 1e-5, "bilstm_layer": 1e-4,
        "bilstm_core_fwd": 1e-4}  # max |kernel - plain|
@@ -414,15 +438,16 @@ def main():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                 **{k: v for k, v in extra.items() if k in ("err_is", "bound_peaks")}}
+                 **{k: v for k, v in extra.items() if k in ("err_is", "bound_peaks", "hidden")}}
         if primary:
             report[name] = entry
         else:
             report[name].setdefault("other_shapes", []).append(
-                {k: entry[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")})
+                {k: entry[k] for k in ("shape", "hidden", "max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms") if k in entry})
 
-    def forward_case(name, kernel, plain, args, flops, library, source, replaces, primary=True):
+    def forward_case(name, kernel, plain, args, flops, library, source, replaces, primary=True,
+                     **extra):
         with torch.inference_mode():
             got = kernel(*args)
             torch.cuda.synchronize()
@@ -435,7 +460,7 @@ def main():
             library_ms = time_ms(library, 5) if library else None
         moved = nbytes(*[a for a in args if torch.is_tensor(a)], got)
         record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, flops, moved, library_ms,
-               source, replaces, primary)
+               source, replaces, primary, **extra)
 
     def repeats(name, kernel, args, first):
         """Two launches on the same inputs must be equal bit for bit."""
@@ -470,7 +495,8 @@ def main():
         forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain, (x2, *lw[0], *lw[1]),
                      2.0 * windows * 64 * 2 * ((256 + 256) + (512 + 256)) * 1024,
                      lambda: lib2(x2_lib), "sdfa_tpu_torch/csrc/bilstm2.cu",
-                     "sdfa_tpu/ops/pallas_bilstm2.py:52", primary=windows == K2_WINDOWS)
+                     "sdfa_tpu/ops/pallas_bilstm2.py:52", primary=windows == K2_WINDOWS,
+                     hidden=256)
 
     # K3 at the kernel phase's 256 windows, a request's 216, a live tick's 128 and 512; its
     # bound reckons the decode
@@ -528,7 +554,34 @@ def main():
         forward_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
                      (x4, *lw[layer]), 2.0 * K4_ROWS * 64 * 2 * (n_in + 256) * 1024,
                      lambda: lib4(x4_lib), "sdfa_tpu_torch/csrc/bilstm_layer.cu",
-                     "sdfa_tpu/ops/pallas_bilstm.py:42", primary=layer == 0)
+                     "sdfa_tpu/ops/pallas_bilstm.py:42", primary=layer == 0, hidden=256)
+
+    # K4 and K2 at H = 128, clusters of four blocks: K4 at the spec_variants phase's shapes
+    # (V1's FreqLstm "last" over a 3 s request's 768 frames; V2's LSTM2d over its 216
+    # windows, the frequency layer then the time layer), K2 at 256 windows of a 256-wide
+    # input; seeded weights at PyTorch's LSTM scale, cuDNN's nn.LSTM at the same shapes
+    def h128_weights(seed, n_in, bias=True):
+        return (randn(seed, 2, n_in, 512, scale=128 ** -0.5),
+                randn(seed + 1, 2, 128, 512, scale=128 ** -0.5),
+                randn(seed + 2, 2, 512, scale=0.1) if bias else None)
+
+    for i, (rows, steps, n_in) in enumerate(K4_H128_SHAPES):
+        x4 = randn(70 + i, rows, steps, n_in, scale=0.5)
+        lib4, x4_lib = library_lstm(n_in, 128, 1, 70 + i), x4.transpose(0, 1).contiguous()
+        forward_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
+                     (x4, *h128_weights(71 + i, n_in)),
+                     2.0 * rows * steps * 2 * (n_in + 128) * 512, lambda: lib4(x4_lib),
+                     "sdfa_tpu_torch/csrc/bilstm_layer.cu", "sdfa_tpu/ops/pallas_bilstm.py:42",
+                     primary=False, hidden=128)
+        del x4, x4_lib, lib4
+    x2 = randn(80, K2_WINDOWS, 64, 256, scale=0.5)
+    lib2, x2_lib = library_lstm(256, 128, 2, 80), x2.transpose(0, 1).contiguous()
+    forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
+                 (x2, *h128_weights(81, 256), *h128_weights(84, 256)),
+                 2.0 * K2_WINDOWS * 64 * 2 * ((256 + 128) + (256 + 128)) * 512,
+                 lambda: lib2(x2_lib), "sdfa_tpu_torch/csrc/bilstm2.cu",
+                 "sdfa_tpu/ops/pallas_bilstm2.py:52", primary=False, hidden=128)
+    del x2, x2_lib, lib2
 
     # K4 and K2 at ragged shapes, held to the plain versions only: one row, a partial row
     # tile, the request's 216 windows, a second row chunk (257 rows at T = 64); T = 1 and 3;
@@ -558,6 +611,17 @@ def main():
                     first)
         ragged_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
                     first + layer_weights(64 + 10 * i, 512, bias))
+    # the same at H = 128, where a chunk is 1024 rows at T = 32 and 512 at T = 64: one row,
+    # a partial row tile, one row more than a chunk at each, an input width off the K tile
+    for i, (rows, steps, n_in, bias) in enumerate((
+            (1, 1, 64, True), (7, 3, 256, False), (1025, 32, 64, True), (513, 64, 100, False),
+            (33, 32, 512, True))):
+        first = (randn(260 + 10 * i, rows, steps, n_in, scale=0.5),
+                 *h128_weights(261 + 10 * i, n_in, bias))
+        ragged_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
+                    first)
+        ragged_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
+                    first + h128_weights(264 + 10 * i, 256, bias))
 
     # K1 at ragged shapes, held to the plain version only and launched twice (the slabs of the
     # output projection are added in a fixed order): one row; a partial row tile; one row more
@@ -655,15 +719,14 @@ def main():
     sr = int(hp.audio.sample_rate)
     warm_s = task.warmup(3.0)
     requests = [(signal(3.0, sr, 10 + i), spk) for i, spk in enumerate((0, 3, 6))]
-    for mod in (freq_lstm, bilstm2, decode_solve):
-        mod.LAUNCHES = 0
+    reset_counts({"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve})
     outs, walls = [], []
     for sig, spk in requests:
         t0 = time.perf_counter()
         ts, v = task.generate_vertices(sig, spk)
         walls.append(time.perf_counter() - t0)
         outs.append((ts, v))
-    launches = {"freq_lstm": freq_lstm.LAUNCHES, "bilstm2": bilstm2.LAUNCHES,
+    launches = {"freq_lstm": freq_lstm.LAUNCHES, "bilstm2": launched(bilstm2),
                 "decode_solve": decode_solve.LAUNCHES}
     for (ts, v), (sig, _) in zip(outs, requests):
         if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
@@ -721,11 +784,11 @@ def main():
     task1._decode = task._decode  # same template, same PCA bases
     sig1 = signal(1.0, sr, 20)
     task1.generate_vertices(sig1, 2)  # warm-up
-    bilstm_layer.LAUNCHES = 0
+    bilstm_layer.LAUNCHES.clear()
     t0 = time.perf_counter()
     ts1, v1 = task1.generate_vertices(sig1, 2)
     wall1 = time.perf_counter() - t0
-    launches["bilstm_layer"] = bilstm_layer.LAUNCHES
+    launches["bilstm_layer"] = launched(bilstm_layer)
     path_launches["k4_path"] = {"bilstm_layer": launches["bilstm_layer"]}
     with ops.plain_versions():
         _, v1_plain = task1.generate_vertices(sig1, 2)
@@ -875,6 +938,13 @@ def main():
         path_launches["preprocess"] = preprocess_phase(root, dev, smi, pre_tmp)
         path_launches["retarget"] = retarget_phase(hp, model, sig0, spk0, v0, dev, sr, smi,
                                                    pre_tmp)
+    # --- every layer a spec can name: three variants at the dgrad model's widths -------
+    with tempfile.TemporaryDirectory(prefix="sdfa_chip_spec_") as spec_tmp:
+        path_launches["spec_variants"] = spec_variants_phase(task, pca, sig0, spk0, solver, dev,
+                                                             smi, spec_tmp)
+    if ops.PLAIN_ROUTES:
+        raise RuntimeError(f"{ops.PLAIN_ROUTES} plain recurrences were taken on the card: a "
+                           "path this script drives has a shape no kernel takes")
     check_no_process_left(processes_before)
 
     kernels = []
@@ -889,6 +959,202 @@ def main():
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def spec_variant_hparams(name):
+    """The dgrad config with the encoder (and, for ``gru_extras``, a scale head)
+    of a spec variant, at the shipped widths: the conv stack of
+    ``configs/_shared.py:32-46``, 64 channels over 32 bins, the time stack at
+    256, the heads 85 / 180."""
+    from sdfa_tpu_torch.config import configure
+
+    hp = configure("dgrad")
+    hp.trainer.set_key("max_epochs", 1)
+    hp.trainer.set_key("save_gap_epochs", None)
+    shipped = [tuple(spec) for spec in hp.model.audio_encoder.layers]
+    conv, (freq, squeeze, permute, lstm, attn) = shipped[:6], shipped[6:]
+    if name == "freq_last_gmm":
+        layers = conv + [("freq-lstm", 64, 32, "hidden_size=128", "output_size=256", "mode=last"),
+                         squeeze, permute, ("lstm", 256, 256, "num_layers=3", "bidirectional=True"),
+                         ("attn", "gmm", 512, 128, 2, "num_k=4")]
+    elif name == "lstm2d_prod":
+        layers = conv + [("lstm2d", 64, 128, "num_layers=2"), ("permute", (0, 3, 1, 2)),
+                         ("flatten", 2), ("fc", 8192, 256), lstm, ("attn", "prod", 512, 128, 2)]
+    else:  # gru_extras
+        layers = conv + [freq, ("mul-noise",), ("gradx", 0.5), squeeze, permute,
+                         ("gru", 256, 256, "num_layers=2", "bidirectional=True"), attn]
+        scale = [tuple(spec) for spec in hp.model.output.layers_scale]
+        scale[1] = scale[1] + ("prev_activation=lrelu@a:0.2",
+                               "prev_batch_norm={'momentum': 0.01, 'eps': 0.001}")
+        hp.model.output.set_key("layers_scale", scale)
+    hp.model.audio_encoder.set_key("layers", layers)
+    return hp
+
+
+def spec_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
+    """Three models of layers the shipped configs do not use, at the dgrad
+    widths, seeded, over the serve phase's template and PCA bases:
+    ``freq_last_gmm`` (FreqLstm "last" through K4 at H = 128, a 3-layer time
+    stack through K4 at H = 256, GMM attention), ``lstm2d_prod`` (LSTM2d ending
+    the per-frame prefix, so run per window through K4 at H = 128; permute /
+    flatten / fc 8192 -> 256; K2; dot-product attention) and ``gru_extras``
+    (the shipped encoder with ``mul-noise`` and ``gradx`` after FreqLstm, a
+    2-layer biGRU through cuDNN, a head fc with pre-layer extras). Each serves
+    a 3 s request on the f32 wire against the plain versions and the float64
+    host solve, with its launches, wall and device busy ms, then takes
+    ``VARIANT_TRAIN_STEPS`` train steps of 100 windows (the first against the
+    plain versions' on the same batch); ``freq_last_gmm`` then trains one
+    epoch with an aux loader. ``ops.PLAIN_ROUTES`` must stay 0 throughout."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdfa_tpu_torch import ops
+    from sdfa_tpu_torch.compat import init_params
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import bilstm2, bilstm_core, bilstm_layer, decode_solve, freq_lstm
+    from sdfa_tpu_torch.task import AnimationTask
+    from sdfa_tpu_torch.train import Experiment, Trainer
+
+    t_phase = time.perf_counter()
+    counted = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve,
+               "bilstm_layer": bilstm_layer}
+
+    def reset():
+        reset_counts(counted)
+        bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+
+    def counts():
+        out = {name: launched(mod) for name, mod in counted.items()}
+        out.update({f"{name}_h{h}": mod.LAUNCHES[h] for name, mod in (("bilstm2", bilstm2),
+                                                                    ("bilstm_layer", bilstm_layer))
+                    for h in (128, 256)})
+        out.update(bilstm_core_fwd=bilstm_core.FWD_LAUNCHES,
+                   bilstm_core_bwd=bilstm_core.BWD_LAUNCHES)
+        return out
+
+    # the launches a request must make, and a train step's recurrences through K5
+    want = {"freq_last_gmm": ({"bilstm_layer_h128": 1, "bilstm_layer_h256": 3, "decode_solve": 1,
+                               "freq_lstm": 0, "bilstm2": 0}, 4),
+            "lstm2d_prod": ({"bilstm_layer_h128": 2, "bilstm2_h256": 1, "decode_solve": 1,
+                             "freq_lstm": 0}, 4),
+            "gru_extras": ({"freq_lstm": 1, "decode_solve": 1, "bilstm2": 0,
+                            "bilstm_layer": 0}, 1)}
+    batches = train_batches(VARIANT_TRAIN_STEPS)
+    path = {}
+    for name, (want_request, k5_per_step) in want.items():
+        t0 = time.perf_counter()
+        hp = spec_variant_hparams(name)
+        model = init_params(build_model(hp, pca=pca), SEED)
+        task = AnimationTask(hp, model, dev)
+        task._decode = task_main._decode  # the same template and PCA bases
+        task.generate_vertices(sig, spk)  # warm-up
+        reset()
+        routes_before = ops.PLAIN_ROUTES
+        torch.cuda.synchronize()
+        t_req = time.perf_counter()
+        ts, v = task.generate_vertices(sig, spk)
+        wall_ms = (time.perf_counter() - t_req) * 1e3
+        request = counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            task.generate_vertices(sig, spk)
+            torch.cuda.synchronize()
+        device, busy_ms = device_kernels(prof)
+        with ops.plain_versions():
+            _, v_plain = task.generate_vertices(sig, spk)
+        plain_err = max_err(v, v_plain)
+        sample = sorted({0, len(ts) // 2, len(ts) - 1})
+        with torch.inference_mode():
+            frame_idx, _, z, _ = task._overlap_prefix(sig)
+            idx = torch.from_numpy(frame_idx[sample]).long().to(dev)
+            preds, _, _ = model.forward_windows(
+                z, idx, torch.full((len(sample),), spk, dtype=torch.long, device=dev),
+                raw_pca=True)
+            dgrad = model.decode_to_anime(preds)[:, 0].double().cpu().numpy()
+        oracle_err = max_err(v[sample], np.stack([solver.solve_host(d) for d in dgrad]))
+        serve_s = time.perf_counter() - t0
+        del task
+
+        t0 = time.perf_counter()
+        exp = Experiment(hp, build_model(hp, pca=pca), os.path.join(tmp, name), dev, seed=SEED)
+        reset()
+        losses, step_ms, first = [], [], None
+        for batch in batches:
+            torch.cuda.synchronize()
+            t_step = time.perf_counter()
+            metrics = exp.train_step(batch)
+            losses.append(float(metrics["total"]))
+            step_ms.append((time.perf_counter() - t_step) * 1e3)
+            first = first or {k: float(v) for k, v in metrics.items()}
+        train = counts()
+        plain_exp = Experiment(hp, build_model(hp, pca=pca), os.path.join(tmp, name + "_plain"),
+                               dev, seed=SEED)
+        with ops.plain_versions():
+            plain = {k: float(v) for k, v in plain_exp.train_step(batches[0]).items()}
+        del plain_exp
+        # the first step's loss terms (the total is about 4 at any first step: each term
+        # is divided by its dynamic scale) and its gradient norm, against the plain versions'
+        loss_rel = max(abs(first[k] - plain[k]) / abs(plain[k])
+                       for k in plain if k == "total" or k.startswith("scalar_"))
+        grad_norm_rel = abs(first["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
+        aux = None
+        if name == "freq_last_gmm":
+            main, extra = batches[:3], {"aux": batches[3:5]}  # the aux loader cycles
+            step0 = exp.step
+            trainer = Trainer(exp, main, aux_loaders=extra)
+            trainer.train()
+            aux = {"main_steps": len(trainer.step_metrics), "aux_steps": trainer.aux_steps,
+                   "host_steps": exp.step - step0,
+                   "main_losses": [m["total"] for m in trainer.step_metrics]}
+            if not all(np.isfinite(aux["main_losses"])):
+                raise RuntimeError(f"{name}: aux epoch, non-finite losses {aux}")
+        train_s = time.perf_counter() - t0
+        del exp
+        torch.cuda.empty_cache()
+        routes = ops.PLAIN_ROUTES - routes_before
+        emit({"phase": "spec_variants", "variant": name,
+              "encoder": [spec[0] for spec in hp.model.audio_encoder.layers],
+              "params": sum(p.numel() for p in model.parameters()), "windows": len(ts),
+              "request_wall_ms": wall_ms, "request_device_busy_ms": busy_ms,
+              "request_launches": request, "plain_routes": routes,
+              "plain_max_abs_m": plain_err, "plain_tol_m": VARIANT_PLAIN_TOL_M,
+              "oracle_frames": sample, "oracle_max_abs_m": oracle_err,
+              "oracle_tol_m": ORACLE_TOL_M,
+              "top_device_ms": [{"name": k[:60], "ms": ms, "calls": c} for k, ms, c in device[:6]],
+              "train_steps": len(losses), "train_losses": losses,
+              "train_step_ms_median": sorted(step_ms)[len(step_ms) // 2],
+              "train_launches": {k: train[k] for k in ("bilstm_core_fwd", "bilstm_core_bwd")},
+              "first_step_plain_loss_rel": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+              "first_step_plain_grad_norm_rel": grad_norm_rel, "grad_rtol": STEP_GRAD_RTOL,
+              "aux_epoch": aux, "serve_s": serve_s, "train_s": train_s, "card": smi})
+        bad = {k: (request[k], n) for k, n in want_request.items()
+               if (request[k] != n if n == 0 else request[k] < n)}
+        if bad:
+            raise RuntimeError(f"{name}: launches (got, want) {bad}")
+        if v.shape != (len(ts), solver.n_verts, 3) or not np.isfinite(v).all():
+            raise RuntimeError(f"{name}: bad output {v.shape}")
+        if not plain_err <= VARIANT_PLAIN_TOL_M:
+            raise RuntimeError(f"{name}: kernels vs plain versions {plain_err} m")
+        if not oracle_err <= ORACLE_TOL_M:
+            raise RuntimeError(f"{name}: vs the float64 solve {oracle_err} m")
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"{name}: non-finite training loss {losses}")
+        k5 = k5_per_step * len(losses)
+        if (train["bilstm_core_fwd"], train["bilstm_core_bwd"]) != (k5, k5):
+            raise RuntimeError(f"{name}: bilstm_core launches {train}, want {k5} each")
+        if not (loss_rel <= STEP_LOSS_RTOL and grad_norm_rel <= STEP_GRAD_RTOL):
+            raise RuntimeError(f"{name}: first step's loss terms {loss_rel} and gradient norm "
+                               f"{grad_norm_rel} from the plain versions'")
+        if aux is not None and (aux["main_steps"] != 3 or aux["aux_steps"] != aux["main_steps"]
+                                or aux["host_steps"] != aux["main_steps"] + aux["aux_steps"]):
+            raise RuntimeError(f"{name}: aux epoch {aux}")
+        if routes:
+            raise RuntimeError(f"{name}: {routes} plain recurrences on the card")
+        path[name] = {k: request[k] + train[k] for k in request}
+    emit({"phase": "spec_variants_done", "seconds": time.perf_counter() - t_phase, "card": smi})
+    return {name: sum(p[name] for p in path.values()) for name in
+            ("freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core_fwd",
+             "bilstm_core_bwd")}
 
 
 def data_train_phase(task_seeded, sig, spk, solver, dev, smi, tmp):
@@ -1823,7 +2089,7 @@ def preprocess_phase(repo, dev, smi, tmp):
     out["wall_s"]["request"] = time.perf_counter() - t0
     for name, n in read_counts(counters, "preprocess serve").items():
         path[name] += n
-    out["serve_launches"] = {name: mod.LAUNCHES for name, mod in counters.items()}
+    out["serve_launches"] = {name: launched(mod) for name, mod in counters.items()}
     if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
         raise RuntimeError(f"preprocessed checkpoint: bad output {v.shape}")
     with ops.plain_versions():
@@ -1993,7 +2259,7 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
         task_i.warmup(3.0)
         reset_counts(counters)
         _, vi = task_i.generate_vertices(sig, spk)
-        counts = {k: m.LAUNCHES for k, m in counters.items()}
+        counts = {k: launched(m) for k, m in counters.items()}
         idents[name] = {"identity_table": solver_i.spec.identity_eq, "n_eqs": solver_i.n_eqs,
                         "solver_build_s": build_s, "launches": counts,
                         "max_abs_m_vs_no_file": max_err(vi, v_ref)}
@@ -2009,15 +2275,25 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
     return lines["f32"]["launches"]
 
 
+def launched(mod) -> int:
+    """A wrapper's launches since ``reset_counts``: K2 and K4 keep theirs by
+    hidden width, the others one count."""
+    n = mod.LAUNCHES
+    return n.total() if isinstance(n, collections.Counter) else n
+
+
 def reset_counts(counters):
     for mod in counters.values():
-        mod.LAUNCHES = 0
+        if isinstance(mod.LAUNCHES, collections.Counter):
+            mod.LAUNCHES.clear()
+        else:
+            mod.LAUNCHES = 0
 
 
 def read_counts(counters, path, zero=()):
     """The launch counts since ``reset_counts``; raises if a kernel of ``path``
     never launched (or one named in ``zero`` did)."""
-    counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+    counts = {name: launched(mod) for name, mod in counters.items()}
     for name, n in counts.items():
         if (n != 0) if name in zero else (n < 1):
             raise RuntimeError(f"{path}: {name} launched {n} times")

@@ -12,37 +12,55 @@
 // (512+256)) x 1024 multiply-adds = 335 MFLOP in f32; the weights (10 MB) are
 // read from device memory once per launch and row chunk.
 //
-// Design: run_layer of bilstm_layer.cuh (tiled input projection, then the
-// step loop with W_hh in the shared memory of an 8-block cluster) is
-// enqueued twice on the stream per row chunk, layer 1's output stack (chunk,
-// T, 2H) in device memory between them. The TPU kernel fused the layers to
-// keep that stack in on-chip memory; here a row's stack is 128 KB against
-// its 335 MFLOP, at 256 rows the 33.5 MB sit in the 50 MB L2, and the
-// kernel boundary is the ordering layer 2 needs (its blocks read what other
-// blocks wrote). One cluster holding both directions would need 16 blocks, a
-// non-portable size that fits fewer clusters on the card, and gains only
-// that round trip. The caller sizes the scratch: xp (2, chunk, T, 4H) and
-// stack (chunk, T, 2H), shared by all chunks.
+// Design: run_layer<H> of bilstm_layer.cuh (tiled input projection, then the
+// step loop with W_hh in the shared memory of a cluster: 8 blocks at H = 256,
+// 4 at H = 128) is enqueued twice on the stream per row chunk, layer 1's
+// output stack (chunk, T, 2H) in device memory between them. The TPU kernel
+// fused the layers to keep that stack in on-chip memory; here a row's stack
+// is 128 KB against its 335 MFLOP, at 256 rows the 33.5 MB sit in the 50 MB
+// L2, and the kernel boundary is the ordering layer 2 needs (its blocks read
+// what other blocks wrote). One cluster holding both directions would need
+// 16 blocks, a non-portable size that fits fewer clusters on the card, and
+// gains only that round trip. The caller sizes the scratch: xp (2, chunk, T,
+// 4H) and stack (chunk, T, 2H), shared by all chunks. H is 128 or 256 and the
+// first layer's input at most 512 wide; the port's modules send any other
+// 2-layer stack layer by layer through bilstm_layer.cu or the plain
+// recurrence before they launch.
 #include "bilstm_layer.cuh"
 
 using namespace bilstm;
+
+namespace {
+
+template <int HH>
+cudaError_t run_chunks(const float* x, const float* w_ih1, const float* w_hh1, const float* gb1,
+                       const float* w_ih2, const float* w_hh2, const float* gb2, float* xp,
+                       float* stack, float* out, int rows, int T, int in1, int chunk,
+                       cudaStream_t stream) {
+  for (int row0 = 0; row0 < rows; row0 += chunk) {
+    const int n = rows - row0 < chunk ? rows - row0 : chunk;
+    cudaError_t err = run_layer<HH>(x + (size_t)row0 * T * in1, in1, w_ih1, w_hh1, gb1, xp,
+                                    stack, n, T, stream);
+    if (err != cudaSuccess) return err;
+    err = run_layer<HH>(stack, 2 * HH, w_ih2, w_hh2, gb2, xp, out + (size_t)row0 * T * 2 * HH,
+                        n, T, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
 
 extern "C" int sdfa_bilstm2(const float* x, const float* w_ih1, const float* w_hh1,
                             const float* gb1, const float* w_ih2, const float* w_hh2,
                             const float* gb2, float* xp, float* stack, float* out, int rows,
                             int T, int in1, int hidden, int chunk, cudaStream_t stream) {
-  if (hidden != H || in1 <= 0 || in1 > INMAX || T <= 0 || chunk <= 0)
+  if ((hidden != 128 && hidden != 256) || in1 <= 0 || in1 > INMAX || T <= 0 || chunk <= 0)
     return (int)cudaErrorInvalidValue;
-  for (int row0 = 0; row0 < rows; row0 += chunk) {
-    const int n = rows - row0 < chunk ? rows - row0 : chunk;
-    cudaError_t err = run_layer(x + (size_t)row0 * T * in1, in1, w_ih1, w_hh1, gb1, xp, stack,
-                                n, T, stream);
-    if (err != cudaSuccess) return (int)err;
-    err = run_layer(stack, 2 * H, w_ih2, w_hh2, gb2, xp, out + (size_t)row0 * T * 2 * H, n, T,
-                    stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  return (int)(hidden == 128 ? run_chunks<128>(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2, xp,
+                                               stack, out, rows, T, in1, chunk, stream)
+                             : run_chunks<256>(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2, xp,
+                                               stack, out, rows, T, in1, chunk, stream));
 }
 
 extern "C" const char* sdfa_error_string(int code) {

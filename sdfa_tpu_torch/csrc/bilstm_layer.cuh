@@ -25,8 +25,9 @@
 //    (128 x 128 tile, 16 deep, 8 x 8 outputs per thread, the next tile
 //    fetched into registers while this one is multiplied). xp (2, rows, T,
 //    4H) is scratch in device memory, written once and read once. The kernel
-//    is a template on the gate width (FreqLstm's is 4 x 128).
-// 2. steps_kernel: a cluster of CL = 8 blocks owns RT = 32 rows of one
+//    is a template on the gate width (4 x 256 or 4 x 128).
+// 2. steps_kernel (as described at H = 256; at H = 128 a cluster is 4
+//    blocks, 64 KB of W_hh each): a cluster of CL = 8 blocks owns RT = 32 rows of one
 //    direction. One direction's W_hh is 256 x 1024 f32 = 1 MB: no block's
 //    shared memory holds it, eight blocks' do. Block s keeps the four gates
 //    of hidden units 32s .. 32s+31 (hidden unit j owns gate columns j, H+j,
@@ -50,7 +51,8 @@
 //    and the tensors' order: the training core (bilstm_core.cu) runs the same
 //    step indexed by time, with the gates and the cell state written out as
 //    well, at H = 256 and at H = 128 (a cluster of 4 blocks); FreqLstm runs
-//    it at H = 128 over its frequency steps, a row's steps together.
+//    it at H = 128 over its frequency steps, a row's steps together, and the
+//    layer kernels at either width (run_layer<HH>).
 //
 // f32 throughout (expf/tanhf, correctly rounded reciprocal, no fast-math).
 // Sums run in another order than the plain version's: k in four interleaved
@@ -64,12 +66,10 @@ namespace bilstm {
 
 namespace cg = cooperative_groups;
 
-constexpr int H = 256;        // hidden units per direction
-constexpr int G = 4 * H;      // gate width
-constexpr int INMAX = 2 * H;  // widest layer input (layer 2: 2H)
+constexpr int INMAX = 512;  // widest layer input the layer kernels take (layer 2 at H = 256: 2H)
 
 // --- the input projection: xp[d] (M, GW) = x (M, K) . W_ih[d] (K, GW) + gb[d] ---
-// GW is the gate width: 4 x 256 for the layer kernels, 4 x 128 for FreqLstm.
+// GW is the gate width, 4 x the hidden width: 4 x 256 or 4 x 128.
 
 constexpr int PM = 128, PN = 128, PK = 16, PT = 256;  // tile and threads
 
@@ -466,34 +466,46 @@ inline cudaError_t max_active_clusters(int* n, Kernel kernel, int threads, int s
   return cudaOccupancyMaxActiveClusters(n, kernel, &config);
 }
 
-// The step loop of a layer: StepDims<H, 2>, a row's steps together, nothing saved.
-using LayerDims = StepDims<H, 2>;
+// The step loop of a layer at HH hidden units: StepDims<HH, 2>, a row's steps
+// together, nothing saved. HH = 256: clusters of 8 blocks, one block to a
+// multiprocessor (212,992 B of shared memory). HH = 128: clusters of 4 blocks,
+// two to a multiprocessor (106,496 B each, at most 128 registers a thread), so
+// that one block's barrier and cell hide behind the other's product: the same
+// instantiation as FreqLstm's step loop.
+template <int HH>
+using LayerDims = StepDims<HH, 2>;
 using StepsKernel = void (*)(const float*, const float*, float*, float*, float*, int, int);
-inline StepsKernel layer_steps_kernel() { return steps_kernel<H, 2, RowMajor, false, 1>; }
+template <int HH>
+inline StepsKernel layer_steps_kernel() {
+  return steps_kernel<HH, 2, RowMajor, false, HH == 128 ? 2 : 1>;
+}
 
-// One layer over `rows` rows (one chunk): x (rows, T, in) -> out (rows, T,
-// 2H); xp is scratch for 2 * rows * T * G floats. A refused launch returns
-// CUDA's error: there is no other path.
+// One layer over `rows` rows (one chunk) at HH hidden units: x (rows, T, in)
+// -> out (rows, T, 2 HH); xp is scratch for 2 * rows * T * 4 HH floats. A
+// refused launch returns CUDA's error: there is no other path.
+template <int HH>
 inline cudaError_t run_layer(const float* x, int in, const float* w_ih, const float* w_hh,
                              const float* gb, float* xp, float* out, int rows, int T,
                              cudaStream_t stream) {
-  cudaError_t err = launch_proj<G>(x, in, w_ih, gb, xp, rows * T, stream);
+  using D = LayerDims<HH>;
+  cudaError_t err = launch_proj<D::G>(x, in, w_ih, gb, xp, rows * T, stream);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  err = cluster_config(config, attr, layer_steps_kernel(),
-                       dim3(LayerDims::CL, (rows + LayerDims::RT - 1) / LayerDims::RT, 2),
-                       LayerDims::THREADS, LayerDims::SMEM, LayerDims::CL, stream);
+  err = cluster_config(config, attr, layer_steps_kernel<HH>(),
+                       dim3(D::CL, (rows + D::RT - 1) / D::RT, 2), D::THREADS, D::SMEM, D::CL,
+                       stream);
   if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&config, layer_steps_kernel(), (const float*)xp, w_hh, out,
+  return cudaLaunchKernelEx(&config, layer_steps_kernel<HH>(), (const float*)xp, w_hh, out,
                             (float*)nullptr, (float*)nullptr, rows, T);
 }
 
-// How many clusters of a layer's step loop the card runs at once (16 cover
-// 256 rows x 2 directions in one wave).
+// How many clusters of a layer's step loop at HH hidden units the card runs at
+// once (at H = 256, 16 cover 256 rows x 2 directions in one wave).
+template <int HH>
 inline cudaError_t layer_max_active_clusters(int* n) {
-  return max_active_clusters(n, layer_steps_kernel(), LayerDims::THREADS, LayerDims::SMEM,
-                             LayerDims::CL);
+  using D = LayerDims<HH>;
+  return max_active_clusters(n, layer_steps_kernel<HH>(), D::THREADS, D::SMEM, D::CL);
 }
 
 }  // namespace bilstm

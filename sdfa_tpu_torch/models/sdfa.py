@@ -151,6 +151,7 @@ class SpeechDrivenAnimation(nn.Module):
                 self.rotat_pca = PcaInversion(pca_coeffs_rotat, output_dim_rotat, pca_trainable)
         elif self.using_pca:
             self.pca = PcaInversion(pca_coeffs, output_dim, pca_trainable)
+        self.n_tris = int(output_dim_scale) // 6  # dgrad's triangles, with or without PCA heads
         self.split, self.taxis = encoder_overlap_split(encoder_specs, weight_norm)
         self._perms = {}  # (layout, device) → the decode's column permutation on that device
 
@@ -221,9 +222,8 @@ class SpeechDrivenAnimation(nn.Module):
     def _perm_on(self, layout: str, device) -> torch.Tensor:
         key = (layout, torch.device(device))
         if key not in self._perms:
-            n_tris = self.scale_pca.means.shape[0] // 6
-            perm = (_interleave_perm(n_tris) if layout == "interleave"
-                    else _km_perm(n_tris, 6 if layout == "scale" else 3))
+            perm = (_interleave_perm(self.n_tris) if layout == "interleave"
+                    else _km_perm(self.n_tris, 6 if layout == "scale" else 3))
             with torch.inference_mode(False):
                 self._perms[key] = torch.from_numpy(perm).to(device)
         return self._perms[key]
@@ -260,9 +260,6 @@ def build_model(hparams, pca: Optional[Dict[str, np.ndarray]] = None,
     out = mp.output
     face_type = mp.face_data_type
     using_pca = bool(out.get("using_pca", False))
-    if face_type == "dgrad_3d" and not using_pca:
-        raise NotImplementedError("dgrad_3d without PCA heads is not ported: the decode + "
-                                  "solve kernel takes PCA coefficients")
     spk = mp.get("speaker_embedding") or {}
 
     def coeffs(spec_list):

@@ -1,6 +1,8 @@
-"""Layer zoo (counterpart of ``sdfa_tpu/nn/layers.py``): Conv1d/Conv2d,
-Pool2d, FullyConnected, Permute, Squeeze, with the post-activation +
-BatchNorm + dropout extension and weight norm.
+"""Layer zoo (counterpart of ``sdfa_tpu/nn/layers.py``): FullyConnected,
+Conv1d/Conv2d and their transposes, Pool1d/Pool2d, the reshape layers
+(Flatten, Permute, Transpose, Squeeze, Unsqueeze, View, Identity),
+GradScaler, the residual conv stack and MultiplicativeNoise, with the pre-
+and post-layer activation + BatchNorm + dropout extensions and weight norm.
 
 Training and eval follow ``nn.Module.training``. In training BatchNorm
 normalises with the batch's mean and biased variance and moves its running
@@ -85,36 +87,52 @@ class BatchNorm(nn.Module):
 
 
 class _Ext(nn.Module):
-    """Post-activation + BatchNorm + dropout extension. The pre-layer
-    variants are not used by the shipped configs and are refused."""
+    """Pre- and post-layer extensions: an activation, BatchNorm (``prev_bn``
+    over the input's channels, ``post_bn`` over the output's; ``*bn_first``
+    puts it before the activation) and dropout (in training, or always with
+    ``*drop_always``), the masks drawn from the layer's dropout generator."""
 
     bn_axis = -1
 
-    def _init_ext(self, out_channels: int, activation=None, batch_norm=None,
+    def _init_ext(self, in_channels: int, out_channels: int, activation=None, batch_norm=None,
                   bn_first: bool = False, dropout=None, drop_always: bool = False,
-                  **prev):
-        if any(v not in (None, False, 0) for v in prev.values()):
-            raise NotImplementedError(f"pre-layer extras are not ported: {prev}")
+                  prev_activation=None, prev_batch_norm=None, prev_bn_first: bool = False,
+                  prev_dropout=None, prev_drop_always: bool = False):
         self._act = fn.parse_activation(activation)
-        self.bn_first = bool(bn_first)
+        self._prev_act = fn.parse_activation(prev_activation)
+        self.bn_first, self.prev_bn_first = bool(bn_first), bool(prev_bn_first)
         self.drop_rate, self.drop_always = float(dropout or 0.0), bool(drop_always)
+        self.prev_drop_rate = float(prev_dropout or 0.0)
+        self.prev_drop_always = bool(prev_drop_always)
         self.dropout_generator: Optional[torch.Generator] = None
-        self.post_bn = None
-        if batch_norm is not None:
-            cfg = dict(batch_norm)
-            self.post_bn = BatchNorm(out_channels, float(cfg.get("eps", 1e-5)), self.bn_axis,
-                                     momentum=float(cfg.get("momentum", 0.1)))
+        self.prev_bn = self._make_bn(prev_batch_norm, in_channels)
+        self.post_bn = self._make_bn(batch_norm, out_channels)
+
+    def _make_bn(self, cfg, features: int) -> Optional[BatchNorm]:
+        if cfg is None:
+            return None
+        cfg = dict(cfg)
+        return BatchNorm(features, float(cfg.get("eps", 1e-5)), self.bn_axis,
+                         momentum=float(cfg.get("momentum", 0.1)))
+
+    def _extend(self, x, act, bn, bn_first: bool, rate: float, always: bool):
+        if bn is not None and bn_first:
+            x = act(bn(x))
+        else:
+            x = act(x)
+            if bn is not None:
+                x = bn(x)
+        if rate and (self.training or always):
+            x = dropout(x, rate, self.dropout_generator)
+        return x
+
+    def ext_prev(self, x):
+        return self._extend(x, self._prev_act, self.prev_bn, self.prev_bn_first,
+                            self.prev_drop_rate, self.prev_drop_always)
 
     def ext_post(self, x):
-        if self.post_bn is not None and self.bn_first:
-            x = self._act(self.post_bn(x))
-        else:
-            x = self._act(x)
-            if self.post_bn is not None:
-                x = self.post_bn(x)
-        if self.drop_rate and (self.training or self.drop_always):
-            x = dropout(x, self.drop_rate, self.dropout_generator)
-        return x
+        return self._extend(x, self._act, self.post_bn, self.bn_first, self.drop_rate,
+                            self.drop_always)
 
 
 class _Weighted(_Ext):
@@ -173,11 +191,11 @@ class FullyConnected(_Weighted):
                           self.out_channels, weight_norm, (0,), init_method,
                           init_nonlinearity)
         self.bias = nn.Parameter(torch.zeros(self.out_channels)) if bias else None
-        self._init_ext(self.out_channels, **ext)
+        self._init_ext(self.in_channels, self.out_channels, **ext)
 
     def forward(self, x):
         shape = x.shape
-        x = torch.matmul(x.reshape(-1, shape[-1]), self.weight())
+        x = torch.matmul(self.ext_prev(x.reshape(-1, shape[-1])), self.weight())
         if self.bias is not None:
             x = x + self.bias
         return self.ext_post(x).reshape(shape[:-1] + (self.out_channels,))
@@ -199,9 +217,10 @@ class Conv1d(_Weighted):
                           in_channels // groups * k, out_channels * k // groups,
                           weight_norm, (1, 2), init_method, init_nonlinearity)
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
-        self._init_ext(out_channels, **ext)
+        self._init_ext(in_channels, out_channels, **ext)
 
     def forward(self, x):  # (B, C, T)
+        x = self.ext_prev(x)
         if isinstance(self.padding, str):
             lo, hi = fn.get_pad_tuple(x.shape[-1], self.k, self.stride, self.dilation,
                                       self.padding)
@@ -230,9 +249,10 @@ class Conv2d(_Weighted):
                           out_channels * kh * kw // groups,
                           weight_norm, (1, 2, 3), init_method, init_nonlinearity)
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
-        self._init_ext(out_channels, **ext)
+        self._init_ext(in_channels, out_channels, **ext)
 
     def forward(self, x):  # (B, C, H, W)
+        x = self.ext_prev(x)
         (kh, kw), (sh, sw), (dh, dw) = self.k, self.stride, self.dilation
         if isinstance(self.padding, str):
             pw = fn.get_pad_tuple(x.shape[-1], kw, sw, dw, self.padding)
@@ -244,6 +264,86 @@ class Conv2d(_Weighted):
         out = F.conv2d(x, self.weight(), self.bias, stride=(sh, sw),
                        dilation=(dh, dw), groups=self.groups)
         return self.ext_post(out)
+
+
+class _ConvTranspose(_Weighted):
+    """Shared by the transposed convs: kernel (in, out / groups, *k), the
+    torch ConvTranspose of the JAX package's lhs-dilated conv (which takes no
+    feature groups), ``output_padding`` extra zero outputs on the high side
+    of every spatial axis, and with ``want_size`` and a string padding the
+    "same" cropping to the wanted size."""
+
+    bn_axis = 1
+
+    def __init__(self, nd: int, in_channels: int, out_channels: int, kernel_size: Any = 1,
+                 stride: Any = 1, padding: Any = "same", output_padding: int = 0,
+                 dilation: Any = 1, groups: int = 1, bias: bool = True, want_size=None,
+                 init_method: str = "kaiming", init_nonlinearity: Optional[str] = None,
+                 weight_norm: bool = False, **ext):
+        super().__init__()
+        tup = (lambda v: (int(v),)) if nd == 1 else (lambda v: tuple(map(int, _pair(v))))
+        self.k, self.stride, self.dilation = tup(kernel_size), tup(stride), tup(dilation)
+        self.padding, self.output_padding, self.want_size = padding, int(output_padding), want_size
+        area = math.prod(self.k)
+        self._init_weight((in_channels, out_channels // groups) + self.k,
+                          in_channels * area // groups, out_channels * area // groups,
+                          weight_norm, tuple(range(1, 2 + nd)), init_method, init_nonlinearity)
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self._init_ext(in_channels, out_channels, **ext)
+
+    def forward(self, x):
+        x = self.ext_prev(x)
+        nd = len(self.k)
+        conv = F.conv_transpose1d if nd == 1 else F.conv_transpose2d
+        out = conv(x, self.weight(), stride=self.stride, dilation=self.dilation)
+        if self.output_padding:
+            out = F.pad(out, (0, self.output_padding) * nd)
+        if self.bias is not None:
+            out = out + self.bias.view((1, -1) + (1,) * nd)
+        if self.want_size is not None and isinstance(self.padding, str):
+            want = self.want_size
+            want = ((want[0] if isinstance(want, (list, tuple)) else want,) if nd == 1
+                    else tuple(want))
+            for axis, (size, k, s, d) in enumerate(zip(want, self.k, self.stride,
+                                                       self.dilation)):
+                lo, hi = fn.get_pad_tuple(size, k, s, d, self.padding)
+                dim = out.ndim - nd + axis
+                index = [slice(None)] * out.ndim
+                index[dim] = slice(lo, out.shape[dim] - hi)
+                out = out[tuple(index)]
+        return self.ext_post(out)
+
+
+class ConvTranspose1d(_ConvTranspose):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1, **kwargs):
+        super().__init__(1, in_channels, out_channels, kernel_size, **kwargs)
+
+
+class ConvTranspose2d(_ConvTranspose):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Any = 1, **kwargs):
+        super().__init__(2, in_channels, out_channels, kernel_size, **kwargs)
+
+
+class Pool1d(nn.Module):
+    """Max/avg pool over the last axis after explicit zero "same" padding
+    (a negative pad crops, as ``F.pad`` does)."""
+
+    def __init__(self, mode: str = "max", kernel_size: int = 2, stride: Optional[int] = None,
+                 padding: Any = "same"):
+        super().__init__()
+        self.mode, self.padding = mode, padding
+        self.k = int(kernel_size)
+        self.stride = int(stride or kernel_size)
+
+    def forward(self, x):
+        if isinstance(self.padding, str):
+            lo, hi = fn.get_pad_tuple(x.shape[-1], self.k, self.stride, 1, self.padding)
+        else:
+            lo = hi = int(self.padding)
+        x = F.pad(x, (lo, hi))
+        if self.mode == "max":
+            return F.max_pool1d(x, self.k, self.stride)
+        return F.avg_pool1d(x, self.k, self.stride)
 
 
 class Pool2d(nn.Module):
@@ -286,3 +386,133 @@ class Squeeze(nn.Module):
 
     def forward(self, x):
         return x.squeeze(self.dim)
+
+
+class Flatten(nn.Module):
+    def __init__(self, start_dim: int = 1):
+        super().__init__()
+        self.start_dim = int(start_dim)
+
+    def forward(self, x):
+        return x.reshape(x.shape[:self.start_dim] + (-1,))
+
+
+class Transpose(nn.Module):
+    def __init__(self, dim0: int = 0, dim1: int = 1):
+        super().__init__()
+        self.dim0, self.dim1 = int(dim0), int(dim1)
+
+    def forward(self, x):
+        return x.transpose(self.dim0, self.dim1)
+
+
+class Unsqueeze(nn.Module):
+    def __init__(self, dim: int = 0):
+        super().__init__()
+        self.dim = int(dim)
+
+    def forward(self, x):
+        return x.unsqueeze(self.dim)
+
+
+class View(nn.Module):
+    def __init__(self, shape: Sequence[int] = ()):
+        super().__init__()
+        self.shape = tuple(shape)
+
+    def forward(self, x):
+        return x.reshape(self.shape)
+
+
+class Identity(nn.Module):
+    def forward(self, x):
+        return x
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+class GradScaler(nn.Module):
+    """Identity forward, the gradient times ``scale`` in backward."""
+
+    def __init__(self, scale: float = 1.0):
+        super().__init__()
+        self.scale = float(scale)
+
+    def forward(self, x):
+        return _ScaleGrad.apply(x, self.scale)
+
+
+class Residual1d(nn.Module):
+    """Pre-activation residual conv block: relu → conv1 (k 3, BatchNorm then
+    relu) → conv2 (k 3, BatchNorm), plus the input through a 1×1 ``shortcut``
+    where the widths differ."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 batch_norm=None, weight_norm: bool = False):
+        super().__init__()
+        self.conv1 = Conv1d(in_channels, out_channels, kernel_size=3, stride=stride, bias=False,
+                            batch_norm=batch_norm, bn_first=True, activation="relu",
+                            weight_norm=weight_norm)
+        self.conv2 = Conv1d(out_channels, out_channels, kernel_size=3, bias=False,
+                            batch_norm=batch_norm, weight_norm=weight_norm)
+        self.shortcut = (Conv1d(in_channels, out_channels, kernel_size=1, bias=False,
+                                weight_norm=weight_norm)
+                         if in_channels != out_channels else None)
+
+    def forward(self, x):
+        h = self.conv2(self.conv1(torch.relu(x)))
+        return h + (x if self.shortcut is None else self.shortcut(x))
+
+
+class ResidualStack1d(nn.Module):
+    """``num_blocks`` residual blocks (``block_{i}``), then ``last_activation``."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_blocks: int = 1,
+                 batch_norm=None, weight_norm: bool = False,
+                 last_activation: Optional[str] = "relu"):
+        super().__init__()
+        self.num_blocks = int(num_blocks)
+        for i in range(self.num_blocks):
+            self.add_module(f"block_{i}", Residual1d(in_channels if i == 0 else out_channels,
+                                                     out_channels, batch_norm=batch_norm,
+                                                     weight_norm=weight_norm))
+        self._act = fn.parse_activation(last_activation)
+
+    def forward(self, x):
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block_{i}")(x)
+        return self._act(x)
+
+
+class MultiplicativeNoise(nn.Module):
+    """x · base^N(mean, std) in training (identity in eval), one draw per
+    (batch, channel) from the layer's dropout generator; the second half of
+    the batch (the adjacent frames) reuses the first half's noise."""
+
+    def __init__(self, base: float = 1.4, mean: float = 0.0, std: float = 1.0):
+        super().__init__()
+        self.base, self.mean, self.std = float(base), float(mean), float(std)
+        self.dropout_generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        if self.dropout_generator is None:
+            raise RuntimeError("MultiplicativeNoise needs a generator: call "
+                               "set_dropout_generator(model, gen)")
+        size = (x.shape[0], x.shape[1]) + (1,) * (x.ndim - 2)
+        noise = self.mean + self.std * torch.randn(size, generator=self.dropout_generator,
+                                                   device=x.device, dtype=x.dtype)
+        if x.shape[0] > 1:
+            half = x.shape[0] // 2
+            noise = torch.cat([noise[:half], noise[:half]])
+        return x * torch.pow(self.base, noise)

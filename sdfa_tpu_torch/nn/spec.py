@@ -24,23 +24,42 @@ _BREVS = {
 }
 _ENGINE_KEYS = ("residual", "condition", "cat_condition", "skip_connect", "query_offset")
 
-# name → (constructor, positional arg names, accepts weight_norm); the layer
-# types of the shipped dgrad encoder and heads
+# name → (constructor, positional arg names, accepts weight_norm): every name
+# of the JAX registry (sdfa_tpu/nn/spec.py:46-87)
 _REGISTRY: Dict[str, Tuple[Any, List[str], bool]] = {
     "fc": (layers.FullyConnected, ["in_channels", "out_channels", "bias"], True),
+    "fp": (layers.Conv1d, ["in_channels", "out_channels", "bias"], True),
     "conv1d": (layers.Conv1d, ["in_channels", "out_channels", "kernel_size", "stride",
                                "padding", "dilation", "groups", "bias"], True),
     "conv2d": (layers.Conv2d, ["in_channels", "out_channels", "kernel_size", "stride",
                                "padding", "dilation", "groups", "bias"], True),
+    "deconv2d": (layers.ConvTranspose2d, ["in_channels", "out_channels", "kernel_size", "stride",
+                                          "padding", "output_padding", "dilation", "groups",
+                                          "bias", "want_size"], True),
+    "deconv1d": (layers.ConvTranspose1d, ["in_channels", "out_channels", "kernel_size", "stride",
+                                          "padding", "output_padding", "dilation", "groups",
+                                          "bias", "want_size"], True),
+    "pool1d": (layers.Pool1d, ["mode", "kernel_size", "stride", "padding"], False),
+    "res1d": (layers.ResidualStack1d, ["in_channels", "out_channels", "num_blocks"], True),
     "pool2d": (layers.Pool2d, ["mode", "kernel_size", "stride", "padding"], False),
+    "flatten": (layers.Flatten, ["start_dim"], False),
     "permute": (layers.Permute, ["dims"], False),
+    "transpose": (layers.Transpose, ["dim0", "dim1"], False),
     "squeeze": (layers.Squeeze, ["dim"], False),
+    "unsqueeze": (layers.Unsqueeze, ["dim"], False),
+    "view": (layers.View, ["shape"], False),
+    "identity": (layers.Identity, [], False),
+    "gradx": (layers.GradScaler, ["scale"], False),
     "lstm": (recurrent.LSTM, ["input_size", "hidden_size", "num_layers", "bias",
                               "batch_first", "dropout", "bidirectional"], False),
+    "gru": (recurrent.GRU, ["input_size", "hidden_size", "num_layers", "bias",
+                            "batch_first", "dropout", "bidirectional"], False),
     "freq-lstm": (recurrent.FreqLstm, ["input_size", "freq_length", "hidden_size",
                                        "output_size", "bias", "mode"], False),
+    "lstm2d": (recurrent.LSTM2d, ["input_size", "hidden_size", "num_layers", "bias"], False),
     "attn": (attention.create_self_atten, ["name", "memory_size", "num_units",
                                            "query_radius"], False),
+    "mul-noise": (layers.MultiplicativeNoise, ["base", "mean", "std"], False),
 }
 
 
@@ -65,7 +84,7 @@ class LayerParser:
         layer_info = list(layer_info)
         self.name = layer_info[0]
         if self.name not in _REGISTRY:
-            raise NotImplementedError(f"layer '{self.name}' is not ported")
+            raise NotImplementedError(f"layer '{self.name}' is not supported")
         self.ctor, pos_names, takes_wn = _REGISTRY[self.name]
         self.kwargs: Dict[str, Any] = {}
         self.extras: Dict[str, Any] = {}
@@ -175,7 +194,7 @@ def time_independent_prefix(parsers: Sequence[LayerParser]) -> Tuple[int, int]:
             j = taxis - 2
             if k[j] != 1 or s[j] != 1 or (name == "conv2d" and d[j] != 1):
                 return i, taxis
-        elif name == "conv1d":
+        elif name in ("conv1d", "fp"):
             if ndim != 3 or taxis != 2:
                 return i, taxis
             if p.kwargs.get("kernel_size", 1) != 1 or p.kwargs.get("stride", 1) != 1:
@@ -197,7 +216,29 @@ def time_independent_prefix(parsers: Sequence[LayerParser]) -> Tuple[int, int]:
             if dim < taxis:
                 taxis -= 1
             ndim -= 1
-        else:  # lstm / attn: temporal
+        elif name == "unsqueeze":
+            dim = p.kwargs.get("dim")
+            if dim is None:
+                return i, taxis
+            if dim < 0:
+                dim += ndim + 1
+            if dim <= taxis:
+                taxis += 1
+            ndim += 1
+        elif name == "transpose":
+            d0, d1 = p.kwargs.get("dim0"), p.kwargs.get("dim1")
+            if d0 is None or d1 is None:
+                return i, taxis
+            d0, d1 = d0 + ndim if d0 < 0 else d0, d1 + ndim if d1 < 0 else d1
+            if taxis == d0:
+                taxis = d1
+            elif taxis == d1:
+                taxis = d0
+        elif name in ("identity", "gradx", "mul-noise"):
+            pass  # elementwise
+        else:
+            # lstm / gru / lstm2d / attn (temporal), flatten / view / res1d /
+            # deconv* / pool1d (unanalysed): a conservative stop
             return i, taxis
     return len(parsers), taxis
 

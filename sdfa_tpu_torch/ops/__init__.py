@@ -8,6 +8,14 @@ versions for the duration of a ``with`` block — the comparison that
 holds a CUDA run through the kernels against the same run without them.
 The wrappers themselves never fall back: for a CUDA tensor they launch
 the kernel or raise.
+
+A module picks its route before it launches, from the shape alone, as the
+JAX modules gate their Pallas kernels: the kernel wherever one takes the
+shape; else the plain recurrence where the JAX package takes its scan, and
+a ``ValueError`` where it runs a Pallas kernel the port has not
+instantiated. ``PLAIN_ROUTES`` counts the plain routes taken on a CUDA
+tensor outside ``plain_versions()``, so that a run on a card can show that
+it took none.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import contextlib
 
 _PLAIN = [False]
+PLAIN_ROUTES = 0  # plain recurrences taken on a CUDA tensor because no kernel takes the shape
 
 
 @contextlib.contextmanager
@@ -29,6 +38,14 @@ def plain_versions():
 
 def using_plain() -> bool:
     return _PLAIN[0]
+
+
+def plain_route(x) -> None:
+    """Count a plain route a module takes for ``x`` because no kernel takes
+    its shape: on a CUDA tensor outside ``plain_versions()``."""
+    global PLAIN_ROUTES
+    if x.device.type == "cuda" and not _PLAIN[0]:
+        PLAIN_ROUTES += 1
 
 
 def full_float32():

@@ -43,6 +43,12 @@ HIDDENS = (128, 256)            # what the CUDA kernels take
 ROW_TILE = {128: 32, 256: 16}   # rows a cluster owns, walked as two sub-tiles that take turns
 
 
+def takes(hidden: int) -> bool:
+    """Whether the CUDA kernels take a recurrence of ``hidden`` units per
+    direction."""
+    return hidden in HIDDENS
+
+
 def bilstm_core_plain(xp, w_hh):
     """Plain PyTorch version: a Python scan per direction, differentiated
     by autograd (``bilstm_core_reference`` in the JAX package)."""
@@ -228,7 +234,7 @@ def max_active_clusters(device) -> dict:
 def _core_dims(xp):
     _, steps, rows, gdim = xp.shape
     hid = gdim // 4
-    if hid not in HIDDENS:
+    if not takes(hid):
         raise ValueError(f"bilstm_core kernels take H in {HIDDENS}; got {tuple(xp.shape)}")
     return steps, rows, hid
 

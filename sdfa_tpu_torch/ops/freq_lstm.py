@@ -36,6 +36,12 @@ K_SLAB = 512                # K range of one partial sum of the output projectio
 SCRATCH_ROW_STEPS = 32768
 
 
+def takes(hidden: int, out: int) -> bool:
+    """Whether the CUDA kernels take FreqLstm at ``hidden`` units per
+    direction projected to ``out`` features."""
+    return hidden == HIDDEN and out == OUT_DIM
+
+
 def freq_lstm_plain(x, w_ih, w_hh, gate_bias, w_proj, b_proj):
     """Plain PyTorch version: scan both directions, concat all F outputs,
     project (the oracle ``freq_lstm_reference`` in the JAX package)."""
@@ -118,7 +124,7 @@ def freq_lstm(x, w_ih, w_hh, gate_bias, w_proj, b_proj):
         return freq_lstm_plain(x, w_ih, w_hh, gate_bias, w_proj, b_proj)
     rows, n_freq, n_in = x.shape
     gdim = 4 * HIDDEN
-    if w_hh.shape[1] != HIDDEN or w_proj.shape[1] != OUT_DIM or n_freq < 1 or n_in < 1:
+    if not takes(w_hh.shape[1], w_proj.shape[1]) or n_freq < 1 or n_in < 1:
         raise ValueError(f"freq_lstm kernels take H={HIDDEN}, out={OUT_DIM}, F>=1, in>=1; "
                          f"got x {tuple(x.shape)}, w_hh {tuple(w_hh.shape)}, "
                          f"w_proj {tuple(w_proj.shape)}")

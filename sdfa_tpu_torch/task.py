@@ -180,15 +180,17 @@ class AnimationTask:
     def _decode_consts(self):
         """(solver, its device constants, the decode + solve kernel's constants)
         of a dgrad model, built on first use. The kernel's constants are None
-        on a template with triangle correspondences: the kernel solves
-        identity equation tables only, as the JAX package's does."""
+        on a template with triangle correspondences (the kernel solves
+        identity equation tables only, as the JAX package's does) and for a
+        model without PCA heads (the kernel decodes PCA coefficients): those
+        decode to planes and take ``solve_fn``."""
         if self.model.face_type != "dgrad_3d":
             raise ValueError("decode + solve constants exist for dgrad_3d models only")
         if self._decode is None:
             solver = frame_mod.get_solver()
             m = self.model
             dsc = None
-            if solver.spec.identity_eq:
+            if solver.spec.identity_eq and m.using_pca:
                 dsc = prep_consts(m.scale_pca.compT.detach(), m.scale_pca.means.detach(),
                                   m.rotat_pca.compT.detach(), m.rotat_pca.means.detach(),
                                   solver, self.device)
@@ -412,7 +414,7 @@ class AnimationTask:
 
         def fn(z_frames, frame_idx, spk):
             preds, _, _ = self.model.forward_windows(z_frames, frame_idx, spk, raw_pca=True)
-            if dsc is None:  # correspondences: decode, the equation gather, the product
+            if dsc is None:  # correspondences or no PCA heads: decode, gather, product
                 planes = self.model.decode_to_anime(preds, planes=True)[:, 0]
                 verts = solve_fn(consts, planes, consts.template_cnst, solver.spec)
             else:

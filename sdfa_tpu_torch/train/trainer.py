@@ -182,10 +182,13 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, stream: int = 0) -> int:
     """The dropout generator's seed for one global step: a function of
-    (experiment seed, step) only, so a resumed run repeats an uninterrupted one."""
-    return (int(seed) * 1_000_003 + int(step)) % (2 ** 63 - 1)
+    (experiment seed, step) only, so a resumed run repeats an uninterrupted
+    one. An aux loader's step draws from its own ``stream`` of the main step
+    it follows (1_000_003 + the loader's index, as the JAX trainer folds it)."""
+    base = (int(seed) * 1_000_003 + int(step)) % (2 ** 63 - 1)
+    return base if not stream else (base * 1_000_003 + int(stream)) % (2 ** 63 - 1)
 
 
 class PinnedUploads:
@@ -287,17 +290,20 @@ class Experiment:
         it = self.epoch if self.sched_mode == "epoch" else self.step + 1
         return self.lr_fn(it), (self.beta1_fn(it) if self.beta1_fn else 0.9)
 
-    def train_step(self, batch) -> Dict[str, Any]:
+    def train_step(self, batch, dropout_seed: Optional[int] = None) -> Dict[str, Any]:
         """One optimization step; returns the loss scalars and terms, the
         gradient norm (before clipping) as 0-dim device tensors, and lr.
         The gradients stay on the parameters until the next step. The four
-        ``record_function`` spans name the stages in a ``torch.profiler`` trace."""
+        ``record_function`` spans name the stages in a ``torch.profiler`` trace.
+        The dropout generator is seeded with ``step_seed(seed, step)`` unless
+        ``dropout_seed`` says otherwise (an aux loader's step)."""
         with record_function("train/upload"):
             batch = self.put_batch(batch)
         lr, b1 = self.current_lr()
         for group in self.optimizer.param_groups:
             group["lr"], group["betas"] = lr, (b1, group["betas"][1])
-        self.dropout_gen.manual_seed(step_seed(self.seed, self.step))
+        self.dropout_gen.manual_seed(step_seed(self.seed, self.step) if dropout_seed is None
+                                     else dropout_seed)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         with record_function("train/forward_loss"):
@@ -391,8 +397,10 @@ def _mean(rows: List[Dict[str, float]]) -> Dict[str, float]:
 
 
 class Trainer:
-    """Epoch loop with a hook registry, save cadences, validation and the
-    resume of the loss history."""
+    """Epoch loop with a hook registry, save cadences, validation, the resume
+    of the loss history and aux loaders: each cycles forever and adds one
+    optimization step after every main step (counted in the global step;
+    its metrics are not kept)."""
 
     _hooks: Dict[str, list] = {k: [] for k in (
         "prev_train", "post_train", "prev_valid", "post_valid", "prev_epoch", "post_epoch")}
@@ -408,9 +416,13 @@ class Trainer:
 
         return deco
 
-    def __init__(self, experiment: Experiment, train_loader, valid_loader=None):
+    def __init__(self, experiment: Experiment, train_loader, valid_loader=None,
+                 aux_loaders: Optional[Dict[str, Any]] = None):
         self.exp = experiment
         self.train_loader, self.valid_loader = train_loader, valid_loader
+        self.aux_loaders = dict(aux_loaders or {})
+        self._aux_iters: Dict[str, Any] = {}
+        self.aux_steps = 0  # steps taken on aux loaders' batches, every epoch
         hp_tr = experiment.hp.trainer
         self.max_epochs = int(hp_tr.get("max_epochs", 100))
         self.save_gap_epochs = hp_tr.get("save_gap_epochs")
@@ -507,6 +519,27 @@ class Trainer:
                         self.profile_start, self._steps_seen)
         exp.save()
 
+    def _next_aux(self, name: str):
+        """The next batch of aux loader ``name``, started again at its end;
+        None if it yields nothing at all."""
+        it = self._aux_iters.get(name)
+        if it is None:
+            it = self._aux_iters[name] = iter(self.aux_loaders[name])
+        batch = next(it, None)
+        if batch is None:
+            self._aux_iters[name] = iter(self.aux_loaders[name])
+            batch = next(self._aux_iters[name], None)
+        return batch
+
+    def _aux_steps(self, main_step: int):
+        """One step per aux loader after the main step ``main_step``."""
+        for index, name in enumerate(self.aux_loaders):
+            batch = self._next_aux(name)
+            if batch is not None:
+                self.exp.train_step(batch, dropout_seed=step_seed(self.exp.seed, main_step,
+                                                                  1_000_003 + index))
+                self.aux_steps += 1
+
     def _stop_profile(self):
         self.profile_trace = profiling.stop_trace(self._capture)
         self._capture = None
@@ -538,6 +571,7 @@ class Trainer:
             # batch k + 1 is fetched and its upload enqueued behind step k's
             # kernels before anything of step k is read
             batch = self._fetch_put(loader_it)
+            self._aux_steps(exp.step - 1)
             device_metrics.append(metrics)
             self._steps_seen += 1
             if self.save_gap_steps and self._steps_seen % self.save_gap_steps == 0:

@@ -20,6 +20,8 @@ from sdfa_tpu_torch.compat import load_flax_variables
 from sdfa_tpu_torch.config import configure
 from sdfa_tpu_torch.data import synthetic as tsynthetic
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 STEPS = 2
 # The first conv's bias feeds BatchNorm, so its true gradient is zero; what each
 # side computes is the rounding of a sum of 2·4·64·126 terms, about 0.1 in norm

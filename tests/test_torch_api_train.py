@@ -20,6 +20,8 @@ from sdfa_tpu_torch.data import synthetic
 from sdfa_tpu_torch.ops import decode_solve as K3
 from sdfa_tpu_torch.train import checkpoints
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 SMALL = dict(anime_loader=dict(batch_size=2))
 
 

@@ -15,6 +15,8 @@ from sdfa_tpu.compat.torch_ckpt import (
 from sdfa_tpu.nn import layers as L
 from sdfa_tpu.nn import recurrent as R
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 
 def _roundtrip(prefix, torch_module, rename=lambda k: k):
     params, stats = {}, {}

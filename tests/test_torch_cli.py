@@ -32,6 +32,8 @@ from sdfa_tpu_torch.task import AnimationTask
 from sdfa_tpu_torch.utils import stream
 from sdfa_tpu_torch.viewer import frame
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 TOL_M = 1e-5            # evaluate's meshes vs the request's vertices
 WIRE_TOL_M = 5e-6 + 1e-7  # the i16 wire's step
 STREAM_TOL_M = 1e-5     # streamed vs offline on the same audio (tests/test_torch_serve.py)

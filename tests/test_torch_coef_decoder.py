@@ -23,6 +23,8 @@ from sdfa_tpu.streaming import CoefDecoder as JCoefDecoder
 from sdfa_tpu_torch.ops.deform_solver import transforms_t_np
 from sdfa_tpu_torch.streaming import CoefDecoder
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 
 @pytest.fixture(scope="module")
 def decoders(tmp_path_factory):

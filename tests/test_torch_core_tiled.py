@@ -23,6 +23,8 @@ from sdfa_tpu.ops import pallas_bilstm_train as J
 from sdfa_tpu_torch.ops import bilstm_core as K5
 from sdfa_tpu_torch.ops.bilstm_layer import UNITS_PER_BLOCK, block_columns
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 SIZES = [(1, 5), (7, 2), (33, 1), (33, 2), (7, 5)]  # (rows, T): 33 rows = two sub-tiles and a row
 
 

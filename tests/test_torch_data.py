@@ -27,6 +27,8 @@ from sdfa_tpu_torch.data import DatasetSlidingWindow as TReader
 from sdfa_tpu_torch.data import csvio as tcsv
 from sdfa_tpu_torch.data import synthetic as tsynth
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 N_TRIS = 60
 GEN = dict(speakers=["m0", "f0"], sentences_per_speaker=1, seconds_per_sentence=1.0,
            pca_dims=(8, 8))

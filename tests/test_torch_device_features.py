@@ -25,6 +25,8 @@ from sdfa_tpu.data import features_host as jhost
 from sdfa_tpu_torch.data import device_features as dfeat
 from sdfa_tpu_torch.data import features_host
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 SR, WIN, HOP, NMELS = 8000, 512, 64, 128
 MEL_CFG = dict(win_size=WIN, hop_size=HOP, n_mels=NMELS, fmin=50, fmax=3600,
                ref_db=20, top_db=80, preemphasis=0.65, win_fn="hamm",

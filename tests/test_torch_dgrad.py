@@ -23,6 +23,8 @@ from sdfa_tpu.ops import rotation as jrot
 from sdfa_tpu_torch.mesh import synthetic_template
 from sdfa_tpu_torch.ops import dgrad, rotation
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 F64_TOL = 1e-10
 F32_TOL = 5e-3  # the JAX tests' bound on the float32 extraction (input-precision-limited)
 

@@ -20,6 +20,8 @@ from sdfa_tpu_torch import api as tapi
 from sdfa_tpu_torch.audio import io as taudio
 from sdfa_tpu_torch.mesh import read_obj
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 TOL = 1e-5  # prediction frames, and metres for the meshes
 
 

@@ -20,6 +20,8 @@ import jax.numpy as jnp
 from sdfa_tpu.ops.pallas_freq_lstm import freq_lstm_fused, freq_lstm_reference
 from sdfa_tpu_torch.ops import freq_lstm as K1
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 H, OUT = K1.HIDDEN, K1.OUT_DIM
 TOL_PLAIN = 1e-5  # f32 sums in another order
 TOL_JAX = 5e-5    # forward vs the JAX package

@@ -15,6 +15,8 @@ from sdfa_tpu_torch.audio import dsp as tdsp
 from sdfa_tpu_torch.audio import pipeline as tpipe
 from sdfa_tpu_torch.config import configure as tconfigure
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 
 @pytest.fixture(scope="module")
 def specs():

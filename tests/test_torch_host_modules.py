@@ -33,6 +33,8 @@ from sdfa_tpu_torch.viewer import frame as tframe
 from sdfa_tpu_torch.viewer import render as trender
 from sdfa_tpu_torch.viewer import video as tvideo
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 
 def _equal(a, b):
     a, b = np.asarray(a), np.asarray(b)

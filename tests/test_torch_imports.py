@@ -13,6 +13,8 @@ import sys
 
 import pytest
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 DATA_MODULES = ["sdfa_tpu_torch.api", "sdfa_tpu_torch.utils.filesystem"] + [

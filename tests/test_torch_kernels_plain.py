@@ -31,6 +31,8 @@ from sdfa_tpu_torch.ops import decode_solve as K3
 from sdfa_tpu_torch.ops import freq_lstm as K1
 from sdfa_tpu_torch.ops.deform_solver import DeformationSolver
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 
 def _rand(rng, shape, scale):
     return rng.normal(0, scale, shape).astype(np.float32)

@@ -20,6 +20,8 @@ from sdfa_tpu_torch.models import build_model
 from sdfa_tpu_torch.task import AnimationTask
 from sdfa_tpu_torch.train import Experiment
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 TOL_M = 1e-6  # the same weights through the same code: 0 is expected
 
 

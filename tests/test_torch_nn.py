@@ -21,6 +21,8 @@ from sdfa_tpu_torch.nn import recurrent as trec
 from sdfa_tpu_torch.nn.spec import LayerStack as TStack
 from sdfa_tpu_torch.nn.spec import encoder_overlap_split
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 TOL = 2e-5
 BN = "batch_norm={'momentum': 0.01, 'eps': 0.001}"
 LRELU = "act=lrelu@a:0.2"

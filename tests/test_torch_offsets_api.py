@@ -25,6 +25,8 @@ from sdfa_tpu_torch.config import configure
 from sdfa_tpu_torch.data import synthetic as tsynthetic
 from sdfa_tpu_torch.train import checkpoints
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 
 # As in tests/test_torch_api_parity.py, the first conv's bias feeds BatchNorm and
 # its true gradient is zero. Here each side's rounding leaves more of it: 0.149

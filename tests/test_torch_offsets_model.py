@@ -43,6 +43,8 @@ from sdfa_tpu_torch.models.sdfa import SpeechDrivenAnimation as TModel
 from sdfa_tpu_torch.train import Experiment
 from sdfa_tpu_torch.train.trainer import scaler_names
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 FWD_TOL = 5e-5
 D_OUT, K, KS, KR, EMB = 30, 5, 5, 4, 3
 
@@ -134,18 +136,33 @@ def _variables(jmodel, seed=7):
     return _perturb(variables, np.random.default_rng(seed))
 
 
+@pytest.fixture(scope="module")
+def built():
+    """One JAX model and one perturbed set of its variables per variant, built
+    on first use and shared by the forward and the training tests (neither
+    changes them: the port's copies are made by ``load_flax_variables``)."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            jmodel = _jax_model(VARIANTS[name])
+            cache[name] = (jmodel, _variables(jmodel))
+        return cache[name]
+
+    return get
+
+
 def _max_diff(got: dict, want: dict) -> float:
     assert sorted(got) == sorted(want)
     return max(float(np.abs(got[k].detach().numpy() - np.asarray(want[k])).max()) for k in want)
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))
-def test_forward_windows_and_decode_match_flax(name):
+def test_forward_windows_and_decode_match_flax(built, name):
     """forward (both ways), forward_windows (both ways) and decode_to_anime on
     the same variables; the state bridges back to the same flax tree."""
     opts = VARIANTS[name]
-    jmodel, tmodel = _jax_model(opts), _torch_model(opts)
-    variables = _variables(jmodel)
+    (jmodel, variables), tmodel = built(name), _torch_model(opts)
     load_flax_variables(tmodel, variables).eval()
     rng = np.random.default_rng(3)
     feat = rng.normal(0.4, 0.3, (4, 8, 16, 3)).astype(np.float32)
@@ -240,11 +257,10 @@ GRAD_RTOL = 1e-5  # first step: max |diff| over the model's largest |gradient|
 @pytest.mark.parametrize("name,steps,targets,extra", TRAIN_CASES,
                          ids=[f"{c[0]}-{c[1]}steps-{c[2]}{'-adamw_noam_clip' if c[3] else ''}"
                               for c in TRAIN_CASES])
-def test_train_steps_match_jax(tmp_path, name, steps, targets, extra):
+def test_train_steps_match_jax(built, tmp_path, name, steps, targets, extra):
     opts = VARIANTS[name]
     hp = _hparams(opts, extra)
-    jhp, jmodel = JConfig(hp), _jax_model(opts)
-    variables = _variables(jmodel)
+    jhp, (jmodel, variables) = JConfig(hp), built(name)
     names = jtrainer._scaler_names(opts["face_type"])
     assert scaler_names(opts["face_type"]) == names
 

@@ -32,6 +32,8 @@ from sdfa_tpu_torch.task import WIRE_LSB, WIRE_LSB8
 from sdfa_tpu_torch.task import AnimationTask as TTask
 from sdfa_tpu_torch.viewer import frame as tframe
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 TOL_M = 1e-5
 STEP = {"f32": 0.0, "i16": WIRE_LSB, "i8d": WIRE_LSB8}
 TIMEOUT_S = 120.0

@@ -18,6 +18,8 @@ from sdfa_tpu_torch.data.thread_prefetch import ThreadPrefetchIterable
 
 from test_torch_data import N_TRIS, roots  # noqa: F401  (fixture)
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 
 def _port_reader(roots, training=False):  # noqa: F811
     return TReader(tconfigure("dgrad", dataset_root=roots[1]), training)

@@ -38,6 +38,8 @@ from sdfa_tpu_torch.mesh import read_ply, synthetic_template, write_ply
 from sdfa_tpu_torch.ops.deform_solver import DeformationSolver
 from sdfa_tpu_torch.ops.dgrad import rotation_cut_flips
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 DGRAD_TOL = 1e-6
 PCA_COMP_TOL, PCA_MEAN_TOL = 1e-5, 1e-7
 ROUNDTRIP_TOL_M = 1e-4  # float32 dgrad files solved back (tests/test_deformation.py:168)

@@ -25,6 +25,8 @@ from sdfa_tpu.compat.torch_ckpt import convert_state_dict as jconvert
 from sdfa_tpu_torch import api as tapi
 from sdfa_tpu_torch.compat import convert_state_dict, load_torch_checkpoint
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 TOL_M = 1e-5
 
 _STACKS = {"audio_encoder": "_model._audio_encoder._layers",

@@ -36,6 +36,8 @@ from sdfa_tpu_torch.streaming import CoefDecoder
 from sdfa_tpu_torch.task import WIRE_LSB, WIRE_LSB8
 from sdfa_tpu_torch.viewer import frame as tframe
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 JAX_TOL_M = 1e-5
 ORACLE_TOL_M = 1e-4
 STEP = {"f32": 0.0, "i16": WIRE_LSB, "i8d": WIRE_LSB8}

@@ -25,6 +25,8 @@ from sdfa_tpu_torch.serve import ServeApp, StreamClient, StreamServerTCP, recv_m
 from sdfa_tpu_torch.streaming import CoefDecoder
 from sdfa_tpu_torch.task import WIRE_LSB
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 TIMEOUT_S = 120.0
 
 

@@ -30,6 +30,8 @@ from sdfa_tpu_torch.models import build_model as tbuild
 from sdfa_tpu_torch.task import AnimationTask as TTask
 from sdfa_tpu_torch.viewer import frame as tframe
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 TOL_M = 1e-5
 
 _BN = "batch_norm={'momentum': 0.01, 'eps': 0.001}"

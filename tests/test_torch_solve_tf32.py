@@ -22,6 +22,8 @@ from sdfa_tpu_torch.mesh import synthetic_template
 from sdfa_tpu_torch.ops import decode_solve as K3
 from sdfa_tpu_torch.ops.deform_solver import DeformationSolver
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 KERNEL_TOL_M = 1e-5  # the kernel's gate against the plain version, metres
 
 

@@ -13,6 +13,8 @@ from sdfa_tpu_torch.mesh import FLAME_COUNTS, read_ply, synthetic_template, writ
 from sdfa_tpu_torch.ops import decode_solve as K3
 from sdfa_tpu_torch.ops import deform_solver as tds
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 
 @pytest.fixture(scope="module")
 def pair():

@@ -26,6 +26,8 @@ from sdfa_tpu.streaming import StreamingServer as JServer
 from sdfa_tpu_torch.streaming import CoefDecoder, StreamingServer
 from sdfa_tpu_torch.task import WIRE_LSB, WIRE_LSB8
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 JAX_TOL = 1e-5
 
 

@@ -26,6 +26,8 @@ import jax.numpy as jnp
 from sdfa_tpu.ops import pallas_bilstm_train as J
 from sdfa_tpu_torch.ops import bilstm_core as K5
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 SHAPES = [(3, 5, 128), (8, 10, 256)]  # (T, rows, H)
 
 

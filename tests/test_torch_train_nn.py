@@ -30,6 +30,8 @@ from sdfa_tpu_torch.nn import recurrent as trec
 from sdfa_tpu_torch.nn.spec import LayerStack as TStack
 from sdfa_tpu_torch.train import lr_schedules as tsched
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 TOL = 2e-5
 
 

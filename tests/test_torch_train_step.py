@@ -33,6 +33,8 @@ from sdfa_tpu_torch.models.sdfa import SpeechDrivenAnimation as TModel
 from sdfa_tpu_torch.train import Experiment, Trainer, checkpoints
 from sdfa_tpu_torch.train.trainer import SCALER_NAMES
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 BN = "batch_norm={'momentum': 0.01, 'eps': 0.001}"
 LRELU = "act=lrelu@a:0.2"
 N_TRIS, KS, KR = 10, 5, 4

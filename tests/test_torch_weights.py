@@ -22,6 +22,8 @@ from sdfa_tpu_torch.compat import init_params, load_flax_variables, state_dict_f
 from sdfa_tpu_torch.config import configure as tconfigure
 from sdfa_tpu_torch.models import build_model as tbuild
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 BUDGET = 5e-5
 
 

@@ -27,6 +27,8 @@ from sdfa_tpu_torch.task import WIRE_LSB, WIRE_LSB8
 from sdfa_tpu_torch.task import AnimationTask as TTask
 from sdfa_tpu_torch.viewer import frame as tframe
 
+import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
+
 STEP = {"i16": WIRE_LSB, "i8d": WIRE_LSB8}
 
 

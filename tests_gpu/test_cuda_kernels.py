@@ -1,6 +1,8 @@
 """Each hand-written kernel on the card against its plain PyTorch version on
-the same inputs: the serving kernels (flagship widths for the LSTMs, a small
-mesh for decode + solve; max |diff| < 1e-4, decode + solve < 1e-5 m) and the
+the same inputs: the serving kernels (flagship widths for the LSTMs, K4 and K2
+at H = 128 too, a small mesh for decode + solve; max |diff| < 1e-4, decode +
+solve < 1e-5 m), the routes that keep every kernel width off the plain
+recurrence, and the
 training core, forward and backward, at the cluster tiling's edges (forward
 < 1e-4; gradients < 1e-4 of max |reference|; the backward repeats bit for
 bit)."""
@@ -69,6 +71,72 @@ def test_cuda_kernels_match_plain(cuda):
     cr = torch.from_numpy(_rand(rng, (11, 180), 1.0)).to(cuda)
     err = (K3.decode_solve(cs, cr, dsc) - K3.decode_solve_plain(cs, cr, dsc)).abs().max()
     assert float(err) < 1e-5
+
+
+@pytest.mark.parametrize("rows,steps,n_in,bias", [
+    (1, 1, 64, True), (7, 3, 256, False), (33, 32, 64, True), (216, 64, 100, False),
+    (1025, 32, 64, True), (513, 64, 256, False)])
+def test_cuda_layer_kernels_at_h128_match_plain(cuda, rows, steps, n_in, bias):
+    """K4 and K2 at H = 128 (clusters of four blocks) against their plain
+    versions at ragged row counts: one row, a partial row tile, one row more
+    than a chunk at T = 32 (1024 rows) and T = 64 (512); each launch counted
+    once, under its width."""
+    rng = np.random.default_rng(rows + steps)
+    hid, g = 128, 512
+
+    def weights(k):
+        return [_rand(rng, (2, k, g), 0.1), _rand(rng, (2, hid, g), 0.09),
+                _rand(rng, (2, g), 0.1) if bias else None]
+
+    args = [torch.from_numpy(a).to(cuda) if a is not None else None
+            for a in [_rand(rng, (rows, steps, n_in), 0.5)] + weights(n_in) + weights(2 * hid)]
+    k4, k2 = K4.LAUNCHES[hid], K2.LAUNCHES[hid]
+    got4, got2 = K4.bilstm_layer(*args[:4]), K2.bilstm2(*args)
+    assert (K4.LAUNCHES[hid], K2.LAUNCHES[hid]) == (k4 + 1, k2 + 1)
+    assert got4.shape == got2.shape == (rows, steps, 2 * hid)
+    assert float((got4 - K4.bilstm_layer_plain(*args[:4])).abs().max()) < 1e-4
+    assert float((got2 - K2.bilstm2_plain(*args)).abs().max()) < 1e-4
+
+
+def test_no_plain_route_at_a_kernel_width(cuda):
+    """Every width a kernel takes routes to it: the bidirectional stacks at H =
+    128 and 256 (1, 2 and 3 layers, eval and training) and FreqLstm in both
+    modes leave ``ops.PLAIN_ROUTES`` at 0; H = 64 takes the plain recurrence
+    and counts it, as JAX takes its scan; H = 384 raises."""
+    from sdfa_tpu_torch import ops
+    from sdfa_tpu_torch.nn import recurrent as trec
+
+    gen = torch.Generator().manual_seed(0)
+    before = ops.PLAIN_ROUTES
+    for hid in (128, 256):
+        for layers in (1, 2, 3):
+            mod = trec.LSTM(64, hid, layers, bidirectional=True)
+            mod.reset_parameters(gen)
+            mod = mod.to(cuda)
+            x = torch.randn(5, 7, 64, generator=gen).to(cuda)
+            for training in (False, True):
+                out = mod.train(training)(x)
+                if training:
+                    out.sum().backward()
+    for mode in ("full", "last"):
+        freq = trec.FreqLstm(64, 8, 128, 256, mode=mode)
+        for sub in freq.modules():
+            if hasattr(sub, "reset_parameters"):
+                sub.reset_parameters(gen)
+        freq.to(cuda).eval()(torch.randn(2, 64, 8, 3, generator=gen).to(cuda))
+    lstm2d = trec.LSTM2d(64, 128, 2).to(cuda)
+    for sub in lstm2d.modules():
+        if isinstance(sub, trec.LSTM):
+            sub.reset_parameters(gen)
+    lstm2d.eval()(torch.randn(2, 64, 8, 3, generator=gen).to(cuda))
+    torch.cuda.synchronize()
+    assert ops.PLAIN_ROUTES == before
+    trec.LSTM(64, 64, 1, bidirectional=True).to(cuda).eval()(torch.zeros(2, 3, 64, device=cuda))
+    assert ops.PLAIN_ROUTES == before + 1
+    # H = 384 over 128 features: JAX runs its Pallas kernel, the port has none yet
+    with pytest.raises(ValueError, match="ROADMAP B"):
+        trec.LSTM(128, 384, 1, bidirectional=True).to(cuda).eval()(
+            torch.zeros(2, 3, 128, device=cuda))
 
 
 @pytest.mark.parametrize("steps,rows,hid", [
