@@ -3,13 +3,15 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py            # about three minutes
+    python3 chip_smoke.py            # about four minutes
     python3 chip_smoke.py --profile  # about five. Also torch.profiler breakdowns: a request
                                      # (with its host-to-device copies counted), a server tick,
                                      # both also for the offsets model,
                                      # a train step; the biLSTM step kernel's SM clocks by part
                                      # of a step; the other tile choices of the training core,
                                      # of FreqLstm's step loop and of the solve product
+    python3 chip_smoke.py --cards 4  # on a machine with 4 cards, only this: data_parallel's
+                                     # comparison on NCCL, a rank a card, at 2 and 4 ranks
 
 Phases, each printed as one JSON line:
 
@@ -140,6 +142,19 @@ Phases, each printed as one JSON line:
    then trains one epoch of 3 batches with an aux loader (``Trainer.aux_steps``
    counted: one aux step after each main step, host steps = main + aux).
 
+19. data_parallel (after ``cli``, on the ``data_train`` dataset): two gloo ranks
+   on ``cuda:0`` (NCCL refuses two ranks on one card), subprocesses of this script
+   (``--dp-rank``), take 3 steps of the full-width dgrad model on their pair-keeping
+   halves of the seeded 100-window batches while this process takes them on the whole
+   batches: the ranks bit-equal, rank 0 within ``DP_LOSS_RTOL`` and ``dp_state_checks``
+   of this process, K5 3 + 3 a step in each rank; wall and all-reduce ms a step
+   (contended: both ranks share the card). Started beside them: ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1 -m sdfa_tpu_torch train`` with
+   ``trainer.multihost`` and a validation epoch on NCCL (its log names the backend and
+   the child's K1 / K2 / K5 launches; three checkpoint files), then a 3 s request from
+   its checkpoint through ``load_task`` (K1 / K2 / K3 1 / 1 / 1). The kernel phase also
+   times K5 at a rank's shapes, 32 x 3200 x 128 and 64 x 50 x 256.
+
 At the end ``ops.PLAIN_ROUTES`` must read 0: no path this script drives has a
 recurrent shape that no kernel takes.
 
@@ -210,6 +225,16 @@ PCA_TOL = 1e-5         # fitted components vs a float64 numpy SVD with sklearn's
 PRE_ROUNDTRIP_TOL_M = 1e-4  # float32 dgrad files solved back (tests/test_deformation.py:168)
 PRE_PLAIN_TOL_M = 1e-5  # the preprocessed checkpoint's request, kernels vs plain versions
 IDENTITY_TOL_M = 1e-5   # an identity correspondence table vs no table
+# data_parallel: two gloo ranks on cuda:0 against one process on the global batch
+DP_WORLD = 2
+DP_STEPS = 3
+DP_GROUP_TIMEOUT_S = 120  # a collective that waits longer raises in the rank
+DP_LOSS_RTOL = 1e-5       # each step's loss terms and gradient norm, rank 0 vs one process
+DP_STATE_TOL = 1e-5       # every parameter, BatchNorm statistic and scaler state, max abs,
+DP_ROUNDING_REL = 1e-2    # but the entries whose gradient the two runs give this far apart
+                          # (relative to its own size) in a step: see dp_state_checks
+DP_NCCL_STEPS = 4         # torch.distributed.run at world size 1 on NCCL
+DP_TIMEOUT_S = 300        # the ranks, the launcher
 F32_PEAK = 67e12      # H100 SXM, float32 outside the tensor cores, FLOP/s (data sheet)
 TF32_PEAK = 495e12    # H100 SXM, TF32 on the tensor cores, dense, FLOP/s (data sheet)
 HBM_RATE = 3.35e12    # H100 SXM, bytes/s (data sheet)
@@ -326,7 +351,7 @@ def signal(seconds: float, sr: int, seed: int):
     return (sig + 0.02 * rng.standard_normal(len(t))).clip(-1, 1).astype(np.float32)
 
 
-def train_batches(n: int):
+def train_batches(n: int, windows: int = TRAIN_WINDOWS):
     """Seeded synthetic batches at FLAME's counts, as the sliding-window
     reader ships them: first half frame i, second half frame i + 1."""
     import numpy as np
@@ -334,13 +359,28 @@ def train_batches(n: int):
     out = []
     for i in range(n):
         rng = np.random.default_rng(100 + i)
-        half = rng.integers(0, 8, (TRAIN_WINDOWS // 2,)).astype(np.int64)
+        half = rng.integers(0, 8, (windows // 2,)).astype(np.int64)
         out.append({
-            "audio_feat": rng.normal(0.4, 0.2, (TRAIN_WINDOWS, 64, 128, 3)).astype(np.float32),
+            "audio_feat": rng.normal(0.4, 0.2, (windows, 64, 128, 3)).astype(np.float32),
             "speaker_id": np.concatenate([half, half]),
-            "dgrad_3d_scale_coef": rng.normal(0, 1, (TRAIN_WINDOWS, 1, 85)).astype(np.float32),
-            "dgrad_3d_rotat_coef": rng.normal(0, 1, (TRAIN_WINDOWS, 1, 180)).astype(np.float32)})
+            "dgrad_3d_scale_coef": rng.normal(0, 1, (windows, 1, 85)).astype(np.float32),
+            "dgrad_3d_rotat_coef": rng.normal(0, 1, (windows, 1, 180)).astype(np.float32)})
     return out
+
+
+def seeded_pca():
+    """Seeded PCA bases at the shipped dims (85 + 180 components) over FLAME's
+    triangle count."""
+    import numpy as np
+
+    from sdfa_tpu_torch.mesh import FLAME_COUNTS
+
+    rng = np.random.default_rng(SEED)
+    n_tris = FLAME_COUNTS[1]
+    return {"scale_compT": rng.normal(0, 0.01, (6 * n_tris, 85)).astype(np.float32),
+            "scale_means": rng.normal(0, 0.01, (6 * n_tris,)).astype(np.float32),
+            "rotat_compT": rng.normal(0, 0.01, (3 * n_tris, 180)).astype(np.float32),
+            "rotat_means": rng.normal(0, 0.01, (3 * n_tris,)).astype(np.float32)}
 
 
 def main():
@@ -392,12 +432,7 @@ def main():
 
     # --- the flagship model at full width, seeded ---------------------------
     hp = configure("dgrad")
-    rng = np.random.default_rng(SEED)
-    n_tris = FLAME_COUNTS[1]
-    pca = {"scale_compT": rng.normal(0, 0.01, (6 * n_tris, 85)).astype(np.float32),
-           "scale_means": rng.normal(0, 0.01, (6 * n_tris,)).astype(np.float32),
-           "rotat_compT": rng.normal(0, 0.01, (3 * n_tris, 180)).astype(np.float32),
-           "rotat_means": rng.normal(0, 0.01, (3 * n_tris,)).astype(np.float32)}
+    pca = seeded_pca()
     model = init_params(build_model(hp, pca=pca), SEED)
     t0 = time.perf_counter()
     verts, faces, cnst = synthetic_template(SEED)
@@ -657,6 +692,8 @@ def main():
         cases += [(3, 1, hid, 0), (2, 7, hid, 0), (1, tile + 1, hid, 0),
                   (3, wave_tiles * tile + 1, hid, 0)]
     cases.append((64, 100, 128, 0))  # at H = 256 this is a timed shape already
+    # timed too: a rank's shapes in a two-rank step of 100 windows (50 each)
+    cases += [(32, 3200, 128, 64), (64, 50, 256, 256)]
 
     def core_case(steps, rows, hid, n_in):  # a function: its tensors go when it returns
         timed = n_in > 0
@@ -701,7 +738,7 @@ def main():
                                         (xp, w_core), dout, 2)
         lib_bwd_ms = time_backward_ms(lambda: lib5(x5)[0], (x5, *lib5.parameters()), dout, 3)
         flops = 2.0 * steps * rows * 2 * hid * 4 * hid
-        primary = hid == 128
+        primary = (steps, rows, hid) == (32, 6400, 128)
         record("bilstm_core_fwd", [steps, rows, hid], err_f, TOL["bilstm_core_fwd"], fwd_ms,
                plain_fwd_ms, flops, nbytes(xp, w_core, out, gates, cs), lib_fwd_ms, core_src,
                "sdfa_tpu/ops/pallas_bilstm_train.py:101", primary)
@@ -926,6 +963,7 @@ def main():
         path_launches["data_train"], trained = data_train_phase(task, sig0, spk0, solver, dev,
                                                                 smi, data_tmp)
         path_launches["cli"] = cli_phase(trained, root, dev, smi)
+        path_launches["data_parallel"] = data_parallel_phase(trained, root, dev, smi)
     del trained
 
     # --- the offsets model family: served, streamed, then trained from disk and served ---
@@ -2899,5 +2937,435 @@ def profile_train_step(exp, batches, smi, step_ms_unprofiled):
                                      for k, ms, n in device[:16]], "card": smi})
 
 
+def dp_hparams(multihost: bool):
+    """The shipped dgrad config (dropout as configured), ``trainer.multihost``
+    as asked."""
+    from sdfa_tpu_torch.config import configure
+
+    hp = configure("dgrad")
+    hp.trainer.set_key("multihost", multihost)
+    return hp
+
+
+def dp_steps(exp, batches):
+    """``exp.train_step`` on this process's rows of each global batch; per step
+    the metrics, the wall ms, the all-reduces' ms (every ``all_reduce`` timed
+    between two synchronizes; the largest is the gradients') and the training
+    core's launches. Then the state, on the host."""
+    import torch
+    import torch.distributed as dist
+
+    from sdfa_tpu_torch.ops import bilstm_core
+    from sdfa_tpu_torch.parallel import shard_batch
+
+    real, calls = dist.all_reduce, []
+
+    def timed_all_reduce(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = real(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((tensor.numel(), 1e3 * (time.perf_counter() - t0)))
+        return work
+
+    dist.all_reduce = timed_all_reduce
+    steps = []
+    try:
+        for batch in batches:
+            local = shard_batch(exp.mesh, batch)
+            calls.clear()
+            bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = exp.train_step(local)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            steps.append({"wall_ms": wall, "windows": len(local["speaker_id"]),
+                          "grads": {n: p.grad.clone() for n, p in exp.model.named_parameters()
+                                    if p.grad is not None},
+                          "all_reduces": len(calls),
+                          "all_reduce_ms": sum(ms for _, ms in calls),
+                          "grad_all_reduce_ms": max(calls)[1] if calls else 0.0,
+                          "k5": [bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES],
+                          "metrics": {k: float(v) for k, v in metrics.items()}})
+    finally:
+        dist.all_reduce = real
+    for step in steps:  # to the host after the timed steps
+        step["grads"] = {n: g.cpu() for n, g in step["grads"].items()}
+    return {"steps": steps, "n_devices": exp.n_devices,
+            "state": {k: v.cpu() for k, v in exp.model.state_dict().items()},
+            "scalers": {n: [float(x) for x in v] for n, v in exp.scalers.items()}}
+
+
+def dp_state_checks(model, got, want, lr):
+    """Rank 0 (``got``) against one process (``want``), entry by entry.
+
+    The first step's gradient (rank 0's is the mean over the ranks), from the
+    same parameters, is reported over its largest |gradient|, not held: an
+    entry that BatchNorm all but cancels (a conv's bias before it) is set by
+    the order of its sums: a one-process step on the same batch with its
+    pairs permuted moves such an entry as far as the ranks do. The loss terms
+    and the gradient norm of every step are held by the caller.
+
+    Adam divides each entry's update by the entry's own gradient, so where
+    the two runs give an entry's gradient more than ``DP_ROUNDING_REL`` of its
+    own size apart in some step (a gradient so small
+    against the sums that make it that their order decides it: the weight-norm
+    gain of a conv that feeds BatchNorm, whose gradient only BatchNorm's eps
+    keeps from zero), the two runs move the entry apart by up to lr a step
+    each, and it is held to 2 · lr · steps; every other parameter entry to
+    ``DP_STATE_TOL``. A BatchNorm's running statistics after a weight-normed
+    layer are held to ``DP_STATE_TOL`` plus what that layer's gain difference r
+    explains (the mean scales with the gain, the variance with its square:
+    r·|mean|, 2r·|var|, channel by channel); every other buffer to
+    ``DP_STATE_TOL``. Returns the worst of each measure; raises where one is
+    missed."""
+    import torch
+
+    bound = 2 * lr * len(want["steps"])
+    gains = {f"{name}.post_bn": f"{name}.kernel_g" for name, m in model.named_modules()
+             if getattr(m, "post_bn", None) is not None and hasattr(m, "kernel_g")}
+    worst = {"first_step_grad_vs_largest": 0.0, "strict_max_abs": 0.0, "strict_worst": None,
+             "rounding_entries": 0, "rounding_max_abs": 0.0, "rounding_bound": bound,
+             "buffer_excess": -DP_STATE_TOL}
+    rounding = {}
+    first = want["steps"][0]["grads"]
+    largest = max(float(g.abs().max()) for g in first.values())
+    worst["first_step_grad_vs_largest"] = max(
+        float((got["steps"][0]["grads"][n] - g).abs().max()) for n, g in first.items()) / largest
+    for g_step, w_step in zip(got["steps"], want["steps"]):
+        for name, ref in w_step["grads"].items():
+            diff = (g_step["grads"][name] - ref).abs()
+            apart = diff > DP_ROUNDING_REL * ref.abs()
+            rounding[name] = rounding[name] | apart if name in rounding else apart
+    for name, ref in want["state"].items():
+        diff = (got["state"][name] - ref).abs()
+        if name in rounding:
+            apart = rounding[name]
+            strict = float(diff[~apart].max()) if bool((~apart).any()) else 0.0
+            if strict > worst["strict_max_abs"]:
+                worst["strict_max_abs"], worst["strict_worst"] = strict, name
+            if bool(apart.any()):
+                worst["rounding_entries"] += int(apart.sum())
+                worst["rounding_max_abs"] = max(worst["rounding_max_abs"],
+                                                float(diff[apart].max()))
+            continue
+        bn, _, stat = name.rpartition(".")
+        allow = torch.full_like(ref, DP_STATE_TOL)
+        if bn in gains and stat in ("mean", "var"):
+            g0, g1 = got["state"][gains[bn]].flatten(), want["state"][gains[bn]].flatten()
+            allow += (1 if stat == "mean" else 2) * ((g0 - g1) / g1).abs() * ref.abs()
+        worst["buffer_excess"] = max(worst["buffer_excess"], float((diff - allow).max()))
+    worst["entries"] = sum(v.numel() for v in rounding.values())
+    if not (worst["strict_max_abs"] <= DP_STATE_TOL
+            and worst["rounding_max_abs"] <= bound and worst["buffer_excess"] <= 0):
+        raise RuntimeError(f"data_parallel: rank 0 vs one process, state {worst}")
+    return worst
+
+
+def dp_compare(ranks, one, hp):
+    """The ranks' results (``dp_steps``) against each other and rank 0's against
+    one process's (``one``) on the same global batches: per step and rank the
+    loss terms, wall ms and all-reduce ms; raises unless the ranks are
+    bit-equal, every rank launched K5 3 + 3 a step on a mesh of all of them,
+    and rank 0 is within ``DP_LOSS_RTOL`` and ``dp_state_checks`` of one
+    process. Returns the summary."""
+    import torch
+
+    from sdfa_tpu_torch.models import build_model
+
+    r0 = ranks[0]
+    bit_equal = all(all(torch.equal(v, r["state"][k]) for k, v in r0["state"].items())
+                    and r0["scalers"] == r["scalers"]
+                    and [s["metrics"] for s in r0["steps"]] == [s["metrics"] for s in r["steps"]]
+                    for r in ranks[1:])
+    ranks_diff = max(float((v - r["state"][k]).abs().max())
+                     for r in ranks[1:] for k, v in r0["state"].items())
+    state_diff = {k: float((v - one["state"][k]).abs().max()) for k, v in r0["state"].items()}
+    worst = sorted(state_diff, key=state_diff.get, reverse=True)[:3]
+    scaler_diff = max(abs(a - b) for n in one["scalers"]
+                      for a, b in zip(r0["scalers"][n], one["scalers"][n]))
+    loss_rel = max(abs(s0["metrics"][k] - s1["metrics"][k]) / max(abs(s1["metrics"][k]), 1e-9)
+                   for s0, s1 in zip(r0["steps"], one["steps"]) for k in s1["metrics"])
+    k5 = [[s["k5"] for s in r["steps"]] for r in ranks]
+    out = {
+        "backend": r0["group_backend"], "n_devices": [r["n_devices"] for r in ranks],
+        "per_step": [{"rank": rank, "step": i, "windows": s["windows"],
+                      "wall_ms": s["wall_ms"], "all_reduces": s["all_reduces"],
+                      "all_reduce_ms": s["all_reduce_ms"],
+                      "grad_all_reduce_ms": s["grad_all_reduce_ms"], "k5": s["k5"],
+                      **{k: v for k, v in s["metrics"].items() if k != "lr"}}
+                     for rank, r in enumerate(ranks) for i, s in enumerate(r["steps"])],
+        "one_process": [{"step": i, "windows": s["windows"], "wall_ms": s["wall_ms"],
+                         "k5": s["k5"], "total": s["metrics"]["total"],
+                         "grad_norm": s["metrics"]["grad_norm"]}
+                        for i, s in enumerate(one["steps"])],
+        "three_steps_ms": {"ranks": max(sum(s["wall_ms"] for s in r["steps"]) for r in ranks),
+                           "one_process": sum(s["wall_ms"] for s in one["steps"])},
+        "last_two_steps_ms": {"ranks": max(sum(s["wall_ms"] for s in r["steps"][1:])
+                                           for r in ranks),
+                              "one_process": sum(s["wall_ms"] for s in one["steps"][1:])},
+        "ranks_bit_equal": bit_equal, "ranks_max_abs_diff": ranks_diff,
+        "vs_one_process": {"max_abs_state": state_diff[worst[0]],
+                           "worst_state": {k: state_diff[k] for k in worst},
+                           "max_abs_scalers": scaler_diff, "max_rel_metrics": loss_rel,
+                           "state_tol": DP_STATE_TOL, "metrics_rtol": DP_LOSS_RTOL}}
+    if not bit_equal or ranks_diff != 0.0:
+        raise RuntimeError(f"data_parallel: the ranks differ ({ranks_diff})")
+    if any(step != [3, 3] for r in k5 for step in r):
+        raise RuntimeError(f"data_parallel: training-core launches per step {k5}, not 3 + 3")
+    if [r["n_devices"] for r in ranks] != [len(ranks)] * len(ranks):
+        raise RuntimeError(f"data_parallel: mesh sizes {[r['n_devices'] for r in ranks]}")
+    if not (scaler_diff <= DP_STATE_TOL and loss_rel <= DP_LOSS_RTOL):
+        raise RuntimeError(f"data_parallel: rank 0 vs one process {out['vs_one_process']}")
+    out["vs_one_process"]["state_by_entry"] = dp_state_checks(
+        build_model(hp, pca=seeded_pca()), r0, one, float(hp.optim.args.lr))
+    return out
+
+
+def dp_rank(argv):
+    """One rank of the ``data_parallel`` phase: ``chip_smoke.py --dp-rank RANK
+    WORLD INIT_FILE OUT LOG_DIR``. It joins a gloo group through the phase's
+    rendezvous file, takes ``DP_STEPS`` steps of the full-width dgrad model on
+    its rows of the script's seeded batches on ``cuda:0`` and writes
+    ``dp_steps``' result to OUT."""
+    rank, world, init, out, log_dir = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.train import Experiment
+
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT_S))
+    try:
+        hp = dp_hparams(multihost=True)
+        exp = Experiment(hp, build_model(hp, pca=seeded_pca()), log_dir, "cuda:0", seed=SEED)
+        result = dp_steps(exp, train_batches(DP_STEPS))
+        result["group_backend"] = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, out)
+
+
+def data_parallel_phase(trained, repo, dev, smi):
+    """Two gloo ranks on ``cuda:0`` (the card's one device; NCCL refuses two
+    ranks on one card) start as subprocesses of this script (``dp_rank``) and
+    take ``DP_STEPS`` steps of 50 windows each, their pair-keeping halves of the
+    seeded 100-window batches, while this process takes the same steps at world
+    size 1 on the whole batches. The ranks must be bit-equal to each other and
+    within ``DP_LOSS_RTOL`` / ``dp_state_checks`` of the one process, with 3 +
+    3 training-core launches a step each. Started beside them, so that their
+    start-ups overlap: ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m sdfa_tpu_torch train`` with ``trainer.multihost`` on
+    the ``data_train`` dataset and a validation epoch: NCCL reported, its
+    epoch, last and best checkpoints, the child's K1 / K2 (validation) and K5
+    launches from its log; ``load_task`` of that checkpoint
+    serves a 3 s request through K1, K2 and K3. Returns the launch counts of
+    the phase's path: the ranks' steps (both ranks) and the request. The two
+    ranks share the card's SMs (and may meet the launcher's child there):
+    their step times measure contention, not a rank on a card of its own."""
+    import numpy as np
+    import torch
+
+    from sdfa_tpu_torch import api
+    from sdfa_tpu_torch.mesh import FLAME_COUNTS
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import bilstm2, decode_solve, freq_lstm
+    from sdfa_tpu_torch.train import Experiment
+
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
+    out = {"phase": "data_parallel", "card": smi, "world": DP_WORLD, "steps": DP_STEPS}
+    path, procs, t_phase = {}, [], time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="sdfa_chip_dp_", dir=trained["tmp"])
+    try:
+        # 1. the launcher's NCCL run (3. below) and the two gloo ranks start together:
+        #    their start-up, imports and a CUDA context each, overlaps the one-process run
+        run, nccl_log = os.path.join(tmp, "nccl_run"), os.path.join(tmp, "nccl.log")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               "1", "-m", "sdfa_tpu_torch", "train", "--custom_hparams", trained["config"],
+               "--dataset_root", trained["root"], "--max_steps", str(DP_NCCL_STEPS),
+               "--log_dir", run,
+               "--overrides", json.dumps({"trainer": {"pca_targets": True, "multihost": True,
+                                                      "valid_gap_epochs": 1}})]
+        with open(nccl_log, "w") as fp:
+            procs.append(subprocess.Popen(cmd, cwd=repo, stdout=fp, stderr=subprocess.STDOUT))
+        init = os.path.join(tmp, "rendezvous")
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(DP_WORLD)]
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(DP_WORLD)]
+        for r in range(DP_WORLD):
+            with open(logs[r], "w") as fp:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                     str(DP_WORLD), init, outs[r], os.path.join(tmp, f"run{r}")],
+                    cwd=repo, stdout=fp, stderr=subprocess.STDOUT))
+        hp1 = dp_hparams(multihost=False)
+        exp1 = Experiment(hp1, build_model(hp1, pca=seeded_pca()), os.path.join(tmp, "one"), dev,
+                          seed=SEED)
+        one = dp_steps(exp1, train_batches(DP_STEPS))
+        del exp1
+        end = time.monotonic() + DP_TIMEOUT_S
+        for proc in procs[1:]:
+            proc.wait(timeout=max(end - time.monotonic(), 1.0))
+        failed = [(r, p.returncode, open(logs[r]).read()[-3000:])
+                  for r, p in enumerate(procs[1:]) if p.returncode]
+        if failed:
+            raise RuntimeError(f"data_parallel ranks failed: {failed}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        out["ranks_wall_s"] = time.perf_counter() - t_phase
+
+        # 2. the checks: the ranks bit-equal, rank 0 against one process
+        out.update(dp_compare(ranks, one, hp1))
+        path["bilstm_core_fwd"] = sum(s["k5"][0] for r in ranks for s in r["steps"])
+        path["bilstm_core_bwd"] = sum(s["k5"][1] for r in ranks for s in r["steps"])
+
+        # 3. NCCL at world size 1 through the launcher, on the data_train dataset
+        proc = procs[0]
+        proc.wait(timeout=max(end - time.monotonic(), 1.0))
+        with open(nccl_log) as fp:
+            text = fp.read()
+        group = re.search(r"process group: rank (\d+) of (\d+) \((\w+)\)", text)
+        launches = re.search(r"kernel launches in this process: freq_lstm (\d+), bilstm2 (\d+), "
+                             r"training core forward (\d+), backward (\d+)", text)
+        ckpts = sorted(f for f in os.listdir(run) if f.endswith(".ckpt")) \
+            if os.path.isdir(run) else []
+        out["nccl"] = {"exit": proc.returncode, "wall_s": time.perf_counter() - t_phase,
+                       "group": group.groups() if group else None,
+                       "launches": [int(n) for n in launches.groups()] if launches else None,
+                       "checkpoints": ckpts}
+        if proc.returncode != 0:
+            raise RuntimeError(f"torch.distributed.run train exited {proc.returncode}: "
+                               f"{text[-3000:]}")
+        if out["nccl"]["group"] != ("0", "1", "nccl"):
+            raise RuntimeError(f"torch.distributed.run train: group {out['nccl']['group']}")
+        n = out["nccl"]["launches"]  # K1, K2 in the validation's eval steps; K5 3 + 3 a step
+        if n is None or min(n[:2]) < 1 or n[2:] != [3 * DP_NCCL_STEPS] * 2:
+            raise RuntimeError(f"torch.distributed.run train: launches {n}")
+        if ckpts != sorted(["best-ploss.ckpt", f"epoch0001-step{DP_NCCL_STEPS:06d}.ckpt",
+                            "last.ckpt"]):
+            raise RuntimeError(f"torch.distributed.run train: checkpoints {ckpts}")
+
+        # 4. that checkpoint serves a request through K1, K2 and K3
+        task = api.load_task(os.path.join(run, "last.ckpt"), device=dev)
+        task.warmup(3.0)
+        sig = signal(3.0, int(task.hp.audio.sample_rate), 50)
+        reset_counts(counters)
+        ts, v = task.generate_vertices(sig, 1)
+        served = read_counts(counters, "data_parallel request")
+        out["request"] = {"windows": len(ts), "launches": served}
+        path.update(served)
+        if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
+            raise RuntimeError(f"data_parallel request: bad output {v.shape}")
+        if min(served.values()) < 1:
+            raise RuntimeError(f"data_parallel request: a kernel never launched {served}")
+        del task
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()  # the launcher stops its worker on SIGTERM
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        out["phase_s"] = time.perf_counter() - t_phase
+        emit(out)  # what was measured, also when a check failed
+    return path
+
+
+def dp_launched(out_dir: str, windows: int):
+    """One rank under ``torch.distributed.run`` (``chip_smoke.py --dp-launched
+    OUT_DIR WINDOWS``): ``trainer.multihost`` joins the launcher's group (NCCL,
+    ``cuda:{LOCAL_RANK}``), ``DP_STEPS`` steps of the full-width dgrad model on
+    the rank's rows of seeded batches of ``windows``, ``dp_steps``' result to
+    ``OUT_DIR/rank{r}.pt``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed as dist
+
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.parallel import multihost
+    from sdfa_tpu_torch.train import Experiment
+
+    try:
+        hp = dp_hparams(multihost=True)
+        exp = Experiment(hp, build_model(hp, pca=seeded_pca()), os.path.join(out_dir, "run"),
+                         "cuda", seed=SEED)
+        result = dp_steps(exp, train_batches(DP_STEPS, windows))
+        result["group_backend"] = dist.get_backend()
+        result["device"] = str(exp.device)
+        torch.save(result, os.path.join(out_dir, f"rank{exp.mesh.rank}.pt"))
+    finally:
+        multihost.shutdown()
+
+
+def cards_main(n_cards: int):
+    """``python3 chip_smoke.py --cards N``, on a machine with N cards: the
+    ``data_parallel`` comparison with one rank a card on NCCL, under
+    ``torch.distributed.run``, at 2 ranks and at N: each rank holds 50 windows
+    (the global batch 50 x ranks), against one process on ``cuda:0`` on the
+    same global batches, after the launch. Prints one line per world size,
+    then the cards' names and power limits and the result line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "sdfa_tpu_torch")):
+        sys.exit("chip_smoke.py: the sdfa_tpu_torch package is not beside this script")
+    sys.path.insert(0, root)
+    import torch
+
+    if torch.cuda.device_count() < n_cards:
+        sys.exit(f"chip_smoke.py --cards {n_cards}: torch sees {torch.cuda.device_count()} "
+                 "CUDA devices")
+    processes_before = group_processes()
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import build
+    from sdfa_tpu_torch.train import Experiment
+
+    build.load_libraries(["freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core"])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()
+    for world in sorted({2, n_cards}):
+        windows = TRAIN_WINDOWS // 2 * world
+        with tempfile.TemporaryDirectory(prefix="sdfa_chip_cards_") as tmp:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                 str(world), os.path.abspath(__file__), "--dp-launched", tmp, str(windows)],
+                cwd=root, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+            launch_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"--cards: {world} ranks exited {proc.returncode}: "
+                                   f"{(proc.stdout + proc.stderr)[-3000:]}")
+            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                     for r in range(world)]
+            hp1 = dp_hparams(multihost=False)
+            exp1 = Experiment(hp1, build_model(hp1, pca=seeded_pca()), os.path.join(tmp, "one"),
+                              "cuda:0", seed=SEED)
+            one = dp_steps(exp1, train_batches(DP_STEPS, windows))
+            del exp1
+            out = {"phase": "data_parallel_cards", "world": world, "windows": windows,
+                   "devices": [r["device"] for r in ranks], "launch_s": launch_s,
+                   **dp_compare(ranks, one, hp1), "cards": smi}
+            emit(out)
+            if out["backend"] != "nccl" or len(set(out["devices"])) != world:
+                raise RuntimeError(f"--cards: backend {out['backend']}, devices {out['devices']}")
+    check_no_process_left(processes_before)
+    print("; ".join(smi), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank(sys.argv[2:])
+    elif sys.argv[1:2] == ["--dp-launched"]:
+        dp_launched(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--cards"]:
+        cards_main(int(sys.argv[2]))
+    else:
+        main()

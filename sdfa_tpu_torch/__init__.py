@@ -6,7 +6,8 @@ find: ``audio/`` (frontend), ``nn/`` (layers, the layer-spec engine,
 recurrent layers, attention), ``models/`` (the network), ``ops/`` (the
 deformation solver and the hand-written Hopper kernels with their plain
 PyTorch versions), ``train/`` (``Experiment``, ``Trainer``, schedules,
-checkpoints), ``compat/`` (flax variables and reference checkpoints),
+checkpoints), ``parallel/`` (data parallelism on ``torch.distributed``),
+``compat/`` (flax variables and reference checkpoints),
 ``viewer/`` (template state, mesh export, video), ``task.py``
 (``AnimationTask``), ``api.py`` and ``__main__.py`` (the entry points:
 ``python -m sdfa_tpu_torch``) and ``config.py`` (the config reader).

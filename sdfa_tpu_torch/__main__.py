@@ -19,6 +19,13 @@ with the dataset root and the seconds of each stage.
     python -m sdfa_tpu_torch evaluate --custom_hparams dgrad --load_from run/last.ckpt \\
         --eval_input clip.wav --eval_spk_cond m0 --template_mesh template.ply \\
         --mesh_constraints constraints.txt --no-save_video --output_dir out
+
+Data-parallel training, one process per card (``trainer.multihost``, given as
+an hparams override as the JAX CLI takes it; only rank 0 logs at INFO):
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 -m sdfa_tpu_torch \\
+        train --custom_hparams dgrad --dataset_root data \\
+        --overrides '{"trainer": {"multihost": true}}'
 """
 
 from __future__ import annotations
@@ -190,5 +197,12 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO, format="[%(levelname)s] %(name)s: %(message)s")
-    main()
+    # under a launcher only rank 0 logs the run at INFO
+    logging.basicConfig(level=logging.INFO if os.environ.get("RANK", "0") == "0"
+                        else logging.WARNING, format="[%(levelname)s] %(name)s: %(message)s")
+    from .parallel import multihost
+
+    try:
+        main()
+    finally:
+        multihost.shutdown()  # the process group a multihost run joined, in every rank

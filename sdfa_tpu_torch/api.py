@@ -67,7 +67,15 @@ def train_model(
     """Train from the dataset under ``dataset_root`` (the layout of
     ``data/synthetic.py`` and the VOCASET preprocessing); returns the
     ``Experiment``. ``max_steps`` caps the whole run, not one epoch. The card
-    unless ``device`` says otherwise."""
+    unless ``device`` says otherwise; under a launcher, the card of the
+    process's ``LOCAL_RANK``.
+
+    With ``trainer.multihost`` the processes of the launch train one model on
+    one global batch of ``anime_loader.batch_size`` pairs: each reads its own
+    pairs of every global batch (the readers' ``shard=``), with the reader in
+    process (no ``PrefetchLoader`` workers). Launch:
+    ``python -m torch.distributed.run --standalone --nproc_per_node N -m
+    sdfa_tpu_torch train ... --overrides '{"trainer": {"multihost": true}}'``."""
     hp = configure(custom_hparams, overrides=overrides, dataset_root=dataset_root)
     log_dir = _resolve_log_dir(hp, log_dir)
     load_path = maybe_in_dirs(
@@ -81,16 +89,17 @@ def train_model(
     model = build_model(hp)  # PCA bases from the dataset's pca/ files
     exp = Experiment(hp, model, log_dir=log_dir, device=device, load_from=load_path)
 
-    # the collated batch is 2·bs windows (adjacent-frame doubling); one card
-    # takes it whole, so the JAX package's rounding to the device count is moot
+    # the collated batch is 2·bs windows (adjacent-frame doubling); under
+    # multihost every rank reads its bs / world pairs of each global batch
     bs = int(hp.trainer.anime_loader.batch_size)
+    shard = (exp.mesh.rank, exp.mesh.world) if exp.multihost else None
 
     # raw mode (default): the host ships raw windows + augmentation knobs, the
     # mel pipeline runs on the device (data/device_features.py); set
     # trainer.host_features=true for the bit-exact host feature path instead
     raw_mode = not bool(hp.trainer.get("host_features", False))
-    batches_fn = (lambda ds, **kw: ds.raw_batches(bs, **kw)) if raw_mode else (
-        lambda ds, **kw: ds.batches(bs, **kw))
+    batches_fn = (lambda ds, **kw: ds.raw_batches(bs, shard=shard, **kw)) if raw_mode else (
+        lambda ds, **kw: ds.batches(bs, shard=shard, **kw))
 
     if raw_mode:
         # augmentations the device frontend does not implement fail loudly
@@ -107,7 +116,10 @@ def train_model(
                         "trainer.host_features=true to use PrefetchLoader")
 
     multiple_workers = bool(hp.trainer.anime_loader.get("multiple_workers", False))
-    if multiple_workers and max_steps is None and not raw_mode:
+    if multiple_workers and shard is not None and not raw_mode:
+        log.warning("multihost: each rank reads its pairs in process; "
+                    "anime_loader.multiple_workers is ignored")
+    if multiple_workers and max_steps is None and not raw_mode and shard is None:
         from .data.prefetch import PrefetchLoader
 
         n_workers = max((os.cpu_count() or 2) // 2, 1)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -500,15 +500,58 @@ class DatasetSlidingWindow(SpeechAnimeDataset):
         return stacked
 
     def raw_batches(self, batch_size: int, shuffle: Optional[bool] = None,
-                    drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+                    drop_last: bool = True, shard: Optional[Tuple[int, int]] = None
+                    ) -> Iterator[Dict[str, np.ndarray]]:
+        """Collated raw batches of ``batch_size`` pairs; with ``shard`` =
+        (rank, world), this rank's rows of each global batch (``_index_batches``)."""
+        for idx, items in self._index_batches(batch_size, shuffle, drop_last, shard):
+            yield self._maybe_compact(self.collate_raw(self._read(self.raw_item, idx, items)))
+
+    def _index_batches(self, batch_size: int, shuffle: Optional[bool], drop_last: bool,
+                       shard: Optional[Tuple[int, int]]):
+        """(item indices, item streams) of every batch of an epoch: the indices
+        in the reader's shuffled order, the streams None (each item draws from
+        the reader's one stream, as the JAX reader does).
+
+        With ``shard`` = (rank, world) the global batch of ``batch_size``
+        pairs is split before anything is read: this rank takes pairs [r·b,
+        (r+1)·b), b = batch_size / world, and its collated rows are the
+        pair-keeping shard of the global batch (``parallel.mesh.shard_rows``).
+        Each item then draws its augmentation from a stream of its own, seeded
+        by (a draw of the reader's stream, its place in the global batch), so
+        that its rows do not depend on the items other ranks read: for any
+        world size they are bit-equal to the matching rows of ``shard=(0, 1)``.
+        The last global batch is dropped unless it is whole."""
         shuffle = self.training if shuffle is None else shuffle
         order = np.arange(len(self))
         if shuffle:
             self._rng.shuffle(order)
-        for i in range(0, len(order) - (batch_size - 1 if drop_last else 0), batch_size):
-            idx = order[i : i + batch_size]
-            yield self._maybe_compact(
-                self.collate_raw([self.raw_item(int(j)) for j in idx]))
+        if shard is None:
+            for i in range(0, len(order) - (batch_size - 1 if drop_last else 0), batch_size):
+                yield order[i : i + batch_size], None
+            return
+        rank, world = shard
+        if batch_size % world:
+            raise ValueError(f"a batch of {batch_size} pairs does not split over {world} ranks")
+        local = batch_size // world
+        for i in range(0, len(order) - (batch_size - 1), batch_size):
+            batch_seed = int(self._rng.integers(2 ** 63))
+            pos = range(rank * local, (rank + 1) * local)
+            yield order[i + pos.start : i + pos.stop], [(batch_seed, p) for p in pos]
+
+    def _read(self, read, idx, streams) -> List[dict]:
+        """``read(j)`` for every index; with streams, each item with the reader's
+        stream swapped for its own."""
+        if streams is None:
+            return [read(int(j)) for j in idx]
+        saved, items = self._rng, []
+        try:
+            for j, seed in zip(idx, streams):
+                self._rng = np.random.default_rng(seed)
+                items.append(read(int(j)))
+        finally:
+            self._rng = saved
+        return items
 
     def _maybe_compact(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         if self._compact_targets:
@@ -540,14 +583,12 @@ class DatasetSlidingWindow(SpeechAnimeDataset):
         return stacked
 
     def batches(self, batch_size: int, shuffle: Optional[bool] = None,
-                drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
-        shuffle = self.training if shuffle is None else shuffle
-        order = np.arange(len(self))
-        if shuffle:
-            self._rng.shuffle(order)
-        for i in range(0, len(order) - (batch_size - 1 if drop_last else 0), batch_size):
-            idx = order[i : i + batch_size]
-            yield self._maybe_compact(self.collate([self[int(j)] for j in idx]))
+                drop_last: bool = True, shard: Optional[Tuple[int, int]] = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        """Collated batches of ``batch_size`` pairs; ``shard`` as in
+        ``raw_batches``."""
+        for idx, items in self._index_batches(batch_size, shuffle, drop_last, shard):
+            yield self._maybe_compact(self.collate(self._read(self.__getitem__, idx, items)))
 
     # ------------------------------------------------------------------
     @classmethod

@@ -14,7 +14,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,11 +29,15 @@ class ScalerState(NamedTuple):
 
 
 def dynamic_scale(loss: torch.Tensor, state: ScalerState, training: bool, beta: float = 0.99,
-                  eps: float = 1e-8) -> Tuple[torch.Tensor, ScalerState]:
+                  eps: float = 1e-8, global_loss: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, ScalerState]:
     """Divide ``loss`` by the bias-corrected RMS EMA; no gradient flows
-    through the scale."""
+    through the scale. Under data parallelism ``global_loss`` is the loss's
+    mean over the ranks, detached: the EMA follows it, so that the state and
+    the scale are the same on every rank and equal to one process's on the
+    global batch."""
     if training:
-        loss_ms = torch.mean(loss.detach() ** 2)
+        loss_ms = torch.mean((loss.detach() if global_loss is None else global_loss) ** 2)
         beta_t = state.beta_t * beta
         vt = beta * state.vt + (1.0 - beta) * loss_ms
         scale = torch.sqrt(vt / (1.0 - beta_t)) + eps

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import Mesh, all_reduce_sum, draw_rows
 from . import functions as fn
 
 
@@ -33,14 +34,18 @@ def _pair(x) -> Tuple[int, int]:
     return tuple(x) if isinstance(x, (tuple, list)) else (x, x)
 
 
-def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Bernoulli keep-mask with probability 1 − rate, kept values scaled by
-    1 / keep. ``gen`` must live on ``x``'s device."""
+    1 / keep. ``gen`` must live on ``x``'s device. Under a data-parallel
+    ``mesh`` the mask is drawn for the global batch and this rank keeps its
+    rows (``parallel.mesh.draw_rows``)."""
     if gen is None:
         raise RuntimeError("dropout needs a generator: call set_dropout_generator(model, gen)")
     keep = 1.0 - float(rate)
-    mask = torch.rand(x.shape, generator=gen, device=x.device, dtype=x.dtype) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    u = draw_rows(lambda shape: torch.rand(shape, generator=gen, device=x.device, dtype=x.dtype),
+                  x.shape, mesh)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 def set_dropout_generator(model: nn.Module, gen: Optional[torch.Generator]):
@@ -48,6 +53,15 @@ def set_dropout_generator(model: nn.Module, gen: Optional[torch.Generator]):
     for module in model.modules():
         if hasattr(module, "dropout_generator"):
             module.dropout_generator = gen
+
+
+def set_data_mesh(model: nn.Module, mesh: Optional[Mesh]):
+    """Hand a data-parallel ``mesh`` (None: one process) to every module of
+    ``model`` whose training step depends on the global batch: BatchNorm's
+    statistics and the random draws."""
+    for module in model.modules():
+        if hasattr(module, "data_mesh"):
+            module.data_mesh = mesh
 
 
 class BatchNorm(nn.Module):
@@ -62,6 +76,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
+        self.data_mesh: Optional[Mesh] = None  # see set_data_mesh
 
     def forward(self, x):
         shape = [1] * x.ndim
@@ -69,14 +84,28 @@ class BatchNorm(nn.Module):
         mean, var = self.mean, self.var
         if self.training:
             axes = [a for a in range(x.ndim) if a != self.axis % x.ndim]
-            mean = x.mean(dim=axes)
+            if self.data_mesh is not None and self.data_mesh.parallel:
+                mean, ex2 = self._global_moments(x, axes)
+            else:
+                mean, ex2 = x.mean(dim=axes), (x * x).mean(dim=axes)
             # E[x²] − E[x]², clamped at 0: the JAX package's (flax's) form
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.decay).add_((1 - self.decay) * mean)
                 self.var.mul_(self.decay).add_((1 - self.decay) * var)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+    def _global_moments(self, x, axes):
+        """E[x] and E[x²] over every rank's rows: the local Σx, Σx² and element
+        count in one autograd-aware all-reduce, so that the gradient of the
+        global statistics reaches every rank's inputs. The count is exact in
+        float32 up to 2^24 elements a channel."""
+        c = x.shape[self.axis]
+        count = x.new_full((1,), x.numel() // c)
+        sums = all_reduce_sum(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes), count]),
+                              self.data_mesh)
+        return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
     def reset_parameters(self, gen: torch.Generator):
         with torch.no_grad():
@@ -105,6 +134,7 @@ class _Ext(nn.Module):
         self.prev_drop_rate = float(prev_dropout or 0.0)
         self.prev_drop_always = bool(prev_drop_always)
         self.dropout_generator: Optional[torch.Generator] = None
+        self.data_mesh: Optional[Mesh] = None  # see set_data_mesh
         self.prev_bn = self._make_bn(prev_batch_norm, in_channels)
         self.post_bn = self._make_bn(batch_norm, out_channels)
 
@@ -123,7 +153,7 @@ class _Ext(nn.Module):
             if bn is not None:
                 x = bn(x)
         if rate and (self.training or always):
-            x = dropout(x, rate, self.dropout_generator)
+            x = dropout(x, rate, self.dropout_generator, self.data_mesh)
         return x
 
     def ext_prev(self, x):
@@ -496,12 +526,15 @@ class ResidualStack1d(nn.Module):
 class MultiplicativeNoise(nn.Module):
     """x · base^N(mean, std) in training (identity in eval), one draw per
     (batch, channel) from the layer's dropout generator; the second half of
-    the batch (the adjacent frames) reuses the first half's noise."""
+    the batch (the adjacent frames) reuses the first half's noise. Under a
+    data-parallel mesh the draw is the global batch's, halves tied, and this
+    rank keeps its rows: each of its pairs gets the global draw of that pair."""
 
     def __init__(self, base: float = 1.4, mean: float = 0.0, std: float = 1.0):
         super().__init__()
         self.base, self.mean, self.std = float(base), float(mean), float(std)
         self.dropout_generator: Optional[torch.Generator] = None
+        self.data_mesh: Optional[Mesh] = None  # see set_data_mesh
 
     def forward(self, x):
         if not self.training:
@@ -509,10 +542,14 @@ class MultiplicativeNoise(nn.Module):
         if self.dropout_generator is None:
             raise RuntimeError("MultiplicativeNoise needs a generator: call "
                                "set_dropout_generator(model, gen)")
-        size = (x.shape[0], x.shape[1]) + (1,) * (x.ndim - 2)
-        noise = self.mean + self.std * torch.randn(size, generator=self.dropout_generator,
-                                                   device=x.device, dtype=x.dtype)
-        if x.shape[0] > 1:
-            half = x.shape[0] // 2
-            noise = torch.cat([noise[:half], noise[:half]])
+
+        def draw(shape):
+            noise = self.mean + self.std * torch.randn(shape, generator=self.dropout_generator,
+                                                       device=x.device, dtype=x.dtype)
+            if shape[0] > 1:
+                half = shape[0] // 2
+                noise = torch.cat([noise[:half], noise[:half]])
+            return noise
+
+        noise = draw_rows(draw, (x.shape[0], x.shape[1]) + (1,) * (x.ndim - 2), self.data_mesh)
         return x * torch.pow(self.base, noise)

@@ -140,6 +140,7 @@ class _RNNBase(nn.Module):
         self.bidirectional = bool(bidirectional)
         self.dirs = 2 if self.bidirectional else 1
         self.dropout_generator = None  # see layers.set_dropout_generator
+        self.data_mesh = None  # see layers.set_data_mesh
         n = self.n_gates * self.hidden_size
         for layer in range(self.num_layers):
             for sfx in self.suffixes(layer):
@@ -165,7 +166,7 @@ class _RNNBase(nn.Module):
 
     def _between_layers(self, x, layer: int):
         if self.training and layer < self.num_layers - 1 and self.dropout > 0.0:
-            return dropout(x, self.dropout, self.dropout_generator)
+            return dropout(x, self.dropout, self.dropout_generator, self.data_mesh)
         return x
 
     def library_layer(self, x, layer: int):

@@ -47,7 +47,10 @@ from ..compat.from_flax import init_params
 from ..data.device_features import FeatureSpec, device_train_features
 from ..models import losses as L
 from ..models.sdfa import SpeechDrivenAnimation
-from ..nn.layers import set_dropout_generator
+from ..nn.layers import set_data_mesh, set_dropout_generator
+from ..ops import bilstm2, bilstm_core, freq_lstm
+from ..parallel import mesh as mesh_lib
+from ..parallel import multihost as mh
 from . import checkpoints as ckpt_io
 from . import lr_schedules
 
@@ -66,10 +69,11 @@ def scaler_names(face_type: str) -> Tuple[str, ...]:
     return SCALER_NAMES if face_type == "dgrad_3d" else ("dyn_p", "dyn_m", "dyn_e")
 
 
-def make_loss_fn(model: SpeechDrivenAnimation, hparams):
+def make_loss_fn(model: SpeechDrivenAnimation, hparams, mesh: Optional[mesh_lib.Mesh] = None):
     """Returns loss_fn(scalers, batch, training) → (total, aux); ``batch``
     holds tensors on the model's device and the model's mode is the
-    caller's to set."""
+    caller's to set. Under a data-parallel ``mesh`` the dynamic scalers
+    follow the loss terms' means over the ranks."""
     hp_loss = hparams.loss
     face_type = model.face_type
     is_face_data = model.pred_type == "face_data"
@@ -142,9 +146,15 @@ def make_loss_fn(model: SpeechDrivenAnimation, hparams):
         scalars, terms = terms_fn(preds, batch, weights)
         loss_terms: Dict[str, torch.Tensor] = {}
         new_scalers = dict(scalers)
-        for key, val, sname, scl in terms:
+        global_terms = [None] * len(terms)
+        if dyn and training and mesh is not None and mesh.parallel:
+            # every term's global mean in one all-reduce: the scalers' state stays
+            # the same on every rank and equal to one process's on the global batch
+            global_terms = mesh_lib.mean_over_ranks(torch.stack([t[1] for t in terms]), mesh)
+        for (key, val, sname, scl), global_val in zip(terms, global_terms):
             if dyn:
-                scaled, new_scalers[sname] = L.dynamic_scale(val, scalers[sname], training)
+                scaled, new_scalers[sname] = L.dynamic_scale(val, scalers[sname], training,
+                                                              global_loss=global_val)
                 loss_terms[f"dyn_{key}"] = scaled * scl
             else:
                 loss_terms[f"loss_{key}"] = val * scl
@@ -239,17 +249,37 @@ class PinnedUploads:
 
 class Experiment:
     """Composition root: run directory, model and optimizer state, the train
-    and eval steps, checkpoints, metric writers."""
+    and eval steps, checkpoints, metric writers.
+
+    Data parallel: with ``trainer.multihost`` it joins the process group
+    (``parallel/multihost.py``); the mesh spans every process of the group,
+    if there is one. Each rank then steps on its own rows of every global batch
+    (``parallel.shard_batch``), and the step computes what one process computes
+    on the global batch: BatchNorm statistics, the dropout draws, the scalers
+    and the gradient are global, the metrics are global means. Rank 0 alone
+    writes the run directory; every rank loads a checkpoint."""
 
     def __init__(self, hparams, model: SpeechDrivenAnimation, log_dir: str, device,
                  load_from: Optional[str] = None, seed: int = 1234):
         ops.full_float32()
         self.hp, self.log_dir, self.seed = hparams, log_dir, int(seed)
-        self.device = torch.device(device)
+        self.multihost = bool((hparams.get("trainer") or {}).get("multihost", False))
+        if self.multihost:
+            # join the group before the mesh is built, so that it spans every process
+            mh.maybe_initialize_distributed(
+                backend=mh.default_backend(mesh_lib.rank_device(device)))
+        self.mesh = mesh_lib.make_mesh(device)
+        self.device, self.n_devices = self.mesh.device, self.mesh.world
+        self.is_chief = self.mesh.rank == 0  # the rank that writes the run directory
+        if self.mesh.parallel:
+            log.info("data parallel: rank %d of %d on %s", self.mesh.rank, self.mesh.world,
+                     self.device)
         os.makedirs(os.path.join(log_dir, "train_log", "loss"), exist_ok=True)
-        hparams.dump(os.path.join(log_dir, "hparams.json"))
+        if self.is_chief:
+            hparams.dump(os.path.join(log_dir, "hparams.json"))
 
-        self.model = init_params(model, self.seed).to(self.device)
+        self.model = mesh_lib.replicate(self.mesh, init_params(model, self.seed).to(self.device))
+        set_data_mesh(self.model, self.mesh if self.mesh.parallel else None)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         (self.optimizer, self.lr_fn, self.beta1_fn, self.sched_mode,
          self.base_lr) = make_optimizer(hparams, self.params)
@@ -260,9 +290,10 @@ class Experiment:
         self.epoch = 0
         self.dropout_gen = torch.Generator(device=self.device)
         set_dropout_generator(self.model, self.dropout_gen)
-        self.loss_fn = make_loss_fn(self.model, hparams)
+        self.loss_fn = make_loss_fn(self.model, hparams, self.mesh)
         self._uploads = PinnedUploads()
-        self._dump_params_info()
+        if self.is_chief:
+            self._dump_params_info()
         if load_from:
             self.load(load_from)
 
@@ -278,11 +309,11 @@ class Experiment:
 
     # -- steps ---------------------------------------------------------------
     def put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Host batch (numpy arrays or tensors) → tensors on the device, through
-        pinned memory on a card; tensors already on the device pass through,
-        host-only entries are left out."""
-        return self._uploads.put({k: v for k, v in batch.items() if k not in HOST_ONLY},
-                                 self.device)
+        """This rank's rows (numpy arrays or tensors) → tensors on its device,
+        through pinned memory on a card; tensors already on the device pass
+        through, host-only entries are left out."""
+        return mh.global_batch_from_local({k: v for k, v in batch.items() if k not in HOST_ONLY},
+                                          self.device, self._uploads.put)
 
     def current_lr(self) -> Tuple[float, float]:
         """(lr, beta1) for the next step. In step mode the schedule is read
@@ -310,8 +341,16 @@ class Experiment:
             total, aux = self.loss_fn(self.scalers, batch, True)
         with record_function("train/backward"):
             total.backward()
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if self.mesh.parallel:
+            # one flat all-reduce after backward rather than DistributedDataParallel:
+            # the model stays unwrapped (its state_dict names, set_dropout_generator),
+            # BatchNorm's statistics are already global, and the step is bit-equal
+            # on every rank. DDP would overlap the reduction with the backward, which
+            # pays only where the reduction is on the step's critical path
+            with record_function("train/all_reduce"):
+                mesh_lib.average_gradients(grads, self.mesh)
         with record_function("train/clip_adam"):
-            grads = [p.grad for p in self.params if p.grad is not None]
             grad_norm = global_norm(grads)
             if self.grad_clip:
                 clip = float(self.grad_clip)
@@ -322,6 +361,10 @@ class Experiment:
         self.scalers = aux["new_scalers"]
         self.step += 1
         metrics = {k: v.detach() for k, v in {**aux["scalars"], **aux["loss_terms"]}.items()}
+        if self.mesh.parallel:  # the global means, in one all-reduce
+            keys = sorted(metrics)
+            means = mesh_lib.mean_over_ranks(torch.stack([metrics[k] for k in keys]), self.mesh)
+            metrics = dict(zip(keys, means))
         return {**metrics, "grad_norm": grad_norm, "lr": lr}
 
     @torch.no_grad()
@@ -332,6 +375,8 @@ class Experiment:
 
     # -- metric IO -----------------------------------------------------------
     def write_metrics(self, tag: str, metrics: Dict[str, float], step: int):
+        if not self.is_chief:
+            return
         rec = {"tag": tag, "step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(os.path.join(self.log_dir, "train_log", "metrics.jsonl"), "a") as fp:
@@ -339,7 +384,7 @@ class Experiment:
 
     def write_loss_csv(self, history):
         """Rewrite epoch-loss.csv from the per-epoch rows."""
-        if not history:
+        if not history or not self.is_chief:
             return
         keys = sorted({k for row in history for k in row if k != "epoch"})
         path = os.path.join(self.log_dir, "train_log", "loss", "epoch-loss.csv")
@@ -355,11 +400,16 @@ class Experiment:
                     model=self.model.state_dict(), optimizer=self.optimizer.state_dict(),
                     scalers={k: (v.vt, v.beta_t) for k, v in self.scalers.items()})
 
-    def save(self, max_nb: int = 10) -> str:
+    def save(self, max_nb: int = 10) -> Optional[str]:
+        """The checkpoint's path; None on every rank but 0, which alone writes."""
+        if not self.is_chief:
+            return None
         return ckpt_io.save_checkpoint(self.log_dir, self.payload(), self.epoch, self.step,
                                        max_nb=max_nb)
 
-    def save_best(self, metric_name: str, value: float) -> str:
+    def save_best(self, metric_name: str, value: float) -> Optional[str]:
+        if not self.is_chief:
+            return None
         return ckpt_io.save_best(self.log_dir, self.payload(), metric_name, value,
                                  self.epoch, self.step)
 
@@ -373,6 +423,7 @@ class Experiment:
                 f"another face type than this {self.model.face_type!r} model's "
                 f"{sorted(self.scalers)}")
         self.model.load_state_dict(payload["model"], strict=True)
+        mesh_lib.replicate(self.mesh, self.model)
         self.optimizer.load_state_dict(payload["optimizer"])
         self.scalers = {k: L.ScalerState(vt=v[0].to(self.device), beta_t=v[1].to(self.device))
                         for k, v in payload["scalers"].items()}
@@ -400,7 +451,14 @@ class Trainer:
     """Epoch loop with a hook registry, save cadences, validation, the resume
     of the loss history and aux loaders: each cycles forever and adds one
     optimization step after every main step (counted in the global step;
-    its metrics are not kept)."""
+    its metrics are not kept).
+
+    Data parallel: every loader, main, aux and validation, yields this rank's
+    rows of each global batch (``parallel.shard_batch``, or a reader's
+    ``shard=``), and every control decision is the same on every rank: the
+    ranks agree that each has a batch before a step (a rank that took one more
+    step would block the collectives), and validation metrics are means over
+    the ranks, so the schedule, the best checkpoint and the epoch's end agree."""
 
     _hooks: Dict[str, list] = {k: [] for k in (
         "prev_train", "post_train", "prev_valid", "post_valid", "prev_epoch", "post_epoch")}
@@ -442,7 +500,7 @@ class Trainer:
         self.loader_wait_s = 0.0  # time spent waiting on the train loader, over the run
         # a profiler capture window: trainer.profile = {dir, start_step=10, num_steps=5}
         prof = hp_tr.get("profile") or {}
-        self.profile_dir = prof.get("dir")
+        self.profile_dir = prof.get("dir") if experiment.is_chief else None
         self.profile_start = int(prof.get("start_step", 10) or 0)
         self.profile_steps = int(prof.get("num_steps", 5) or 5)
         self.profile_trace: Optional[str] = None  # the trace file, once written
@@ -518,6 +576,20 @@ class Trainer:
             log.warning("profile window never opened: start_step=%d but only %d steps ran",
                         self.profile_start, self._steps_seen)
         exp.save()
+        log.info("trained %d steps; kernel launches in this process: freq_lstm %d, bilstm2 %d, "
+                 "training core forward %d, backward %d", exp.step, freq_lstm.LAUNCHES,
+                 sum(bilstm2.LAUNCHES.values()), bilstm_core.FWD_LAUNCHES,
+                 bilstm_core.BWD_LAUNCHES)
+        mesh_lib.barrier(exp.mesh)  # the run's files are written when train() returns
+
+    def _agreed(self, batch):
+        """``batch``. Under a mesh the ranks agree first that each has one or
+        that none has (at an epoch's end); ``all_ranks_agree`` raises on every
+        rank where they differ: their loaders are out of step."""
+        if self.exp.mesh.parallel and not mesh_lib.all_ranks_agree(batch is not None,
+                                                                   self.exp.mesh):
+            return None
+        return batch
 
     def _next_aux(self, name: str):
         """The next batch of aux loader ``name``, started again at its end;
@@ -529,7 +601,7 @@ class Trainer:
         if batch is None:
             self._aux_iters[name] = iter(self.aux_loaders[name])
             batch = next(self._aux_iters[name], None)
-        return batch
+        return self._agreed(batch)
 
     def _aux_steps(self, main_step: int):
         """One step per aux loader after the main step ``main_step``."""
@@ -550,7 +622,7 @@ class Trainer:
         t0 = time.perf_counter()
         batch = next(loader_it, None)
         self.loader_wait_s += time.perf_counter() - t0
-        if batch is None:
+        if self._agreed(batch) is None:
             return None
         return self.exp.put_batch(batch)
 
@@ -600,5 +672,7 @@ class Trainer:
         rows = _to_host([exp.eval_step(batch) for batch in self.valid_loader])
         self._run_hooks("post_valid", epoch=exp.epoch)
         out = _mean(rows)
+        if exp.mesh.parallel:  # equal shards: the mean of the ranks' means
+            out = mesh_lib.host_mean(out, exp.mesh)
         exp.write_metrics("valid", out, exp.step)
         return out

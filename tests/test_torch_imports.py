@@ -29,9 +29,11 @@ CLI_MODULES = ["sdfa_tpu_torch.__main__", "sdfa_tpu_torch.tools", "sdfa_tpu_torc
 PREPROCESS_MODULES = ["sdfa_tpu_torch.data.vocaset.preload", "sdfa_tpu_torch.data.vocaset.config",
                       "sdfa_tpu_torch.ops.dgrad", "sdfa_tpu_torch.ops.rotation",
                       "sdfa_tpu_torch.audio.misc"]
+PARALLEL_MODULES = ["sdfa_tpu_torch.parallel", "sdfa_tpu_torch.parallel.mesh",
+                    "sdfa_tpu_torch.parallel.multihost"]
 _BAD = "('jax', 'jaxlib', 'flax', 'sdfa_tpu', 'sklearn', 'cv2', 'matplotlib')"
 
-_SCRIPT = f"NEW = {DATA_MODULES + CLI_MODULES + PREPROCESS_MODULES!r}\n" + r"""
+_SCRIPT = f"NEW = {DATA_MODULES + CLI_MODULES + PREPROCESS_MODULES + PARALLEL_MODULES!r}\n" + r"""
 import importlib, pkgutil, sys
 import sdfa_tpu_torch
 names = ["sdfa_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
@@ -101,6 +103,13 @@ def test_preprocess_module_alone_imports_without_jax_or_sklearn(module):
     """The preprocessing pipeline and the float64 extraction, each imported
     on its own, pull in no jax, sdfa_tpu or sklearn: the PCA fit is the
     port's own."""
+    _alone(module)
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_module_alone_imports_without_jax(module):
+    """The data-parallel modules, each imported on its own, as a rank's
+    process does, pull in no jax, flax or sdfa_tpu."""
     _alone(module)
 
 
