@@ -28,8 +28,9 @@ Phases, each printed as one JSON line:
    computes the same function where there is one (``torch.nn.LSTM`` through
    cuDNN for the recurrences), as a yardstick that no path uses. ``freq_lstm``
    and ``decode_solve`` are timed at a request's own shape as well (768 rows,
-   216 windows), ``bilstm_layer`` at H = 128 at the ``spec_variants`` phase's
-   shapes and ``bilstm2`` at H = 128 at 256 windows. Every kernel is also held
+   216 windows), ``freq_lstm`` and ``bilstm2`` at ``Experiment.plot_forward``'s on
+   a 100-window batch (6400 rows, 100 windows), ``bilstm_layer`` at H = 128 at the
+   ``spec_variants`` phase's shapes and ``bilstm2`` at H = 128 at 256 windows. Every kernel is also held
    to its plain version, untimed, at
    ragged shapes that reach every edge of its tiling; ``freq_lstm``,
    ``decode_solve`` and ``bilstm_core``'s backward must give the same bits
@@ -155,6 +156,22 @@ Phases, each printed as one JSON line:
    its checkpoint through ``load_task`` (K1 / K2 / K3 1 / 1 / 1). The kernel phase also
    times K5 at a rank's shapes, 32 x 3200 x 128 and 64 x 50 x 256.
 
+20. last_modules (after ``data_parallel``, on the ``data_train`` dataset at the
+   shipped width): ``StepEnv`` (a warm step, the median of 5 synchronized steps, 10
+   back-to-back steps without and with the upload; K5 3 + 3 a step; ``cost_stats``
+   split into the library ops and each kernel's launches; windows a second beside the
+   train phase's step); ``Experiment.plot_forward`` on its 100-window batch (K1 / K2
+   1 / 1, within ``PLOT_REL_TOL`` of the plain versions, wall and device busy ms;
+   the kernel phase times K1 at 6400 rows and K2 at 100 windows); a ``Trainer`` with
+   ``plot_gap_steps=2`` for 4 steps (``summary.enabled``, ``PLUGIN_FAILURES`` 0, K5 12 /
+   12, K1 / K2 2 / 2); a ``Trainer`` with ``eval_gap_epochs=1`` and a wav that exists:
+   on a host with OpenCV one epoch of one step and the evaluation's video, its frame
+   count from the clip's window geometry; on one without, refused before any step
+   (the exception's type and message checked, K5 0); ``features.get_dict`` (mel, spec, deepspeech_spec, lpc) on
+   a 3 s clip on the card against the CPU; ``BilateralFilter1D`` on the serve phase's
+   request vertices on the card against the CPU; the native float64 runtime, built
+   now, solving the request's first 16 frames against K3's vertices (<= 1e-4 m).
+
 At the end ``ops.PLAIN_ROUTES`` must read 0: no path this script drives has a
 recurrent shape that no kernel takes.
 
@@ -186,6 +203,7 @@ K4_ROWS = 256
 K4_H128_SHAPES = ((768, 32, 64), (216 * 64, 32, 64), (216 * 32, 64, 256))
 K1_LIVE_ROWS = (12, 128, 512)  # a stream's first block; a block round at capacity 8 and 32
 LIVE_WINDOWS = (128, 512)      # a full tick's suffix call at capacity 8 and 32
+K1_PLOT_ROWS, K2_PLOT_WINDOWS = 6400, 100  # Experiment.plot_forward on a 100-window batch
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
 TRAIN_STEPS = 5
 VARIANT_TRAIN_STEPS = 10  # spec_variants: train steps of 100 windows per variant
@@ -235,6 +253,16 @@ DP_ROUNDING_REL = 1e-2    # but the entries whose gradient the two runs give thi
                           # (relative to its own size) in a step: see dp_state_checks
 DP_NCCL_STEPS = 4         # torch.distributed.run at world size 1 on NCCL
 DP_TIMEOUT_S = 300        # the ranks, the launcher
+# last_modules: StepEnv's steps; plot_forward against the plain versions; the features on the
+# card against the CPU; the bilateral filter on the card against the CPU; the native float64
+# runtime against K3's vertices of the same frames
+STEPENV_MEDIAN_STEPS, STEPENV_STEADY_STEPS = 5, 10
+PLOT_REL_TOL = 1e-4       # plot_forward's predictions: max |kernel − plain| / max |plain|
+FEATURE_CARD_TOL = 1e-4   # features.get_dict on the card vs the CPU
+BILATERAL_CARD_TOL = 1e-6
+NATIVE_TOL_M = 1e-4       # native float64 vs K3's vertices (the wav → vertices budget)
+NATIVE_FRAMES = 16
+PLOT_TRAINER_STEPS = 4
 F32_PEAK = 67e12      # H100 SXM, float32 outside the tensor cores, FLOP/s (data sheet)
 TF32_PEAK = 495e12    # H100 SXM, TF32 on the tensor cores, dense, FLOP/s (data sheet)
 HBM_RATE = 3.35e12    # H100 SXM, bytes/s (data sheet)
@@ -481,8 +509,10 @@ def main():
                 {k: entry[k] for k in ("shape", "hidden", "max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms") if k in entry})
 
-    def forward_case(name, kernel, plain, args, flops, library, source, replaces, primary=True,
+    def forward_case(name, kernel, plain, args, cost, library, source, replaces, primary=True,
                      **extra):
+        """``cost``: the kernel module's (flops, bytes) of one launch on ``args``,
+        the work its bound reckons."""
         with torch.inference_mode():
             got = kernel(*args)
             torch.cuda.synchronize()
@@ -493,8 +523,7 @@ def main():
             ms = time_ms(lambda: kernel(*args), 5)
             plain_ms = time_ms(lambda: plain(*args), 3)
             library_ms = time_ms(library, 5) if library else None
-        moved = nbytes(*[a for a in args if torch.is_tensor(a)], got)
-        record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, flops, moved, library_ms,
+        record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, *cost, library_ms,
                source, replaces, primary, **extra)
 
     def repeats(name, kernel, args, first):
@@ -510,11 +539,12 @@ def main():
     k1_weights = (w_ih, w_hh, gb, fl.proj.weight(), fl.proj.bias)
     lib1 = library_lstm(64, 128, 1, 1)
     # the kernel phase's four clips, one request's grid, then live serving's block rounds
-    for rows in (K1_ROWS, K1_REQUEST_ROWS) + K1_LIVE_ROWS:
+    for rows in (K1_ROWS, K1_REQUEST_ROWS) + K1_LIVE_ROWS + (K1_PLOT_ROWS,):
         x1 = randn(1, rows, fl.freq_length, w_ih.shape[1])
         x1_lib = x1.transpose(0, 1).contiguous()
         forward_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain,
-                     (x1, *k1_weights), 2.0 * rows * (32 * 2 * (64 + 128) * 512 + 8192 * 256),
+                     (x1, *k1_weights),
+                     freq_lstm.cost(*x1.shape, gb is not None, k1_weights[4] is not None),
                      lambda: lib1(x1_lib),  # the LSTM part only: no 8192 -> 256 projection
                      "sdfa_tpu_torch/csrc/freq_lstm.cu", "sdfa_tpu/ops/pallas_freq_lstm.py:187",
                      primary=rows == K1_ROWS)
@@ -524,11 +554,12 @@ def main():
 
     lw = [enc.built_layers_9.layer_weights(layer) for layer in range(2)]
     lib2 = library_lstm(256, 256, 2, 2)
-    for windows in (K2_WINDOWS,) + LIVE_WINDOWS:  # then a live tick's suffix calls
+    # then a live tick's suffix calls and plot_forward's 100 windows
+    for windows in (K2_WINDOWS,) + LIVE_WINDOWS + (K2_PLOT_WINDOWS,):
         x2 = randn(2, windows, 64, 256, scale=0.5)
         x2_lib = x2.transpose(0, 1).contiguous()
         forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain, (x2, *lw[0], *lw[1]),
-                     2.0 * windows * 64 * 2 * ((256 + 256) + (512 + 256)) * 1024,
+                     bilstm2.cost(*x2.shape, 256, lw[0][2] is not None),
                      lambda: lib2(x2_lib), "sdfa_tpu_torch/csrc/bilstm2.cu",
                      "sdfa_tpu/ops/pallas_bilstm2.py:52", primary=windows == K2_WINDOWS,
                      hidden=256)
@@ -575,11 +606,13 @@ def main():
         emit({"phase": "yardstick", "what": "the solve's product alone as one torch.matmul",
               "shape": [3 * windows, 3 * tp, nf], "tf32_ms": matmul_tf32_ms,
               "f32_ms": matmul_f32_ms, "card": smi})
+        # the decode's operations in float32, the product's in TF32 on the tensor cores
+        flops, moved = decode_solve.cost(windows, 85, 180, tp, nf)
+        product = 2.0 * windows * 9 * tp * nf
         record("decode_solve", list(got.shape), err, TOL["decode_solve"], ms, plain_ms,
-               2.0 * windows * (85 * 6 + 180 * 3) * tp,
-               nbytes(coef_s, coef_r, *dsc, got) - nbytes(dsc.p),  # the kernel reads p_t, not p
+               flops - product, moved,
                None,  # no one call computes decode + solve
-               *k3_src, primary=windows == K3_WINDOWS, tensor_flops=2.0 * windows * 9 * tp * nf,
+               *k3_src, primary=windows == K3_WINDOWS, tensor_flops=product,
                bound_peaks="decode: 67 TFLOP/s f32; product: 495 TFLOP/s TF32 tensor cores",
                repeats_bit_for_bit=twice)
 
@@ -587,7 +620,7 @@ def main():
         x4 = randn(4 + layer, K4_ROWS, 64, n_in, scale=0.5)
         lib4, x4_lib = library_lstm(n_in, 256, 1, 4 + layer), x4.transpose(0, 1).contiguous()
         forward_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
-                     (x4, *lw[layer]), 2.0 * K4_ROWS * 64 * 2 * (n_in + 256) * 1024,
+                     (x4, *lw[layer]), bilstm_layer.cost(*x4.shape, 256, lw[layer][2] is not None),
                      lambda: lib4(x4_lib), "sdfa_tpu_torch/csrc/bilstm_layer.cu",
                      "sdfa_tpu/ops/pallas_bilstm.py:42", primary=layer == 0, hidden=256)
 
@@ -604,8 +637,8 @@ def main():
         x4 = randn(70 + i, rows, steps, n_in, scale=0.5)
         lib4, x4_lib = library_lstm(n_in, 128, 1, 70 + i), x4.transpose(0, 1).contiguous()
         forward_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
-                     (x4, *h128_weights(71 + i, n_in)),
-                     2.0 * rows * steps * 2 * (n_in + 128) * 512, lambda: lib4(x4_lib),
+                     (x4, *h128_weights(71 + i, n_in)), bilstm_layer.cost(rows, steps, n_in, 128),
+                     lambda: lib4(x4_lib),
                      "sdfa_tpu_torch/csrc/bilstm_layer.cu", "sdfa_tpu/ops/pallas_bilstm.py:42",
                      primary=False, hidden=128)
         del x4, x4_lib, lib4
@@ -613,7 +646,7 @@ def main():
     lib2, x2_lib = library_lstm(256, 128, 2, 80), x2.transpose(0, 1).contiguous()
     forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
                  (x2, *h128_weights(81, 256), *h128_weights(84, 256)),
-                 2.0 * K2_WINDOWS * 64 * 2 * ((256 + 128) + (256 + 128)) * 512,
+                 bilstm2.cost(*x2.shape, 128),
                  lambda: lib2(x2_lib), "sdfa_tpu_torch/csrc/bilstm2.cu",
                  "sdfa_tpu/ops/pallas_bilstm2.py:52", primary=False, hidden=128)
     del x2, x2_lib, lib2
@@ -737,13 +770,13 @@ def main():
         plain_bwd_ms = time_backward_ms(lambda: bilstm_core.bilstm_core_plain(xp, w_core),
                                         (xp, w_core), dout, 2)
         lib_bwd_ms = time_backward_ms(lambda: lib5(x5)[0], (x5, *lib5.parameters()), dout, 3)
-        flops = 2.0 * steps * rows * 2 * hid * 4 * hid
+        cost = bilstm_core.cost(steps, rows, hid)  # either pass: its operands and its bytes
         primary = (steps, rows, hid) == (32, 6400, 128)
         record("bilstm_core_fwd", [steps, rows, hid], err_f, TOL["bilstm_core_fwd"], fwd_ms,
-               plain_fwd_ms, flops, nbytes(xp, w_core, out, gates, cs), lib_fwd_ms, core_src,
+               plain_fwd_ms, *cost, lib_fwd_ms, core_src,
                "sdfa_tpu/ops/pallas_bilstm_train.py:101", primary)
         record("bilstm_core_bwd", [steps, rows, hid], err_b, BWD_REL_TOL, bwd_ms, plain_bwd_ms,
-               flops, nbytes(gates, cs, w_core, dout, xp), lib_bwd_ms, core_src,
+               *cost, lib_bwd_ms, core_src,
                "sdfa_tpu/ops/pallas_bilstm_train.py:198", primary,
                err_is="max |diff| / max |reference| over d(xp) and d(w_hh)",
                dw_hh_library_product_ms=dw_ms, repeats_bit_for_bit=repeats)
@@ -964,6 +997,11 @@ def main():
                                                                 smi, data_tmp)
         path_launches["cli"] = cli_phase(trained, root, dev, smi)
         path_launches["data_parallel"] = data_parallel_phase(trained, root, dev, smi)
+        # --- the JAX package's last modules: StepEnv and its cost count, plot_forward,
+        #     the plotting Trainer, the feature registry, the bilateral filter, native ---
+        path_launches["last_modules"] = last_modules_phase(
+            trained, dict(task=task, sig=sig0, spk=spk0, v=v0, template=(verts, faces, cnst)),
+            step_ms[len(step_ms) // 2], dev, smi, data_tmp)
     del trained
 
     # --- the offsets model family: served, streamed, then trained from disk and served ---
@@ -1406,6 +1444,265 @@ def _data_train(out, task_seeded, sig, spk, solver, dev, counters, tmp):
         raise RuntimeError(f"C4: K3 at trained magnitudes {out['c4']}")
     return path, {"tmp": tmp, "root": root, "ckpt": ckpt, "config": "dgrad", "task": served,
                   "clip": clip}
+
+
+def last_modules_phase(trained, served, train_step_ms, dev, smi, tmp):
+    """The modules the port took over last, on the ``data_train`` dataset at
+    the shipped ``dgrad`` width: ``StepEnv`` (a warm step, the median of 5
+    synchronized steps, 10 back-to-back steps with and without the upload,
+    K5 3 + 3 a step, ``cost_stats`` split into the library ops and each
+    kernel's launches); ``Experiment.plot_forward`` on its 100-window batch
+    (K1 / K2 1 / 1, within ``PLOT_REL_TOL`` of the plain versions, wall and
+    device busy ms); a ``Trainer`` with ``plot_gap_steps=2`` for 4 steps
+    (``summary.enabled``, ``PLUGIN_FAILURES`` 0, K5 12 / 12, K1 / K2 2 / 2),
+    then one with ``eval_gap_epochs=1`` and an existing wav: where the host has
+    OpenCV, one epoch of one step and the evaluation's video (its frame count
+    from the clip's window geometry); where it has not, a refusal before any
+    step; ``features.get_dict`` on a 3 s
+    clip on the card against the CPU; ``BilateralFilter1D`` on the serve
+    phase's request vertices on the card against the CPU; the native float64
+    runtime (built now) solving the request's first 16 frames against K3's
+    vertices. Returns the launch counts of the paths it drives."""
+    out = {"phase": "last_modules", "card": smi}
+    t_phase = time.perf_counter()
+    try:
+        return _last_modules(out, trained, served, train_step_ms, dev, tmp)
+    finally:
+        out["seconds"] = time.perf_counter() - t_phase
+        emit(out)  # what was measured, also when a check failed
+
+
+def _last_modules(out, trained, served, train_step_ms, dev, tmp):
+    import importlib.util
+    import itertools
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdfa_tpu_torch import native, ops
+    from sdfa_tpu_torch.audio import features
+    from sdfa_tpu_torch.audio import io as audio_io
+    from sdfa_tpu_torch.audio.pipeline import WindowSpec
+    from sdfa_tpu_torch.config import configure
+    from sdfa_tpu_torch.data import DatasetSlidingWindow
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import bilstm2, bilstm_core, build, freq_lstm
+    from sdfa_tpu_torch.train import Experiment, Trainer, summary
+    from sdfa_tpu_torch.train.stepbench import StepEnv
+    from sdfa_tpu_torch.utils import BilateralFilter1D
+
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2}
+
+    def core_counts():
+        return bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES
+
+    # 1. StepEnv: the timing harness a benchmark's train-step fields come from
+    t0 = time.perf_counter()
+    env = StepEnv(trained["root"], os.path.join(tmp, "stepenv"), device=dev, seed=SEED)
+    env.sync(env.step(0))  # warm
+    out["stepenv_setup_s"] = time.perf_counter() - t0
+    bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+    median_s = env.timed_median_s(STEPENV_MEDIAN_STEPS)
+    steady_s = env.timed_steady_s(STEPENV_STEADY_STEPS)
+    steady_up_s = env.timed_steady_s(STEPENV_STEADY_STEPS, upload=True)
+    steps = STEPENV_MEDIAN_STEPS + 2 * STEPENV_STEADY_STEPS
+    k5 = core_counts()
+    path = {"bilstm_core_fwd": k5[0], "bilstm_core_bwd": k5[1]}
+    if k5 != (3 * steps, 3 * steps):
+        raise RuntimeError(f"StepEnv: K5 launched {k5} in {steps} steps, expected 3 + 3 a step")
+    stats = env.cost_stats()
+    out["stepenv"] = {
+        "windows": env.n_windows, "step_ms_synced_median": median_s * 1e3,
+        "step_ms_steady": steady_s * 1e3, "step_ms_steady_with_upload": steady_up_s * 1e3,
+        "windows_per_s": {"synced": env.n_windows / median_s, "steady": env.n_windows / steady_s,
+                          "steady_with_upload": env.n_windows / steady_up_s},
+        "train_phase_step_ms_median": train_step_ms,
+        "train_phase_windows_per_s": TRAIN_WINDOWS / (train_step_ms / 1e3),
+        "k5_launches_per_step": [k5[0] / steps, k5[1] / steps],
+        "cost_stats": stats, "cost_parts": env.cost_parts,
+        "gflop_per_step": stats["flops"] / 1e9, "gbytes_per_step": stats["bytes"] / 1e9}
+    kernels = env.cost_parts["kernels"]
+    if (sorted(kernels) != ["bilstm_core_bwd", "bilstm_core_fwd"]
+            or [k["launches"] for k in kernels.values()] != [3, 3]
+            or not stats["flops"] > env.cost_parts["library"]["flops"] > 0):
+        raise RuntimeError(f"cost_stats: {env.cost_parts}")
+
+    # 2. plot_forward on the held 100-window batch: through the kernels, then the plain versions
+    batch = env.batch
+    env.exp.plot_forward(batch)  # warm
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    got = env.exp.plot_forward(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    path.update(read_counts(counters, "last_modules plot_forward"))
+    plot_launches = dict(path)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        env.exp.plot_forward(batch)
+        torch.cuda.synchronize()
+    _, busy_ms = device_kernels(prof)
+    with ops.plain_versions():
+        want = env.exp.plot_forward(batch)
+    rel = max(float((got["prediction"][k] - want["prediction"][k]).abs().max()
+                    / want["prediction"][k].abs().max()) for k in want["prediction"])
+    finite = all(bool(torch.isfinite(v).all()) for v in got["prediction"].values())
+    out["plot_forward"] = {
+        "windows": int(batch["raw_wav"].shape[0]),
+        "launches": {k: plot_launches[k] for k in counters},
+        "prediction_max_rel_vs_plain": rel, "tol": PLOT_REL_TOL, "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "audio_feat_shape": list(got["audio_feat"].shape), "latent_shape": list(got["latent"].shape)}
+    if plot_launches["freq_lstm"] != 1 or plot_launches["bilstm2"] != 1:
+        raise RuntimeError(f"plot_forward launched {plot_launches}, expected K1 / K2 1 / 1")
+    if not (rel <= PLOT_REL_TOL and finite):
+        raise RuntimeError(f"plot_forward, kernels vs plain versions: {rel} (finite {finite})")
+    del env, got, want
+
+    # 3. the plotting Trainer on the dataset's raw batches, then the mid-training evaluation
+    #    that a host without OpenCV cannot render
+    hp = configure("dgrad", dataset_root=trained["root"], overrides={"trainer": {
+        "pca_targets": True, "plot_gap_steps": 2, "max_epochs": 1}})
+    bs = int(hp.trainer.anime_loader.batch_size)
+    loader = list(itertools.islice(DatasetSlidingWindow(hp, training=True).raw_batches(bs),
+                                   PLOT_TRAINER_STEPS))
+    exp = Experiment(hp, build_model(hp), os.path.join(tmp, "plot_run"), dev, seed=SEED)
+    failures = summary.PLUGIN_FAILURES
+    reset_counts(counters)
+    bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    Trainer(exp, loader).train()
+    trainer_s = time.perf_counter() - t0
+    trainer_counts = {**{k: launched(m) for k, m in counters.items()},
+                      "bilstm_core_fwd": core_counts()[0], "bilstm_core_bwd": core_counts()[1]}
+    for name, n in trainer_counts.items():
+        path[name] += n
+    n_plots = PLOT_TRAINER_STEPS // 2
+    out["plot_trainer"] = {"steps": exp.step, "summary_enabled": exp.summary.enabled,
+                           "plugin_failures": summary.PLUGIN_FAILURES - failures,
+                           "launches": trainer_counts, "seconds": trainer_s}
+    if (exp.step != PLOT_TRAINER_STEPS or summary.PLUGIN_FAILURES != 0
+            or trainer_counts != {"freq_lstm": n_plots, "bilstm2": n_plots,
+                                  "bilstm_core_fwd": 3 * PLOT_TRAINER_STEPS,
+                                  "bilstm_core_bwd": 3 * PLOT_TRAINER_STEPS}):
+        raise RuntimeError(f"the plotting Trainer: {out['plot_trainer']}")
+    wav = os.path.join(tmp, "eval_source.wav")
+    audio_io.save(wav, signal(1.0, int(hp.audio.sample_rate), 41), int(hp.audio.sample_rate))
+    hp.trainer.set_key("eval_gap_epochs", 1)
+    hp.trainer.set_key("max_epochs", exp.epoch + 1)
+    hp.trainer.set_key("evaluate", {"test": [[wav, "speaker=m0"]]})
+    has_video = importlib.util.find_spec("cv2") is not None
+    evaluation = out["mid_training_evaluation"] = {"opencv_on_host": has_video}
+    bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+    if not has_video:  # the Trainer must refuse when it is built, before any step
+        refusal = None
+        try:
+            Trainer(exp, loader[:1])
+        except ImportError as exc:
+            refusal = str(exc)
+        evaluation.update(refusal=refusal, k5_launches=list(core_counts()))
+        if refusal is None or "video rendering needs cv2" not in refusal:
+            raise RuntimeError(f"a Trainer with eval_gap_epochs and a source on a host without "
+                               f"OpenCV was built: {refusal!r}")
+        if core_counts() != (0, 0):
+            raise RuntimeError("K5 launched while the refused Trainer was built")
+    else:  # one epoch of one step, then the evaluation's video of the source
+        import cv2
+
+        t0 = time.perf_counter()
+        Trainer(exp, loader[:1]).train()
+        video = os.path.join(exp.log_dir, "eval_at_train", f"epoch{exp.epoch:04d}",
+                             "eval_source.avi")
+        cap = cv2.VideoCapture(video)
+        frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+        _, ts_list = WindowSpec(hp).window_starts(int(hp.audio.sample_rate))
+        want = int(ts_list[-1] * float(hp.anime.fps) / 1000.0) + 1
+        evaluation.update(cv2=cv2.__version__, seconds=time.perf_counter() - t0,
+                          video_frames=frames, frames_expected=want,
+                          k5_launches=list(core_counts()))
+        if frames != want or core_counts() != (3, 3):
+            raise RuntimeError(f"mid-training evaluation: {evaluation}")
+        path["bilstm_core_fwd"] += 3
+        path["bilstm_core_bwd"] += 3
+    del exp, loader
+
+    # 4. the feature registry on a 3 s clip: the dgrad audio config, sizes in samples
+    sr = int(hp.audio.sample_rate)
+    args = {"sample_rate": sr}
+    for name in ("mel", "lpc"):
+        args[name] = {k: (int(round(v * sr)) if k in ("win_size", "hop_size") else v)
+                      for k, v in dict(hp.audio[name]).items()}
+    frame_kw = {k: args["mel"][k] for k in ("win_size", "hop_size", "win_fn")}
+    args["spec"] = dict(frame_kw, normalize=True, ref_db=20, top_db=80, preemphasis=0.65)
+    args["deepspeech_spec"] = dict(frame_kw, win_fn="hann", padding=True)
+    names = ["mel", "spec", "deepspeech_spec", "lpc"]
+    clip = signal(3.0, sr, 42)
+    on_cpu = features.get_dict(names, clip, args)
+    clip_t = torch.from_numpy(clip).to(dev)
+    features.get_dict(names, clip_t, args)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = features.get_dict(names, clip_t, args)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mel_card = features.get_dict(["mel"], clip_t, args)["mel"]
+    torch.cuda.synchronize()
+    mel_ms = (time.perf_counter() - t0) * 1e3
+    errs = {n: float(np.abs(on_card[n].cpu().numpy() - on_cpu[n]).max()) for n in names}
+    out["features"] = {"clip_s": 3.0, "shapes": {n: list(v.shape) for n, v in on_cpu.items()},
+                       "card_vs_cpu_max_abs": errs, "tol": FEATURE_CARD_TOL,
+                       "ms_per_clip_all_four": card_ms, "ms_per_clip_mel": mel_ms,
+                       "mel_device": str(mel_card.device)}
+    if not max(errs.values()) <= FEATURE_CARD_TOL:
+        raise RuntimeError(f"features on the card vs the CPU: {errs}")
+
+    # 5. the bilateral filter on the request's vertices: the card against the CPU
+    v_req = served["v"]
+    filt = BilateralFilter1D()
+    v_t = torch.from_numpy(v_req).to(dev)
+    filt(v_t)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smooth_card = filt(v_t)
+    torch.cuda.synchronize()
+    bil_ms = (time.perf_counter() - t0) * 1e3
+    smooth_cpu = filt(v_req)
+    bil_err = float(np.abs(smooth_card.cpu().numpy() - smooth_cpu).max())
+    out["bilateral"] = {"shape": list(v_req.shape), "card_vs_cpu_max_abs": bil_err,
+                        "tol": BILATERAL_CARD_TOL, "card_ms": bil_ms,
+                        "dtype": str(smooth_card.dtype)}
+    if not (bil_err <= BILATERAL_CARD_TOL and smooth_card.dtype == torch.float32):
+        raise RuntimeError(f"bilateral on the card vs the CPU: {out['bilateral']}")
+
+    # 6. the native float64 runtime against K3's vertices of the request's first frames
+    t0 = time.perf_counter()
+    native._load()
+    build_s = time.perf_counter() - t0
+    verts, faces, cnst = served["template"]
+    if not native.set_target(verts, faces, cnst):
+        raise RuntimeError("native.set_target failed on the synthetic template")
+    task, model = served["task"], served["task"].model
+    with torch.inference_mode():
+        frame_idx, _, z, _ = task._overlap_prefix(served["sig"])
+        idx = torch.arange(NATIVE_FRAMES, device=dev)
+        preds, _, _ = model.forward_windows(
+            z, torch.from_numpy(frame_idx).long().to(dev)[idx],
+            torch.full((NATIVE_FRAMES,), served["spk"], dtype=torch.long, device=dev),
+            raw_pca=True)
+        dgrad = model.decode_to_anime(preds)[:, 0].cpu().numpy()
+    t0 = time.perf_counter()
+    meshes = native.get_meshes(dgrad, len(verts))
+    native_ms = (time.perf_counter() - t0) * 1e3
+    native_err = float(np.abs(meshes - v_req[:NATIVE_FRAMES]).max())
+    out["native"] = {"build_and_load_s": build_s, "built_now": "deformation" in build.BUILD_INFO,
+                     "constrained": len(cnst), "frames": NATIVE_FRAMES,
+                     "solve_ms": native_ms, "max_abs_m_vs_k3": native_err, "tol_m": NATIVE_TOL_M}
+    if not native_err <= NATIVE_TOL_M:
+        raise RuntimeError(f"native float64 vs K3's vertices: {native_err} m > {NATIVE_TOL_M}")
+    return path
 
 
 def obj_vertices(path):

@@ -2,7 +2,11 @@
 
 Constants (windows, DFT bases, mel filters, Savitzky-Golay delta
 operators) are float32 numpy built on the host exactly as the JAX package
-builds them; the runtime ops take torch tensors on any device. ``resample``
+builds them; the runtime ops take torch tensors on any device. The power
+spectrogram is the frontend's DFT-basis products (``audio/pipeline.py``),
+with the constants kept on the tensor's device as the frontend keeps them;
+``mel_spectrogram``, ``spectrogram``, ``delta`` and ``add_deltas`` are the
+feature registry's (``audio/features.py``). ``resample``
 is the host's polyphase resampler that prepares a source before it reaches
 the device. The inverse spectrograms (Griffin-Lim) and the phase-vocoder
 time stretch and pitch shift are numpy on the host, as in the JAX package:
@@ -107,13 +111,73 @@ def mel_filters(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -> n
     return weights.astype(np.float32)
 
 
+def stft_power(signal: torch.Tensor, win_size: int, hop_size: int, win_fn: str = "hamm",
+               padding: bool = False) -> torch.Tensor:
+    """Power spectrogram (..., n_freq, n_frames) with torch.stft semantics
+    (``padding=True``: ``center=True, pad_mode='constant'``), as two products
+    with the real DFT's cos / -sin bases."""
+    from .pipeline import _const  # the frontend's constants kept on the device
+
+    if padding:
+        signal = torch.nn.functional.pad(signal, (win_size // 2, win_size // 2))
+    frames = frame_signal(signal, win_size, hop_size)
+    frames = frames * _const(("window", win_fn, win_size),
+                             lambda: get_window(win_fn, win_size), frames)
+    re = torch.matmul(frames, _const(("dft_cos", win_size), lambda: dft_bases(win_size)[0],
+                                     frames))
+    im = torch.matmul(frames, _const(("dft_sin", win_size), lambda: dft_bases(win_size)[1],
+                                     frames))
+    return (re * re + im * im).transpose(-1, -2)
+
+
 def power_to_db(power: torch.Tensor) -> torch.Tensor:
     return 10.0 * torch.log10(torch.clamp(power, min=F32_EPS))
+
+
+def db_to_power(db: torch.Tensor) -> torch.Tensor:
+    return torch.pow(10.0, 0.1 * db)
 
 
 def normalize_db(db: torch.Tensor, ref_db: float, top_db: float, clip: bool = True):
     out = (db - ref_db + top_db) / top_db
     return torch.clamp(out, 0.0, 1.0) if clip else out
+
+
+def denormalize_db(norm_db, ref_db: float, top_db: float):
+    return norm_db * top_db - top_db + ref_db
+
+
+def mel_spectrogram(signal: torch.Tensor, sr: int, win_size: int, hop_size: int,
+                    win_fn: str = "hamm", padding: bool = False, n_mels: int = 80,
+                    fmin: float = 25.0, fmax: float = 7600.0, ref_db: float = 20.0,
+                    top_db: float = 100.0, normalize: bool = False,
+                    clip_normalized: bool = True, subtract_mean: bool = False,
+                    preemph: float = 0.0) -> torch.Tensor:
+    """(..., n_samples) → dB mel (..., n_mels, n_frames), the reference's."""
+    from .pipeline import _const
+
+    power = stft_power(preemphasis(signal, preemph), win_size, hop_size, win_fn, padding)
+    key = ("mel", int(sr), int(win_size), int(n_mels), float(fmin), float(fmax))
+    mel = power_to_db(torch.matmul(_const(key, lambda: mel_filters(*key[1:]), power), power))
+    if normalize:
+        mel = normalize_db(mel, ref_db, top_db, clip_normalized)
+    if subtract_mean:
+        mel = mel - mel.mean(dim=-1, keepdim=True)
+    return mel
+
+
+def spectrogram(signal: torch.Tensor, sr: int, win_size: int, hop_size: int,
+                win_fn: str = "hamm", padding: bool = False, ref_db: float = 20.0,
+                top_db: float = 100.0, normalize: bool = False, clip_normalized: bool = True,
+                subtract_mean: bool = False, preemph: float = 0.0) -> torch.Tensor:
+    """(..., n_samples) → dB linear spectrogram (..., n_freq, n_frames)."""
+    lin = power_to_db(stft_power(preemphasis(signal, preemph), win_size, hop_size, win_fn,
+                                 padding))
+    if normalize:
+        lin = normalize_db(lin, ref_db, top_db, clip_normalized)
+    if subtract_mean:
+        lin = lin - lin.mean(dim=-1, keepdim=True)
+    return lin
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,6 +189,20 @@ def delta_matrix(n_frames: int, order: int, width: int = 9) -> np.ndarray:
     eye = np.eye(n_frames, dtype=np.float64)
     resp = savgol_filter(eye, width, polyorder=order, deriv=order, axis=-1, mode="interp")
     return resp.astype(np.float32)
+
+
+def delta(feat: torch.Tensor, order: int = 1, width: int = 9) -> torch.Tensor:
+    """Delta along the last (time) axis of ``feat`` (..., F, T)."""
+    from .pipeline import _const
+
+    t = feat.shape[-1]
+    return torch.matmul(feat, _const(("delta", t, order, width),
+                                     lambda: delta_matrix(t, order, width), feat))
+
+
+def add_deltas(feat: torch.Tensor) -> torch.Tensor:
+    """(..., F, T) → (..., 3, F, T): [feat, Δ, Δ²] as channels."""
+    return torch.stack([feat, delta(feat, 1), delta(feat, 2)], dim=-3)
 
 
 def resample(signal: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:

@@ -19,9 +19,10 @@ import collections
 
 import torch
 
-from . import build
+from . import build, note_launch
 from .bilstm_layer import (HIDDENS, MAX_IN, bilstm_layer_plain, chunk_rows, layer_tiled_chunk,
                            scratch_rows, takes)  # one layer, one tiling, one limit
+from .bilstm_layer import cost as layer_cost
 
 LAUNCHES = collections.Counter()  # kernel launches by ``bilstm2`` in this process, by hidden width
 
@@ -30,6 +31,16 @@ def bilstm2_plain(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2):
     """Plain PyTorch version: two layers back to back
     (``bilstm_2layer_reference``)."""
     return bilstm_layer_plain(bilstm_layer_plain(x, w_ih1, w_hh1, gb1), w_ih2, w_hh2, gb2)
+
+
+def cost(rows: int, steps: int, n_in: int, hidden: int, gate_bias: bool = True):
+    """(flops, bytes) of one launch: the two layers' products, 2 rows T 2
+    ((in + H) + (2H + H)) 4H FLOP, and every input read once, the output
+    written once (layer 1's output stack is scratch, not counted)."""
+    f1, b1 = layer_cost(rows, steps, n_in, hidden, gate_bias)
+    f2, b2 = layer_cost(rows, steps, 2 * hidden, hidden, gate_bias)
+    stack = 4.0 * rows * steps * 2 * hidden  # layer 1's output and layer 2's input
+    return f1 + f2, b1 + b2 - 2 * stack
 
 
 def bilstm2_tiled(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2):
@@ -70,4 +81,5 @@ def bilstm2(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2):
     build.launch("bilstm2", (x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2, xp, stack, out),
                  (rows, steps, n_in, hid, chunk_rows(steps, hid)), x.device)
     LAUNCHES[hid] += 1
+    note_launch("bilstm2", cost(rows, steps, n_in, hid, gb1 is not None))
     return out

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import build
+from . import build, note_launch
 from .bilstm_layer import UNITS_PER_BLOCK, block_columns, lstm_dir
 
 FWD_LAUNCHES = 0  # forward-kernel launches in this process
@@ -47,6 +47,19 @@ def takes(hidden: int) -> bool:
     """Whether the CUDA kernels take a recurrence of ``hidden`` units per
     direction."""
     return hidden in HIDDENS
+
+
+def cost(steps: int, rows: int, hidden: int):
+    """(flops, bytes) of one launch of the forward or of the backward kernel,
+    the same for both: h · w_hh (d_pre · w_hhᵀ) at every step of both
+    directions, 2 T rows 2H 4H FLOP; the forward reads xp and w_hh and writes
+    out, the gates and c, the backward reads the gates, c, w_hh and d(out) and
+    writes d(xp), as many bytes."""
+    gdim = 4 * hidden
+    flops = 2.0 * steps * rows * 2 * hidden * gdim
+    xp = gates = 2 * steps * rows * gdim
+    out, cs, w = steps * rows * 2 * hidden, 2 * steps * rows * hidden, 2 * hidden * gdim
+    return flops, 4.0 * (gates + cs + w + out + xp)
 
 
 def bilstm_core_plain(xp, w_hh):
@@ -250,6 +263,7 @@ def _forward_kernel(xp, w_hh):
                  entry="bilstm_core_fwd")
     global FWD_LAUNCHES
     FWD_LAUNCHES += 1
+    note_launch("bilstm_core_fwd", cost(steps, rows, hid))
     return out, gates, cs
 
 
@@ -264,6 +278,7 @@ def _backward_kernel(gates, cs, w_hh, dout):
                  entry="bilstm_core_bwd")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
+    note_launch("bilstm_core_bwd", cost(steps, rows, hid))
     return dg
 
 

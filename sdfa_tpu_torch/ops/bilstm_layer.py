@@ -26,7 +26,7 @@ import collections
 
 import torch
 
-from . import build
+from . import build, note_launch
 
 LAUNCHES = collections.Counter()  # kernel launches by ``bilstm_layer`` in this process, by hidden width
 
@@ -46,6 +46,17 @@ def takes(hidden: int, n_in: int) -> bool:
     """Whether the CUDA kernels take a layer of ``hidden`` units per direction
     over ``n_in`` input features (the 2-layer kernel: both its layers)."""
     return hidden in HIDDENS and 1 <= n_in <= MAX_IN
+
+
+def cost(rows: int, steps: int, n_in: int, hidden: int, gate_bias: bool = True):
+    """(flops, bytes) of one launch: both directions' input projection and
+    recurrence, 2 rows T 2 (in + H) 4H FLOP, and every input read once, the
+    output written once."""
+    gdim = 4 * hidden
+    flops = 2.0 * rows * steps * 2 * (n_in + hidden) * gdim
+    floats = (rows * steps * n_in + 2 * n_in * gdim + 2 * hidden * gdim + 2 * gdim * gate_bias
+              + rows * steps * 2 * hidden)
+    return flops, 4.0 * floats
 
 
 def cluster_blocks(hidden: int) -> int:
@@ -183,4 +194,5 @@ def bilstm_layer(x, w_ih, w_hh, gate_bias):
     build.launch("bilstm_layer", (x, w_ih, w_hh, gate_bias, xp, out),
                  (rows, steps, n_in, hid, chunk_rows(steps, hid)), x.device)
     LAUNCHES[hid] += 1
+    note_launch("bilstm_layer", cost(rows, steps, n_in, hid, gate_bias is not None))
     return out

@@ -7,7 +7,11 @@ root (git-ignored), keyed by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so a fresh checkout builds them on its
 first CUDA launch and an unchanged source is never rebuilt.
 ``load_libraries`` builds several sources at once, one ``nvcc`` each.
-Nothing here runs at import time: a CPU host needs no ``nvcc``.
+``load_host_library`` builds a C++ source for the host CPU the same way
+(the native deformation runtime, ``csrc/deformation.cpp``), with the host's
+C++ compiler and the flags of the JAX package's ``csrc/Makefile``, keyed also
+by the CPU it was built on (``-march=native``). Nothing here runs at import
+time: a CPU host needs no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import concurrent.futures
 import ctypes
 import glob
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -24,10 +29,15 @@ from typing import Dict, Sequence
 
 import torch
 
+log = logging.getLogger(__name__)
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "sdfa_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# csrc/Makefile's CXXFLAGS and LDFLAGS
+CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-fopenmp", "-Wall", "-shared"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _QUERIES: Dict[tuple, list] = {}  # (name, entry, device index) → what query_ints returned
@@ -67,6 +77,60 @@ def _compile(name: str) -> str:
         BUILD_INFO[name] = dict(seconds=time.perf_counter() - t0,
                                 ptxas=proc.stderr.strip(), path=lib_path)
     return lib_path
+
+
+def _host_cpu() -> str:
+    """What ``-march=native`` compiles for: the CPU's feature flags."""
+    try:
+        with open("/proc/cpuinfo") as fp:
+            return next((line for line in fp if line.startswith("flags")), "")
+    except OSError:
+        import platform
+
+        return platform.processor() or platform.machine()
+
+
+def _host_build(name: str, cxx: str, flags) -> str:
+    """Compile ``csrc/<name>.cpp`` with ``flags`` unless built; the library's
+    path. Raises with the compiler's output if the build fails."""
+    src = os.path.join(CSRC, name + ".cpp")
+    digest = hashlib.sha256(" ".join([cxx, *flags, _host_cpu()]).encode())
+    with open(src, "rb") as fp:
+        digest.update(fp.read())
+    out_dir = os.path.join(BUILD_ROOT, f"{name}-host-{digest.hexdigest()[:16]}")
+    lib_path = os.path.join(out_dir, f"lib{name}.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([cxx, *flags, "-o", tmp, src], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+        BUILD_INFO[name] = dict(seconds=time.perf_counter() - t0, ptxas="", path=lib_path,
+                                openmp="-fopenmp" in flags)
+    return lib_path
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cpp`` for this host's CPU unless its library
+    exists, and return it loaded. A compiler without OpenMP's runtime builds it
+    without ``-fopenmp``: the source guards its OpenMP loops (over frames, each
+    computed alone), so its results are the same bits, on one thread; the
+    build says so in the log and in ``BUILD_INFO``. Raises if the build fails."""
+    key = f"host:{name}"
+    if key in _LIBS:
+        return _LIBS[key]
+    cxx = os.environ.get("CXX") or "g++"
+    try:
+        lib_path = _host_build(name, cxx, CXX_FLAGS)
+    except RuntimeError as exc:
+        if "omp" not in str(exc):
+            raise
+        log.warning("%s has no OpenMP runtime; building %s.cpp single-threaded", cxx, name)
+        lib_path = _host_build(name, cxx, [f for f in CXX_FLAGS if f != "-fopenmp"])
+    _LIBS[key] = ctypes.CDLL(lib_path)
+    return _LIBS[key]
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import build, using_plain
+from . import build, note_launch, using_plain
 from .deform_solver import (DeformConsts, DeformationSolver, SolverSpec,
                             assemble_from_free, transform_entries_from_planes)
 
@@ -150,6 +150,18 @@ def decode_solve_rounded(coef_s, coef_r, dsc: DecodeSolveConsts, rounding=round_
     return (dt @ dsc.p_t[:nf].T).reshape(w, 3, nf) + dsc.x0
 
 
+def cost(windows: int, ks: int, kr: int, tp: int, nf: int):
+    """(flops, bytes) of one launch at ``tp`` padded triangles and ``nf`` free
+    vertices: the decode, 2 W (6 Ks + 3 Kr) T' FLOP in float32, and the
+    product, 2 W 9 T' NF in TF32 on the tensor cores; every input read once
+    (the bases, means, T0, x0 and ``p_t``, not ``p``), the output written once."""
+    n_pad = -(-nf // N_TILE) * N_TILE
+    flops = 2.0 * windows * (6 * ks + 3 * kr) * tp + 2.0 * windows * 9 * tp * nf
+    floats = (windows * (ks + kr) + (ks + 1) * 6 * tp + (kr + 1) * 3 * tp + n_pad * 3 * tp
+              + 9 * tp + 3 * nf + windows * 3 * nf)
+    return flops, 4.0 * floats
+
+
 def k_parts(m: int, n_pad: int, k: int, resident: int) -> int:
     """Into how many parts the product kernel splits K for an (m, n_pad)
     output on a card that holds ``resident`` of its blocks at once: as many as
@@ -203,6 +215,7 @@ def decode_solve(coef_s, coef_r, dsc: DecodeSolveConsts) -> torch.Tensor:
                  coef_s.device)
     global LAUNCHES
     LAUNCHES += 1
+    note_launch("decode_solve", cost(w, ks, kr, tp, nf))
     return out
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, note_launch
 from .bilstm_layer import bilstm_layer_plain, layer_tiled_chunk
 
 LAUNCHES = 0  # wrapper calls of ``freq_lstm`` that launched the kernels
@@ -40,6 +40,17 @@ def takes(hidden: int, out: int) -> bool:
     """Whether the CUDA kernels take FreqLstm at ``hidden`` units per
     direction projected to ``out`` features."""
     return hidden == HIDDEN and out == OUT_DIM
+
+
+def cost(rows: int, n_freq: int, n_in: int, gate_bias: bool = True, b_proj: bool = True):
+    """(flops, bytes) of one launch: both directions' products over F steps,
+    2 rows F (2 (in + H) 4H + 2H out) FLOP, and every input read once, the
+    output written once."""
+    hid, gdim, k = HIDDEN, 4 * HIDDEN, n_freq * 2 * HIDDEN
+    flops = 2.0 * rows * (n_freq * 2 * (n_in + hid) * gdim + k * OUT_DIM)
+    floats = (rows * n_freq * n_in + 2 * n_in * gdim + 2 * hid * gdim + 2 * gdim * gate_bias
+              + k * OUT_DIM + OUT_DIM * b_proj + rows * OUT_DIM)
+    return flops, 4.0 * floats
 
 
 def freq_lstm_plain(x, w_ih, w_hh, gate_bias, w_proj, b_proj):
@@ -153,4 +164,5 @@ def freq_lstm(x, w_ih, w_hh, gate_bias, w_proj, b_proj):
                  (rows, n_freq, n_in, HIDDEN, OUT_DIM, chunk_rows(n_freq, clusters)), x.device)
     global LAUNCHES
     LAUNCHES += 1
+    note_launch("freq_lstm", cost(rows, n_freq, n_in, gate_bias is not None, b_proj is not None))
     return out

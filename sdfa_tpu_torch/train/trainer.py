@@ -25,8 +25,12 @@ so that the host's batch preparation overlaps the device's step.
 Run directory: ``hparams.json``, ``params_info.txt``,
 ``train_log/metrics.jsonl`` (with one ``timing`` line per epoch: wall time,
 the time the ``Trainer`` waited on its loader, the median interval between
-step dispatches), ``train_log/loss/epoch-loss.csv`` and the checkpoints of
-``checkpoints.py``.
+step dispatches), ``train_log/loss/epoch-loss.csv``, TensorBoard events under
+``train_log/tb`` (``summary.py``: the train scalars every ``METRICS_EVERY``
+steps and, every ``trainer.plot_gap_steps`` steps, the plot plugins on
+``Experiment.plot_forward``), the videos of the mid-training evaluation
+(``trainer.eval_gap_epochs``) under ``eval_at_train/epochNNNN`` and the
+checkpoints of ``checkpoints.py``.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..parallel import mesh as mesh_lib
 from ..parallel import multihost as mh
 from . import checkpoints as ckpt_io
 from . import lr_schedules
+from . import summary as summary_lib
 
 log = logging.getLogger(__name__)
 
@@ -292,6 +297,10 @@ class Experiment:
         set_dropout_generator(self.model, self.dropout_gen)
         self.loss_fn = make_loss_fn(self.model, hparams, self.mesh)
         self._uploads = PinnedUploads()
+        # TensorBoard events: written by the chief rank alone, disabled elsewhere
+        self.summary = summary_lib.SummaryHelper(
+            os.path.join(log_dir, "train_log", "tb") if self.is_chief else None)
+        self._plot_feat_spec = None  # built on the first raw-mode batch plot_forward sees
         if self.is_chief:
             self._dump_params_info()
         if load_from:
@@ -366,6 +375,37 @@ class Experiment:
             means = mesh_lib.mean_over_ranks(torch.stack([metrics[k] for k in keys]), self.mesh)
             metrics = dict(zip(keys, means))
         return {**metrics, "grad_norm": grad_norm, "lr": lr}
+
+    @torch.no_grad()
+    def plot_forward(self, batch) -> Dict[str, Any]:
+        """The model's outputs for the plot plugins: ``prediction`` (as the
+        JAX model returns it: face data for the ``face_data`` prediction type,
+        which training uses, else the heads' raw PCA coefficients),
+        ``latent`` (the encoder's output), ``align_dict`` and ``audio_feat``
+        (a raw-mode batch featurized on the device as in the loss), tensors on
+        the device. The model runs in eval mode (BatchNorm on its running
+        statistics, no dropout) and goes back to its mode after.
+
+        The JAX trainer splits a key off ``exp.rng`` for each call
+        (``sdfa_tpu/train/trainer.py:713``); in eval mode nothing draws from
+        it, and here nothing draws at all, so no later step's result depends
+        on how many plots ran."""
+        batch = self.put_batch(batch)
+        if "raw_wav" in batch:
+            if self._plot_feat_spec is None:
+                self._plot_feat_spec = FeatureSpec.from_hparams(self.hp)
+            audio_feat = device_train_features(*(batch[k] for k in RAW_KEYS),
+                                               spec=self._plot_feat_spec)
+        else:
+            audio_feat = batch["audio_feat"]
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            preds, z, aligns = self.model.forward_latent(
+                audio_feat, batch["speaker_id"], raw_pca=self.model.pred_type != "face_data")
+        finally:
+            self.model.train(was_training)
+        return dict(prediction=preds, latent=z, align_dict=aligns, audio_feat=audio_feat)
 
     @torch.no_grad()
     def eval_step(self, batch) -> Dict[str, torch.Tensor]:
@@ -494,6 +534,14 @@ class Trainer:
         self.metric_name = hp_tr.get("reference_metric", "ploss")
         self.metric_larger = bool(hp_tr.get("reference_metric_larger", False))
         self.best_metric = None
+        self.plot_gap_steps = int(hp_tr.get("plot_gap_steps", 0) or 0)
+        self.eval_gap_epochs = int(hp_tr.get("eval_gap_epochs", 0) or 0)
+        if self.eval_gap_epochs and experiment.is_chief and self._eval_sources():
+            # the evaluation writes video: a host without OpenCV is told now, not
+            # after the first epochs (the JAX trainer catches the failure and trains on)
+            from ..viewer import video
+
+            video.require_video()
         self.step_metrics: List[Dict[str, float]] = []  # the last epoch's, one dict per step
         self._history: Optional[List[dict]] = None
         self._steps_seen = 0
@@ -536,6 +584,41 @@ class Trainer:
         for fn in self._hooks[point]:
             fn(self.exp, **kwargs)
 
+    def _eval_sources(self) -> list:
+        """The ``trainer.evaluate.test`` sources whose wav or sentence exists."""
+        sources = (self.exp.hp.trainer.get("evaluate") or {}).get("test") or []
+        return [s for s in sources if os.path.exists(str(s[0]))]
+
+    def _evaluate_mid_training(self):
+        """Video of every evaluation source from the live weights, into
+        ``<log_dir>/eval_at_train/epochNNNN`` (reference trainer.py:494-497).
+        Nothing to do without a source; a failure propagates."""
+        sources = self._eval_sources()
+        if not sources or not self.exp.is_chief:
+            return
+        from ..task import AnimationTask
+
+        exp = self.exp
+        task = AnimationTask(exp.hp, exp.model, exp.device)
+        task.evaluate(sources, output_dir=os.path.join(exp.log_dir, "eval_at_train",
+                                                       f"epoch{exp.epoch:04d}"),
+                      export_mesh_frames=False)
+
+    def _plot(self, batch: Dict[str, torch.Tensor], host_extra: Dict[str, Any]):
+        """``plot_forward`` on the step's device batch, then the plot plugins
+        on its host copy (with the host-only entries) and the outputs."""
+        exp = self.exp
+        outputs = exp.plot_forward(batch)
+        if not exp.summary.enabled:
+            return
+        def to_host(t):
+            return t.detach().cpu().numpy()
+
+        host_batch = {**{k: to_host(v) for k, v in batch.items()}, **host_extra}
+        host_out = {k: ({n: to_host(t) for n, t in v.items()} if isinstance(v, dict)
+                        else to_host(v)) for k, v in outputs.items()}
+        summary_lib.run_plot_plugins(exp.summary, exp, host_batch, host_out, exp.step)
+
     def _is_better(self, value: float) -> bool:
         if self.best_metric is None:
             return True
@@ -569,6 +652,9 @@ class Trainer:
             exp.epoch += 1
             if self.save_gap_epochs and exp.epoch % int(self.save_gap_epochs) == 0:
                 exp.save()
+            if self.eval_gap_epochs and exp.epoch % self.eval_gap_epochs == 0:
+                self._evaluate_mid_training()
+            exp.summary.flush()  # the writer buffers: make each epoch visible
             self._run_hooks("post_epoch", epoch=exp.epoch)
             log.info("epoch %d/%d done in %.1fs train_ploss=%.5f", exp.epoch, self.max_epochs,
                      time.time() - t0, train_metrics.get("scalar_ploss", float("nan")))
@@ -616,15 +702,19 @@ class Trainer:
         self.profile_trace = profiling.stop_trace(self._capture)
         self._capture = None
 
-    def _fetch_put(self, loader_it) -> Optional[Dict[str, torch.Tensor]]:
-        """The next batch with its upload enqueued, or None at the end of the
-        epoch; the wait on the loader is counted in ``loader_wait_s``."""
+    def _fetch_put(self, loader_it):
+        """(the next batch with its upload enqueued, its host-only entries),
+        or None at the end of the epoch; the wait on the loader is counted in
+        ``loader_wait_s``. The host-only entries (``HOST_ONLY``) are kept for
+        the plot plugins only when plotting is on."""
         t0 = time.perf_counter()
         batch = next(loader_it, None)
         self.loader_wait_s += time.perf_counter() - t0
         if self._agreed(batch) is None:
             return None
-        return self.exp.put_batch(batch)
+        host_extra = ({k: batch[k] for k in HOST_ONLY if k in batch} if self.plot_gap_steps
+                      else {})
+        return self.exp.put_batch(batch), host_extra
 
     def _train_epoch(self) -> Dict[str, float]:
         exp = self.exp
@@ -632,8 +722,9 @@ class Trainer:
         self._run_hooks("prev_train", epoch=exp.epoch)
         t_start, wait_start, stamps = time.perf_counter(), self.loader_wait_s, []
         loader_it = iter(self.train_loader)
-        batch = self._fetch_put(loader_it)
-        while batch is not None:
+        pending = self._fetch_put(loader_it)
+        while pending is not None:
+            batch, host_extra = pending
             if (self.profile_dir and self.profile_trace is None and self._capture is None
                     and self._steps_seen == self.profile_start):
                 self._capture = profiling.start_trace(self.profile_dir,
@@ -642,14 +733,19 @@ class Trainer:
             metrics = exp.train_step(batch)
             # batch k + 1 is fetched and its upload enqueued behind step k's
             # kernels before anything of step k is read
-            batch = self._fetch_put(loader_it)
+            pending = self._fetch_put(loader_it)
             self._aux_steps(exp.step - 1)
             device_metrics.append(metrics)
             self._steps_seen += 1
             if self.save_gap_steps and self._steps_seen % self.save_gap_steps == 0:
                 exp.save()
             if len(device_metrics) % METRICS_EVERY == 0:
-                exp.write_metrics("train", _to_host([metrics])[0], exp.step)
+                values = _to_host([metrics])[0]
+                exp.write_metrics("train", values, exp.step)
+                exp.summary.scalar("train", values, exp.step)
+            if (self.plot_gap_steps and exp.is_chief
+                    and len(device_metrics) % self.plot_gap_steps == 0):
+                self._plot(batch, host_extra)
             if (self._capture is not None
                     and self._steps_seen >= self.profile_start + self.profile_steps):
                 self._stop_profile()

@@ -1,10 +1,10 @@
-"""sdfa_tpu_torch imports neither jax, flax, sdfa_tpu, sklearn, cv2 nor
-matplotlib (the GPU host has no scikit-learn, no OpenCV and no matplotlib),
-and importing it builds nothing.
+"""sdfa_tpu_torch imports neither jax, flax, sdfa_tpu, sklearn, cv2,
+matplotlib nor tensorboard (the GPU host has no scikit-learn, no OpenCV, no
+matplotlib and no TensorBoard), and importing it builds nothing.
 Checked in a fresh interpreter: this test process has jax loaded by conftest.
 The sources are also read statement by statement: no import of jax, flax,
-sdfa_tpu or sklearn anywhere in the port or in ``chip_smoke.py``, and OpenCV
-and matplotlib only inside the functions that need them."""
+sdfa_tpu or sklearn anywhere in the port or in ``chip_smoke.py``, and OpenCV,
+matplotlib and TensorBoard only inside the functions that need them."""
 
 import ast
 import os
@@ -31,9 +31,15 @@ PREPROCESS_MODULES = ["sdfa_tpu_torch.data.vocaset.preload", "sdfa_tpu_torch.dat
                       "sdfa_tpu_torch.audio.misc"]
 PARALLEL_MODULES = ["sdfa_tpu_torch.parallel", "sdfa_tpu_torch.parallel.mesh",
                     "sdfa_tpu_torch.parallel.multihost"]
-_BAD = "('jax', 'jaxlib', 'flax', 'sdfa_tpu', 'sklearn', 'cv2', 'matplotlib')"
+LAST_MODULES = ["sdfa_tpu_torch.utils.log", "sdfa_tpu_torch.utils.npext",
+                "sdfa_tpu_torch.utils.bilateral", "sdfa_tpu_torch.utils.visualizer",
+                "sdfa_tpu_torch.nn.precision", "sdfa_tpu_torch.audio.features",
+                "sdfa_tpu_torch.train.stepbench", "sdfa_tpu_torch.train.summary",
+                "sdfa_tpu_torch.visualize", "sdfa_tpu_torch.native"]
+_BAD = "('jax', 'jaxlib', 'flax', 'sdfa_tpu', 'sklearn', 'cv2', 'matplotlib', 'tensorboard')"
 
-_SCRIPT = f"NEW = {DATA_MODULES + CLI_MODULES + PREPROCESS_MODULES + PARALLEL_MODULES!r}\n" + r"""
+_SCRIPT = (f"NEW = {DATA_MODULES + CLI_MODULES + PREPROCESS_MODULES + PARALLEL_MODULES!r}\n"
+           f"NEW += {LAST_MODULES!r}\n") + r"""
 import importlib, pkgutil, sys
 import sdfa_tpu_torch
 names = ["sdfa_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
@@ -42,7 +48,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdfa_tpu", "sklearn", "cv2",
-                                    "matplotlib"))
+                                    "matplotlib", "tensorboard"))
 from sdfa_tpu_torch.ops import build
 missing = sorted(({"sdfa_tpu_torch.ops.bilstm_core", "sdfa_tpu_torch.ops.bilstm_layer",
                    "sdfa_tpu_torch.models.losses", "sdfa_tpu_torch.train.trainer",
@@ -65,7 +71,7 @@ def import_report():
 
 def test_every_module_imports_without_jax(import_report):
     n, bad, _ = import_report.split(" ", 2)
-    assert int(n) >= 52, import_report  # every subpackage walked; data/, api, utils, the CLI
+    assert int(n) >= 63, import_report  # every subpackage walked; data/, api, utils, the CLI
     assert bad == "[]", f"sdfa_tpu_torch pulled in {bad}"
 
 
@@ -113,6 +119,15 @@ def test_parallel_module_alone_imports_without_jax(module):
     _alone(module)
 
 
+@pytest.mark.parametrize("module", LAST_MODULES)
+def test_last_module_alone_imports_without_jax_cv2_matplotlib_or_tensorboard(module):
+    """The modules of the JAX package's remainder (logging, the bilateral
+    filter, the plotting helpers, library precision, the feature registry,
+    ``StepEnv``, the summaries, dataset videos, the native runtime), each
+    imported on its own, pull in none of them, and build nothing."""
+    _alone(module)
+
+
 @pytest.mark.parametrize("module", ["__main__", "viewer.video", "compat.torch_ckpt"])
 def test_cli_module_alone_imports_without_jax_cv2_or_matplotlib(module):
     """The CLI, the evaluation exports (renderer, video, template from paths)
@@ -121,9 +136,10 @@ def test_cli_module_alone_imports_without_jax_cv2_or_matplotlib(module):
     _alone(f"sdfa_tpu_torch.{module}")
 
 
-def _imports(path):
+def _imports(path, full=False):
     """(module name, whether the import statement is at module level) of every
-    import in the file."""
+    import in the file: the top-level package's name, or with ``full`` the
+    dotted name."""
     tree = ast.parse(open(path).read(), path)
     top = {id(node) for node in tree.body}
     for node in ast.walk(tree):
@@ -134,7 +150,7 @@ def _imports(path):
         else:
             continue
         for name in names:
-            yield name.split(".")[0], id(node) in top
+            yield (name if full else name.split(".")[0]), id(node) in top
 
 
 def _sources():
@@ -153,6 +169,12 @@ def test_sources_import_no_jax_and_no_cv2_at_module_level():
     top_level = {p: n for p, names in found.items() for n, top in names
                  if top and n in ("cv2", "matplotlib")}
     assert not top_level, top_level
+    tensorboard = {p: n for p in found for n, top in _imports(os.path.join(REPO, p), full=True)
+                   if top and "tensorboard" in n}
+    assert not tensorboard, tensorboard
     # the viewer does import them, inside its functions
     assert ("cv2", False) in found["sdfa_tpu_torch/viewer/render.py"]
     assert ("matplotlib", False) in found["sdfa_tpu_torch/viewer/video.py"]
+    assert ("matplotlib", False) in found["sdfa_tpu_torch/utils/visualizer.py"]
+    assert ("torch.utils.tensorboard", False) in _imports(
+        os.path.join(REPO, "sdfa_tpu_torch/train/summary.py"), full=True)
