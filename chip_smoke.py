@@ -20,7 +20,9 @@ Phases, each printed as one JSON line:
    and prints what ptxas says of each kernel (registers, shared memory, spills),
    how many clusters the card holds at once of the biLSTM step kernel, of
    FreqLstm's and of the training core's forward and backward kernels at each
-   hidden width, how many blocks of the solve product, and the tensor-core
+   hidden width, how many blocks of the wide step loop's kernels (and the rows
+   one cooperative launch takes at H = 384 and 512), how many blocks of the
+   solve product, and the tensor-core
    opcodes (``HGMMA``) in the machine code of ``decode_solve``.
 3. kernels: runs each kernel at its path's shapes, holds it against its plain
    PyTorch version on the same inputs, times both with CUDA events, computes
@@ -30,7 +32,10 @@ Phases, each printed as one JSON line:
    and ``decode_solve`` are timed at a request's own shape as well (768 rows,
    216 windows), ``freq_lstm`` and ``bilstm2`` at ``Experiment.plot_forward``'s on
    a 100-window batch (6400 rows, 100 windows), ``bilstm_layer`` at H = 128 at the
-   ``spec_variants`` phase's shapes and ``bilstm2`` at H = 128 at 256 windows. Every kernel is also held
+   ``spec_variants`` phase's shapes and ``bilstm2`` at H = 128 at 256 windows, and the
+   recurrent kernels at the ``wide_variants`` phase's widths (``WIDE_K1``, ``WIDE_K2``,
+   ``WIDE_K4``, ``WIDE_K5``: the wide step loop from H = 384 on, K1 at H = 256 and other
+   output widths, K4 with a 1024-wide input). Every kernel is also held
    to its plain version, untimed, at
    ragged shapes that reach every edge of its tiling; ``freq_lstm``,
    ``decode_solve`` and ``bilstm_core``'s backward must give the same bits
@@ -172,6 +177,16 @@ Phases, each printed as one JSON line:
    request vertices on the card against the CPU; the native float64 runtime, built
    now, solving the request's first 16 frames against K3's vertices (<= 1e-4 m).
 
+21. wide_variants (after ``spec_variants``): the dgrad model with its recurrent stacks
+   widened (``WIDE_VARIANTS``): ``wide512`` (FreqLstm at H = 256 projected to 512, a
+   2-layer time stack at H = 512: K1 at 256, K2 at 512, K5 at 256 and 512) and ``wide384``
+   (FreqLstm at H = 384 projected to 384, a 3-layer time stack at H = 384: K1 and K4 x 3 at
+   384, K5 at 384), the shipped conv stack, heads, template and bases. Each serves a 3 s
+   request within 1e-5 m of the plain versions and 1e-4 m of the float64 solve, with its
+   launches by kernel and width, then takes 10 train steps of 100 windows (K5 by pass and
+   width), the first step's loss terms within 1e-5 and its gradients within 1e-4 of the
+   largest against the plain versions'.
+
 At the end ``ops.PLAIN_ROUTES`` must read 0: no path this script drives has a
 recurrent shape that no kernel takes.
 
@@ -204,6 +219,15 @@ K4_H128_SHAPES = ((768, 32, 64), (216 * 64, 32, 64), (216 * 32, 64, 256))
 K1_LIVE_ROWS = (12, 128, 512)  # a stream's first block; a block round at capacity 8 and 32
 LIVE_WINDOWS = (128, 512)      # a full tick's suffix call at capacity 8 and 32
 K1_PLOT_ROWS, K2_PLOT_WINDOWS = 6400, 100  # Experiment.plot_forward on a 100-window batch
+# The wide step loop (H = 384 and up) and K1 at H = 256 / any output width, at the
+# wide_variants phase's shapes: K1 (H, out) over a request's 768 rows (and H = 512); K2 (H, in)
+# over its 216 windows; K4 (H, in) over them, the wide384 stack's and H = 512 (in 1024 = 2H
+# too); K5 (T, rows, H, the input width cuDNN's yardstick takes) at the train step's shapes
+WIDE_K1 = ((256, 512), (384, 384), (512, 512))
+WIDE_K2 = ((512, 512),)
+WIDE_K4 = ((384, 384), (384, 768), (512, 512), (512, 1024))
+WIDE_K5 = ((64, 100, 512, 512), (64, 100, 384, 384), (32, 6400, 256, 64), (32, 6400, 384, 64))
+WIDE_HIDDENS = (384, 512)  # the build line's rows per wave of the wide step loop
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
 TRAIN_STEPS = 5
 VARIANT_TRAIN_STEPS = 10  # spec_variants: train steps of 100 windows per variant
@@ -448,12 +472,23 @@ def main():
     build.load_libraries(["freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core"])
     core_clusters = {f"{hid}_{which}": n  # resident clusters per (hidden width, pass)
                      for (hid, which), n in bilstm_core.max_active_clusters(dev).items()}
-    k1_clusters = freq_lstm.max_active_clusters(dev)
+    k1_tiling = freq_lstm.tiling(dev)
+    k1_clusters = k1_tiling[128]
+    # the wide step loop: resident blocks of each of its kernels (one cooperative launch takes
+    # at most that many), and the rows one launch takes at each wide width
+    wide_blocks = {"bilstm_layer": bilstm_layer.wide_resident_blocks(dev),
+                   "freq_lstm": k1_tiling["wide"],
+                   **{f"bilstm_core_{k}": n
+                      for k, n in bilstm_core.wide_resident_blocks(dev).items()}}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": {k: v["seconds"] for k, v in build.BUILD_INFO.items()},
           "bilstm_step_kernel_max_active_clusters": bilstm_layer.max_active_clusters(dev),
           "bilstm_core_max_active_clusters": core_clusters,
-          "freq_lstm_step_kernel_max_active_clusters": k1_clusters,
+          "freq_lstm_step_kernel_max_active_clusters": {h: k1_tiling[h] for h in (128, 256)},
+          "wide_step_loop_resident_blocks": wide_blocks,
+          "wide_step_loop_rows_per_launch": {
+              name: {h: bilstm_layer.wide_wave_rows(h, n) for h in WIDE_HIDDENS}
+              for name, n in wide_blocks.items()},
           "decode_solve_product_resident_blocks": decode_solve.resident_blocks(dev),
           "decode_solve_tensor_core_sass": tensor_core_sass(build),
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_INFO.items()}})
@@ -501,13 +536,15 @@ def main():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                 **{k: v for k, v in extra.items() if k in ("err_is", "bound_peaks", "hidden")}}
+                 **{k: v for k, v in extra.items()
+                    if k in ("err_is", "bound_peaks", "hidden", "out")}}
         if primary:
             report[name] = entry
         else:
             report[name].setdefault("other_shapes", []).append(
-                {k: entry[k] for k in ("shape", "hidden", "max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms") if k in entry})
+                {k: entry[k] for k in ("shape", "hidden", "out", "max_abs_err", "ms",
+                                       "plain_ms", "bound_ms", "bound_by", "library_ms")
+                 if k in entry})
 
     def forward_case(name, kernel, plain, args, cost, library, source, replaces, primary=True,
                      **extra):
@@ -544,7 +581,8 @@ def main():
         x1_lib = x1.transpose(0, 1).contiguous()
         forward_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain,
                      (x1, *k1_weights),
-                     freq_lstm.cost(*x1.shape, gb is not None, k1_weights[4] is not None),
+                     freq_lstm.cost(*x1.shape, 128, 256, gb is not None,
+                                    k1_weights[4] is not None),
                      lambda: lib1(x1_lib),  # the LSTM part only: no 8192 -> 256 projection
                      "sdfa_tpu_torch/csrc/freq_lstm.cu", "sdfa_tpu/ops/pallas_freq_lstm.py:187",
                      primary=rows == K1_ROWS)
@@ -660,8 +698,8 @@ def main():
             torch.cuda.synchronize()
             err = float((got - plain(*args)).abs().max())
         emit({"phase": "kernel", "name": name, "shape": list(args[0].shape),
-              "gate_bias": args[3] is not None, "max_abs_err": err, "tol": TOL[name],
-              "card": smi})
+              "hidden": args[2].shape[1], "gate_bias": args[3] is not None,
+              "max_abs_err": err, "tol": TOL[name], "card": smi})
         if not (err <= TOL[name] and bool(torch.isfinite(got).all())):
             raise RuntimeError(f"{name} {tuple(args[0].shape)}: {err} > {TOL[name]}")
 
@@ -711,6 +749,69 @@ def main():
         with torch.inference_mode():
             repeats("freq_lstm", freq_lstm.freq_lstm, args, freq_lstm.freq_lstm(*args))
 
+    # The wide step loop (H = 384 and up), and K1 at H = 256 and other output widths, at the
+    # wide_variants phase's shapes (WIDE_K1, WIDE_K2, WIDE_K4): seeded weights at PyTorch's
+    # LSTM scale, cuDNN's nn.LSTM at the same widths as the yardstick; then, held to the plain
+    # versions only, shapes that reach the edges of the wide tiling: one row, a partial row
+    # tile, one row more than one cooperative launch takes, an input width off the K tile, H =
+    # 640; K1 at an output width that is no multiple of 4 (scalar loads and stores), one that
+    # is no multiple of the 128-column tile, and one row more than a wave at H = 384.
+    def lstm_weights(seed, n_in, hid, bias=True):
+        return (randn(seed, 2, n_in, 4 * hid, scale=hid ** -0.5),
+                randn(seed + 1, 2, hid, 4 * hid, scale=hid ** -0.5),
+                randn(seed + 2, 2, 4 * hid, scale=0.1) if bias else None)
+
+    def k1_args(seed, rows, n_freq, n_in, hid, out_dim, bias=True):
+        return (randn(seed, rows, n_freq, n_in), *lstm_weights(seed + 1, n_in, hid, bias),
+                randn(seed + 4, n_freq * 2 * hid, out_dim, scale=0.02),
+                randn(seed + 5, out_dim, scale=0.1) if bias else None)
+
+    k1_src = ("sdfa_tpu_torch/csrc/freq_lstm.cu", "sdfa_tpu/ops/pallas_freq_lstm.py:187")
+    for i, (hid, out_dim) in enumerate(WIDE_K1):
+        args = k1_args(400 + 10 * i, K1_REQUEST_ROWS, 32, 64, hid, out_dim)
+        lib1w, x_lib = library_lstm(64, hid, 1, 400 + i), args[0].transpose(0, 1).contiguous()
+        forward_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain, args,
+                     freq_lstm.cost(*args[0].shape, hid, out_dim), lambda: lib1w(x_lib), *k1_src,
+                     primary=False, hidden=hid, out=out_dim)
+        with torch.inference_mode():
+            repeats("freq_lstm", freq_lstm.freq_lstm, args, freq_lstm.freq_lstm(*args))
+        del args, lib1w, x_lib
+    for i, (hid, n_in) in enumerate(WIDE_K2):
+        x2 = randn(430 + i, K3_REQUEST_WINDOWS, 64, n_in, scale=0.5)
+        lib2w, x_lib = library_lstm(n_in, hid, 2, 430 + i), x2.transpose(0, 1).contiguous()
+        forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
+                     (x2, *lstm_weights(431 + i, n_in, hid), *lstm_weights(434, 2 * hid, hid)),
+                     bilstm2.cost(*x2.shape, hid), lambda: lib2w(x_lib),
+                     "sdfa_tpu_torch/csrc/bilstm2.cu", "sdfa_tpu/ops/pallas_bilstm2.py:52",
+                     primary=False, hidden=hid)
+        del x2, lib2w, x_lib
+    for i, (hid, n_in) in enumerate(WIDE_K4):
+        x4 = randn(440 + i, K3_REQUEST_WINDOWS, 64, n_in, scale=0.5)
+        lib4w, x_lib = library_lstm(n_in, hid, 1, 440 + i), x4.transpose(0, 1).contiguous()
+        forward_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
+                     (x4, *lstm_weights(441 + i, n_in, hid)), bilstm_layer.cost(*x4.shape, hid),
+                     lambda: lib4w(x_lib), "sdfa_tpu_torch/csrc/bilstm_layer.cu",
+                     "sdfa_tpu/ops/pallas_bilstm.py:42", primary=False, hidden=hid)
+        del x4, lib4w, x_lib
+    layer_wave = bilstm_layer.wide_wave_rows(384, wide_blocks["bilstm_layer"])
+    for i, (rows, steps, n_in, hid, bias) in enumerate((
+            (1, 1, 100, 384, True), (33, 3, 1000, 512, False), (layer_wave + 1, 2, 384, 384, True),
+            (7, 5, 64, 640, False))):
+        first = (randn(460 + 10 * i, rows, steps, n_in, scale=0.5),
+                 *lstm_weights(461 + 10 * i, n_in, hid, bias))
+        ragged_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
+                    first)
+        ragged_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
+                    first + lstm_weights(464 + 10 * i, 2 * hid, hid, bias))
+    k1_wave = k1_tiling["wide"] // (384 // 32) // 2 * freq_lstm.ROW_TILE
+    for i, (rows, n_freq, n_in, hid, out_dim, bias) in enumerate((
+            (5, 32, 64, 256, 201, True), (k1_wave + 1, 2, 64, 384, 200, False),
+            (33, 3, 100, 512, 384, True), (1, 1, 64, 256, 7, False))):
+        args = k1_args(500 + 10 * i, rows, n_freq, n_in, hid, out_dim, bias)
+        ragged_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain, args)
+        with torch.inference_mode():
+            repeats("freq_lstm", freq_lstm.freq_lstm, args, freq_lstm.freq_lstm(*args))
+
     # K5 at the train step's two shapes (the FreqLstm core first: it is the larger), then,
     # held to the plain version only, ragged shapes that reach every edge of the cluster
     # tiling at both widths: one row; a partial row tile with T = 2 (the double buffers'
@@ -727,6 +828,13 @@ def main():
     cases.append((64, 100, 128, 0))  # at H = 256 this is a timed shape already
     # timed too: a rank's shapes in a two-rank step of 100 windows (50 each)
     cases += [(32, 3200, 128, 64), (64, 50, 256, 256)]
+    # the wide step loop at the wide_variants phase's train step shapes (timed), then its edges
+    # (held to the plain version): one row; T = 2 at a partial row tile; T = 1; one row more
+    # than one cooperative launch takes at H = 384; H = 640 (20 runs of 32 units)
+    wide_wave = bilstm_layer.wide_wave_rows(384, min(wide_blocks["bilstm_core_fwd"],
+                                                     wide_blocks["bilstm_core_bwd"]))
+    cases += list(WIDE_K5) + [(3, 1, 384, 0), (2, 7, 512, 0), (1, 33, 384, 0),
+                              (3, wide_wave + 1, 384, 0), (2, 40, 640, 0)]
 
     def core_case(steps, rows, hid, n_in):  # a function: its tensors go when it returns
         timed = n_in > 0
@@ -796,7 +904,7 @@ def main():
         ts, v = task.generate_vertices(sig, spk)
         walls.append(time.perf_counter() - t0)
         outs.append((ts, v))
-    launches = {"freq_lstm": freq_lstm.LAUNCHES, "bilstm2": launched(bilstm2),
+    launches = {"freq_lstm": launched(freq_lstm), "bilstm2": launched(bilstm2),
                 "decode_solve": decode_solve.LAUNCHES}
     for (ts, v), (sig, _) in zip(outs, requests):
         if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
@@ -1018,6 +1126,10 @@ def main():
     with tempfile.TemporaryDirectory(prefix="sdfa_chip_spec_") as spec_tmp:
         path_launches["spec_variants"] = spec_variants_phase(task, pca, sig0, spk0, solver, dev,
                                                              smi, spec_tmp)
+    # --- the recurrent stacks widened: H = 256 / 384 / 512 through the wide step loop ---
+    with tempfile.TemporaryDirectory(prefix="sdfa_chip_wide_") as wide_tmp:
+        path_launches["wide_variants"] = wide_variants_phase(task, pca, sig0, spk0, solver, dev,
+                                                             smi, wide_tmp)
     if ops.PLAIN_ROUTES:
         raise RuntimeError(f"{ops.PLAIN_ROUTES} plain recurrences were taken on the card: a "
                            "path this script drives has a shape no kernel takes")
@@ -1229,6 +1341,199 @@ def spec_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
         path[name] = {k: request[k] + train[k] for k in request}
     emit({"phase": "spec_variants_done", "seconds": time.perf_counter() - t_phase, "card": smi})
     return {name: sum(p[name] for p in path.values()) for name in
+            ("freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core_fwd",
+             "bilstm_core_bwd")}
+
+
+# wide_variants: the shipped dgrad encoder with its recurrent stacks widened (FreqLstm spec,
+# time stack spec, the attention's width = 2 H of the time stack)
+WIDE_VARIANTS = {
+    "wide512": (("freq-lstm", 64, 32, "hidden_size=256", "output_size=512"),
+                ("lstm", 512, 512, "num_layers=2", "bidirectional=True", "dropout=0.1"), 1024),
+    "wide384": (("freq-lstm", 64, 32, "hidden_size=384", "output_size=384"),
+                ("lstm", 384, 384, "num_layers=3", "bidirectional=True"), 768)}
+
+
+def wide_variant_hparams(name):
+    """The dgrad config of ``configs/model/dgrad.py`` with only its recurrent
+    stacks widened (``WIDE_VARIANTS``): the conv stack of
+    ``configs/_shared.py:32-46``, Bahdanau attention over the time stack's 2 H,
+    the trunk's input following it; the heads, template, bases and data as
+    shipped."""
+    from sdfa_tpu_torch.config import configure
+
+    hp = configure("dgrad")
+    hp.trainer.set_key("max_epochs", 1)
+    hp.trainer.set_key("save_gap_epochs", None)
+    shipped = [tuple(spec) for spec in hp.model.audio_encoder.layers]
+    conv, (_, squeeze, permute, _, _) = shipped[:6], shipped[6:]
+    freq, lstm, width = WIDE_VARIANTS[name]
+    hp.model.audio_encoder.set_key("layers", conv + [
+        freq, squeeze, permute, lstm, ("attn", "bah", width, 128, 2, "scale_score_at_eval=1.0")])
+    trunk = [tuple(spec) for spec in hp.model.output.layers]
+    trunk[0] = (trunk[0][0], trunk[0][1] - 512 + width, *trunk[0][2:])  # 512 + 8 -> width + 8
+    hp.model.output.set_key("layers", trunk)
+    return hp
+
+
+def wide_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
+    """The two wide models of ``WIDE_VARIANTS`` at full width, seeded, over the
+    serve phase's template and PCA bases. Each serves a 3 s request on the f32
+    wire through ``AnimationTask.generate_vertices`` (launches by kernel and
+    width, wall and device busy ms) within ``VARIANT_PLAIN_TOL_M`` of the same
+    call under ``ops.plain_versions()`` and ``ORACLE_TOL_M`` of the float64
+    solve, then ``Experiment`` takes ``VARIANT_TRAIN_STEPS`` steps of 100
+    windows (K5 launches by width), its first step's loss terms within
+    ``STEP_LOSS_RTOL`` and every gradient within ``STEP_GRAD_RTOL`` of the
+    largest against the same step through the plain versions.
+    ``ops.PLAIN_ROUTES`` must stay 0."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdfa_tpu_torch import ops
+    from sdfa_tpu_torch.compat import init_params
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import bilstm2, bilstm_core, bilstm_layer, decode_solve, freq_lstm
+    from sdfa_tpu_torch.task import AnimationTask
+    from sdfa_tpu_torch.train import Experiment
+
+    t_phase = time.perf_counter()
+    counted = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve,
+               "bilstm_layer": bilstm_layer}
+
+    def reset():
+        reset_counts(counted)
+        bilstm_core.FWD_LAUNCHES = bilstm_core.BWD_LAUNCHES = 0
+        bilstm_core.LAUNCHES_BY_HIDDEN.clear()
+
+    def counts():
+        out = {name: launched(mod) for name, mod in counted.items()}
+        out.update({f"{name}_h{h}": n for name in ("freq_lstm", "bilstm2", "bilstm_layer")
+                    for h, n in counted[name].LAUNCHES.items()})
+        out.update({f"bilstm_core_{p}_h{h}": n
+                    for (p, h), n in bilstm_core.LAUNCHES_BY_HIDDEN.items()})
+        out.update(bilstm_core_fwd=bilstm_core.FWD_LAUNCHES,
+                   bilstm_core_bwd=bilstm_core.BWD_LAUNCHES)
+        return out
+
+    # a request's launches, and a train step's by pass and width
+    want = {"wide512": ({"freq_lstm_h256": 1, "bilstm2_h512": 1, "decode_solve": 1,
+                         "freq_lstm": 1, "bilstm2": 1, "bilstm_layer": 0},
+                        {"bilstm_core_fwd_h256": 1, "bilstm_core_fwd_h512": 2,
+                         "bilstm_core_bwd_h256": 1, "bilstm_core_bwd_h512": 2}),
+            "wide384": ({"freq_lstm_h384": 1, "bilstm_layer_h384": 3, "decode_solve": 1,
+                         "freq_lstm": 1, "bilstm_layer": 3, "bilstm2": 0},
+                        {"bilstm_core_fwd_h384": 4, "bilstm_core_bwd_h384": 4})}
+    batches = train_batches(VARIANT_TRAIN_STEPS)
+    path = {}
+    for name, (want_request, want_step) in want.items():
+        t0 = time.perf_counter()
+        hp = wide_variant_hparams(name)
+        model = init_params(build_model(hp, pca=pca), SEED)
+        task = AnimationTask(hp, model, dev)
+        task._decode = task_main._decode  # the same template and PCA bases
+        task.generate_vertices(sig, spk)  # warm-up
+        reset()
+        routes_before = ops.PLAIN_ROUTES
+        torch.cuda.synchronize()
+        t_req = time.perf_counter()
+        ts, v = task.generate_vertices(sig, spk)
+        wall_ms = (time.perf_counter() - t_req) * 1e3
+        request = counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            task.generate_vertices(sig, spk)
+            torch.cuda.synchronize()
+        device, busy_ms = device_kernels(prof)
+        with ops.plain_versions():
+            _, v_plain = task.generate_vertices(sig, spk)
+        plain_err = max_err(v, v_plain)
+        sample = sorted({0, len(ts) // 2, len(ts) - 1})
+        with torch.inference_mode():
+            frame_idx, _, z, _ = task._overlap_prefix(sig)
+            idx = torch.from_numpy(frame_idx[sample]).long().to(dev)
+            preds, _, _ = model.forward_windows(
+                z, idx, torch.full((len(sample),), spk, dtype=torch.long, device=dev),
+                raw_pca=True)
+            dgrad = model.decode_to_anime(preds)[:, 0].double().cpu().numpy()
+        oracle_err = max_err(v[sample], np.stack([solver.solve_host(d) for d in dgrad]))
+        serve_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        del task, model
+
+        t0 = time.perf_counter()
+        exp = Experiment(hp, build_model(hp, pca=pca), os.path.join(tmp, name), dev, seed=SEED)
+        reset()
+        losses, step_ms, first, g_kernel = [], [], None, None
+        for batch in batches:
+            torch.cuda.synchronize()
+            t_step = time.perf_counter()
+            metrics = exp.train_step(batch)
+            losses.append(float(metrics["total"]))
+            step_ms.append((time.perf_counter() - t_step) * 1e3)
+            if first is None:
+                first = {k: float(v) for k, v in metrics.items()}
+                g_kernel = {n: p.grad.clone() for n, p in exp.model.named_parameters()}
+                step_counts = counts()
+        train = counts()
+        del exp
+        plain_exp = Experiment(hp, build_model(hp, pca=pca), os.path.join(tmp, name + "_plain"),
+                               dev, seed=SEED)
+        with ops.plain_versions():
+            plain = {k: float(v) for k, v in plain_exp.train_step(batches[0]).items()}
+        g_plain = {n: p.grad for n, p in plain_exp.model.named_parameters()}
+        loss_rel = max(abs(first[k] - plain[k]) / abs(plain[k])
+                       for k in plain if k == "total" or k.startswith("scalar_"))
+        g_max = max(float(g.abs().max()) for g in g_plain.values())
+        grad_diffs = {n: float((g_kernel[n] - g).abs().max()) for n, g in g_plain.items()}
+        grad_rel = max(grad_diffs.values()) / g_max
+        worst = max(grad_diffs, key=grad_diffs.get)
+        del plain_exp, g_kernel, g_plain
+        torch.cuda.empty_cache()
+        train_s = time.perf_counter() - t0
+        routes = ops.PLAIN_ROUTES - routes_before
+        emit({"phase": "wide_variants", "variant": name,
+              "encoder": [list(spec) for spec in hp.model.audio_encoder.layers[6:]],
+              "params": n_params,
+              "windows": len(ts), "request_wall_ms": wall_ms, "request_device_busy_ms": busy_ms,
+              "request_launches": request, "plain_routes": routes,
+              "plain_max_abs_m": plain_err, "plain_tol_m": VARIANT_PLAIN_TOL_M,
+              "oracle_frames": sample, "oracle_max_abs_m": oracle_err,
+              "oracle_tol_m": ORACLE_TOL_M,
+              "top_device_ms": [{"name": k[:60], "ms": ms, "calls": c} for k, ms, c in device[:6]],
+              "train_steps": len(losses), "train_losses": losses,
+              "train_step_ms_median": sorted(step_ms)[len(step_ms) // 2],
+              "first_step_launches": {k: n for k, n in step_counts.items()
+                                      if k.startswith("bilstm_core_")},
+              "train_launches": {k: n for k, n in train.items() if k.startswith("bilstm_core_")},
+              "first_step_plain_loss_rel": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+              "first_step_plain_grad_vs_largest_gradient": grad_rel, "grad_rtol": STEP_GRAD_RTOL,
+              "largest_gradient": g_max, "worst_gradient": worst,
+              "serve_s": serve_s, "train_s": train_s, "card": smi})
+        bad = {k: (request.get(k, 0), n) for k, n in want_request.items()
+               if request.get(k, 0) != n}
+        bad.update({k: (step_counts.get(k, 0), n) for k, n in want_step.items()
+                    if step_counts.get(k, 0) != n})
+        bad.update({k: (train.get(k, 0), n * len(losses)) for k, n in want_step.items()
+                    if train.get(k, 0) != n * len(losses)})
+        if bad:
+            raise RuntimeError(f"{name}: launches (got, want) {bad}")
+        if v.shape != (len(ts), solver.n_verts, 3) or not np.isfinite(v).all():
+            raise RuntimeError(f"{name}: bad output {v.shape}")
+        if not plain_err <= VARIANT_PLAIN_TOL_M:
+            raise RuntimeError(f"{name}: kernels vs plain versions {plain_err} m")
+        if not oracle_err <= ORACLE_TOL_M:
+            raise RuntimeError(f"{name}: vs the float64 solve {oracle_err} m")
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"{name}: non-finite training loss {losses}")
+        if not (loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL):
+            raise RuntimeError(f"{name}: first step's loss terms {loss_rel} and gradients "
+                               f"{grad_rel} of the largest from the plain versions'")
+        if routes:
+            raise RuntimeError(f"{name}: {routes} plain recurrences on the card")
+        path[name] = {k: request[k] + train.get(k, 0) for k in request}
+    emit({"phase": "wide_variants_done", "seconds": time.perf_counter() - t_phase, "card": smi})
+    return {name: sum(p.get(name, 0) for p in path.values()) for name in
             ("freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core_fwd",
              "bilstm_core_bwd")}
 
@@ -2611,8 +2916,8 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
 
 
 def launched(mod) -> int:
-    """A wrapper's launches since ``reset_counts``: K2 and K4 keep theirs by
-    hidden width, the others one count."""
+    """A wrapper's launches since ``reset_counts``: K1, K2 and K4 keep theirs
+    by hidden width, K3 one count."""
     n = mod.LAUNCHES
     return n.total() if isinstance(n, collections.Counter) else n
 
@@ -3161,7 +3466,8 @@ def profile_serving_tiles(build, dev, smi, k1_weights, dsc):
         out = torch.empty(rows, 256, **empty)
         for turn in range(2):
             for tag, lib in libs.items():
-                clusters, row_tile, _ = tiling(lib, "sdfa_freq_lstm_tiling", 3)
+                found = tiling(lib, "sdfa_freq_lstm_tiling", 5)
+                clusters, row_tile = found[0], found[3]  # at H = 128
                 wave = clusters // 2 * row_tile
                 chunk = max(wave, 1024 - 1024 % wave)  # whole waves, about 1024 rows
                 n = min(rows, chunk)

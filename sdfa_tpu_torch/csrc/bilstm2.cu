@@ -21,29 +21,29 @@
 // L2, and the kernel boundary is the ordering layer 2 needs (its blocks read
 // what other blocks wrote). One cluster holding both directions would need
 // 16 blocks, a non-portable size that fits fewer clusters on the card, and
-// gains only that round trip. The caller sizes the scratch: xp (2, chunk, T,
-// 4H) and stack (chunk, T, 2H), shared by all chunks. H is 128 or 256 and the
-// first layer's input at most 512 wide; the port's modules send any other
-// 2-layer stack layer by layer through bilstm_layer.cu or the plain
-// recurrence before they launch.
+// gains only that round trip. From H = 384 on each layer runs the wide step
+// loop of bilstm_layer.cuh instead (W_hh through L2, one grid-wide barrier a
+// step). The caller sizes the scratch: xp (2, chunk, T, 4H) and stack
+// (chunk, T, 2H), shared by all chunks. H is any multiple of 128 and the
+// first layer's input any width: what the JAX gate sends to its kernel
+// (sdfa_tpu/nn/recurrent.py:236-238).
 #include "bilstm_layer.cuh"
 
 using namespace bilstm;
 
 namespace {
 
-template <int HH>
 cudaError_t run_chunks(const float* x, const float* w_ih1, const float* w_hh1, const float* gb1,
                        const float* w_ih2, const float* w_hh2, const float* gb2, float* xp,
-                       float* stack, float* out, int rows, int T, int in1, int chunk,
+                       float* stack, float* out, int rows, int T, int in1, int hidden, int chunk,
                        cudaStream_t stream) {
   for (int row0 = 0; row0 < rows; row0 += chunk) {
     const int n = rows - row0 < chunk ? rows - row0 : chunk;
-    cudaError_t err = run_layer<HH>(x + (size_t)row0 * T * in1, in1, w_ih1, w_hh1, gb1, xp,
-                                    stack, n, T, stream);
+    cudaError_t err = run_layer_h(hidden, x + (size_t)row0 * T * in1, in1, w_ih1, w_hh1, gb1, xp,
+                                  stack, n, T, stream);
     if (err != cudaSuccess) return err;
-    err = run_layer<HH>(stack, 2 * HH, w_ih2, w_hh2, gb2, xp, out + (size_t)row0 * T * 2 * HH,
-                        n, T, stream);
+    err = run_layer_h(hidden, stack, 2 * hidden, w_ih2, w_hh2, gb2, xp,
+                      out + (size_t)row0 * T * 2 * hidden, n, T, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -55,12 +55,10 @@ extern "C" int sdfa_bilstm2(const float* x, const float* w_ih1, const float* w_h
                             const float* gb1, const float* w_ih2, const float* w_hh2,
                             const float* gb2, float* xp, float* stack, float* out, int rows,
                             int T, int in1, int hidden, int chunk, cudaStream_t stream) {
-  if ((hidden != 128 && hidden != 256) || in1 <= 0 || in1 > INMAX || T <= 0 || chunk <= 0)
+  if (!takes_hidden(hidden) || in1 <= 0 || T <= 0 || chunk <= 0)
     return (int)cudaErrorInvalidValue;
-  return (int)(hidden == 128 ? run_chunks<128>(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2, xp,
-                                               stack, out, rows, T, in1, chunk, stream)
-                             : run_chunks<256>(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2, xp,
-                                               stack, out, rows, T, in1, chunk, stream));
+  return (int)run_chunks(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2, xp, stack, out, rows, T, in1,
+                         hidden, chunk, stream);
 }
 
 extern "C" const char* sdfa_error_string(int code) {

@@ -53,6 +53,12 @@
 // that do not depend on the recurrence (gates, c, c of the previous step,
 // dout) are asked for before the previous turn's product.
 //
+// From H = 384 on (any multiple of 128), where no cluster's shared memory
+// holds one direction's W_hh, both passes run the wide step loop of
+// bilstm_layer.cuh instead: wide_steps_kernel indexed by time with the gates
+// and c saved, and wide_bwd_kernel (W_hh through L2, one grid-wide barrier a
+// step, d_pre of the previous step read back from dg).
+//
 // f32 throughout (expf/tanhf, no fast-math).
 #include "bilstm_layer.cuh"
 
@@ -354,22 +360,30 @@ struct Core {
 
 }  // namespace
 
+// The wide loop's kernels: the forward indexed by time with the gates and c
+// saved, and the backward.
+inline WideStepsKernel wide_fwd_kernel() { return wide_steps_kernel<TimeMajor, true>; }
+
 extern "C" int sdfa_bilstm_core_fwd(const float* xp, const float* w_hh, float* out, float* gates,
                                     float* cs, int T, int rows, int hidden,
                                     cudaStream_t stream) {
-  if (T <= 0 || (hidden != 128 && hidden != 256)) return (int)cudaErrorInvalidValue;
+  if (T <= 0 || !takes_hidden(hidden)) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
-  return (int)(hidden == 128 ? Core<128>::forward(xp, w_hh, out, gates, cs, T, rows, stream)
-                             : Core<256>::forward(xp, w_hh, out, gates, cs, T, rows, stream));
+  if (hidden == 128) return (int)Core<128>::forward(xp, w_hh, out, gates, cs, T, rows, stream);
+  if (hidden == 256) return (int)Core<256>::forward(xp, w_hh, out, gates, cs, T, rows, stream);
+  return (int)wide_run(wide_fwd_kernel(), hidden, rows, stream, xp, w_hh, out, gates, cs, rows, T,
+                       hidden);
 }
 
 extern "C" int sdfa_bilstm_core_bwd(const float* gates, const float* cs, const float* w_hh,
                                     const float* dout, float* dg, int T, int rows, int hidden,
                                     cudaStream_t stream) {
-  if (T <= 0 || (hidden != 128 && hidden != 256)) return (int)cudaErrorInvalidValue;
+  if (T <= 0 || !takes_hidden(hidden)) return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
-  return (int)(hidden == 128 ? Core<128>::backward(gates, cs, w_hh, dout, dg, T, rows, stream)
-                             : Core<256>::backward(gates, cs, w_hh, dout, dg, T, rows, stream));
+  if (hidden == 128) return (int)Core<128>::backward(gates, cs, w_hh, dout, dg, T, rows, stream);
+  if (hidden == 256) return (int)Core<256>::backward(gates, cs, w_hh, dout, dg, T, rows, stream);
+  return (int)wide_run(wide_bwd_kernel, hidden, rows, stream, gates, cs, w_hh, dout, dg, rows, T,
+                       hidden);
 }
 
 // n[0..3]: how many clusters the card holds at once of the forward and the
@@ -380,10 +394,20 @@ extern "C" int sdfa_bilstm_core_clusters(int* n) {
   return (int)Core<256>::clusters(n + 2, n + 3);
 }
 
-// Rows a cluster owns at `hidden` units (0 for a width the kernels do not take).
+// n[0], n[1]: how many blocks of the wide loop's forward and backward kernels
+// the card holds at once.
+extern "C" int sdfa_bilstm_core_wide_blocks(int* n) {
+  const cudaError_t err = wide_capacity(n, wide_fwd_kernel());
+  if (err != cudaSuccess) return (int)err;
+  return (int)wide_capacity(n + 1, wide_bwd_kernel);
+}
+
+// Rows a cluster (a block of the wide loop, from H = 384 on) owns at `hidden`
+// units (0 for a width the kernels do not take).
 extern "C" int sdfa_bilstm_core_row_tile(int hidden) {
   if (hidden == 128) return Core<128>::S::RT;
-  return hidden == 256 ? Core<256>::S::RT : 0;
+  if (hidden == 256) return Core<256>::S::RT;
+  return takes_hidden(hidden) ? WR : 0;
 }
 
 extern "C" const char* sdfa_error_string(int code) {

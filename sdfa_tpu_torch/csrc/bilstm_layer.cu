@@ -8,13 +8,14 @@
 // What bounds it on the H100: operations. A row costs T x 2 directions x
 // (in + H) x 4H f32 multiply-adds (67 MFLOP at T=64, in=256, H=256); device
 // memory sees x, the output and one round trip of the projection scratch, and
-// the weights once. The design is run_layer<H> of bilstm_layer.cuh: the input
-// projection as one tiled product ahead of the recurrence, then the step loop
-// with W_hh held in the shared memory of a cluster (8 blocks at H = 256, 4 at
-// H = 128). The JAX gate takes any H and input that are multiples of 128
-// (sdfa_tpu/nn/recurrent.py:293-296); this one takes H of 128 and 256 and
-// inputs up to 512 wide, and the port's modules route any other shape to the
-// plain recurrence before they launch.
+// the weights once. The design is run_layer_h of bilstm_layer.cuh: the input
+// projection as one tiled product ahead of the recurrence (any input width),
+// then the step loop. At H = 128 and 256 the step loop holds W_hh in the
+// shared memory of a cluster (4 or 8 blocks); from H = 384 on, where no
+// cluster's shared memory holds it, the wide step loop reads W_hh through L2
+// with one grid-wide barrier a step. The JAX gate takes any H and input that
+// are multiples of 128 (sdfa_tpu/nn/recurrent.py:293-296); this one takes any
+// H that is a multiple of 128 and any input width.
 //
 // The rows are walked in chunks of `chunk` rows so that the scratch xp
 // (2, chunk, T, 4H) does not grow with the batch; the caller sizes it.
@@ -24,14 +25,13 @@ using namespace bilstm;
 
 namespace {
 
-template <int HH>
 cudaError_t run_chunks(const float* x, const float* w_ih, const float* w_hh, const float* gb,
-                       float* xp, float* out, int rows, int T, int in, int chunk,
+                       float* xp, float* out, int rows, int T, int in, int hidden, int chunk,
                        cudaStream_t stream) {
   for (int row0 = 0; row0 < rows; row0 += chunk) {
     const int n = rows - row0 < chunk ? rows - row0 : chunk;
-    const cudaError_t err = run_layer<HH>(x + (size_t)row0 * T * in, in, w_ih, w_hh, gb, xp,
-                                          out + (size_t)row0 * T * 2 * HH, n, T, stream);
+    const cudaError_t err = run_layer_h(hidden, x + (size_t)row0 * T * in, in, w_ih, w_hh, gb,
+                                        xp, out + (size_t)row0 * T * 2 * hidden, n, T, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -42,11 +42,9 @@ cudaError_t run_chunks(const float* x, const float* w_ih, const float* w_hh, con
 extern "C" int sdfa_bilstm_layer(const float* x, const float* w_ih, const float* w_hh,
                                  const float* gb, float* xp, float* out, int rows, int T, int in,
                                  int hidden, int chunk, cudaStream_t stream) {
-  if ((hidden != 128 && hidden != 256) || in <= 0 || in > INMAX || T <= 0 || chunk <= 0)
+  if (!takes_hidden(hidden) || in <= 0 || T <= 0 || chunk <= 0)
     return (int)cudaErrorInvalidValue;
-  return (int)(hidden == 128
-                   ? run_chunks<128>(x, w_ih, w_hh, gb, xp, out, rows, T, in, chunk, stream)
-                   : run_chunks<256>(x, w_ih, w_hh, gb, xp, out, rows, T, in, chunk, stream));
+  return (int)run_chunks(x, w_ih, w_hh, gb, xp, out, rows, T, in, hidden, chunk, stream);
 }
 
 // n[0], n[1]: how many clusters of the step kernel the card holds at once at
@@ -55,6 +53,13 @@ extern "C" int sdfa_bilstm_layer_clusters(int* n) {
   const cudaError_t err = layer_max_active_clusters<128>(n);
   if (err != cudaSuccess) return (int)err;
   return (int)layer_max_active_clusters<256>(n + 1);
+}
+
+// n[0]: how many blocks of the wide step loop the card holds at once; n[1]:
+// the rows a block owns.
+extern "C" int sdfa_bilstm_layer_wide_blocks(int* n) {
+  n[1] = WR;
+  return (int)wide_capacity(n, layer_wide_kernel());
 }
 
 #ifdef SDFA_STEP_CLOCKS

@@ -51,8 +51,13 @@
 //    and the tensors' order: the training core (bilstm_core.cu) runs the same
 //    step indexed by time, with the gates and the cell state written out as
 //    well, at H = 256 and at H = 128 (a cluster of 4 blocks); FreqLstm runs
-//    it at H = 128 over its frequency steps, a row's steps together, and the
-//    layer kernels at either width (run_layer<HH>).
+//    it over its frequency steps, a row's steps together, at H = 128 and
+//    (as the layer kernels' instantiation) 256, and the layer kernels at
+//    either width (run_layer<HH>).
+// 3. From H = 384 on (any multiple of 128), where no cluster's shared memory
+//    holds one direction's W_hh, wide_steps_kernel and wide_bwd_kernel below
+//    take the step loop's place for all four kernels: W_hh read through L2,
+//    one grid-wide barrier a step (see "the wide step loop").
 //
 // f32 throughout (expf/tanhf, correctly rounded reciprocal, no fast-math).
 // Sums run in another order than the plain version's: k in four interleaved
@@ -66,10 +71,9 @@ namespace bilstm {
 
 namespace cg = cooperative_groups;
 
-constexpr int INMAX = 512;  // widest layer input the layer kernels take (layer 2 at H = 256: 2H)
-
 // --- the input projection: xp[d] (M, GW) = x (M, K) . W_ih[d] (K, GW) + gb[d] ---
-// GW is the gate width, 4 x the hidden width: 4 x 256 or 4 x 128.
+// GW is the gate width, 4 x the hidden width: 4 x 256 or 4 x 128 as a template
+// argument; GW = 0 takes it at run time (`gw`, the wide step loop's 4 x 384 and up).
 
 constexpr int PM = 128, PN = 128, PK = 16, PT = 256;  // tile and threads
 
@@ -94,13 +98,16 @@ __device__ __forceinline__ void load_a(const float* arow, bool row_ok, int k, in
   }
 }
 
-// Two float4 of B's rows k and k + 8 (zero from K on); B has LDB floats to a row.
+// Two float4 of B's rows k and k + 8 (zero from K on); B has LDB floats to a row
+// (LDB = 0: `ldb`, a width known only at run time).
 template <int LDB>
-__device__ __forceinline__ void load_b(const float* bcol, int k, int K, float4 (&br)[2]) {
+__device__ __forceinline__ void load_b(const float* bcol, int k, int K, float4 (&br)[2],
+                                       int ldb = LDB) {
+  const int stride = LDB > 0 ? LDB : ldb;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int kk = k + 8 * h;
-    br[h] = kk < K ? __ldg(reinterpret_cast<const float4*>(bcol + (size_t)kk * LDB))
+    br[h] = kk < K ? __ldg(reinterpret_cast<const float4*>(bcol + (size_t)kk * stride))
                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
@@ -110,17 +117,19 @@ __device__ __forceinline__ void load_b(const float* bcol, int k, int K, float4 (
 template <int GW>
 static __global__ void __launch_bounds__(PT, 2)
 proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
-            const float* __restrict__ gb, float* __restrict__ xp, int M, int K, int vec) {
+            const float* __restrict__ gb, float* __restrict__ xp, int M, int K, int vec,
+            int gw_arg) {
   __shared__ __align__(16) float As[2][PK][PM];
   __shared__ __align__(16) float Bs[2][PK][PN];
+  const int gw = GW > 0 ? GW : gw_arg;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int d = blockIdx.x / (GW / PN), n0 = (blockIdx.x % (GW / PN)) * PN;
+  const int d = blockIdx.x / (gw / PN), n0 = (blockIdx.x % (gw / PN)) * PN;
   const int m0 = blockIdx.y * PM;
   const int a_m = tid % PM, a_k = (tid / PM) * 8;  // x tile: 8 k of one row per thread
   const int b_k = tid / 32, b_n = (tid % 32) * 4;  // W tile: rows b_k, b_k + 8, one float4 each
   const bool row_ok = m0 + a_m < M;
   const float* arow = x + (size_t)(row_ok ? m0 + a_m : 0) * K;
-  const float* bcol = w_ih + (size_t)d * K * GW + n0 + b_n;
+  const float* bcol = w_ih + (size_t)d * K * gw + n0 + b_n;
 
   float acc[8][8];
 #pragma unroll
@@ -131,7 +140,7 @@ proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
   float ar[8];
   float4 br[2];
   load_a(arow, row_ok, a_k, K, vec, ar);
-  load_b<GW>(bcol, b_k, K, br);
+  load_b<GW>(bcol, b_k, K, br, gw);
   const int tiles = (K + PK - 1) / PK;
   for (int tile = 0; tile < tiles; ++tile) {
     const int buf = tile & 1;
@@ -142,7 +151,7 @@ proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
     __syncthreads();  // this tile is in place; the other buffer's readers are done (see below)
     if (tile + 1 < tiles) {
       load_a(arow, row_ok, (tile + 1) * PK + a_k, K, vec, ar);
-      load_b<GW>(bcol, (tile + 1) * PK + b_k, K, br);
+      load_b<GW>(bcol, (tile + 1) * PK + b_k, K, br, gw);
     }
 #pragma unroll
     for (int kk = 0; kk < PK; ++kk) {
@@ -171,21 +180,22 @@ proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
       float4 v = make_float4(acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2],
                              acc[i][4 * half + 3]);
       if (gb) {
-        const float4 bv = *reinterpret_cast<const float4*>(gb + d * GW + n);
+        const float4 bv = *reinterpret_cast<const float4*>(gb + d * gw + n);
         v.x += bv.x; v.y += bv.y; v.z += bv.z; v.w += bv.w;
       }
-      *reinterpret_cast<float4*>(xp + ((size_t)d * M + m) * GW + n) = v;
+      *reinterpret_cast<float4*>(xp + ((size_t)d * M + m) * gw + n) = v;
     }
   }
 }
 
-// proj_kernel over M rows of x (M, in) on `stream`: xp (2, M, GW).
+// proj_kernel over M rows of x (M, in) on `stream`: xp (2, M, GW), or (2, M,
+// gw) with GW = 0.
 template <int GW>
 inline cudaError_t launch_proj(const float* x, int in, const float* w_ih, const float* gb,
-                               float* xp, int M, cudaStream_t stream) {
+                               float* xp, int M, cudaStream_t stream, int gw = GW) {
   const int vec = in % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  proj_kernel<GW><<<dim3(2 * GW / PN, (M + PM - 1) / PM), PT, 0, stream>>>(x, w_ih, gb, xp, M, in,
-                                                                         vec);
+  proj_kernel<GW><<<dim3(2 * gw / PN, (M + PM - 1) / PM), PT, 0, stream>>>(x, w_ih, gb, xp, M, in,
+                                                                         vec, gw);
   return cudaGetLastError();
 }
 
@@ -507,5 +517,370 @@ inline cudaError_t layer_max_active_clusters(int* n) {
   using D = LayerDims<HH>;
   return max_active_clusters(n, layer_steps_kernel<HH>(), D::THREADS, D::SMEM, D::CL);
 }
+
+
+// --- the wide step loop: H a multiple of 128 from 384 up ------------------------
+//
+// One direction's W_hh at H = 384 is 2.36 MB: a cluster of H / 32 blocks
+// would need 12 of them with 196,608 B of W_hh each beside its h buffers,
+// more than the 232,448 B a block has; at H = 512 (4 MB) even a
+// non-portable cluster of 16 holds only 3.7 MB. So W_hh is not held: the
+// wide loop reads it through L2 (both directions' W_hh are 8 MiB at H = 512
+// against a 50 MB L2), and a step is one tiled product per block followed by
+// one grid-wide barrier.
+//
+// One cooperative launch (cudaLaunchAttributeCooperative: every block is
+// resident, so `grid.sync()` cannot deadlock) walks all T steps for a wave of
+// rows; the rows are walked in waves of whole row tiles whose blocks fit the
+// card at once (wide_capacity: resident blocks a multiprocessor x
+// multiprocessors). Block (x, y, z) owns the four gates of hidden units
+// WU x .. WU x + 31 of direction z for rows WR y .. WR y + 31 of the wave,
+// for the whole launch, so the cell state stays in registers. Each step it
+// multiplies the previous h of its rows (H wide) by its 128 gate columns of
+// W_hh, in tiles of WK = 16 k staged in shared memory (h as [k][row], W_hh as
+// [k][gate][unit], both double-buffered, the next tile fetched into
+// registers while this one is multiplied); a thread holds 4 rows x 2 units x
+// 4 gates and finishes their cell in registers. The previous h is the
+// output itself, read at the previous time index through L2 (`__ldcg`: it
+// was written in this launch, by other blocks, before the last barrier), so
+// there is no h buffer. The backward step is the same loop over the gate
+// columns: dh of a block's units is the previous step's d_pre of all 4 H
+// columns (read back from dg) times W_hh's rows of those units.
+//
+// Sums: each thread adds its products k by k from k = 0 on, then the xp
+// slab (forward) or d(out) (backward). f32 throughout, the cell as the
+// cluster step has it (expf/tanhf, correctly rounded reciprocal).
+
+constexpr int WR = 32;   // rows a block owns
+constexpr int WU = 32;   // hidden units a block owns: 4 WU = 128 gate columns
+constexpr int WK = 16;   // k depth of a staged tile
+constexpr int WT = 128;  // threads: tx = tid % 16 owns units 2 tx, 2 tx + 1 of the block,
+                         // ty = tid / 16 rows 4 ty .. 4 ty + 3 of its tile
+
+// grid (H / WU, row tiles of the wave, 2 directions), WT threads, cooperative.
+// `rows` and `T` give the tensors' layout (Order), [row0, row0 + nrows) the
+// rows of this launch. With SAVE the post-activation gates (laid out as xp)
+// and the cell state (as xp, H wide) are written too, as steps_kernel does.
+template <class Order, bool SAVE>
+static __global__ void __launch_bounds__(WT)
+wide_steps_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
+                  float* out, float* __restrict__ gates, float* __restrict__ cs, int rows,
+                  int T, int H, int row0, int nrows) {
+  __shared__ __align__(16) float As[2][WK][WR];      // h of the previous step, [k][row]
+  __shared__ __align__(16) float Bs[2][WK][4 * WU];  // W_hh, [k][gate][unit]
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int d = blockIdx.z, G = 4 * H;
+  const int j0 = blockIdx.x * WU, j = j0 + 2 * tx;  // the block's first unit; this thread's
+  const int rt = row0 + blockIdx.y * WR, end = row0 + nrows;
+  const size_t dir = (size_t)d * rows * T;  // direction d of xp, gates and c, in (row, t) pairs
+  const float* wd = w_hh + (size_t)d * H * G;
+  const int a_r = tid / 4, a_k = (tid % 4) * 4;  // the h tile: 4 k of one row per thread
+  const bool a_ok = rt + a_r < end;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  float c_state[4][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) c_state[r][0] = c_state[r][1] = 0.0f;
+
+  for (int step = 0; step < T; ++step) {
+    const int t = d == 0 ? step : T - 1 - step;
+    const int tp = d == 0 ? t - 1 : t + 1;  // the direction's previous step
+
+    // this step's slab of xp, asked for now and used after the product
+    float2 xv[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rt + 4 * ty + r;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        xv[r][q] = row < end ? __ldcs(reinterpret_cast<const float2*>(
+                                   xp + (dir + Order::pos(row, t, rows, T)) * G + q * H + j))
+                             : make_float2(0.0f, 0.0f);
+    }
+
+    float acc[4][2][4];  // [row][unit][gate]
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][u][q] = 0.0f;
+
+    if (step > 0) {
+      const float* arow =
+          out + Order::pos(a_ok ? rt + a_r : row0, tp, rows, T) * (2 * H) + d * H + a_k;
+      float4 ar, br[4];
+      auto fetch = [&](int k0) {
+        ar = a_ok ? __ldcg(reinterpret_cast<const float4*>(arow + k0)) : zero;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int idx = tid + WT * i, k = idx / 32, q = (idx / 8) % 4, u4 = (idx % 8) * 4;
+          br[i] = __ldg(reinterpret_cast<const float4*>(wd + (size_t)(k0 + k) * G + q * H +
+                                                        j0 + u4));
+        }
+      };
+      fetch(0);
+      const int tiles = H / WK;
+      for (int tile = 0; tile < tiles; ++tile) {
+        const int buf = tile & 1;
+        As[buf][a_k][a_r] = ar.x;
+        As[buf][a_k + 1][a_r] = ar.y;
+        As[buf][a_k + 2][a_r] = ar.z;
+        As[buf][a_k + 3][a_r] = ar.w;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int idx = tid + WT * i;
+          *reinterpret_cast<float4*>(&Bs[buf][idx / 32][(idx % 32) * 4]) = br[i];
+        }
+        __syncthreads();  // this tile is in place; the other buffer's readers are done
+        if (tile + 1 < tiles) fetch((tile + 1) * WK);
+#pragma unroll
+        for (int kk = 0; kk < WK; ++kk) {
+          const float4 a4 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
+          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+          float2 b[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            b[q] = *reinterpret_cast<const float2*>(&Bs[buf][kk][q * WU + 2 * tx]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc[r][0][q] += a[r] * b[q].x;
+              acc[r][1][q] += a[r] * b[q].y;
+            }
+        }
+        // No barrier here: the next turn writes the other buffer, whose last
+        // readers all passed this turn's barrier after they finished with it
+        // (H / WK is even, so a step ends on buffer 1 and the next begins on 0).
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rt + 4 * ty + r;
+      float hv[2], cv[2], act[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float g[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) g[q] = acc[r][u][q] + (u ? xv[r][q].y : xv[r][q].x);
+        act[u][0] = sigm(g[0]);
+        act[u][1] = sigm(g[1]);
+        act[u][2] = tanhf(g[2]);
+        act[u][3] = sigm(g[3]);
+        const float cn = act[u][1] * c_state[r][u] + act[u][0] * act[u][2];
+        c_state[r][u] = cn;
+        cv[u] = cn;
+        hv[u] = act[u][3] * tanhf(cn);
+      }
+      if (row < end) {
+        const size_t p = Order::pos(row, t, rows, T);
+        *reinterpret_cast<float2*>(out + p * (2 * H) + d * H + j) = make_float2(hv[0], hv[1]);
+        if (SAVE) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            *reinterpret_cast<float2*>(gates + (dir + p) * G + q * H + j) =
+                make_float2(act[0][q], act[1][q]);
+          *reinterpret_cast<float2*>(cs + (dir + p) * H + j) = make_float2(cv[0], cv[1]);
+        }
+      }
+    }
+    if (step + 1 < T) grid.sync();  // this step's h is written everywhere before it is read
+  }
+}
+
+// grid (H / WU, row tiles of the wave, 2 directions), WT threads, cooperative:
+// the training core's backward at a wide H. Inputs and output are
+// time-ordered as in core_bwd_kernel (bilstm_core.cu): gates (2, T, rows, 4H)
+// post-activation, c (2, T, rows, H), d(out) (T, rows, 2H) -> dg (2, T, rows,
+// 4H) = d(xp). A block owns the same (units, rows, direction) as in the
+// forward and carries their dc in registers; per step dh of its units is the
+// previous step's d_pre of all 4 H columns (read back from dg) times W_hh's
+// rows of those units: a product of K = 4H, in tiles of WK staged as [n][row]
+// and [n][unit], a thread holding 4 rows x 2 units.
+static __global__ void __launch_bounds__(WT)
+wide_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
+                const float* __restrict__ w_hh, const float* __restrict__ dout, float* dg,
+                int rows, int T, int H, int row0, int nrows) {
+  __shared__ __align__(16) float As[2][WK][WR];  // d_pre of the previous step, [n][row]
+  __shared__ __align__(16) float Bs[2][WK][WU];  // W_hh^T, [n][unit]
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int d = blockIdx.z, G = 4 * H;
+  const int j0 = blockIdx.x * WU, j = j0 + 2 * tx;
+  const int rt = row0 + blockIdx.y * WR, end = row0 + nrows;
+  const size_t dir = (size_t)d * rows * T;
+  const float* wd = w_hh + (size_t)d * H * G;
+  const int a_r = tid / 4, a_k = (tid % 4) * 4;  // the d_pre tile: 4 n of one row per thread
+  const bool a_ok = rt + a_r < end;
+  const float* brow = wd + (size_t)(j0 + tid / 4) * G + a_k;  // the W_hh tile: 4 n of one unit
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  float dc[4][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) dc[r][0] = dc[r][1] = 0.0f;
+
+  for (int step = T - 1; step >= 0; --step) {
+    const int t = d == 0 ? step : T - 1 - step;
+    const int tn = d == 0 ? t + 1 : t - 1;  // the step processed before this one
+    const int tp = d == 0 ? t - 1 : t + 1;  // the direction's previous step (its c)
+
+    // this step's residuals, asked for now and used after the product
+    float2 g[4][4], c[4], c_prev[4], dov[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rt + 4 * ty + r;
+      const bool ok = row < end;
+      const size_t p = dir + (size_t)t * rows + row;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        g[r][q] = ok ? __ldcs(reinterpret_cast<const float2*>(gates + p * G + q * H + j))
+                     : make_float2(0.0f, 0.0f);
+      c[r] = ok ? __ldcs(reinterpret_cast<const float2*>(cs + p * H + j))
+                : make_float2(0.0f, 0.0f);
+      c_prev[r] = ok && step > 0 ? __ldg(reinterpret_cast<const float2*>(
+                                       cs + (dir + (size_t)tp * rows + row) * H + j))
+                                 : make_float2(0.0f, 0.0f);
+      dov[r] = ok ? __ldcs(reinterpret_cast<const float2*>(
+                        dout + ((size_t)t * rows + row) * (2 * H) + d * H + j))
+                  : make_float2(0.0f, 0.0f);
+    }
+
+    float acc[4][2];  // dh: [row][unit]
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = 0.0f;
+
+    if (step < T - 1) {
+      const float* arow = dg + (dir + (size_t)tn * rows + (a_ok ? rt + a_r : row0)) * G + a_k;
+      float4 ar, br;
+      auto fetch = [&](int n0) {
+        ar = a_ok ? __ldcg(reinterpret_cast<const float4*>(arow + n0)) : zero;
+        br = __ldg(reinterpret_cast<const float4*>(brow + n0));
+      };
+      fetch(0);
+      const int tiles = G / WK;
+      for (int tile = 0; tile < tiles; ++tile) {
+        const int buf = tile & 1;
+        As[buf][a_k][a_r] = ar.x;
+        As[buf][a_k + 1][a_r] = ar.y;
+        As[buf][a_k + 2][a_r] = ar.z;
+        As[buf][a_k + 3][a_r] = ar.w;
+        Bs[buf][a_k][tid / 4] = br.x;
+        Bs[buf][a_k + 1][tid / 4] = br.y;
+        Bs[buf][a_k + 2][tid / 4] = br.z;
+        Bs[buf][a_k + 3][tid / 4] = br.w;
+        __syncthreads();  // this tile is in place; the other buffer's readers are done
+        if (tile + 1 < tiles) fetch((tile + 1) * WK);
+#pragma unroll
+        for (int kk = 0; kk < WK; ++kk) {
+          const float4 a4 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
+          const float2 b = *reinterpret_cast<const float2*>(&Bs[buf][kk][2 * tx]);
+          acc[0][0] += a4.x * b.x;
+          acc[0][1] += a4.x * b.y;
+          acc[1][0] += a4.y * b.x;
+          acc[1][1] += a4.y * b.y;
+          acc[2][0] += a4.z * b.x;
+          acc[2][1] += a4.z * b.y;
+          acc[3][0] += a4.w * b.x;
+          acc[3][1] += a4.w * b.y;
+        }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rt + 4 * ty + r;
+      float dp[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float gi = u ? g[r][0].y : g[r][0].x, gf = u ? g[r][1].y : g[r][1].x;
+        const float gg = u ? g[r][2].y : g[r][2].x, go = u ? g[r][3].y : g[r][3].x;
+        const float cc = u ? c[r].y : c[r].x, cp = u ? c_prev[r].y : c_prev[r].x;
+        const float tc = tanhf(cc);
+        const float dh_tot = (u ? dov[r].y : dov[r].x) + acc[r][u];
+        const float dcv = dc[r][u] + dh_tot * go * (1.0f - tc * tc);
+        dp[u][0] = dcv * gg * gi * (1.0f - gi);
+        dp[u][1] = dcv * cp * gf * (1.0f - gf);
+        dp[u][2] = dcv * gi * (1.0f - gg * gg);
+        dp[u][3] = dh_tot * tc * go * (1.0f - go);
+        dc[r][u] = dcv * gf;
+      }
+      if (row < end) {
+        float* op = dg + (dir + (size_t)t * rows + row) * G + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          *reinterpret_cast<float2*>(op + q * H) = make_float2(dp[0][q], dp[1][q]);
+      }
+    }
+    if (step > 0) grid.sync();  // this step's d_pre is written everywhere before it is read
+  }
+}
+
+// How many blocks of a wide step kernel the current device holds at once.
+template <class Kernel>
+inline cudaError_t wide_capacity(int* n, Kernel kernel) {
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, WT, 0);
+  *n = sms * per;
+  return err;
+}
+
+// Rows one cooperative launch takes at H units with `capacity` resident
+// blocks: whole row tiles, each 2 H / WU blocks (0: not even one tile fits).
+inline int wide_wave_rows(int H, int capacity) { return capacity / (2 * (H / WU)) * WR; }
+
+// `kernel` over `rows` rows at H units, one cooperative launch per wave of
+// rows; its arguments are `args...` followed by (row0, nrows). A refused
+// launch returns CUDA's error: there is no other path.
+template <class Kernel, class... Args>
+inline cudaError_t wide_run(Kernel kernel, int H, int rows, cudaStream_t stream, Args... args) {
+  int capacity = 0;
+  cudaError_t err = wide_capacity(&capacity, kernel);
+  if (err != cudaSuccess) return err;
+  const int wave = wide_wave_rows(H, capacity);
+  if (wave <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  for (int row0 = 0; row0 < rows; row0 += wave) {
+    const int n = rows - row0 < wave ? rows - row0 : wave;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(H / WU, (n + WR - 1) / WR, 2);
+    config.blockDim = dim3(WT, 1, 1);
+    config.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+    config.attrs = &attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, kernel, args..., row0, n);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+using WideStepsKernel = void (*)(const float*, const float*, float*, float*, float*, int, int,
+                                 int, int, int);
+// The wide step loop of a layer: a row's steps together, nothing saved.
+inline WideStepsKernel layer_wide_kernel() { return wide_steps_kernel<RowMajor, false>; }
+
+// One layer over `rows` rows (one chunk) at any H the JAX gate sends to a
+// kernel (a multiple of 128): the cluster step at 128 and 256, the wide loop
+// from 384 up. x (rows, T, in) -> out (rows, T, 2H); xp is scratch for 2 *
+// rows * T * 4H floats.
+inline cudaError_t run_layer_h(int H, const float* x, int in, const float* w_ih,
+                               const float* w_hh, const float* gb, float* xp, float* out,
+                               int rows, int T, cudaStream_t stream) {
+  if (H == 128) return run_layer<128>(x, in, w_ih, w_hh, gb, xp, out, rows, T, stream);
+  if (H == 256) return run_layer<256>(x, in, w_ih, w_hh, gb, xp, out, rows, T, stream);
+  const cudaError_t err = launch_proj<0>(x, in, w_ih, gb, xp, rows * T, stream, 4 * H);
+  if (err != cudaSuccess) return err;
+  return wide_run(layer_wide_kernel(), H, rows, stream, (const float*)xp, w_hh, out,
+                  (float*)nullptr, (float*)nullptr, rows, T, H);
+}
+
+// Whether the layer kernels take `hidden` units: a multiple of 128.
+inline bool takes_hidden(int hidden) { return hidden > 0 && hidden % 128 == 0; }
 
 }  // namespace bilstm

@@ -5,7 +5,9 @@
 // (f = 0..F-1) and reverse (f = F-1..0) recurrences h.W_hh with torch gate
 // order i, f, g, o, and the output projection
 //   out = sum_f h_fwd(f).W_proj[f, 0] + h_rev(f).W_proj[f, 1] + b_proj,
-// where W_proj's row index is f*2H + d*H + h.
+// where W_proj's row index is f*2H + d*H + h. The JAX gate sends it any H
+// that is a multiple of 128 and any OUT (sdfa_tpu/nn/recurrent.py:427-435);
+// so does this one.
 //
 // What bounds it on the H100: operations, and before them latency. At the
 // flagship shapes (F=32, C=64, H=128, OUT=256) a row costs 32 steps x 2
@@ -22,24 +24,31 @@
 // 1. proj_kernel<4H> of bilstm_layer.cuh: xp[d] = x.W_ih[d] + gate bias for all
 //    (row, f) pairs and both directions, one tiled f32 product ahead of the
 //    recurrence.
-// 2. steps_kernel<128, ...> of bilstm_layer.cuh, the cluster step of the other
-//    biLSTM kernels: a cluster of 4 blocks holds ONE direction's W_hh (256 KB)
-//    in shared memory for the whole launch and owns 32 rows, h goes round
-//    through distributed shared memory, two sub-tiles take turns. The two
-//    directions run in different clusters side by side, so the chain is F
-//    steps long, not 2 F. h (rows, F, 2H) goes to scratch.
+// 2. the step loop of bilstm_layer.cuh over the frequency steps. At H = 128,
+//    steps_kernel<128, ...>, the cluster step of the other biLSTM kernels: a
+//    cluster of 4 blocks holds ONE direction's W_hh (256 KB) in shared
+//    memory for the whole launch and owns 32 rows, h goes round through
+//    distributed shared memory, two sub-tiles take turns. The two directions
+//    run in different clusters side by side, so the chain is F steps long,
+//    not 2 F. At H = 256 the layer kernels' instantiation (clusters of 8
+//    blocks, 32 rows), from H = 384 on the wide step loop (W_hh through L2,
+//    one grid-wide barrier a step). h (rows, F, 2H) goes to scratch.
 // 3. out_parts_kernel + out_sum_kernel: out = h.reshape(rows, F 2H).W_proj +
 //    b_proj as the same tiled f32 product. With 256 output columns and a few
 //    hundred rows a plain tiling has a dozen tiles for 132 multiprocessors, so
-//    K = F 2H is split in slabs of KSLAB (two frequency steps), one block per
-//    (tile, slab), partial sums to scratch; out_sum_kernel adds the slabs in
-//    slab order, then the bias. No atomics: results repeat bit for bit.
+//    K = F 2H is split in slabs of KSLAB, one block per (tile, slab), partial
+//    sums to scratch; out_sum_kernel adds the slabs in slab order, then the
+//    bias. No atomics: results repeat bit for bit. OUT is a run-time width:
+//    the last column tile is padded (its loads zero, its stores skipped), and
+//    an OUT that is no multiple of 4 (or an unaligned W_proj / b_proj) takes
+//    scalar loads and stores instead of float4.
 //
 // Scratch, sized by the caller for one chunk of rows: xp 2 x 4H floats per
-// (row, f) pair (128 KB a row at F = 32), h 2H floats per pair (32 KB a row),
-// the partial sums F 2H / KSLAB x OUT floats a row (16 KB). The caller takes
-// whole waves of resident clusters as a chunk (62 clusters of 4 on the H100:
-// 992 rows), so no chunk ends in a barely filled wave of its own making.
+// (row, f) pair (128 KB a row at F = 32, H = 128), h 2H floats per pair (32
+// KB a row), the partial sums F 2H / KSLAB x OUT floats a row (16 KB). The
+// caller takes whole waves of resident clusters (of the wide loop's row tiles,
+// both directions) as a chunk (62 clusters of 4 on the H100 at H = 128: 992
+// rows), so no chunk ends in a barely filled wave of its own making.
 //
 // f32 throughout (expf/tanhf, no fast-math), sums in another order than the
 // plain version's.
@@ -49,32 +58,46 @@ using namespace bilstm;
 
 namespace {
 
-constexpr int FH = 128;      // hidden units per direction
-constexpr int FG = 4 * FH;   // gate width
-constexpr int OUT = 256;     // projection width
-constexpr int KSLAB = 512;   // K range of one partial sum of the output projection
-static_assert(OUT % PN == 0 && KSLAB % PK == 0 && KSLAB % 4 == 0, "the product's tiles");
+constexpr int KSLAB = 512;  // K range of one partial sum of the output projection
+static_assert(KSLAB % PK == 0 && KSLAB % 4 == 0, "the product's tiles");
 
 // Row groups of 8 to a sub-tile (a cluster owns 16 RG rows) and blocks a
-// multiprocessor should hold: compile-time constants, chosen on the card
-// (chip_smoke.py --profile builds the other row tile with -D and times it).
+// multiprocessor should hold at H = 128: compile-time constants, chosen on the
+// card (chip_smoke.py --profile builds the other row tile with -D and times it).
 #ifndef SDFA_FREQ_RG
 #define SDFA_FREQ_RG 2
 #endif
-using FreqDims = StepDims<FH, SDFA_FREQ_RG>;
+using FreqDims = StepDims<128, SDFA_FREQ_RG>;
 inline StepsKernel freq_steps_kernel() {
-  return steps_kernel<FH, SDFA_FREQ_RG, RowMajor, false, 2>;
+  return steps_kernel<128, SDFA_FREQ_RG, RowMajor, false, 2>;
 }
 
-// part[s] (M, OUT) = h[:, s KSLAB .. (s + 1) KSLAB) . W_proj[the same rows].
-// grid (OUT / PN, ceil(M / PM), slabs). It is proj_kernel's tile (PM x PN, PK
-// deep, 8 x 8 outputs a thread, the next tile fetched into registers while
+// Four consecutive columns n .. n + 3 of B's row k (zero from K or N on); B
+// has N floats to a row. VEC: N is a multiple of 4 and B 16-byte aligned.
+template <bool VEC>
+__device__ __forceinline__ float4 load_b4(const float* b, int k, int K, int n, int N) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (k >= K) return v;
+  const float* p = b + (size_t)k * N + n;
+  if (VEC) return n < N ? __ldg(reinterpret_cast<const float4*>(p)) : v;
+  if (n < N) v.x = __ldg(p);
+  if (n + 1 < N) v.y = __ldg(p + 1);
+  if (n + 2 < N) v.z = __ldg(p + 2);
+  if (n + 3 < N) v.w = __ldg(p + 3);
+  return v;
+}
+
+// part[s] (M, N) = h[:, s KSLAB .. (s + 1) KSLAB) . W_proj[the same rows].
+// grid (ceil(N / PN), ceil(M / PM), slabs). It is proj_kernel's tile (PM x PN,
+// PK deep, 8 x 8 outputs a thread, the next tile fetched into registers while
 // this one is multiplied) over a K range of its own, with a row stride of A
-// apart from that range; the layer kernels' proj_kernel is left as it is, since
-// one loop shared by both cost their projection 1% on the card.
+// apart from that range and the output width N a run-time value, its last
+// tile padded; the layer kernels' proj_kernel is left as it is, since one loop
+// shared by both cost their projection 1% on the card.
+template <bool VEC>
 __global__ void __launch_bounds__(PT, 2)
 out_parts_kernel(const float* __restrict__ h, const float* __restrict__ w_proj,
-                 float* __restrict__ part, int M, int K) {
+                 float* __restrict__ part, int M, int K, int N) {
   __shared__ __align__(16) float As[2][PK][PM];
   __shared__ __align__(16) float Bs[2][PK][PN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -84,7 +107,6 @@ out_parts_kernel(const float* __restrict__ h, const float* __restrict__ w_proj,
   const int b_k = tid / 32, b_n = (tid % 32) * 4;  // W tile: rows b_k, b_k + 8, one float4 each
   const bool row_ok = m0 + a_m < M;
   const float* arow = h + (size_t)(row_ok ? m0 + a_m : 0) * K;
-  const float* bcol = w_proj + n0 + b_n;
 
   float acc[8][8];
 #pragma unroll
@@ -95,7 +117,8 @@ out_parts_kernel(const float* __restrict__ h, const float* __restrict__ w_proj,
   float ar[8];
   float4 br[2];
   load_a(arow, row_ok, k0 + a_k, k1, 1, ar);
-  load_b<OUT>(bcol, k0 + b_k, k1, br);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) br[i] = load_b4<VEC>(w_proj, k0 + b_k + 8 * i, k1, n0 + b_n, N);
   const int tiles = (k1 - k0 + PK - 1) / PK;
   for (int tile = 0; tile < tiles; ++tile) {
     const int buf = tile & 1;
@@ -105,8 +128,10 @@ out_parts_kernel(const float* __restrict__ h, const float* __restrict__ w_proj,
     for (int i = 0; i < 2; ++i) *reinterpret_cast<float4*>(&Bs[buf][b_k + 8 * i][b_n]) = br[i];
     __syncthreads();  // this tile is in place; the other buffer's readers are done (see below)
     if (tile + 1 < tiles) {
-      load_a(arow, row_ok, k0 + (tile + 1) * PK + a_k, k1, 1, ar);
-      load_b<OUT>(bcol, k0 + (tile + 1) * PK + b_k, k1, br);
+      const int kn = k0 + (tile + 1) * PK;
+      load_a(arow, row_ok, kn + a_k, k1, 1, ar);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) br[i] = load_b4<VEC>(w_proj, kn + b_k + 8 * i, k1, n0 + b_n, N);
     }
 #pragma unroll
     for (int kk = 0; kk < PK; ++kk) {
@@ -125,60 +150,104 @@ out_parts_kernel(const float* __restrict__ h, const float* __restrict__ w_proj,
     // readers all passed this turn's barrier after they finished with it.
   }
 
-  float* out = part + (size_t)blockIdx.z * M * OUT;
+  float* out = part + (size_t)blockIdx.z * M * N;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + (i / 4) * 64 + ty * 4 + i % 4;
     if (m >= M) continue;
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
-      *reinterpret_cast<float4*>(out + (size_t)m * OUT + n0 + half * 64 + tx * 4) = make_float4(
-          acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2], acc[i][4 * half + 3]);
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + half * 64 + tx * 4;
+      float* o = out + (size_t)m * N + n;
+      const float* a = acc[i] + 4 * half;
+      if (VEC) {
+        if (n < N) *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < N) o[e] = a[e];
+      }
+    }
   }
 }
 
-// out (M, OUT) = part[0] + part[1] + ... in slab order, then + b_proj.
+// out (M, N) = part[0] + part[1] + ... in slab order, then + b_proj; VEC: four
+// columns a thread.
+template <bool VEC>
 __global__ void __launch_bounds__(256)
-out_sum_kernel(const float4* __restrict__ part, const float4* __restrict__ b_proj,
-               float4* __restrict__ out, int M, int slabs) {
-  const int n4 = M * (OUT / 4);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  float4 sum = part[i];
-  for (int s = 1; s < slabs; ++s) {
-    const float4 v = part[(size_t)s * n4 + i];
-    sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+out_sum_kernel(const float* __restrict__ part, const float* __restrict__ b_proj,
+               float* __restrict__ out, int M, int N, int slabs) {
+  const int W = VEC ? 4 : 1;
+  const int n_items = M * (N / W), i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_items) return;
+  const size_t plane = (size_t)M * N;
+  if (VEC) {
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    float4 sum = p4[i];
+    for (int s = 1; s < slabs; ++s) {
+      const float4 v = p4[(size_t)s * (plane / 4) + i];
+      sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+    }
+    if (b_proj) {
+      const float4 b = reinterpret_cast<const float4*>(b_proj)[i % (N / 4)];
+      sum.x += b.x; sum.y += b.y; sum.z += b.z; sum.w += b.w;
+    }
+    reinterpret_cast<float4*>(out)[i] = sum;
+  } else {
+    float sum = part[i];
+    for (int s = 1; s < slabs; ++s) sum += part[(size_t)s * plane + i];
+    if (b_proj) sum += b_proj[i % N];
+    out[i] = sum;
   }
-  if (b_proj) {
-    const float4 b = b_proj[i % (OUT / 4)];
-    sum.x += b.x; sum.y += b.y; sum.z += b.z; sum.w += b.w;
-  }
-  out[i] = sum;
+}
+
+// The step loop over a chunk's n rows at H units, from xp into h.
+cudaError_t run_steps(const float* xp, const float* w_hh, float* h, int n, int F, int H,
+                      cudaStream_t stream) {
+  if (H > 256)
+    return wide_run(layer_wide_kernel(), H, n, stream, xp, w_hh, h, (float*)nullptr,
+                    (float*)nullptr, n, F, H);
+  const StepsKernel kernel = H == 128 ? freq_steps_kernel() : layer_steps_kernel<256>();
+  const int cl = H == 128 ? FreqDims::CL : LayerDims<256>::CL;
+  const int rt = H == 128 ? FreqDims::RT : LayerDims<256>::RT;
+  const int threads = H == 128 ? FreqDims::THREADS : LayerDims<256>::THREADS;
+  const int smem = H == 128 ? FreqDims::SMEM : LayerDims<256>::SMEM;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  const cudaError_t err = cluster_config(config, attr, kernel, dim3(cl, (n + rt - 1) / rt, 2),
+                                         threads, smem, cl, stream);
+  if (err != cudaSuccess) return err;
+  return cudaLaunchKernelEx(&config, kernel, xp, w_hh, h, (float*)nullptr, (float*)nullptr, n,
+                            F);
 }
 
 // One chunk of n rows through the three phases.
 cudaError_t run_chunk(const float* x, const float* w_ih, const float* w_hh, const float* gb,
                       const float* w_proj, const float* b_proj, float* xp, float* h, float* part,
-                      float* out, int n, int F, int C, cudaStream_t stream) {
-  cudaError_t err = launch_proj<FG>(x, C, w_ih, gb, xp, n * F, stream);
+                      float* out, int n, int F, int C, int H, int N, cudaStream_t stream) {
+  cudaError_t err = H == 128   ? launch_proj<512>(x, C, w_ih, gb, xp, n * F, stream)
+                    : H == 256 ? launch_proj<1024>(x, C, w_ih, gb, xp, n * F, stream)
+                               : launch_proj<0>(x, C, w_ih, gb, xp, n * F, stream, 4 * H);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr;
-  err = cluster_config(config, attr, freq_steps_kernel(),
-                       dim3(FreqDims::CL, (n + FreqDims::RT - 1) / FreqDims::RT, 2),
-                       FreqDims::THREADS, FreqDims::SMEM, FreqDims::CL, stream);
+  err = run_steps(xp, w_hh, h, n, F, H, stream);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&config, freq_steps_kernel(), (const float*)xp, w_hh, h,
-                           (float*)nullptr, (float*)nullptr, n, F);
-  if (err != cudaSuccess) return err;
-  const int K = F * 2 * FH, slabs = (K + KSLAB - 1) / KSLAB;
-  out_parts_kernel<<<dim3(OUT / PN, (n + PM - 1) / PM, slabs), PT, 0, stream>>>(h, w_proj, part,
-                                                                              n, K);
+  const int K = F * 2 * H, slabs = (K + KSLAB - 1) / KSLAB;
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(w_proj) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(b_proj) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid((N + PN - 1) / PN, (n + PM - 1) / PM, slabs);
+  if (vec)
+    out_parts_kernel<true><<<grid, PT, 0, stream>>>(h, w_proj, part, n, K, N);
+  else
+    out_parts_kernel<false><<<grid, PT, 0, stream>>>(h, w_proj, part, n, K, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  out_sum_kernel<<<(n * (OUT / 4) + 255) / 256, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(part), reinterpret_cast<const float4*>(b_proj),
-      reinterpret_cast<float4*>(out), n, slabs);
+  const int items = vec ? n * (N / 4) : n * N;
+  if (vec)
+    out_sum_kernel<true><<<(items + 255) / 256, 256, 0, stream>>>(part, b_proj, out, n, N, slabs);
+  else
+    out_sum_kernel<false><<<(items + 255) / 256, 256, 0, stream>>>(part, b_proj, out, n, N,
+                                                                    slabs);
   return cudaGetLastError();
 }
 
@@ -190,25 +259,30 @@ extern "C" int sdfa_freq_lstm(const float* x, const float* w_ih, const float* w_
                               const float* gb, const float* w_proj, const float* b_proj,
                               float* xp, float* h, float* part, float* out, int rows, int F,
                               int C, int hidden, int out_dim, int chunk, cudaStream_t stream) {
-  if (hidden != FH || out_dim != OUT || C <= 0 || F <= 0 || chunk <= 0)
+  if (!takes_hidden(hidden) || out_dim <= 0 || C <= 0 || F <= 0 || chunk <= 0)
     return (int)cudaErrorInvalidValue;
   for (int row0 = 0; row0 < rows; row0 += chunk) {
     const int n = rows - row0 < chunk ? rows - row0 : chunk;
-    const cudaError_t err = run_chunk(x + (size_t)row0 * F * C, w_ih, w_hh, gb, w_proj, b_proj,
-                                      xp, h, part, out + (size_t)row0 * OUT, n, F, C, stream);
+    const cudaError_t err =
+        run_chunk(x + (size_t)row0 * F * C, w_ih, w_hh, gb, w_proj, b_proj, xp, h, part,
+                  out + (size_t)row0 * out_dim, n, F, C, hidden, out_dim, stream);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
 }
 
-// n[0]: how many clusters of the step kernel the card holds at once; n[1]: the
-// rows a cluster owns; n[2]: the K range of one partial sum of the output
-// projection.
+// n[0], n[1]: how many clusters of the step kernel the card holds at once at H
+// = 128 and at H = 256; n[2]: how many blocks of the wide step loop; n[3]: the
+// rows a cluster owns at H = 128 (32 at 256 and in the wide loop, as built by
+// default); n[4]: the K range of one partial sum of the output projection.
 extern "C" int sdfa_freq_lstm_tiling(int* n) {
-  n[1] = FreqDims::RT;
-  n[2] = KSLAB;
-  return (int)max_active_clusters(n, freq_steps_kernel(), FreqDims::THREADS, FreqDims::SMEM,
-                                  FreqDims::CL);
+  n[3] = FreqDims::RT;
+  n[4] = KSLAB;
+  cudaError_t err = max_active_clusters(n, freq_steps_kernel(), FreqDims::THREADS,
+                                        FreqDims::SMEM, FreqDims::CL);
+  if (err == cudaSuccess) err = layer_max_active_clusters<256>(n + 1);
+  if (err == cudaSuccess) err = wide_capacity(n + 2, layer_wide_kernel());
+  return (int)err;
 }
 
 extern "C" const char* sdfa_error_string(int code) {

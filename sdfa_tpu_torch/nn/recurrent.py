@@ -13,9 +13,10 @@ behind one call) or ``ops.bilstm_layer`` (per layer), FreqLstm "full" runs
 ``ops.freq_lstm``; in training mode every bidirectional layer computes its
 input projection as a library product, which autograd differentiates, and
 runs the recurrences through ``ops.bilstm_core``, whose backward is a kernel
-as well. On a card, a shape no kernel of the port takes takes the plain
-recurrence where JAX takes its scan (counted in ``ops.PLAIN_ROUTES``), and
-raises where JAX runs a Pallas kernel the port has no instantiation of yet.
+as well. On a card every shape the JAX gate sends to a Pallas kernel runs a
+kernel of the port (any hidden width that is a multiple of 128); a shape no
+kernel takes — where JAX takes its scan — runs the plain recurrence, counted
+in ``ops.PLAIN_ROUTES``.
 On the CPU every layer goes through its wrapper, which is its plain version
 there; under ``ops.plain_versions()`` the modules take the plain versions.
 FreqLstm "last" and LSTM2d are built of 1-layer bidirectional LSTMs and
@@ -46,55 +47,29 @@ from .layers import FullyConnected, dropout
 PLAIN = "plain"
 
 
-# The JAX kernels' gate: widths a multiple of the TPU's lane count (FreqLstm's
-# input a multiple of its sublane count); outside it JAX takes its scan.
-LANES, SUBLANES = 128, 8
-
-
-def _no_kernel(kernel: str, **shape) -> ValueError:
-    return ValueError(f"{kernel}: the JAX package runs a Pallas kernel at {shape} and the port "
-                      "has no instantiation of it yet (ROADMAP B)")
-
-
 def bilstm_routes(hidden: int, sizes: Sequence[int], training: bool) -> Tuple[str, ...]:
     """The route on a card of each layer of a bidirectional LSTM stack whose
     layers take ``sizes`` input features, from the shapes alone. Training:
     ``"bilstm_core"`` where its kernels take H. Eval: ``"bilstm2"`` for both
     layers of a 2-layer stack its kernel takes, else per layer
-    ``"bilstm_layer"`` where its kernel takes (H, in), so a 2-layer stack the
-    2-layer kernel cannot take goes layer by layer. A layer no kernel takes
-    is ``"plain"`` where the JAX module takes its scan (H, or in eval the
-    input, not a multiple of 128: ``sdfa_tpu/nn/recurrent.py:236-238,
-    293-304``); where JAX runs a Pallas kernel instead, a ``ValueError``."""
+    ``"bilstm_layer"`` where its kernel takes (H, in). The kernels take every
+    H that is a multiple of 128 and any input width: all the JAX module sends
+    to its Pallas kernels (``sdfa_tpu/nn/recurrent.py:236-238, 293-304``) and
+    the inputs it scans; a layer no kernel takes (H not a multiple of 128,
+    where JAX takes its scan too) is ``"plain"``."""
     if training:
-        if core_takes(hidden):
-            return ("bilstm_core",) * len(sizes)
-        if hidden % LANES == 0:
-            raise _no_kernel("bilstm_core", hidden=hidden)
-        return (PLAIN,) * len(sizes)
-    per = []
-    for n in sizes:
-        if layer_takes(hidden, n):
-            per.append("bilstm_layer")
-        elif hidden % LANES == 0 and n % LANES == 0:
-            raise _no_kernel("bilstm_layer", hidden=hidden, n_in=n)
-        else:
-            per.append(PLAIN)
-    if per == ["bilstm_layer", "bilstm_layer"]:
-        return ("bilstm2", "bilstm2")
-    return tuple(per)
+        return ("bilstm_core" if core_takes(hidden) else PLAIN,) * len(sizes)
+    per = tuple("bilstm_layer" if layer_takes(hidden, n) else PLAIN for n in sizes)
+    return ("bilstm2", "bilstm2") if per == ("bilstm_layer", "bilstm_layer") else per
 
 
-def freq_route(hidden: int, out: int, n_in: int) -> str:
+def freq_route(hidden: int, out: int) -> str:
     """FreqLstm "full" in eval mode on a card: ``"freq_lstm"`` where its
-    kernels take (H, out); else ``"plain"`` where the JAX module takes its
-    scan (H not a multiple of 128 or ``n_in`` of 8: ``recurrent.py:427-435``),
-    and a ``ValueError`` where it runs its Pallas kernel."""
-    if freq_takes(hidden, out):
-        return "freq_lstm"
-    if hidden % LANES == 0 and n_in % SUBLANES == 0:
-        raise _no_kernel("freq_lstm", hidden=hidden, out=out, n_in=n_in)
-    return PLAIN
+    kernels take (H, out) — every H that is a multiple of 128, any output and
+    any input width, all the JAX module sends to its Pallas kernel
+    (``recurrent.py:427-435``) — else ``"plain"``, where JAX takes its scan
+    too."""
+    return "freq_lstm" if freq_takes(hidden, out) else PLAIN
 
 
 def on_card(x) -> bool:
@@ -345,8 +320,7 @@ class FreqLstm(nn.Module):
         return out[:, :, None, :] if dim4 else out
 
     def _full_eval(self, rows):
-        route = (freq_route(self.hidden_size, self.output_size, rows.shape[-1])
-                 if on_card(rows) else "freq_lstm")
+        route = freq_route(self.hidden_size, self.output_size) if on_card(rows) else "freq_lstm"
         if route == PLAIN:
             ops.plain_route(rows)
         fused = freq_lstm if route == "freq_lstm" and not ops.using_plain() else freq_lstm_plain

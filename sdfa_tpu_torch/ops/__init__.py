@@ -11,11 +11,10 @@ the kernel or raise.
 
 A module picks its route before it launches, from the shape alone, as the
 JAX modules gate their Pallas kernels: the kernel wherever one takes the
-shape; else the plain recurrence where the JAX package takes its scan, and
-a ``ValueError`` where it runs a Pallas kernel the port has not
-instantiated. ``PLAIN_ROUTES`` counts the plain routes taken on a CUDA
-tensor outside ``plain_versions()``, so that a run on a card can show that
-it took none.
+shape (every shape the JAX package sends to a Pallas kernel); else the plain
+recurrence, where the JAX package takes its scan. ``PLAIN_ROUTES`` counts
+the plain routes taken on a CUDA tensor outside ``plain_versions()``, so
+that a run on a card can show that it took none.
 
 Each kernel module also has ``cost(shape...) -> (flops, bytes)``: the work
 of one launch, the count ``chip_smoke.py`` reckons the kernel's bound from

@@ -7,9 +7,10 @@ forward, 1 reverse — and returns (rows, T, 2H) float32.
 
 One entry point, one call into the library: per row chunk it enqueues the
 layer of ``csrc/bilstm_layer.cuh`` twice (tiled input projection, then the
-step loop on a cluster of H / 32 blocks), layer 1's output stack in a scratch
-tensor between them. It takes what the per-layer kernel takes for both
-layers (``bilstm_layer.takes``: H = 128 or 256). ``bilstm2_tiled`` walks the
+step loop: the cluster step at H = 128 and 256, the wide step loop from 384
+on), layer 1's output stack in a scratch tensor between them. It takes what
+the per-layer kernel takes for both layers (``bilstm_layer.takes``: any H
+that is a multiple of 128, any input width). ``bilstm2_tiled`` walks the
 same chunks and phases in plain tensors for the CPU tests.
 """
 
@@ -20,8 +21,8 @@ import collections
 import torch
 
 from . import build, note_launch
-from .bilstm_layer import (HIDDENS, MAX_IN, bilstm_layer_plain, chunk_rows, layer_tiled_chunk,
-                           scratch_rows, takes)  # one layer, one tiling, one limit
+from .bilstm_layer import (bilstm_layer_plain, chunk_rows, layer_tiled_chunk, scratch_rows,
+                           takes)  # one layer, one tiling, one limit
 from .bilstm_layer import cost as layer_cost
 
 LAUNCHES = collections.Counter()  # kernel launches by ``bilstm2`` in this process, by hidden width
@@ -43,14 +44,15 @@ def cost(rows: int, steps: int, n_in: int, hidden: int, gate_bias: bool = True):
     return f1 + f2, b1 + b2 - 2 * stack
 
 
-def bilstm2_tiled(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2):
+def bilstm2_tiled(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2, capacity=None):
     """``bilstm2_plain``'s function computed the kernel's way: per row chunk
-    all of layer 1 into the stack, then layer 2 from it."""
+    all of layer 1 into the stack, then layer 2 from it (``capacity``:
+    resident blocks of the wide step loop, from H = 384 on)."""
     chunk = chunk_rows(x.shape[1], w_hh1.shape[1])
     outs = []
     for r in range(0, x.shape[0], chunk):
-        stack = layer_tiled_chunk(x[r:r + chunk], w_ih1, w_hh1, gb1)
-        outs.append(layer_tiled_chunk(stack, w_ih2, w_hh2, gb2))
+        stack = layer_tiled_chunk(x[r:r + chunk], w_ih1, w_hh1, gb1, capacity)
+        outs.append(layer_tiled_chunk(stack, w_ih2, w_hh2, gb2, capacity))
     return torch.cat(outs)
 
 
@@ -63,7 +65,7 @@ def bilstm2(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2):
     rows, steps, n_in = x.shape
     hid = w_hh1.shape[1]
     if not (takes(hid, n_in) and takes(hid, 2 * hid)) or steps < 1:
-        raise ValueError(f"bilstm2 kernel takes H in {HIDDENS}, in<={MAX_IN}, T>=1; got x "
+        raise ValueError(f"bilstm2 kernel takes H a multiple of 128, in>=1, T>=1; got x "
                          f"{tuple(x.shape)}, w_hh {tuple(w_hh1.shape)}")
     gdim = 4 * hid
     build.check("x", x, (rows, steps, n_in))
@@ -74,6 +76,7 @@ def bilstm2(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2):
     for name, gb in (("gb1", gb1), ("gb2", gb2)):
         if gb is not None:
             build.check(name, gb, (2, gdim))
+    build.check_aligned(w_ih1=w_ih1, w_hh1=w_hh1, gb1=gb1, w_ih2=w_ih2, w_hh2=w_hh2, gb2=gb2)
     n = scratch_rows(rows, steps, hid)  # one chunk's rows: the scratch does not grow with the batch
     xp = torch.empty(2, n, steps, gdim, device=x.device, dtype=torch.float32)
     stack = torch.empty(n, steps, 2 * hid, device=x.device, dtype=torch.float32)

@@ -15,38 +15,48 @@ has them): direction 1's previous step is t + 1. As in the JAX package,
 ``dw_hh[d] = h_prev[d]ᵀ · dg[d]`` is a library product outside the kernel,
 and the input projection with its gradients belongs to the caller.
 
-On a card both passes keep w_hh in the shared memory of a thread-block
-cluster: H / 32 blocks own a tile of ``ROW_TILE[H]`` rows of one direction,
-block s the four gates of hidden units 32s … 32s+31, the same slice in both
-passes (no transposed copy of w_hh is made). The forward is the step loop of
-``csrc/bilstm_layer.cuh`` indexed by time; the backward multiplies a
-block's own d_pre columns by its slice, hands every block the partial sums
-of that block's units, and adds them in block order. What is not CUDA —
-which columns a block owns, in how many interleaved parts a product is
-summed, the order of the partial sums — lives here too:
-``forward_steps_tiled`` and ``backward_steps_tiled`` walk the same tiling in
-plain tensors so that the CPU tests reach it; nothing on a path calls them.
+On a card at ``HIDDENS`` (128 and 256) both passes keep w_hh in the shared
+memory of a thread-block cluster: H / 32 blocks own a tile of
+``ROW_TILE[H]`` rows of one direction, block s the four gates of hidden
+units 32s … 32s+31, the same slice in both passes (no transposed copy of
+w_hh is made). The forward is the step loop of ``csrc/bilstm_layer.cuh``
+indexed by time; the backward multiplies a block's own d_pre columns by its
+slice, hands every block the partial sums of that block's units, and adds
+them in block order. From H = 384 on (any multiple of 128) both passes run
+the wide step loop of the same header: w_hh read through L2, one grid-wide
+barrier a step; the backward reads the previous step's d_pre of all 4H
+columns back from d(xp) and multiplies it by w_hh's rows of its 32 units.
+What is not CUDA — which columns a block owns, in how many interleaved
+parts a product is summed, the order of the partial sums, the waves — lives
+here too: ``forward_steps_tiled`` and ``backward_steps_tiled`` walk the same
+tiling in plain tensors so that the CPU tests reach it; nothing on a path
+calls them.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import build, note_launch
-from .bilstm_layer import UNITS_PER_BLOCK, block_columns, lstm_dir
+from .bilstm_layer import (UNITS_PER_BLOCK, WIDE_K, WIDE_ROW_TILE, WIDE_UNITS, block_columns,
+                           lstm_dir, wide_run_columns, wide_steps_tiled, wide_wave_rows)
 
 FWD_LAUNCHES = 0  # forward-kernel launches in this process
 BWD_LAUNCHES = 0  # backward-kernel launches in this process
+LAUNCHES_BY_HIDDEN = collections.Counter()  # both, by ("fwd" | "bwd", hidden width)
 
-HIDDENS = (128, 256)            # what the CUDA kernels take
+HIDDENS = (128, 256)            # the widths of the cluster step; the wide step loop takes the rest
 ROW_TILE = {128: 32, 256: 16}   # rows a cluster owns, walked as two sub-tiles that take turns
 
 
 def takes(hidden: int) -> bool:
     """Whether the CUDA kernels take a recurrence of ``hidden`` units per
-    direction."""
-    return hidden in HIDDENS
+    direction: any multiple of 128, what the JAX gate sends to its Pallas
+    kernel (``sdfa_tpu/nn/recurrent.py:302-304``)."""
+    return hidden > 0 and hidden % 128 == 0
 
 
 def cost(steps: int, rows: int, hidden: int):
@@ -147,20 +157,25 @@ def sum_partials(partials, order=None):
     return total
 
 
-def forward_steps_tiled(xp, w_hh):
+def forward_steps_tiled(xp, w_hh, capacity=None):
     """``forward_steps``' function computed the forward kernel's way: per
     (sub-tile of rows, direction) a step loop in which each block of the
     cluster multiplies the full h by its own column slice (k in four
     interleaved quarters, summed pairwise as the warp exchanges do), applies
     the cell to its 32 units, writes their gates and c at their TIME index
-    and hands its h slice to the buffer the next step reads."""
+    and hands its h slice to the buffer the next step reads. From H = 384 on,
+    ``wide_steps_tiled`` with the gates and c saved (``capacity``: its
+    resident blocks)."""
     _, steps, rows, gdim = xp.shape
     hid = gdim // 4
-    per, blocks, sub = UNITS_PER_BLOCK, cluster_blocks(hid), ROW_TILE[hid] // 2
-    cols = [block_columns(b, hid) for b in range(blocks)]
     out = xp.new_empty(steps, rows, 2 * hid)
     gates = torch.empty_like(xp)
     cs = xp.new_empty(2, steps, rows, hid)
+    if hid not in HIDDENS:
+        wide_steps_tiled(xp, w_hh, out, capacity, gates, cs)
+        return out, gates, cs
+    per, blocks, sub = UNITS_PER_BLOCK, cluster_blocks(hid), ROW_TILE[hid] // 2
+    cols = [block_columns(b, hid) for b in range(blocks)]
     for row0 in range(0, rows, sub):  # a tile's sub-tiles are independent rows
         rs = slice(row0, min(row0 + sub, rows))  # the kernel computes the other rows on zeros
         n = rs.stop - rs.start
@@ -186,7 +201,47 @@ def forward_steps_tiled(xp, w_hh):
     return out, gates, cs
 
 
-def backward_steps_tiled(gates, cs, w_hh, dout, block_order=None):
+def wide_backward_steps_tiled(gates, cs, w_hh, dout, capacity=None):
+    """The wide loop's backward in plain tensors: per wave of rows (see
+    ``wide_steps_tiled``) and step, last to first, each block — a direction,
+    a row tile, a run of 32 units — computes dh of its units as the previous
+    step's d_pre of all 4H columns, read back from dg, times w_hh's rows of
+    its units (tile by tile of ``WIDE_K`` columns), adds d(out), and turns
+    it, dc and the residuals into d_pre, written to dg at its time index."""
+    _, steps, rows, gdim = gates.shape
+    hid = gdim // 4
+    wave = rows if capacity is None else wide_wave_rows(hid, capacity)
+    runs = wide_run_columns(hid)
+    dg = torch.empty_like(gates)
+    for r0 in range(0, rows, wave):  # one cooperative launch
+        r1 = min(r0 + wave, rows)
+        dc = gates.new_zeros(2, rows, hid)
+        for step in range(steps - 1, -1, -1):  # a grid-wide barrier between steps
+            for d in range(2):
+                t = step if d == 0 else steps - 1 - step
+                tn = t + 1 if d == 0 else t - 1  # the step processed before this one
+                tp = t - 1 if d == 0 else t + 1  # the direction's previous step
+                for t0 in range(r0, r1, WIDE_ROW_TILE):
+                    rs = slice(t0, min(t0 + WIDE_ROW_TILE, r1))
+                    n = rs.stop - rs.start
+                    for x0, cols in zip(range(0, hid, WIDE_UNITS), runs):
+                        units = slice(x0, x0 + WIDE_UNITS)
+                        dh = gates.new_zeros(n, WIDE_UNITS)
+                        if step < steps - 1:
+                            for k0 in range(0, gdim, WIDE_K):
+                                dh = dh + (dg[d, tn, rs, k0:k0 + WIDE_K]
+                                           @ w_hh[d, units, k0:k0 + WIDE_K].T)
+                        i, f, g, o = gates[d, t, rs][:, cols].reshape(n, 4, WIDE_UNITS).unbind(1)
+                        c_prev = cs[d, tp, rs, units] if step > 0 else torch.zeros_like(i)
+                        d_pre, dc[d, rs, units] = _d_pre(
+                            i, f, g, o, cs[d, t, rs, units], c_prev,
+                            dout[t, rs, d * hid + x0:d * hid + x0 + WIDE_UNITS] + dh,
+                            dc[d, rs, units])
+                        dg[d, t, rs][:, cols] = d_pre.transpose(1, 2).reshape(n, -1)
+    return dg
+
+
+def backward_steps_tiled(gates, cs, w_hh, dout, block_order=None, capacity=None):
     """``backward_steps``' function computed the backward kernel's way: per
     (sub-tile of rows, direction) and step, each block of the cluster turns
     dh, dc and the residuals of its 32 units into d_pre (written to dg at
@@ -194,9 +249,12 @@ def backward_steps_tiled(gates, cs, w_hh, dout, block_order=None):
     slice of w_hh the forward holds, contracting over its own columns in
     ``column_parts`` interleaved parts of its units, which gives partial sums
     for all H units; every block then adds the partial sums of its units in
-    block order. The last step's dh is used by nothing and not computed."""
+    block order. The last step's dh is used by nothing and not computed. From
+    H = 384 on, ``wide_backward_steps_tiled``."""
     _, steps, rows, gdim = gates.shape
     hid = gdim // 4
+    if hid not in HIDDENS:
+        return wide_backward_steps_tiled(gates, cs, w_hh, dout, capacity)
     per, blocks, sub = UNITS_PER_BLOCK, cluster_blocks(hid), ROW_TILE[hid] // 2
     parts = column_parts(hid)
     cols = [block_columns(b, hid) for b in range(blocks)]
@@ -234,21 +292,29 @@ def max_active_clusters(device) -> dict:
     """How many clusters of each kernel ``device`` holds at once
     (``cudaOccupancyMaxActiveClusters`` for the launches the wrappers make):
     {(H, "fwd" | "bwd"): clusters}. Also checks that the row tiles the
-    kernels were built with are ``ROW_TILE``."""
+    kernels were built with are ``ROW_TILE`` (and ``WIDE_ROW_TILE`` from H =
+    384 on)."""
     lib = build.load_library("bilstm_core")
-    for hid, tile in ROW_TILE.items():
+    for hid, tile in (*ROW_TILE.items(), (384, WIDE_ROW_TILE)):
         if lib.sdfa_bilstm_core_row_tile(hid) != tile:
             raise RuntimeError(f"bilstm_core.cu owns {lib.sdfa_bilstm_core_row_tile(hid)} rows a "
-                               f"cluster at H={hid}, ROW_TILE says {tile}")
+                               f"cluster at H={hid}, this module says {tile}")
     counts = build.query_ints("bilstm_core", "bilstm_core_clusters", 4, device)
     return dict(zip(((128, "fwd"), (128, "bwd"), (256, "fwd"), (256, "bwd")), counts))
+
+
+def wide_resident_blocks(device) -> dict:
+    """How many blocks of the wide loop's forward and backward kernels
+    ``device`` holds at once: {"fwd": blocks, "bwd": blocks}."""
+    return dict(zip(("fwd", "bwd"), build.query_ints("bilstm_core", "bilstm_core_wide_blocks",
+                                                     2, device)))
 
 
 def _core_dims(xp):
     _, steps, rows, gdim = xp.shape
     hid = gdim // 4
     if not takes(hid):
-        raise ValueError(f"bilstm_core kernels take H in {HIDDENS}; got {tuple(xp.shape)}")
+        raise ValueError(f"bilstm_core kernels take H a multiple of 128; got {tuple(xp.shape)}")
     return steps, rows, hid
 
 
@@ -256,6 +322,7 @@ def _forward_kernel(xp, w_hh):
     steps, rows, hid = _core_dims(xp)
     build.check("xp", xp, (2, steps, rows, 4 * hid))
     build.check("w_hh", w_hh, (2, hid, 4 * hid))
+    build.check_aligned(xp=xp, w_hh=w_hh)
     out = torch.empty(steps, rows, 2 * hid, device=xp.device, dtype=torch.float32)
     gates = torch.empty_like(xp)
     cs = torch.empty(2, steps, rows, hid, device=xp.device, dtype=torch.float32)
@@ -263,6 +330,7 @@ def _forward_kernel(xp, w_hh):
                  entry="bilstm_core_fwd")
     global FWD_LAUNCHES
     FWD_LAUNCHES += 1
+    LAUNCHES_BY_HIDDEN["fwd", hid] += 1
     note_launch("bilstm_core_fwd", cost(steps, rows, hid))
     return out, gates, cs
 
@@ -273,11 +341,13 @@ def _backward_kernel(gates, cs, w_hh, dout):
     build.check("w_hh", w_hh, (2, hid, 4 * hid))
     build.check("c", cs, (2, steps, rows, hid))
     build.check("dout", dout, (steps, rows, 2 * hid))
+    build.check_aligned(gates=gates, c=cs, w_hh=w_hh, dout=dout)
     dg = torch.empty_like(gates)
     build.launch("bilstm_core", (gates, cs, w_hh, dout, dg), (steps, rows, hid), gates.device,
                  entry="bilstm_core_bwd")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
+    LAUNCHES_BY_HIDDEN["bwd", hid] += 1
     note_launch("bilstm_core_bwd", cost(steps, rows, hid))
     return dg
 
@@ -309,7 +379,10 @@ class BilstmCore(torch.autograd.Function):
     def backward(ctx, dout):
         gates, cs, out, w_hh = ctx.saved_tensors
         on_cpu = gates.device.type == "cpu"
-        dg = (backward_steps if on_cpu else _backward_kernel)(gates, cs, w_hh, dout.contiguous())
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:  # a view that starts off the kernels' 16-byte reads
+            dout = dout.clone()
+        dg = (backward_steps if on_cpu else _backward_kernel)(gates, cs, w_hh, dout)
         return (dg if ctx.needs_input_grad[0] else None,
                 dw_hh(out, dg) if ctx.needs_input_grad[1] else None)
 

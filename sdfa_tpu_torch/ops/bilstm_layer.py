@@ -8,16 +8,19 @@ float32, forward h in ``[..., :H]`` and reverse h in ``[..., H:]``.
 
 On a card the layer is two hand-written kernels per row chunk
 (``csrc/bilstm_layer.cuh``): a tiled product computes the input projection
-xp = x·w_ih (+ bias) for all steps at once into a scratch tensor, then the
-step loop runs with w_hh held in the shared memory of a cluster of H / 32
-blocks (8 at H = 256, 4 at H = 128): block s of a cluster owns hidden units
-32s … 32s+31 of one direction for a tile of 32 rows. The kernels take
-``HIDDENS`` and inputs up to ``MAX_IN`` wide (``takes``); the modules pick
-another route for any other shape before they call this wrapper
-(``nn/recurrent.py::bilstm_routes``). What
-is not CUDA — the row chunks, the scratch size, which gate columns a block
-owns — lives here, and ``bilstm_layer_tiled`` walks the same tiling in plain
-tensors so that the CPU tests reach it.
+xp = x·w_ih (+ bias) for all steps at once into a scratch tensor (any input
+width), then the step loop. At ``HIDDENS`` (128 and 256) the step loop holds
+w_hh in the shared memory of a cluster of H / 32 blocks (8 at H = 256, 4 at
+H = 128): block s of a cluster owns hidden units 32s … 32s+31 of one
+direction for a tile of 32 rows. From H = 384 on (any multiple of 128) no
+cluster's shared memory holds w_hh, and the wide step loop takes its place:
+one cooperative launch per wave of rows, a block owning 32 units of one
+direction for a tile of ``WIDE_ROW_TILE`` rows, w_hh read through L2 in
+tiles of ``WIDE_K``, one grid-wide barrier a step (``takes``: every shape the
+JAX gate sends to its kernel). What is not CUDA — the row chunks, the
+scratch size, which gate columns a block owns, the waves — lives here, and
+``bilstm_layer_tiled`` walks the same tiling in plain tensors so that the CPU
+tests reach it.
 """
 
 from __future__ import annotations
@@ -30,13 +33,17 @@ from . import build, note_launch
 
 LAUNCHES = collections.Counter()  # kernel launches by ``bilstm_layer`` in this process, by hidden width
 
-HIDDENS, MAX_IN = (128, 256), 512  # what the CUDA kernels take
+HIDDENS = (128, 256)       # the widths of the cluster step; the wide step loop takes the rest
 UNITS_PER_BLOCK = 32       # hidden units a block of a cluster owns, whatever the width
 ROW_TILE = 32              # rows per cluster, walked as two sub-tiles that take turns
 SUB_TILE = ROW_TILE // 2
+PROJ_K = 16                # the input projection's k depth of a tile
+WIDE_ROW_TILE = 32         # the wide step loop: rows a block owns,
+WIDE_UNITS = 32            # hidden units it owns (4 · 32 gate columns),
+WIDE_K = 16                # the k depth of one staged tile of its product
 # Rows are walked in chunks of at most ``row_steps(H)`` (row, step) pairs (one
 # row where T alone is more), so the scratch does not grow with the batch: xp
-# holds 2 · 4H floats per pair, 128 MiB at either width; the 2-layer kernel's
+# holds 2 · 4H floats per pair, 128 MiB at any width; the 2-layer kernel's
 # stack another 2H floats per pair, 32 MiB. SCRATCH_ROW_STEPS is the count at
 # H = 256; at H = 128 a pair is half the bytes and a chunk twice the pairs.
 SCRATCH_ROW_STEPS = 16384
@@ -44,8 +51,18 @@ SCRATCH_ROW_STEPS = 16384
 
 def takes(hidden: int, n_in: int) -> bool:
     """Whether the CUDA kernels take a layer of ``hidden`` units per direction
-    over ``n_in`` input features (the 2-layer kernel: both its layers)."""
-    return hidden in HIDDENS and 1 <= n_in <= MAX_IN
+    over ``n_in`` input features (the 2-layer kernel: both its layers): any
+    multiple of 128, any input width — every shape the JAX gate sends to its
+    Pallas kernel (``sdfa_tpu/nn/recurrent.py:236-238, 293-296``) and the
+    inputs it scans."""
+    return hidden > 0 and hidden % 128 == 0 and n_in >= 1
+
+
+def wide_wave_rows(hidden: int, capacity: int) -> int:
+    """Rows one cooperative launch of the wide step loop takes at ``hidden``
+    units on a card that holds ``capacity`` of its blocks at once: whole row
+    tiles, each 2 · H / 32 blocks (both directions)."""
+    return capacity // (2 * (hidden // WIDE_UNITS)) * WIDE_ROW_TILE
 
 
 def cost(rows: int, steps: int, n_in: int, hidden: int, gate_bias: bool = True):
@@ -93,7 +110,7 @@ def bilstm_layer_plain(x, w_ih, w_hh, gate_bias):
 
 def row_steps(hidden: int) -> int:
     """(row, step) pairs of a chunk at ``hidden`` units: the same scratch bytes
-    at either width."""
+    at every width."""
     return SCRATCH_ROW_STEPS * max(HIDDENS) // hidden
 
 
@@ -119,21 +136,36 @@ def block_columns(block: int, hidden: int) -> torch.Tensor:
     return (units[:, None] + hidden * torch.arange(4)[None, :]).reshape(-1)
 
 
-def layer_tiled_chunk(x, w_ih, w_hh, gate_bias):
+def projection_tiled(x, w_ih, gate_bias):
+    """The input projection the way its kernel computes it: xp[d] = x · w_ih[d]
+    summed tile by tile of ``PROJ_K`` input features (the last tile partial:
+    any input width), then the gate bias: (rows, T, in) → (2, rows, T, 4H)."""
+    xp = x.new_zeros(2, *x.shape[:-1], w_ih.shape[-1])
+    for k0 in range(0, x.shape[-1], PROJ_K):
+        xp = xp + x[None, ..., k0:k0 + PROJ_K] @ w_ih[:, None, k0:k0 + PROJ_K]
+    return xp if gate_bias is None else xp + gate_bias[:, None, None]
+
+
+def layer_tiled_chunk(x, w_ih, w_hh, gate_bias, capacity=None):
     """One chunk of rows the way the kernels walk it, in plain tensors: the
-    projection for all steps first, then per (row tile, direction) the step
-    loop over the tile's two sub-tiles, in which each of the cluster's blocks
-    multiplies the full h by its own column slice (k in four interleaved
-    quarters, summed pairwise as the warp exchanges do), applies the cell to
-    its units and hands its h slice to the buffer the next step reads."""
+    projection for all steps first (``projection_tiled``), then the step loop.
+    At ``HIDDENS``, per
+    (row tile, direction) the cluster step over the tile's two sub-tiles, in
+    which each of the cluster's blocks multiplies the full h by its own column
+    slice (k in four interleaved quarters, summed pairwise as the warp
+    exchanges do), applies the cell to its units and hands its h slice to the
+    buffer the next step reads; from H = 384 on ``wide_steps_tiled`` over
+    time-ordered views (``capacity``: its resident blocks)."""
     rows, steps, _ = x.shape
     hid = w_hh.shape[1]
+    xp = projection_tiled(x, w_ih, gate_bias)  # (2, rows, T, 4H)
+    out = x.new_empty(rows, steps, 2 * hid)
+    if hid not in HIDDENS:
+        wide_steps_tiled(xp.transpose(1, 2), w_hh, out.transpose(0, 1), capacity)
+        return out
     per = UNITS_PER_BLOCK
     blocks = cluster_blocks(hid)  # 8 at H = 256, 4 at H = 128
     cols = [block_columns(b, hid) for b in range(blocks)]
-    xp = torch.stack([x @ w_ih[d] if gate_bias is None else x @ w_ih[d] + gate_bias[d]
-                      for d in range(2)])  # (2, rows, T, 4H)
-    out = x.new_empty(rows, steps, 2 * hid)
     for row0 in range(0, rows, SUB_TILE):  # a tile's sub-tiles are independent rows
         n = min(SUB_TILE, rows - row0)  # the kernel computes the sub-tile's other rows on zeros
         for d in range(2):
@@ -155,11 +187,65 @@ def layer_tiled_chunk(x, w_ih, w_hh, gate_bias):
     return out
 
 
-def bilstm_layer_tiled(x, w_ih, w_hh, gate_bias):
+def wide_run_columns(hidden: int):
+    """The gate columns of each 32-unit run of the wide step loop, gate-major:
+    block x owns units 32x … 32x+31, columns q·H + those units for the gates
+    q = i, f, g, o."""
+    return [torch.cat([q * hidden + u0 + torch.arange(WIDE_UNITS) for q in range(4)])
+            for u0 in range(0, hidden, WIDE_UNITS)]
+
+
+def wide_steps_tiled(xp, w_hh, out, capacity=None, gates=None, cs=None):
+    """The wide step loop, in plain tensors: xp (2, T, rows, 4H) and out (T,
+    rows, 2H) indexed by time (time-ordered views of a layer's tensors too).
+    Per wave of ``wide_wave_rows(H, capacity)`` rows (all rows in one where
+    ``capacity`` is None) and step, each block — a direction, a row tile of
+    ``WIDE_ROW_TILE``, a run of 32 units — multiplies the previous h of its
+    rows, read back from ``out`` at the direction's previous time index, by
+    its 128 gate columns of w_hh, adding the products tile by tile of
+    ``WIDE_K`` k, then the xp slab, and applies the cell; with ``gates`` and
+    ``cs`` given, it writes the post-activation gates and c as the training
+    core's forward does. Writes ``out`` (and ``gates``, ``cs``) in place."""
+    _, steps, rows, gdim = xp.shape
+    hid = gdim // 4
+    wave = rows if capacity is None else wide_wave_rows(hid, capacity)
+    runs = wide_run_columns(hid)
+    for r0 in range(0, rows, wave):  # one cooperative launch
+        r1 = min(r0 + wave, rows)
+        c_state = xp.new_zeros(2, rows, hid)
+        for step in range(steps):  # a grid-wide barrier between steps
+            for d in range(2):
+                t = step if d == 0 else steps - 1 - step
+                tp = t - 1 if d == 0 else t + 1
+                for t0 in range(r0, r1, WIDE_ROW_TILE):
+                    rs = slice(t0, min(t0 + WIDE_ROW_TILE, r1))
+                    n = rs.stop - rs.start
+                    for x0, cols in zip(range(0, hid, WIDE_UNITS), runs):
+                        units = slice(x0, x0 + WIDE_UNITS)
+                        acc = xp.new_zeros(n, 4 * WIDE_UNITS)
+                        if step > 0:
+                            h_prev = out[tp, rs, d * hid:(d + 1) * hid]
+                            for k0 in range(0, hid, WIDE_K):
+                                ks = slice(k0, k0 + WIDE_K)
+                                acc = acc + h_prev[:, ks] @ w_hh[d, ks][:, cols]
+                        pre = (acc + xp[d, t, rs][:, cols]).reshape(n, 4, WIDE_UNITS)
+                        i, f, o = (torch.sigmoid(pre[:, q]) for q in (0, 1, 3))
+                        g = torch.tanh(pre[:, 2])
+                        c_state[d, rs, units] = f * c_state[d, rs, units] + i * g
+                        out[t, rs, d * hid + x0:d * hid + x0 + WIDE_UNITS] = (
+                            o * torch.tanh(c_state[d, rs, units]))
+                        if gates is not None:
+                            gates[d, t, rs][:, cols] = torch.cat([i, f, g, o], dim=-1)
+                            cs[d, t, rs, units] = c_state[d, rs, units]
+    return out
+
+
+def bilstm_layer_tiled(x, w_ih, w_hh, gate_bias, capacity=None):
     """``bilstm_layer_plain``'s function computed the kernel's way: row
-    chunks of ``chunk_rows(T, H)``, each through ``layer_tiled_chunk``."""
+    chunks of ``chunk_rows(T, H)``, each through ``layer_tiled_chunk``
+    (``capacity``: resident blocks of the wide step loop, from H = 384 on)."""
     chunk = chunk_rows(x.shape[1], w_hh.shape[1])
-    return torch.cat([layer_tiled_chunk(x[r:r + chunk], w_ih, w_hh, gate_bias)
+    return torch.cat([layer_tiled_chunk(x[r:r + chunk], w_ih, w_hh, gate_bias, capacity)
                       for r in range(0, x.shape[0], chunk)])
 
 
@@ -171,6 +257,17 @@ def max_active_clusters(device) -> dict:
                                               device)))
 
 
+def wide_resident_blocks(device) -> int:
+    """How many blocks of the wide step loop ``device`` holds at once
+    (resident blocks a multiprocessor × multiprocessors): what one cooperative
+    launch may take. Also checks the rows a block owns."""
+    blocks, row_tile = build.query_ints("bilstm_layer", "bilstm_layer_wide_blocks", 2, device)
+    if row_tile != WIDE_ROW_TILE:
+        raise RuntimeError(f"bilstm_layer.cuh's wide step loop owns {row_tile} rows a block; "
+                           f"WIDE_ROW_TILE says {WIDE_ROW_TILE}")
+    return blocks
+
+
 def bilstm_layer(x, w_ih, w_hh, gate_bias):
     """One biLSTM layer: the CUDA kernels for CUDA tensors, the plain
     version for CPU tensors; any other input, or a shape the kernels do not
@@ -180,7 +277,7 @@ def bilstm_layer(x, w_ih, w_hh, gate_bias):
     rows, steps, n_in = x.shape
     hid = w_hh.shape[1]
     if not takes(hid, n_in) or steps < 1:
-        raise ValueError(f"bilstm_layer kernel takes H in {HIDDENS}, in<={MAX_IN}, T>=1; got x "
+        raise ValueError(f"bilstm_layer kernel takes H a multiple of 128, in>=1, T>=1; got x "
                          f"{tuple(x.shape)}, w_hh {tuple(w_hh.shape)}")
     gdim = 4 * hid
     build.check("x", x, (rows, steps, n_in))
@@ -188,6 +285,7 @@ def bilstm_layer(x, w_ih, w_hh, gate_bias):
     build.check("w_hh", w_hh, (2, hid, gdim))
     if gate_bias is not None:
         build.check("gate_bias", gate_bias, (2, gdim))
+    build.check_aligned(w_ih=w_ih, w_hh=w_hh, gate_bias=gate_bias)
     xp = torch.empty(2, scratch_rows(rows, steps, hid), steps, gdim, device=x.device,
                      dtype=torch.float32)
     out = torch.empty(rows, steps, 2 * hid, device=x.device, dtype=torch.float32)

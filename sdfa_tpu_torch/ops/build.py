@@ -164,6 +164,15 @@ def check(name: str, t, shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel takes {tuple(shape)}")
 
 
+def check_aligned(**tensors):
+    """Raise unless every tensor given (``None`` is skipped) starts on a
+    16-byte boundary: the kernels read them 16 bytes at a time."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernels read it 16 bytes at a time; it starts at "
+                             f"{t.data_ptr():#x}")
+
+
 def launch(name: str, tensors, ints, device, entry: str = ""):
     """Call ``sdfa_<entry or name>(pointers..., ints..., stream)`` of
     csrc/<name>.cu on ``device``'s current stream; ``None`` passes a null

@@ -663,7 +663,7 @@ class Trainer:
                         self.profile_start, self._steps_seen)
         exp.save()
         log.info("trained %d steps; kernel launches in this process: freq_lstm %d, bilstm2 %d, "
-                 "training core forward %d, backward %d", exp.step, freq_lstm.LAUNCHES,
+                 "training core forward %d, backward %d", exp.step, freq_lstm.LAUNCHES.total(),
                  sum(bilstm2.LAUNCHES.values()), bilstm_core.FWD_LAUNCHES,
                  bilstm_core.BWD_LAUNCHES)
         mesh_lib.barrier(exp.mesh)  # the run's files are written when train() returns

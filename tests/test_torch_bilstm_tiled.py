@@ -173,7 +173,9 @@ def test_h128_chunks_and_columns(monkeypatch):
 
 
 @pytest.mark.parametrize("hid,n_in,ok", [(128, 64, True), (128, 512, True), (256, 512, True),
-                                         (256, 513, False), (192, 64, False), (64, 64, False),
-                                         (384, 256, False)])
+                                         (256, 513, True), (192, 64, False), (64, 64, False),
+                                         (384, 256, True), (640, 1024, True), (512, 0, False)])
 def test_takes_names_the_kernel_widths(hid, n_in, ok):
+    """Any H that is a multiple of 128 (the cluster step at 128 and 256, the
+    wide step loop from 384 on) over any input width."""
     assert K4.takes(hid, n_in) is ok

@@ -7,8 +7,9 @@ cluster's four blocks owns, the two directions apart, the h scratch, and the
 output projection summed slab by slab in a fixed order. It is held to the
 plain version (1e-5: float32 on both sides, the sums taken in another order)
 and to the JAX package's reference and its Pallas kernel in interpret mode
-(5e-5, the repo's forward budget) at the hidden size and output width the
-kernels fix (H = 128, out = 256), few frequency steps and a narrow input.
+(5e-5, the repo's forward budget) at the shipped encoder's hidden size and
+output width (H = 128, out = 256), few frequency steps and a narrow input
+(the wider ones: tests/test_torch_wide_lstm.py).
 """
 
 import numpy as np
@@ -22,7 +23,7 @@ from sdfa_tpu_torch.ops import freq_lstm as K1
 
 import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
 
-H, OUT = K1.HIDDEN, K1.OUT_DIM
+H, OUT = 128, 256  # the shipped encoder's FreqLstm
 TOL_PLAIN = 1e-5  # f32 sums in another order
 TOL_JAX = 5e-5    # forward vs the JAX package
 
@@ -51,7 +52,7 @@ def test_tiled_matches_plain_and_reference(rows, n_freq, n_in, bias):
     of half a slab's depth; F = 5 three slabs. Two resident clusters: a wave
     is one row tile, so 70 rows are three row tiles in one chunk."""
     jx, tx = _both(_args(100 + rows, rows, n_freq, n_in, bias))
-    got = K1.freq_lstm_tiled(*tx, clusters=2)
+    got = K1.freq_lstm_tiled(*tx, groups=2)
     assert got.shape == (rows, OUT)
     assert float((got - K1.freq_lstm_plain(*tx)).abs().max()) < TOL_PLAIN
     assert float(np.abs(got.numpy() - np.asarray(freq_lstm_reference(*jx))).max()) < TOL_JAX
@@ -61,7 +62,7 @@ def test_tiled_matches_plain_and_reference(rows, n_freq, n_in, bias):
 def test_tiled_matches_pallas_interpret(rows):
     jx, tx = _both(_args(200 + rows, rows, 4, 16, True))
     want = np.asarray(freq_lstm_fused(*jx, block_rows=8, interpret=True, precise=True))
-    got = K1.freq_lstm_tiled(*tx, clusters=2).numpy()
+    got = K1.freq_lstm_tiled(*tx, groups=2).numpy()
     assert float(np.abs(got - want).max()) < TOL_JAX
 
 
@@ -70,11 +71,12 @@ def test_tiled_walks_row_chunks(monkeypatch):
     clusters, 70 rows at F = 2 are three chunks (32, 32, 6), each through all
     three phases."""
     monkeypatch.setattr(K1, "SCRATCH_ROW_STEPS", 128)
-    assert K1.chunk_rows(2, 2) == 64 and K1.chunk_rows(2, 3) == 64 and K1.chunk_rows(4, 2) == 32
+    assert K1.chunk_rows(2, 2, H) == 64 and K1.chunk_rows(2, 3, H) == 64
+    assert K1.chunk_rows(4, 2, H) == 32
     monkeypatch.setattr(K1, "SCRATCH_ROW_STEPS", 64)
-    assert K1.chunk_rows(2, 2) == 32
+    assert K1.chunk_rows(2, 2, H) == 32
     tx = [None if a is None else torch.from_numpy(a) for a in _args(3, 70, 2, 6, True)]
-    assert float((K1.freq_lstm_tiled(*tx, clusters=2) - K1.freq_lstm_plain(*tx)).abs().max()) \
+    assert float((K1.freq_lstm_tiled(*tx, groups=2) - K1.freq_lstm_plain(*tx)).abs().max()) \
         < TOL_PLAIN
 
 
@@ -97,7 +99,7 @@ def test_slab_sum_order_is_fixed():
     chain = h[:, :512] @ tx[4][:512]
     for k in (512, 1024):
         chain = chain + h[:, k:k + 512] @ tx[4][k:k + 512]
-    assert torch.equal(K1.freq_lstm_tiled(*tx, clusters=2), chain + tx[5])
+    assert torch.equal(K1.freq_lstm_tiled(*tx, groups=2), chain + tx[5])
 
 
 @pytest.mark.parametrize("n_freq,slabs", [(1, 1), (2, 1), (3, 2), (4, 2), (32, 16), (33, 17)])
@@ -116,7 +118,7 @@ def test_scratch_does_not_grow_past_one_chunk(steps, clusters):
     SCRATCH_ROW_STEPS (row, step) pairs, or one row where F alone is more,
     whatever the batch; a chunk is whole waves of resident clusters where a
     wave fits, else whole row tiles."""
-    chunk = K1.chunk_rows(steps, clusters)
+    chunk = K1.chunk_rows(steps, clusters, H)
     wave = clusters // 2 * K1.ROW_TILE
     bound = max(K1.SCRATCH_ROW_STEPS, steps)
     assert chunk >= 1 and chunk * steps <= bound
@@ -124,7 +126,7 @@ def test_scratch_does_not_grow_past_one_chunk(steps, clusters):
         assert chunk % wave == 0
     elif chunk >= K1.ROW_TILE:
         assert chunk % K1.ROW_TILE == 0 and wave * steps > K1.SCRATCH_ROW_STEPS
-    sizes = {rows: K1.scratch_rows(rows, steps, clusters)
+    sizes = {rows: K1.scratch_rows(rows, steps, clusters, H)
              for rows in (1, 7, 768, 3072, 27648, 10 ** 6)}
     for rows, n in sizes.items():
         assert 1 <= n <= rows and n * steps <= bound

@@ -1,10 +1,10 @@
 """Routes of the recurrent layers on a card, chosen from the shape alone
 before anything launches, as the JAX modules gate their Pallas kernels: a
-kernel wherever one of the port's takes the shape, a 2-layer stack the
-2-layer kernel cannot take layer by layer; else the plain recurrence where
-JAX takes its scan, counted in ``ops.PLAIN_ROUTES``, and a ``ValueError``
-naming ROADMAP B where JAX runs a Pallas kernel the port has no
-instantiation of. On the CPU every layer goes through its wrapper. The route
+kernel wherever one of the port's takes the shape — every shape JAX runs a
+Pallas kernel at (any H that is a multiple of 128, any input and output
+width), and the inputs JAX scans at such an H — else the plain recurrence,
+where JAX takes its scan too, counted in ``ops.PLAIN_ROUTES``. On the CPU
+every layer goes through its wrapper. The route
 functions are asserted directly; the modules run with the card check stubbed
 and every wrapper and plain version replaced by a recorder that returns
 zeros of the right shape, so nothing is launched or computed.
@@ -17,13 +17,13 @@ import torch
 
 from sdfa_tpu_torch import ops
 from sdfa_tpu_torch.nn import recurrent as trec
+from sdfa_tpu_torch.ops import bilstm_core as K5mod
+from sdfa_tpu_torch.ops import bilstm_layer as K4mod
+from sdfa_tpu_torch.ops import freq_lstm as K1mod
 
 import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
 
 K2, K4, K5, P = "bilstm2", "bilstm_layer", "bilstm_core", trec.PLAIN
-
-
-RAISES = "raises"
 
 
 @pytest.mark.parametrize("hidden,sizes,training,want", [
@@ -32,42 +32,55 @@ RAISES = "raises"
     (128, [64], False, (K4,)),                   # FreqLstm "last", LSTM2d
     (128, [100], False, (K4,)),                  # JAX scans (in 100); a port kernel takes it
     (256, [256, 512, 512], False, (K4, K4, K4)),
-    (256, [520, 512], False, (P, K4)),           # K2 cannot: layer by layer, JAX scans layer 0
-    (128, [513, 256], False, (P, K4)),
+    (256, [520, 512], False, (K2, K2)),          # JAX scans layer 0; the port's K2 takes both
+    (128, [513, 256], False, (K2, K2)),
     (192, [64, 384], False, (P, P)),             # H = 192: JAX scans too
     (128, [64, 256], True, (K5, K5)),
     (256, [2048], True, (K5,)),                  # the core takes any input width
     (96, [64], True, (P,)),
     (192, [64], True, (P,)),
+    # what the port refused until the wide step loop (H = 384 and up, inputs past 512)
+    (256, [1024, 512], False, (K2, K2)),
+    (128, [640], False, (K4,)),
+    (384, [256], False, (K4,)),
+    (512, [512, 1024], False, (K2, K2)),
+    (384, [256], True, (K5,)),
+    (512, [64], True, (K5,)),
+    (640, [64, 1280], False, (K2, K2)),         # H = 640: 20 runs of 32 units
+    (640, [64], True, (K5,)),
+    (512, [1024], False, (K4,)),                 # an input of 1024 at H = 512
 ])
 def test_bilstm_routes_on_a_card(hidden, sizes, training, want):
     assert trec.bilstm_routes(hidden, sizes, training) == want
 
 
-@pytest.mark.parametrize("hidden,sizes,training", [
-    (256, [1024, 512], False),                   # JAX's kernels take in 1024, the port's 512
-    (128, [640], False),
-    (384, [256], False),                         # clusters of 12 blocks: not instantiated
-    (512, [512, 1024], False),
-    (384, [256], True),
-    (512, [64], True),
+@pytest.mark.parametrize("hidden,out,want", [
+    (128, 256, "freq_lstm"), (64, 256, P), (192, 256, P),
+    (128, 128, "freq_lstm"),                     # JAX runs its kernel at any out
+    (128, 200, "freq_lstm"),
+    (256, 256, "freq_lstm"), (256, 512, "freq_lstm"), (384, 384, "freq_lstm"),
 ])
-def test_bilstm_routes_refuse_where_jax_runs_a_kernel(hidden, sizes, training):
-    with pytest.raises(ValueError, match="ROADMAP B"):
-        trec.bilstm_routes(hidden, sizes, training)
+def test_freq_route(hidden, out, want):
+    """The kernel at any H that is a multiple of 128 and any out (and any input
+    width: JAX scans an input that is no multiple of 8, the port's kernel
+    takes it); the plain recurrence elsewhere, as JAX scans."""
+    assert trec.freq_route(hidden, out) == want
 
 
-@pytest.mark.parametrize("hidden,out,n_in,want", [
-    (128, 256, 64, "freq_lstm"), (128, 256, 3, "freq_lstm"), (64, 256, 64, P),
-    (128, 128, 3, P),                            # JAX scans: in 3 is not a multiple of 8
-    (128, 128, 64, RAISES), (256, 256, 64, RAISES),
-])
-def test_freq_route(hidden, out, n_in, want):
-    if want == RAISES:
-        with pytest.raises(ValueError, match="ROADMAP B"):
-            trec.freq_route(hidden, out, n_in)
-    else:
-        assert trec.freq_route(hidden, out, n_in) == want
+def test_no_shape_the_jax_gate_sends_to_a_kernel_is_refused():
+    """Every (H, in, out) the JAX gates at ``sdfa_tpu/nn/recurrent.py:236-238,
+    293-304, 427-435`` send to a Pallas kernel routes to a kernel of the port
+    on a card, in eval and in training; no route raises."""
+    for hid in range(128, 2048 + 1, 128):
+        for n_in in (8, 128, 384, 512, 1024, 2 * hid, 4096):
+            for layers in (1, 2, 3):
+                sizes = [n_in] + [2 * hid] * (layers - 1)
+                assert trec.PLAIN not in trec.bilstm_routes(hid, sizes, False), (hid, sizes)
+                assert trec.bilstm_routes(hid, sizes, True) == ("bilstm_core",) * layers
+        for out in (1, 7, 200, 256, 384, 512, 1000):
+            assert trec.freq_route(hid, out) == "freq_lstm"
+            assert K1mod.takes(hid, out)
+        assert K4mod.takes(hid, 1) and K5mod.takes(hid)
 
 
 def _stubs(monkeypatch, card=True):
@@ -118,23 +131,33 @@ MODULES = [
     ("lstm H256 x3", lambda: trec.LSTM(256, 256, 3, bidirectional=True), (2, 3, 256), False,
      ["K4"] * 3),
     ("lstm in 1024", lambda: trec.LSTM(1024, 256, 2, bidirectional=True), (2, 3, 1024), False,
-     RAISES),
+     ["K2"]),
     ("lstm in 520", lambda: trec.LSTM(520, 256, 2, bidirectional=True), (2, 3, 520), False,
-     ["counted", "plain", "K4"]),
+     ["K2"]),
     ("lstm H192", lambda: trec.LSTM(64, 192, 2, bidirectional=True), (2, 3, 64), False,
      ["counted", "plain", "counted", "plain"]),
     ("lstm H384", lambda: trec.LSTM(128, 384, 1, bidirectional=True), (2, 3, 128), False,
-     RAISES),
+     ["K4"]),
     ("lstm H384 in 64", lambda: trec.LSTM(64, 384, 1, bidirectional=True), (2, 3, 64), False,
-     ["counted", "plain"]),                      # JAX scans: in 64 is not a multiple of 128
+     ["K4"]),                                    # JAX scans: in 64 is not a multiple of 128
+    ("lstm H512 x3", lambda: trec.LSTM(512, 512, 3, bidirectional=True), (2, 3, 512), False,
+     ["K4"] * 3),
+    ("lstm H640 x2", lambda: trec.LSTM(64, 640, 2, bidirectional=True), (2, 3, 64), False,
+     ["K2"]),
+    ("lstm H384 train", lambda: trec.LSTM(64, 384, 3, bidirectional=True), (2, 3, 64), True,
+     ["K5"] * 3),
     ("lstm H128 train", lambda: trec.LSTM(64, 128, 2, bidirectional=True), (2, 3, 64), True,
      ["K5", "K5"]),
     ("lstm H96 train", lambda: trec.LSTM(64, 96, 1, bidirectional=True), (2, 3, 64), True,
      ["counted", "plain_core"]),
     ("freq full", lambda: trec.FreqLstm(64, 4, 128, 256), (2, 64, 4, 3), False, ["K1"]),
-    ("freq out 128", lambda: trec.FreqLstm(64, 4, 128, 128), (2, 64, 4, 3), False, RAISES),
+    ("freq out 128", lambda: trec.FreqLstm(64, 4, 128, 128), (2, 64, 4, 3), False, ["K1"]),
     ("freq in 3 out 128", lambda: trec.FreqLstm(3, 4, 128, 128), (2, 3, 4, 3), False,
-     ["counted", "plain_freq"]),
+     ["K1"]),
+    ("freq H256 out 512", lambda: trec.FreqLstm(64, 4, 256, 512), (2, 64, 4, 3), False, ["K1"]),
+    ("freq H384 train", lambda: trec.FreqLstm(64, 4, 384, 384), (2, 64, 4, 3), True, ["K5"]),
+    ("freq H64", lambda: trec.FreqLstm(64, 4, 64, 100), (2, 64, 4, 3), False,
+     ["counted", "plain_freq"]),                 # JAX scans: H 64
     ("freq last", lambda: trec.FreqLstm(64, 4, 128, 256, mode="last"), (2, 64, 4, 3), False,
      ["K4"]),
     ("freq last train", lambda: trec.FreqLstm(64, 4, 128, 256, mode="last"), (2, 64, 4, 3),
@@ -153,13 +176,8 @@ def test_module_routes(monkeypatch, name, make, shape, training, want):
     calls = _stubs(monkeypatch)
     mod = make().train(training)
     with torch.no_grad():
-        if want == RAISES:
-            with pytest.raises(ValueError, match="ROADMAP B"):
-                mod(torch.zeros(shape))
-            assert calls == []
-        else:
-            mod(torch.zeros(shape))
-            assert calls == want
+        mod(torch.zeros(shape))
+    assert calls == want
     calls.clear()
     with ops.plain_versions(), torch.no_grad():
         mod(torch.zeros(shape))
@@ -168,7 +186,7 @@ def test_module_routes(monkeypatch, name, make, shape, training, want):
 
 def test_on_the_cpu_every_layer_goes_through_its_wrapper(monkeypatch):
     """Every CPU wrapper is its plain version, so the CPU never routes around
-    one, even at a shape the card refuses or takes the plain recurrence at."""
+    one, even at a shape the card takes the plain recurrence at."""
     calls = _stubs(monkeypatch, card=False)
     cases = [(trec.LSTM(64, 384, 2, bidirectional=True), (2, 3, 64), False, ["K4", "K4"]),
              (trec.LSTM(1024, 256, 1, bidirectional=True), (2, 3, 1024), False, ["K4"]),

@@ -126,10 +126,10 @@ def _randn(seed, *shape, scale=0.3):
 
 @pytest.mark.parametrize("rows,n_freq,n_in", [(3, 4, 6), (5, 2, 8)])
 def test_freq_lstm_cost(rows, n_freq, n_in):
-    h, out = freq_lstm.HIDDEN, freq_lstm.OUT_DIM
+    h, out = 128, 256  # the shipped encoder's FreqLstm
     args = (_randn(1, rows, n_freq, n_in), _randn(2, 2, n_in, 4 * h), _randn(3, 2, h, 4 * h),
             _randn(4, 2, 4 * h), _randn(5, n_freq * 2 * h, out), _randn(6, out))
-    flops, moved = freq_lstm.cost(rows, n_freq, n_in)
+    flops, moved = freq_lstm.cost(rows, n_freq, n_in, h, out)
     assert flops == pytest.approx(_flops(freq_lstm.freq_lstm_plain, *args), rel=COST_RTOL)
     assert moved == 4 * sum(t.numel() for t in args) + 4 * rows * out
 
@@ -164,6 +164,30 @@ def test_bilstm_core_cost(steps, rows, hidden):
     # the backward kernel's product: d_pre · w_hhᵀ a step (dw_hh is a library product)
     assert flops == pytest.approx(_flops(bilstm_core.backward_steps, gates, cs, w, dout),
                                   rel=COST_RTOL)
+
+
+@pytest.mark.parametrize("hidden,out", [(256, 200), (384, 384), (512, 7)])
+def test_costs_at_the_wide_widths(hidden, out):
+    """Each recurrent kernel's ``cost`` takes the call's own widths: K1 at H =
+    256 / 384 / 512 with its output width, K4 and K2 with a 2H-wide input, K5,
+    each against ``FlopCounterMode`` of its plain version."""
+    g = 4 * hidden
+    x1 = (_randn(40, 2, 2, 5), _randn(41, 2, 5, g), _randn(42, 2, hidden, g), _randn(43, 2, g),
+          _randn(44, 2 * 2 * hidden, out), _randn(45, out))
+    flops, moved = freq_lstm.cost(2, 2, 5, hidden, out)
+    assert flops == pytest.approx(_flops(freq_lstm.freq_lstm_plain, *x1), rel=COST_RTOL)
+    assert moved == 4 * sum(t.numel() for t in x1) + 4 * 2 * out
+    x = _randn(46, 2, 2, 2 * hidden)
+    layer = (_randn(47, 2, 2 * hidden, g), _randn(48, 2, hidden, g), _randn(49, 2, g))
+    flops, _ = bilstm_layer.cost(2, 2, 2 * hidden, hidden)
+    assert flops == pytest.approx(_flops(bilstm_layer.bilstm_layer_plain, x, *layer),
+                                  rel=COST_RTOL)
+    flops, _ = bilstm2.cost(2, 2, 2 * hidden, hidden)
+    assert flops == pytest.approx(_flops(bilstm2.bilstm2_plain, x, *layer, *layer),
+                                  rel=COST_RTOL)
+    xp, w = _randn(50, 2, 2, 3, g), _randn(51, 2, hidden, g)
+    flops, _ = bilstm_core.cost(2, 3, hidden)
+    assert flops == pytest.approx(_flops(bilstm_core.bilstm_core_plain, xp, w), rel=COST_RTOL)
 
 
 @pytest.mark.parametrize("windows", [1, 6])

@@ -2,10 +2,11 @@
 the same inputs: the serving kernels (flagship widths for the LSTMs, K4 and K2
 at H = 128 too, a small mesh for decode + solve; max |diff| < 1e-4, decode +
 solve < 1e-5 m), the routes that keep every kernel width off the plain
-recurrence, and the
+recurrence, the
 training core, forward and backward, at the cluster tiling's edges (forward
 < 1e-4; gradients < 1e-4 of max |reference|; the backward repeats bit for
-bit)."""
+bit), and the wide step loop (H = 384 and up, inputs past 512; K1 at H = 256
+and any output width) at its edges."""
 
 import numpy as np
 import pytest
@@ -102,7 +103,7 @@ def test_no_plain_route_at_a_kernel_width(cuda):
     """Every width a kernel takes routes to it: the bidirectional stacks at H =
     128 and 256 (1, 2 and 3 layers, eval and training) and FreqLstm in both
     modes leave ``ops.PLAIN_ROUTES`` at 0; H = 64 takes the plain recurrence
-    and counts it, as JAX takes its scan; H = 384 raises."""
+    and counts it, as JAX takes its scan; H = 384 runs the wide step loop."""
     from sdfa_tpu_torch import ops
     from sdfa_tpu_torch.nn import recurrent as trec
 
@@ -133,10 +134,12 @@ def test_no_plain_route_at_a_kernel_width(cuda):
     assert ops.PLAIN_ROUTES == before
     trec.LSTM(64, 64, 1, bidirectional=True).to(cuda).eval()(torch.zeros(2, 3, 64, device=cuda))
     assert ops.PLAIN_ROUTES == before + 1
-    # H = 384 over 128 features: JAX runs its Pallas kernel, the port has none yet
-    with pytest.raises(ValueError, match="ROADMAP B"):
-        trec.LSTM(128, 384, 1, bidirectional=True).to(cuda).eval()(
-            torch.zeros(2, 3, 128, device=cuda))
+    # H = 384 over 128 features: JAX runs its Pallas kernel, the port its wide step loop
+    k4 = K4.LAUNCHES[384]
+    out = trec.LSTM(128, 384, 1, bidirectional=True).to(cuda).eval()(
+        torch.zeros(2, 3, 128, device=cuda))
+    assert out.shape == (2, 3, 768) and K4.LAUNCHES[384] == k4 + 1
+    assert ops.PLAIN_ROUTES == before + 1
 
 
 @pytest.mark.parametrize("steps,rows,hid", [
@@ -187,3 +190,62 @@ def test_dgrad_extraction_on_card_matches_numpy(cuda):
         diff[k, rotation_cut_flips(want[k], got[k]), 6:] = 0.0
     assert float(diff.max()) <= 1e-10
     assert np.abs(got[3, 0]).max() == 0.0 and np.abs(got).max() > 1e-3
+
+
+@pytest.mark.parametrize("rows,steps,n_in,hid,bias", [
+    (1, 1, 100, 384, True), (33, 3, 1000, 512, False), (40, 5, 768, 384, True),
+    (513, 2, 384, 384, False), (7, 4, 1024, 512, True), (5, 2, 64, 640, True)])
+def test_cuda_wide_layer_kernels_match_plain(cuda, rows, steps, n_in, hid, bias):
+    """K4 and K2 through the wide step loop: one row, a partial row tile, an
+    input off the projection's k tile and past 512, more rows than one
+    cooperative launch takes at H = 384 on the H100 (512), H = 640; each launch
+    counted once, under its width."""
+    rng = np.random.default_rng(rows + hid)
+    g = 4 * hid
+
+    def weights(k):
+        return [_rand(rng, (2, k, g), k ** -0.5), _rand(rng, (2, hid, g), hid ** -0.5),
+                _rand(rng, (2, g), 0.1) if bias else None]
+
+    args = [torch.from_numpy(a).to(cuda) if a is not None else None
+            for a in [_rand(rng, (rows, steps, n_in), 0.5)] + weights(n_in) + weights(2 * hid)]
+    k4, k2 = K4.LAUNCHES[hid], K2.LAUNCHES[hid]
+    got4, got2 = K4.bilstm_layer(*args[:4]), K2.bilstm2(*args)
+    assert (K4.LAUNCHES[hid], K2.LAUNCHES[hid]) == (k4 + 1, k2 + 1)
+    assert float((got4 - K4.bilstm_layer_plain(*args[:4])).abs().max()) < 1e-4
+    assert float((got2 - K2.bilstm2_plain(*args)).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("rows,n_freq,hid,out", [
+    (45, 32, 256, 512), (37, 4, 384, 384), (5, 3, 256, 201), (33, 2, 512, 200),
+    (600, 2, 384, 7)])
+def test_cuda_freq_lstm_at_other_widths_matches_plain(cuda, rows, n_freq, hid, out):
+    """K1 at H = 256 (the layer kernels' cluster step) and from 384 on (the
+    wide loop), at output widths that are no multiple of the 128-column tile
+    or of 4 (scalar loads and stores); launched twice, the same bits."""
+    rng = np.random.default_rng(rows + out)
+    x1 = [None if a is None else torch.from_numpy(a).to(cuda)
+          for a in _k1_args(rng, rows, n_freq, 64, hid, out)]
+    got = K1.freq_lstm(*x1)
+    assert got.shape == (rows, out)
+    assert float((got - K1.freq_lstm_plain(*x1)).abs().max()) < 1e-4
+    assert torch.equal(got, K1.freq_lstm(*x1))
+
+
+@pytest.mark.parametrize("steps,rows,hid", [
+    (3, 1, 384), (2, 7, 512), (1, 33, 384), (3, 513, 384), (64, 100, 512), (2, 40, 640)])
+def test_cuda_wide_training_core_matches_plain(cuda, steps, rows, hid):
+    """K5 through the wide step loop: forward < 1e-4, the backward's gradients
+    < 1e-4 of the largest; the same bits twice."""
+    xp, w_hh, dout = (torch.from_numpy(a).to(cuda)
+                      for a in _core_inputs(steps, rows, hid, seed=11))
+    xp.requires_grad_()
+    w_hh.requires_grad_()
+    out = K5.bilstm_core(xp, w_hh)
+    got = torch.autograd.grad(out, (xp, w_hh), dout)
+    ref = K5.bilstm_core_plain(xp, w_hh)
+    want = torch.autograd.grad(ref, (xp, w_hh), dout)
+    assert float((out - ref).abs().max()) < 1e-4
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-4
+    assert torch.equal(got[0], torch.autograd.grad(K5.bilstm_core(xp, w_hh), (xp,), dout)[0])
