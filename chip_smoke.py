@@ -20,9 +20,10 @@ Phases, each printed as one JSON line:
    and prints what ptxas says of each kernel (registers, shared memory, spills),
    how many clusters the card holds at once of the biLSTM step kernel, of
    FreqLstm's and of the training core's forward and backward kernels at each
-   hidden width, how many blocks of the wide step loop's kernels (and the rows
-   one cooperative launch takes at H = 384 and 512), how many blocks of the
-   solve product, and the tensor-core
+   hidden width, the wide step loop's tiling for each of its kernels at H =
+   384, 512 and 1024 (units a block U, the k of W_hh it holds resident kres,
+   rows a block R, blocks and rows one cooperative launch takes), how many
+   blocks of the solve product, and the tensor-core
    opcodes (``HGMMA``) in the machine code of ``decode_solve``.
 3. kernels: runs each kernel at its path's shapes, holds it against its plain
    PyTorch version on the same inputs, times both with CUDA events, computes
@@ -35,7 +36,10 @@ Phases, each printed as one JSON line:
    ``spec_variants`` phase's shapes and ``bilstm2`` at H = 128 at 256 windows, and the
    recurrent kernels at the ``wide_variants`` phase's widths (``WIDE_K1``, ``WIDE_K2``,
    ``WIDE_K4``, ``WIDE_K5``: the wide step loop from H = 384 on, K1 at H = 256 and other
-   output widths, K4 with a 1024-wide input). Every kernel is also held
+   output widths, K4 with a 1024-wide input and at H = 1024, K5 at 6400 rows and H =
+   512), each wide row also split by kernel under ``torch.profiler`` (the step loop
+   apart from the input projection ``proj_kernel`` and K1's output projection).
+   Every kernel is also held
    to its plain version, untimed, at
    ragged shapes that reach every edge of its tiling; ``freq_lstm``,
    ``decode_solve`` and ``bilstm_core``'s backward must give the same bits
@@ -225,9 +229,10 @@ K1_PLOT_ROWS, K2_PLOT_WINDOWS = 6400, 100  # Experiment.plot_forward on a 100-wi
 # too); K5 (T, rows, H, the input width cuDNN's yardstick takes) at the train step's shapes
 WIDE_K1 = ((256, 512), (384, 384), (512, 512))
 WIDE_K2 = ((512, 512),)
-WIDE_K4 = ((384, 384), (384, 768), (512, 512), (512, 1024))
-WIDE_K5 = ((64, 100, 512, 512), (64, 100, 384, 384), (32, 6400, 256, 64), (32, 6400, 384, 64))
-WIDE_HIDDENS = (384, 512)  # the build line's rows per wave of the wide step loop
+WIDE_K4 = ((384, 384), (384, 768), (512, 512), (512, 1024), (1024, 1024))
+WIDE_K5 = ((64, 100, 512, 512), (64, 100, 384, 384), (32, 6400, 256, 64), (32, 6400, 384, 64),
+           (32, 6400, 512, 64))
+WIDE_HIDDENS = (384, 512, 1024)  # the build line's tilings of the wide step loop
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
 TRAIN_STEPS = 5
 VARIANT_TRAIN_STEPS = 10  # spec_variants: train steps of 100 windows per variant
@@ -475,20 +480,28 @@ def main():
     k1_tiling = freq_lstm.tiling(dev)
     k1_clusters = k1_tiling[128]
     # the wide step loop: resident blocks of each of its kernels (one cooperative launch takes
-    # at most that many), and the rows one launch takes at each wide width
+    # at most that many), and its tiling at each wide width: a block owns U units and R rows
+    # and holds none of W_hh resident (kres 0: the product streams it through L2 every step)
     wide_blocks = {"bilstm_layer": bilstm_layer.wide_resident_blocks(dev),
                    "freq_lstm": k1_tiling["wide"],
                    **{f"bilstm_core_{k}": n
                       for k, n in bilstm_core.wide_resident_blocks(dev).items()}}
+    wide_tiling = {}
+    for name, n in wide_blocks.items():
+        for h in WIDE_HIDDENS:
+            rows = bilstm_layer.wide_wave_rows(h, n)
+            wide_tiling.setdefault(name, {})[h] = {
+                "U": bilstm_layer.WIDE_UNITS, "kres": 0, "R": bilstm_layer.WIDE_ROW_TILE,
+                "blocks_a_wave": rows // bilstm_layer.WIDE_ROW_TILE * 2 * (
+                    h // bilstm_layer.WIDE_UNITS),
+                "rows_a_wave": rows}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": {k: v["seconds"] for k, v in build.BUILD_INFO.items()},
           "bilstm_step_kernel_max_active_clusters": bilstm_layer.max_active_clusters(dev),
           "bilstm_core_max_active_clusters": core_clusters,
           "freq_lstm_step_kernel_max_active_clusters": {h: k1_tiling[h] for h in (128, 256)},
           "wide_step_loop_resident_blocks": wide_blocks,
-          "wide_step_loop_rows_per_launch": {
-              name: {h: bilstm_layer.wide_wave_rows(h, n) for h in WIDE_HIDDENS}
-              for name, n in wide_blocks.items()},
+          "wide_step_loop_tiling": wide_tiling,
           "decode_solve_product_resident_blocks": decode_solve.resident_blocks(dev),
           "decode_solve_tensor_core_sass": tensor_core_sass(build),
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_INFO.items()}})
@@ -537,13 +550,14 @@ def main():
                  "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                  **{k: v for k, v in extra.items()
-                    if k in ("err_is", "bound_peaks", "hidden", "out")}}
+                    if k in ("err_is", "bound_peaks", "hidden", "out", "split_ms")}}
         if primary:
             report[name] = entry
         else:
             report[name].setdefault("other_shapes", []).append(
                 {k: entry[k] for k in ("shape", "hidden", "out", "max_abs_err", "ms",
-                                       "plain_ms", "bound_ms", "bound_by", "library_ms")
+                                       "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "split_ms")
                  if k in entry})
 
     def forward_case(name, kernel, plain, args, cost, library, source, replaces, primary=True,
@@ -569,6 +583,34 @@ def main():
             raise RuntimeError(f"{name} {tuple(args[0].shape)}: two launches on the same inputs "
                                "differ")
         return True
+
+    def kernel_split(fn, n=3):
+        """Device ms a call of ``fn`` spends in each part of a recurrent kernel, from
+        torch.profiler's kernel names (``n`` calls after a warm-up): the step loop
+        (``steps_kernel``, ``wide_steps_kernel``) apart from the input projection
+        (``proj_kernel``) and K1's output projection (``out_parts`` + ``out_sum``)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+        parts = collections.Counter()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            part = ("step_loop" if "steps_kernel" in e.key else
+                    "input_projection" if "proj_kernel" in e.key else
+                    "output_projection" if "out_parts" in e.key or "out_sum" in e.key else
+                    "other")
+            parts[part] += e.self_device_time_total / 1e3 / n
+        if not parts["step_loop"]:
+            raise RuntimeError(f"no step loop kernel in the profile: {dict(parts)}")
+        return dict(parts)
 
     enc = model.audio_encoder
     fl = enc.built_layers_6
@@ -754,8 +796,9 @@ def main():
     # LSTM scale, cuDNN's nn.LSTM at the same widths as the yardstick; then, held to the plain
     # versions only, shapes that reach the edges of the wide tiling: one row, a partial row
     # tile, one row more than one cooperative launch takes, an input width off the K tile, H =
-    # 640; K1 at an output width that is no multiple of 4 (scalar loads and stores), one that
-    # is no multiple of the 128-column tile, and one row more than a wave at H = 384.
+    # 640, H = 1024; K1 at an output width that is no multiple of 4 (scalar loads and stores),
+    # one that is no multiple of the 128-column tile, and one row more than a wave at H = 384.
+    # Each wide row is also split by kernel (kernel_split).
     def lstm_weights(seed, n_in, hid, bias=True):
         return (randn(seed, 2, n_in, 4 * hid, scale=hid ** -0.5),
                 randn(seed + 1, 2, hid, 4 * hid, scale=hid ** -0.5),
@@ -772,31 +815,35 @@ def main():
         lib1w, x_lib = library_lstm(64, hid, 1, 400 + i), args[0].transpose(0, 1).contiguous()
         forward_case("freq_lstm", freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain, args,
                      freq_lstm.cost(*args[0].shape, hid, out_dim), lambda: lib1w(x_lib), *k1_src,
-                     primary=False, hidden=hid, out=out_dim)
+                     primary=False, hidden=hid, out=out_dim,
+                     split_ms=kernel_split(lambda: freq_lstm.freq_lstm(*args)))
         with torch.inference_mode():
             repeats("freq_lstm", freq_lstm.freq_lstm, args, freq_lstm.freq_lstm(*args))
         del args, lib1w, x_lib
     for i, (hid, n_in) in enumerate(WIDE_K2):
         x2 = randn(430 + i, K3_REQUEST_WINDOWS, 64, n_in, scale=0.5)
         lib2w, x_lib = library_lstm(n_in, hid, 2, 430 + i), x2.transpose(0, 1).contiguous()
-        forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
-                     (x2, *lstm_weights(431 + i, n_in, hid), *lstm_weights(434, 2 * hid, hid)),
+        args2 = (x2, *lstm_weights(431 + i, n_in, hid), *lstm_weights(434, 2 * hid, hid))
+        forward_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain, args2,
                      bilstm2.cost(*x2.shape, hid), lambda: lib2w(x_lib),
                      "sdfa_tpu_torch/csrc/bilstm2.cu", "sdfa_tpu/ops/pallas_bilstm2.py:52",
-                     primary=False, hidden=hid)
-        del x2, lib2w, x_lib
+                     primary=False, hidden=hid,
+                     split_ms=kernel_split(lambda: bilstm2.bilstm2(*args2)))
+        del x2, args2, lib2w, x_lib
     for i, (hid, n_in) in enumerate(WIDE_K4):
         x4 = randn(440 + i, K3_REQUEST_WINDOWS, 64, n_in, scale=0.5)
         lib4w, x_lib = library_lstm(n_in, hid, 1, 440 + i), x4.transpose(0, 1).contiguous()
+        args4 = (x4, *lstm_weights(441 + i, n_in, hid))
         forward_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
-                     (x4, *lstm_weights(441 + i, n_in, hid)), bilstm_layer.cost(*x4.shape, hid),
+                     args4, bilstm_layer.cost(*x4.shape, hid),
                      lambda: lib4w(x_lib), "sdfa_tpu_torch/csrc/bilstm_layer.cu",
-                     "sdfa_tpu/ops/pallas_bilstm.py:42", primary=False, hidden=hid)
-        del x4, lib4w, x_lib
+                     "sdfa_tpu/ops/pallas_bilstm.py:42", primary=False, hidden=hid,
+                     split_ms=kernel_split(lambda: bilstm_layer.bilstm_layer(*args4)))
+        del x4, args4, lib4w, x_lib
     layer_wave = bilstm_layer.wide_wave_rows(384, wide_blocks["bilstm_layer"])
     for i, (rows, steps, n_in, hid, bias) in enumerate((
             (1, 1, 100, 384, True), (33, 3, 1000, 512, False), (layer_wave + 1, 2, 384, 384, True),
-            (7, 5, 64, 640, False))):
+            (7, 5, 64, 640, False), (9, 3, 64, 1024, True))):
         first = (randn(460 + 10 * i, rows, steps, n_in, scale=0.5),
                  *lstm_weights(461 + 10 * i, n_in, hid, bias))
         ragged_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
@@ -830,11 +877,13 @@ def main():
     cases += [(32, 3200, 128, 64), (64, 50, 256, 256)]
     # the wide step loop at the wide_variants phase's train step shapes (timed), then its edges
     # (held to the plain version): one row; T = 2 at a partial row tile; T = 1; one row more
-    # than one cooperative launch takes at H = 384; H = 640 (20 runs of 32 units)
-    wide_wave = bilstm_layer.wide_wave_rows(384, min(wide_blocks["bilstm_core_fwd"],
-                                                     wide_blocks["bilstm_core_bwd"]))
+    # than one cooperative launch takes at H = 384 and 512; H = 640 (20 runs of 32 units);
+    # H = 1024 (32 runs)
+    core_blocks = min(wide_blocks["bilstm_core_fwd"], wide_blocks["bilstm_core_bwd"])
     cases += list(WIDE_K5) + [(3, 1, 384, 0), (2, 7, 512, 0), (1, 33, 384, 0),
-                              (3, wide_wave + 1, 384, 0), (2, 40, 640, 0)]
+                              (3, bilstm_layer.wide_wave_rows(384, core_blocks) + 1, 384, 0),
+                              (2, bilstm_layer.wide_wave_rows(512, core_blocks) + 1, 512, 0),
+                              (2, 40, 640, 0), (2, 9, 1024, 0)]
 
     def core_case(steps, rows, hid, n_in):  # a function: its tensors go when it returns
         timed = n_in > 0

@@ -194,12 +194,13 @@ def test_dgrad_extraction_on_card_matches_numpy(cuda):
 
 @pytest.mark.parametrize("rows,steps,n_in,hid,bias", [
     (1, 1, 100, 384, True), (33, 3, 1000, 512, False), (40, 5, 768, 384, True),
-    (513, 2, 384, 384, False), (7, 4, 1024, 512, True), (5, 2, 64, 640, True)])
+    (513, 2, 384, 384, False), (7, 4, 1024, 512, True), (5, 2, 64, 640, True),
+    (385, 2, 64, 512, False), (9, 3, 64, 1024, True)])
 def test_cuda_wide_layer_kernels_match_plain(cuda, rows, steps, n_in, hid, bias):
     """K4 and K2 through the wide step loop: one row, a partial row tile, an
-    input off the projection's k tile and past 512, more rows than one
-    cooperative launch takes at H = 384 on the H100 (512), H = 640; each launch
-    counted once, under its width."""
+    input off the projection's k tile and past 512, one row more than one
+    cooperative launch takes at H = 384 and 512 on the H100 (512 and 384 rows),
+    H = 640 and 1024; each launch counted once, under its width."""
     rng = np.random.default_rng(rows + hid)
     g = 4 * hid
 
@@ -233,10 +234,13 @@ def test_cuda_freq_lstm_at_other_widths_matches_plain(cuda, rows, n_freq, hid, o
 
 
 @pytest.mark.parametrize("steps,rows,hid", [
-    (3, 1, 384), (2, 7, 512), (1, 33, 384), (3, 513, 384), (64, 100, 512), (2, 40, 640)])
+    (3, 1, 384), (2, 7, 512), (1, 33, 384), (3, 513, 384), (64, 100, 512), (2, 40, 640),
+    (2, 385, 512), (2, 9, 1024)])
 def test_cuda_wide_training_core_matches_plain(cuda, steps, rows, hid):
-    """K5 through the wide step loop: forward < 1e-4, the backward's gradients
-    < 1e-4 of the largest; the same bits twice."""
+    """K5 through the wide step loop: one row, a partial row tile, T = 1, one row
+    more than a launch takes at H = 384 and 512 on the H100, H = 640 and 1024;
+    forward < 1e-4, the backward's gradients < 1e-4 of the largest; the same
+    bits twice."""
     xp, w_hh, dout = (torch.from_numpy(a).to(cuda)
                       for a in _core_inputs(steps, rows, hid, seed=11))
     xp.requires_grad_()
