@@ -9,7 +9,8 @@ Run from the repository root with no arguments:
                                      # both also for the offsets model,
                                      # a train step; the biLSTM step kernel's SM clocks by part
                                      # of a step; the other tile choices of the training core,
-                                     # of FreqLstm's step loop and of the solve product
+                                     # of FreqLstm's step loop and of the solve product; K3's
+                                     # full body with its sums promoted less often or never
     python3 chip_smoke.py --cards 4  # on a machine with 4 cards, only this: data_parallel's
                                      # comparison on NCCL, a rank a card, at 2 and 4 ranks
 
@@ -21,8 +22,8 @@ Phases, each printed as one JSON line:
    how many clusters the card holds at once of the biLSTM step kernel, of
    FreqLstm's and of the training core's forward and backward kernels at each
    hidden width, the wide step loop's tiling for each of its kernels at H =
-   384, 512 and 1024 (units a block U, the k of W_hh it holds resident kres,
-   rows a block R, blocks and rows one cooperative launch takes), how many
+   384, 512 and 1024 (units a block U, rows a block R, blocks and rows one
+   cooperative launch takes), how many
    blocks of the solve product, and the tensor-core
    opcodes (``HGMMA``) in the machine code of ``decode_solve``.
 3. kernels: runs each kernel at its path's shapes, holds it against its plain
@@ -39,11 +40,16 @@ Phases, each printed as one JSON line:
    output widths, K4 with a 1024-wide input and at H = 1024, K5 at 6400 rows and H =
    512), each wide row also split by kernel under ``torch.profiler`` (the step loop
    apart from the input projection ``proj_kernel`` and K1's output projection).
+   ``decode_solve_full``, K3's full body (the TPU ``_kernel``), runs on the
+   ``retarget`` phase's correspondence table at 216, 128 and 512 windows and on
+   the identity table at 256, split into decode, product and sum by kernel name,
+   with the f32 cuBLAS product over the equations as its yardstick and both it
+   and its plain version held to a float64 decode + product (<= 5e-7 m).
    Every kernel is also held
    to its plain version, untimed, at
    ragged shapes that reach every edge of its tiling; ``freq_lstm``,
-   ``decode_solve`` and ``bilstm_core``'s backward must give the same bits
-   twice. One line times the solve's product as a single ``torch.matmul`` in
+   ``decode_solve``, ``decode_solve_full`` and ``bilstm_core``'s backward must
+   give the same bits twice. One line times the solve's product as a single ``torch.matmul`` in
    TF32, for orientation: no path uses it.
 4. serve: the flagship ``dgrad`` config at full width (seeded weights, seeded
    PCA bases at the shipped dims, a synthetic template with FLAME's 5023
@@ -132,12 +138,15 @@ Phases, each printed as one JSON line:
    1e-5 m of the plain versions and 1e-4 m of the float64 host decode + solve.
 17. retarget: the serve phase's model over the synthetic template with triangle
    correspondences (two sources on every even triangle, none on every fifth):
-   the float64 solver build; one 3 s request on f32 / i16 / i8d (K1 / K2 / K3 1
-   / 1 / 0 each) against ``solve_host`` of its decoded dgrads; a session; a
-   capacity-8 server on coef with ``CoefDecoder`` (<= 1e-6 m to float64); the
-   request's device time by kernel and the f32 product over the equations
-   alone; the one-to-one file (the identity table: K3) and every equation twice
-   (the gather product) against the request without a file (<= 1e-5 m).
+   the float64 solver build; one 3 s request on f32 / i16 / i8d (K1 / K2 1 / 1
+   each, K3's full body 1 and its delta body 0) against ``solve_host`` of its
+   decoded dgrads; a session (the full body); a capacity-8 server on coef with
+   ``CoefDecoder`` (<= 1e-6 m to float64, K3 0); the request's device time by
+   kernel through the full body and through the route before it (the decode to
+   planes and ``solve_fn``, <= 1e-5 m apart), and the f32 product over the
+   equations alone; the one-to-one file (the identity table: the delta body)
+   and every equation twice (the full body) against the request without a file
+   (<= 1e-5 m).
 18. spec_variants: three models of layers the shipped configs do not use, at the
    dgrad widths over the same template and bases: ``freq_last_gmm`` (FreqLstm
    "last" through ``bilstm_layer`` at H = 128, a 3-layer time stack at H = 256,
@@ -233,13 +242,18 @@ WIDE_K4 = ((384, 384), (384, 768), (512, 512), (512, 1024), (1024, 1024))
 WIDE_K5 = ((64, 100, 512, 512), (64, 100, 384, 384), (32, 6400, 256, 64), (32, 6400, 384, 64),
            (32, 6400, 512, 64))
 WIDE_HIDDENS = (384, 512, 1024)  # the build line's tilings of the wide step loop
+# kernel_split's parts by a fragment of the kernel's name: a recurrent kernel's, K3 full body's
+RECURRENT_PARTS = (("steps_kernel", "step_loop"), ("proj_kernel", "input_projection"),
+                   ("out_parts", "output_projection"), ("out_sum", "output_projection"))
+K3_FULL_PARTS = (("solve_product_kernel", "product"), ("decode_full_kernel", "decode"),
+                 ("solve_sum_kernel", "sum"))
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
 TRAIN_STEPS = 5
 VARIANT_TRAIN_STEPS = 10  # spec_variants: train steps of 100 windows per variant
 VARIANT_PLAIN_TOL_M = 1e-5  # spec_variants: a request through kernels vs plain versions
 DATA_TRAIN_STEPS = 30  # api.train_model from a generated dataset: 6 epochs of 5 batches
-TOL = {"freq_lstm": 1e-4, "bilstm2": 1e-4, "decode_solve": 1e-5, "bilstm_layer": 1e-4,
-       "bilstm_core_fwd": 1e-4}  # max |kernel - plain|
+TOL = {"freq_lstm": 1e-4, "bilstm2": 1e-4, "decode_solve": 1e-5, "decode_solve_full": 1e-5,
+       "bilstm_layer": 1e-4, "bilstm_core_fwd": 1e-4}  # max |kernel - plain|
 BWD_REL_TOL = 1e-4    # bilstm_core_bwd: max |diff| / max |reference|, for d(xp) and d(w_hh)
 PLAIN_TOL_M = 1e-4    # wav -> vertices through kernels vs through plain versions
 ORACLE_TOL_M = 1e-4   # sampled frames vs the float64 host solve
@@ -272,6 +286,10 @@ PCA_TOL = 1e-5         # fitted components vs a float64 numpy SVD with sklearn's
 PRE_ROUNDTRIP_TOL_M = 1e-4  # float32 dgrad files solved back (tests/test_deformation.py:168)
 PRE_PLAIN_TOL_M = 1e-5  # the preprocessed checkpoint's request, kernels vs plain versions
 IDENTITY_TOL_M = 1e-5   # an identity correspondence table vs no table
+# K3's full body vs the float64 decode, gather and product: float32 grade (the plain float32
+# product is within 1.4e-7 m at the kernel phase's shapes; 3xTF32 summed by the tensor cores
+# alone drifted to 2.75e-6 at 216 windows)
+FULL_F64_TOL_M = 5e-7
 # data_parallel: two gloo ranks on cuda:0 against one process on the global batch
 DP_WORLD = 2
 DP_STEPS = 3
@@ -461,6 +479,7 @@ def main():
     from sdfa_tpu_torch.models import build_model
     from sdfa_tpu_torch.ops import (bilstm2, bilstm_core, bilstm_layer, build, decode_solve,
                                     freq_lstm)
+    from sdfa_tpu_torch.ops.deform_solver import DeformationSolver
     from sdfa_tpu_torch.task import AnimationTask
     from sdfa_tpu_torch.train import Experiment, Trainer, checkpoints
     from sdfa_tpu_torch.viewer import frame
@@ -481,7 +500,7 @@ def main():
     k1_clusters = k1_tiling[128]
     # the wide step loop: resident blocks of each of its kernels (one cooperative launch takes
     # at most that many), and its tiling at each wide width: a block owns U units and R rows
-    # and holds none of W_hh resident (kres 0: the product streams it through L2 every step)
+    # (the product streams W_hh through L2 every step)
     wide_blocks = {"bilstm_layer": bilstm_layer.wide_resident_blocks(dev),
                    "freq_lstm": k1_tiling["wide"],
                    **{f"bilstm_core_{k}": n
@@ -491,7 +510,7 @@ def main():
         for h in WIDE_HIDDENS:
             rows = bilstm_layer.wide_wave_rows(h, n)
             wide_tiling.setdefault(name, {})[h] = {
-                "U": bilstm_layer.WIDE_UNITS, "kres": 0, "R": bilstm_layer.WIDE_ROW_TILE,
+                "U": bilstm_layer.WIDE_UNITS, "R": bilstm_layer.WIDE_ROW_TILE,
                 "blocks_a_wave": rows // bilstm_layer.WIDE_ROW_TILE * 2 * (
                     h // bilstm_layer.WIDE_UNITS),
                 "rows_a_wave": rows}
@@ -550,14 +569,15 @@ def main():
                  "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                  **{k: v for k, v in extra.items()
-                    if k in ("err_is", "bound_peaks", "hidden", "out", "split_ms")}}
+                    if k in ("err_is", "bound_peaks", "hidden", "out", "split_ms", "table",
+                             "f32_bound_ms", "max_abs_m_vs_f64")}}
         if primary:
             report[name] = entry
         else:
             report[name].setdefault("other_shapes", []).append(
-                {k: entry[k] for k in ("shape", "hidden", "out", "max_abs_err", "ms",
-                                       "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                       "split_ms")
+                {k: entry[k] for k in ("shape", "hidden", "out", "table", "max_abs_err",
+                                       "max_abs_m_vs_f64", "ms", "plain_ms", "bound_ms",
+                                       "f32_bound_ms", "bound_by", "library_ms", "split_ms")
                  if k in entry})
 
     def forward_case(name, kernel, plain, args, cost, library, source, replaces, primary=True,
@@ -584,11 +604,13 @@ def main():
                                "differ")
         return True
 
-    def kernel_split(fn, n=3):
-        """Device ms a call of ``fn`` spends in each part of a recurrent kernel, from
-        torch.profiler's kernel names (``n`` calls after a warm-up): the step loop
-        (``steps_kernel``, ``wide_steps_kernel``) apart from the input projection
-        (``proj_kernel``) and K1's output projection (``out_parts`` + ``out_sum``)."""
+    def kernel_split(fn, n=3, names=RECURRENT_PARTS):
+        """Device ms a call of ``fn`` spends in each part of a kernel, from
+        torch.profiler's kernel names (``n`` calls after a warm-up): ``names`` maps
+        a fragment of a kernel's name to its part, the first part must be there. By
+        default a recurrent kernel's: the step loop (``steps_kernel``,
+        ``wide_steps_kernel``) apart from the input projection (``proj_kernel``) and
+        K1's output projection (``out_parts`` + ``out_sum``)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -603,13 +625,10 @@ def main():
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
-            part = ("step_loop" if "steps_kernel" in e.key else
-                    "input_projection" if "proj_kernel" in e.key else
-                    "output_projection" if "out_parts" in e.key or "out_sum" in e.key else
-                    "other")
+            part = next((label for fragment, label in names if fragment in e.key), "other")
             parts[part] += e.self_device_time_total / 1e3 / n
-        if not parts["step_loop"]:
-            raise RuntimeError(f"no step loop kernel in the profile: {dict(parts)}")
+        if not parts[names[0][1]]:
+            raise RuntimeError(f"no {names[0][1]} kernel in the profile: {dict(parts)}")
         return dict(parts)
 
     enc = model.audio_encoder
@@ -695,6 +714,81 @@ def main():
                *k3_src, primary=windows == K3_WINDOWS, tensor_flops=product,
                bound_peaks="decode: 67 TFLOP/s f32; product: 495 TFLOP/s TF32 tensor cores",
                repeats_bit_for_bit=twice)
+
+    # K3's full body on the retarget phase's fan-out table (13966 equations) at a request's
+    # 216 windows and a live tick's 128 and 512, and on the identity table at the 256 windows
+    # of the delta body's row, on the same coefficients as the delta rows; then held to the
+    # plain version only at 1, 7 and 43 windows. Every case is launched twice and must repeat
+    # bit for bit. Its bound reckons the decode in float32 and the product as the tensor cores
+    # run it, three TF32 products; beside it the f32 reckoning, one product on the FMA units.
+    # The yardstick is the product alone as one f32 cuBLAS call on the same equations.
+    fan_count, fan_faces, _ = fanout_table(solver.n_tris)
+    fan_solver = DeformationSolver(verts, faces, cnst, corr_count=fan_count, corr_faces=fan_faces)
+    pca_bases = (model.scale_pca.compT.detach(), model.scale_pca.means.detach(),
+                 model.rotat_pca.compT.detach(), model.rotat_pca.means.detach())
+    full_src = ("sdfa_tpu_torch/csrc/decode_solve.cu", "sdfa_tpu/ops/pallas_decode_solve.py:201")
+    for table, fsc_solver, timed, checked in (
+            ("fanout", fan_solver, (K3_REQUEST_WINDOWS,) + LIVE_WINDOWS, (1, 7, 43)),
+            ("identity", solver, (K3_WINDOWS,), ())):
+        fsc = decode_solve.prep_full_consts(*pca_bases, fsc_solver, dev)
+        tp, (ep, nf) = fsc.basis_s.shape[2], fsc.p.shape[1:]
+        for windows in timed + checked:
+            g3 = torch.Generator().manual_seed(3 if windows == K3_WINDOWS else 300 + windows)
+            coef_s = torch.randn(windows, 85, generator=g3).to(dev)
+            coef_r = torch.randn(windows, 180, generator=g3).to(dev)
+            with torch.inference_mode():
+                got = decode_solve.decode_solve_full(coef_s, coef_r, fsc)
+                torch.cuda.synchronize()
+                want = decode_solve.decode_solve_full_plain(coef_s, coef_r, fsc)
+                err = float((got - want).abs().max())
+                twice = repeats("decode_solve_full", decode_solve.decode_solve_full,
+                                (coef_s, coef_r, fsc), got)
+                if not bool(torch.isfinite(got).all()):
+                    raise RuntimeError(f"decode_solve_full {table} {windows} windows: non-finite")
+                if windows not in timed:
+                    emit({"phase": "kernel", "name": "decode_solve_full", "table": table,
+                          "shape": list(got.shape), "max_abs_err": err,
+                          "tol": TOL["decode_solve_full"], "repeats_bit_for_bit": twice,
+                          "card": smi})
+                    if not err <= TOL["decode_solve_full"]:
+                        raise RuntimeError(f"decode_solve_full {windows} windows: {err}")
+                    continue
+                ms = time_ms(lambda: decode_solve.decode_solve_full(coef_s, coef_r, fsc), 5)
+                plain_ms = time_ms(lambda: decode_solve.decode_solve_full_plain(coef_s, coef_r,
+                                                                                fsc), 5)
+                t_eq = decode_solve.equation_transforms(coef_s, coef_r, fsc).reshape(
+                    3 * windows, 3 * ep)
+                p_mat = fsc.p.reshape(3 * ep, nf)
+                library_ms = time_ms(lambda: t_eq @ p_mat, 5)
+                del t_eq
+                # the kernel and the plain version against the float64 decode, gather, product
+                f64 = fsc._replace(**{k: getattr(fsc, k).double() for k in (
+                    "basis_s", "means_s", "basis_r", "means_r", "p")})
+                exact = decode_solve.decode_solve_full_plain(coef_s.double(), coef_r.double(),
+                                                             f64)
+                f64_err = {"kernel": float((got.double() - exact).abs().max()),
+                           "plain": float((want.double() - exact).abs().max()),
+                           "tol": FULL_F64_TOL_M}
+                del f64, exact
+                if not f64_err["kernel"] <= FULL_F64_TOL_M:
+                    raise RuntimeError(f"decode_solve_full {table} {windows} windows vs float64: "
+                                       f"{f64_err}")
+            split = kernel_split(lambda: decode_solve.decode_solve_full(coef_s, coef_r, fsc),
+                                 names=K3_FULL_PARTS)
+            flops, moved = decode_solve.cost_full(windows, 85, 180, tp, ep, nf)
+            product = 2.0 * windows * 9 * ep * nf
+            record("decode_solve_full", list(got.shape), err, TOL["decode_solve_full"], ms,
+                   plain_ms, flops - 3 * product, moved, library_ms, *full_src,
+                   primary=table == "fanout" and windows == K3_REQUEST_WINDOWS,
+                   tensor_flops=3 * product, table=table, n_eqs=fsc_solver.n_eqs,
+                   f32_bound_ms=bound(flops - 2 * product, moved)[0], split_ms=split,
+                   max_abs_m_vs_f64=f64_err,
+                   bound_peaks="decode: 67 TFLOP/s f32; product: 3 TF32 passes at 495 TFLOP/s "
+                               "(f32_bound_ms: one product at 67 TFLOP/s f32)",
+                   repeats_bit_for_bit=twice)
+        del fsc
+    del fan_solver
+    torch.cuda.empty_cache()
 
     for n_in, layer in ((256, 0), (512, 1)):  # the stack's first layer, then a deeper one
         x4 = randn(4 + layer, K4_ROWS, 64, n_in, scale=0.5)
@@ -953,13 +1047,11 @@ def main():
         ts, v = task.generate_vertices(sig, spk)
         walls.append(time.perf_counter() - t0)
         outs.append((ts, v))
-    launches = {"freq_lstm": launched(freq_lstm), "bilstm2": launched(bilstm2),
-                "decode_solve": decode_solve.LAUNCHES}
+    launches = read_counts({"freq_lstm": freq_lstm, "bilstm2": bilstm2,
+                            "decode_solve": decode_solve}, "serve")
     for (ts, v), (sig, _) in zip(outs, requests):
         if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
             raise RuntimeError(f"bad output: shape {v.shape}, finite {np.isfinite(v).all()}")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel of the path never launched: {launches}")
     emit({"phase": "serve", "requests": len(requests), "audio_s_each": 3.0,
           "windows": [len(ts) for ts, _ in outs], "warmup_s": warm_s, "wall_s": walls,
           "audio_s_per_s": [3.0 / w for w in walls], "launches": launches, "card": smi})
@@ -1001,6 +1093,7 @@ def main():
         profile_step_clocks(build, dev, smi)
         profile_core_tiles(build, dev, smi)
         profile_serving_tiles(build, dev, smi, k1_weights, dsc)
+        profile_full_sums(build, dev, smi, pca_bases, (verts, faces, cnst))
 
     # --- K4's path: a stack that is not 2 layers deep serves through bilstm_layer ---
     hp1 = configure("dgrad")
@@ -1171,6 +1264,7 @@ def main():
         path_launches["preprocess"] = preprocess_phase(root, dev, smi, pre_tmp)
         path_launches["retarget"] = retarget_phase(hp, model, sig0, spk0, v0, dev, sr, smi,
                                                    pre_tmp)
+    launches["decode_solve_full"] = path_launches["retarget"]["decode_solve_full"]
     # --- every layer a spec can name: three variants at the dgrad model's widths -------
     with tempfile.TemporaryDirectory(prefix="sdfa_chip_spec_") as spec_tmp:
         path_launches["spec_variants"] = spec_variants_phase(task, pca, sig0, spk0, solver, dev,
@@ -1263,6 +1357,8 @@ def spec_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
 
     def counts():
         out = {name: launched(mod) for name, mod in counted.items()}
+        out.update(decode_solve=decode_solve.LAUNCHES["delta"],
+                   decode_solve_full=decode_solve.LAUNCHES["full"])
         out.update({f"{name}_h{h}": mod.LAUNCHES[h] for name, mod in (("bilstm2", bilstm2),
                                                                     ("bilstm_layer", bilstm_layer))
                     for h in (128, 256)})
@@ -1272,11 +1368,11 @@ def spec_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
 
     # the launches a request must make, and a train step's recurrences through K5
     want = {"freq_last_gmm": ({"bilstm_layer_h128": 1, "bilstm_layer_h256": 3, "decode_solve": 1,
-                               "freq_lstm": 0, "bilstm2": 0}, 4),
+                               "decode_solve_full": 0, "freq_lstm": 0, "bilstm2": 0}, 4),
             "lstm2d_prod": ({"bilstm_layer_h128": 2, "bilstm2_h256": 1, "decode_solve": 1,
-                             "freq_lstm": 0}, 4),
-            "gru_extras": ({"freq_lstm": 1, "decode_solve": 1, "bilstm2": 0,
-                            "bilstm_layer": 0}, 1)}
+                             "decode_solve_full": 0, "freq_lstm": 0}, 4),
+            "gru_extras": ({"freq_lstm": 1, "decode_solve": 1, "decode_solve_full": 0,
+                            "bilstm2": 0, "bilstm_layer": 0}, 1)}
     batches = train_batches(VARIANT_TRAIN_STEPS)
     path = {}
     for name, (want_request, k5_per_step) in want.items():
@@ -1458,6 +1554,8 @@ def wide_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
 
     def counts():
         out = {name: launched(mod) for name, mod in counted.items()}
+        out.update(decode_solve=decode_solve.LAUNCHES["delta"],
+                   decode_solve_full=decode_solve.LAUNCHES["full"])
         out.update({f"{name}_h{h}": n for name in ("freq_lstm", "bilstm2", "bilstm_layer")
                     for h, n in counted[name].LAUNCHES.items()})
         out.update({f"bilstm_core_{p}_h{h}": n
@@ -1468,11 +1566,11 @@ def wide_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
 
     # a request's launches, and a train step's by pass and width
     want = {"wide512": ({"freq_lstm_h256": 1, "bilstm2_h512": 1, "decode_solve": 1,
-                         "freq_lstm": 1, "bilstm2": 1, "bilstm_layer": 0},
+                         "decode_solve_full": 0, "freq_lstm": 1, "bilstm2": 1, "bilstm_layer": 0},
                         {"bilstm_core_fwd_h256": 1, "bilstm_core_fwd_h512": 2,
                          "bilstm_core_bwd_h256": 1, "bilstm_core_bwd_h512": 2}),
             "wide384": ({"freq_lstm_h384": 1, "bilstm_layer_h384": 3, "decode_solve": 1,
-                         "freq_lstm": 1, "bilstm_layer": 3, "bilstm2": 0},
+                         "decode_solve_full": 0, "freq_lstm": 1, "bilstm_layer": 3, "bilstm2": 0},
                         {"bilstm_core_fwd_h384": 4, "bilstm_core_bwd_h384": 4})}
     batches = train_batches(VARIANT_TRAIN_STEPS)
     path = {}
@@ -2810,19 +2908,41 @@ def preprocess_phase(repo, dev, smi, tmp):
     return path
 
 
+def fanout_table(nf: int):
+    """The retarget phase's correspondences onto ``nf`` triangles: two sources
+    on every even triangle, none on every fifth, otherwise one to one, as
+    (corr_count, corr_faces) and as the file's (source, target) rows."""
+    count, faces, rows = [], [], []
+    for i in range(nf):
+        if i % 5 == 4:
+            count.append(0)
+            faces.append(0)
+        elif i % 2 == 0:
+            count.append(2)
+            faces.extend([i, (i + 3) % nf])
+            rows += [(i, i), ((i + 3) % nf, i)]
+        else:
+            count.append(1)
+            faces.append(i)
+            rows.append((i, i))
+    return count, faces, rows
+
+
 def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
     """The shipped dgrad model (the serve phase's seeded weights and bases)
     over ``mesh.synthetic_template`` with triangle correspondences in the
-    reference's file format (two sources on every even triangle, none on every
-    fifth, otherwise one to one): the float64 solver build; one 3 s request on
-    f32, i16 and i8d (K1 / K2 / K3 1 / 1 / 0 each) against ``solve_host`` of
-    its own decoded dgrads; a ``StreamingSession`` against the offline request;
-    a capacity-8 ``StreamingServer`` on coef decoded by ``CoefDecoder`` against
-    the float64 decode of the same coefficients; the request's device time by
-    kernel and the f32 product over the equations alone. Then the one-to-one
-    file (recognized as the identity table: K3) and the same table with every
-    equation twice (the gather and the product) against the serve phase's
-    request without a file. Returns the launch counts of the f32 request."""
+    reference's file format (``fanout_table``): the float64 solver build; one
+    3 s request on f32, i16 and i8d (K1 / K2 1 / 1 each and K3's full body
+    once, its delta body not) against ``solve_host`` of its own decoded dgrads;
+    a ``StreamingSession`` against the offline request; a capacity-8
+    ``StreamingServer`` on coef decoded by ``CoefDecoder`` against the float64
+    decode of the same coefficients; the request's device time by kernel,
+    through K3's full body and through the route before it (the decode to
+    planes and ``solve_fn``), and the f32 product over the equations alone.
+    Then the one-to-one file (recognized as the identity table: K3's delta
+    body) and the same table with every equation twice (its full body) against
+    the serve phase's request without a file. Returns the launch counts of the
+    f32 request."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2848,10 +2968,7 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
         solver = frame.set_template_mesh(verts, faces, cnst, corres_path=path)
         return solver, time.perf_counter() - t0
 
-    rows = []
-    for i in range(nf):
-        if i % 5 != 4:
-            rows += [(i, i), ((i + 3) % nf, i)] if i % 2 == 0 else [(i, i)]
+    rows = fanout_table(nf)[2]
     solver, out["solver_build_s"] = corres("fanout", rows)
     out.update(n_tris=nf, n_eqs=solver.n_eqs, identity_rows=int((solver._eq_src < 0).sum()))
     if solver.spec.identity_eq or solver.n_eqs != len(rows) + nf // 5:
@@ -2867,8 +2984,8 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
         t0 = time.perf_counter()
         ts, v = task.generate_vertices(sig, spk, wire=wire)
         wall = 1e3 * (time.perf_counter() - t0)
-        counts = read_counts(counters, f"retarget {wire}", zero=("decode_solve",))
-        if counts != {"freq_lstm": 1, "bilstm2": 1, "decode_solve": 0}:
+        counts = read_counts(counters, f"retarget {wire}", k3_full=True)
+        if counts != {"freq_lstm": 1, "bilstm2": 1, "decode_solve": 0, "decode_solve_full": 1}:
             raise RuntimeError(f"retarget {wire}: launches {counts}")
         if v.shape != (len(ts), FLAME_COUNTS[0], 3) or not np.isfinite(v).all():
             raise RuntimeError(f"retarget {wire}: bad output {v.shape}")
@@ -2892,13 +3009,23 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
     out["wires"] = lines
     out["tol_m"] = {"vs_f64_solve": ORACLE_TOL_M, "vs_f32": WIRE_TOL_M}
 
-    # 2. the request's device time by kernel, and the product over the equations alone
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        task.generate_vertices(sig, spk)
+    # 2. the request's device time by kernel through K3's full body and through the route
+    #    before it (decode to planes, solve_fn's f32 product over the equations), and that
+    #    product alone
+    def profiled(t):
         torch.cuda.synchronize()
-    device, busy_ms = device_kernels(prof)
-    consts = task._decode_consts()[1]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, verts_out = t.generate_vertices(sig, spk)
+            torch.cuda.synchronize()
+        return (*device_kernels(prof), verts_out)
+
+    device, busy_ms, _ = profiled(task)
+    solver_, consts, _ = task._decode_consts()
+    task_solve_fn = AnimationTask(hp, model, dev)
+    task_solve_fn._decode = (solver_, consts, None)  # the decode to planes and solve_fn
+    task_solve_fn.warmup(3.0)
+    device_old, busy_old_ms, v_old = profiled(task_solve_fn)
+    del task_solve_fn
     w = len(ts)
     t9 = torch.randn(w, 9, nf, device=dev)
     t_eq = equation_entries(consts, solver.spec, t9).reshape(-1, 3 * solver.n_eqs)
@@ -2908,17 +3035,24 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
     out["profile"] = {"device_busy_ms": busy_ms, "request_wall_ms": lines["f32"]["wall_ms"],
                       "top_device_ms": [{"name": k[:80], "ms": ms, "calls": c}
                                         for k, ms, c in device[:10]],
+                      "solve_fn_route": {"device_busy_ms": busy_old_ms,
+                                         "max_abs_m_vs_full_body": max_err(v_old, v),
+                                         "tol_m": TOL["decode_solve_full"],
+                                         "top_device_ms": [{"name": k[:80], "ms": ms, "calls": c}
+                                                           for k, ms, c in device_old[:6]]},
                       "f32_product_over_n_eqs": {
                           "shape": [list(t_eq.shape), list(p.shape)], "ms": prod_ms,
                           "bound_ms": bound(flops, nbytes(t_eq, p) + 4 * t_eq.shape[0]
                                             * p.shape[1])[0],
                           "tflops": flops / prod_ms / 1e9}}
     del t9, t_eq
+    if not out["profile"]["solve_fn_route"]["max_abs_m_vs_full_body"] <= TOL["decode_solve_full"]:
+        raise RuntimeError(f"retarget: K3's full body vs solve_fn {out['profile']}")
 
     # 3. a live session and a coef server on the correspondence template
     reset_counts(counters)
     out["session_launches"] = session_phase(task, counters, sig, spk, ts, v, smi,
-                                            phase="retarget_session", zero=("decode_solve",))
+                                            phase="retarget_session", k3_full=True)
     n = 8
     clips = [signal(2.0 + 0.125 * k, sr, 140 + k) for k in range(n)]
     decoder = CoefDecoder(task)
@@ -2939,7 +3073,8 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
     if not max(errs) <= COEF_ORACLE_TOL_M:
         raise RuntimeError(f"retarget coef server: {out['server_coef']}")
 
-    # 4. identity tables: the one-to-one file (K3) and every equation twice (the product)
+    # 4. identity tables: the one-to-one file (K3's delta body) and every equation twice
+    #    (not an identity table: its full body)
     idents = {}
     for name, table in (("one_to_one", [(i, i) for i in range(nf)]),
                         ("doubled", [(i, i) for i in range(nf) for _ in range(2)])):
@@ -2948,12 +3083,11 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
         task_i.warmup(3.0)
         reset_counts(counters)
         _, vi = task_i.generate_vertices(sig, spk)
-        counts = {k: launched(m) for k, m in counters.items()}
+        counts = read_counts(counters, f"retarget {name}", k3_full=name == "doubled")
         idents[name] = {"identity_table": solver_i.spec.identity_eq, "n_eqs": solver_i.n_eqs,
                         "solver_build_s": build_s, "launches": counts,
                         "max_abs_m_vs_no_file": max_err(vi, v_ref)}
-        want_k3 = 1 if name == "one_to_one" else 0
-        if (solver_i.spec.identity_eq != (name == "one_to_one") or counts["decode_solve"] != want_k3
+        if (solver_i.spec.identity_eq != (name == "one_to_one")
                 or not idents[name]["max_abs_m_vs_no_file"] <= IDENTITY_TOL_M):
             raise RuntimeError(f"identity table {name}: {idents[name]}")
         del task_i
@@ -2966,7 +3100,7 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
 
 def launched(mod) -> int:
     """A wrapper's launches since ``reset_counts``: K1, K2 and K4 keep theirs
-    by hidden width, K3 one count."""
+    by hidden width, K3 by body (all of them here)."""
     n = mod.LAUNCHES
     return n.total() if isinstance(n, collections.Counter) else n
 
@@ -2979,10 +3113,22 @@ def reset_counts(counters):
             mod.LAUNCHES = 0
 
 
-def read_counts(counters, path, zero=()):
+def read_counts(counters, path, zero=(), k3_full=False):
     """The launch counts since ``reset_counts``; raises if a kernel of ``path``
-    never launched (or one named in ``zero`` did)."""
+    never launched (or one named in ``zero`` did). K3 counts by body:
+    ``decode_solve`` is its delta body. Its full body launches only on a path
+    over a table with triangle correspondences (``k3_full``: counted as
+    ``decode_solve_full``, and the delta body must stay put); elsewhere it
+    must not launch."""
     counts = {name: launched(mod) for name, mod in counters.items()}
+    if "decode_solve" in counters:
+        k3 = counters["decode_solve"].LAUNCHES
+        counts["decode_solve"] = k3["delta"]
+        if k3_full:
+            counts["decode_solve_full"] = k3["full"]
+            zero = (*zero, "decode_solve")
+        elif k3["full"]:
+            raise RuntimeError(f"{path}: decode_solve's full body launched {k3['full']} times")
     for name, n in counts.items():
         if (n != 0) if name in zero else (n < 1):
             raise RuntimeError(f"{path}: {name} launched {n} times")
@@ -3064,9 +3210,10 @@ def wires_phase(task, counters, sig, spk, v_f32, sample, oracle, smi):
     return launches["i16"]
 
 
-def session_phase(task, counters, sig, spk, ts_ref, v_ref, smi, phase="session", zero=()):
+def session_phase(task, counters, sig, spk, ts_ref, v_ref, smi, phase="session", zero=(),
+                  k3_full=False):
     """One ``StreamingSession`` fed the clip in uneven chunks, then flushed;
-    the counters named in ``zero`` must not move."""
+    the counters named in ``zero`` must not move (``k3_full``: as ``read_counts``)."""
     import numpy as np
 
     def run():
@@ -3085,7 +3232,7 @@ def session_phase(task, counters, sig, spk, ts_ref, v_ref, smi, phase="session",
     t0 = time.perf_counter()
     got, live = run()
     wall_ms = 1e3 * (time.perf_counter() - t0)
-    launches = read_counts(counters, phase, zero=zero)
+    launches = read_counts(counters, phase, zero=zero, k3_full=k3_full)
     err = max_err(np.stack([v for _, v in got]), v_ref)
     emit({"phase": phase, "frames": len(got), "frames_before_flush": live,
           "timeline_equal": [t for t, _ in got] == list(ts_ref), "max_abs_m_vs_offline": err,
@@ -3480,6 +3627,58 @@ def call_entry(lib, entry, tensors, ints, dev):
               torch.cuda.current_stream(dev).cuda_stream)
     if code != 0:
         raise RuntimeError(f"{entry}: CUDA error {code}")
+
+
+def profile_full_sums(build, dev, smi, pca_bases, template):
+    """Why K3's full body adds its tensor-core sums into float32 registers every 4
+    k tiles: ``csrc/decode_solve.cu`` as built and with the sums promoted every 16
+    k tiles or never (``-DSDFA_FULL_PROMOTE``), at a request's 216 windows on the
+    retarget phase's fan-out table, K split as the wrapper splits it and in one
+    part; each build timed twice in turns, and its max |diff| from the float64
+    decode, gather and product."""
+    import torch
+
+    from sdfa_tpu_torch.ops import decode_solve
+    from sdfa_tpu_torch.ops.deform_solver import DeformationSolver
+
+    verts, faces, cnst = template
+    count, corr, _ = fanout_table(len(faces))
+    solver = DeformationSolver(verts, faces, cnst, corr_count=count, corr_faces=corr)
+    fsc = decode_solve.prep_full_consts(*pca_bases, solver, dev)
+    tp, (ep, nf), n_pad = fsc.basis_s.shape[2], fsc.p.shape[1:], fsc.b_t.shape[0]
+    windows = K3_REQUEST_WINDOWS
+    gen = torch.Generator().manual_seed(300 + windows)
+    coef_s = torch.randn(windows, 85, generator=gen).to(dev)
+    coef_r = torch.randn(windows, 180, generator=gen).to(dev)
+    with torch.inference_mode():
+        f64 = fsc._replace(**{k: getattr(fsc, k).double() for k in (
+            "basis_s", "means_s", "basis_r", "means_r", "p")})
+        exact = decode_solve.decode_solve_full_plain(coef_s.double(), coef_r.double(), f64)
+        del f64
+    libs = build_variants(build, "decode_solve", {"promote_4": [],
+                                                  "promote_16": ["-DSDFA_FULL_PROMOTE=16"],
+                                                  "promote_never": ["-DSDFA_FULL_PROMOTE=0"]})
+    empty = dict(device=dev, dtype=torch.float32)
+    a, out = torch.empty(3 * windows, 9 * ep, **empty), torch.empty(windows, 3, nf, **empty)
+    split = decode_solve.k_parts(3 * windows, n_pad, 9 * ep, decode_solve.resident_blocks(dev))
+    lines = {}
+    for turn in range(2):
+        for tag, lib in libs.items():
+            for parts in (split, 1):
+                part = torch.empty(parts, 3 * windows, n_pad, **empty)
+
+                def call():
+                    call_entry(lib, "sdfa_decode_solve_full",
+                               (coef_s, coef_r, fsc.basis_s, fsc.means_s, fsc.basis_r,
+                                fsc.means_r, fsc.eq_idx, fsc.b_t, a, part, out),
+                               (windows, 85, 180, tp, ep, nf, n_pad, parts), dev)
+
+                ms = time_ms(call, 5)
+                line = lines.setdefault(f"{tag}_{parts}_parts", {"ms": []})
+                line["ms"].append(ms)
+                line["max_abs_m_vs_f64"] = float((out.double() - exact).abs().max())
+    emit({"phase": "profile_full_sums", "windows": windows, "n_eqs": solver.n_eqs,
+          "wrapper_k_parts": split, "builds": lines, "card": smi})
 
 
 def profile_serving_tiles(build, dev, smi, k1_weights, dsc):

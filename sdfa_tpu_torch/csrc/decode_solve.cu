@@ -1,48 +1,72 @@
-// PCA decode + transform build + delta-form deformation solve:
-// coefficients (W, Ks), (W, Kr) -> free-vertex solution (W, 3, NF),
-//   x[w][d] = x0[d] + sum_c sum_t (T[w][d][c](t) - T0[3d+c](t)) * P[c][t]
-// with T = exp(skew(r)) * S built from the 9 decoded planes of triangle t.
+// PCA decode + transform build + deformation solve: coefficients (W, Ks),
+// (W, Kr) -> free-vertex solution (W, 3, NF), with T = exp(skew(r)) * S built
+// from the 9 decoded planes of a triangle. Two bodies, picked by the caller
+// from the template's equation table (ops/decode_solve.py::prep_consts):
 //
-// Replaces sdfa_tpu/ops/pallas_decode_solve.py:_kernel_delta (entry points
-// decode_solve_free / decode_solve_fused). Delta form only.
+//   delta (identity tables): x[w][d] = x0[d] + sum_c sum_t (T[w][d][c](t) - T0[3d+c](t)) P[c][t]
+//   full (any table):        x[w][d] = sum_c sum_e T[w][d][c](src(e)) P[c][e]
+//
+// where equation e reads triangle src(e) = eq_idx[e], or the identity where
+// eq_idx[e] < 0 (a target triangle with no source, or the padded tail).
+//
+// Replaces sdfa_tpu/ops/pallas_decode_solve.py:_kernel_delta (the delta body,
+// sdfa_decode_solve) and :_kernel (the full body, sdfa_decode_solve_full),
+// both behind its pallas_call (entry points decode_solve_free /
+// decode_solve_fused). The TPU kernel takes identity tables only; on a
+// correspondence table the JAX package decodes to planes and takes solve_fn's
+// float32 product over the equations, which is the full body's function here.
 //
 // What bounds it on the H100: the solve is a product of M = 3W rows, N = NF =
-// 1261 columns and K = 3T' (T' = 9976 triangles padded to 10112): 2 x 9 x
-// 10112 x 1261 = 0.23 GFLOP per window, 59 GFLOP at 256 windows; the decode
-// adds 2 x 1050 x T' = 21 MFLOP per window plus 9 transcendentals per
-// triangle. In f32 outside the tensor cores (67 TFLOP/s) the product alone
-// is 0.9 ms at best. The delta form exists so that a short mantissa is
-// enough: the TPU kernel multiplies dT by P in one bf16 pass with f32 sums.
-// Here the product runs on the tensor cores in TF32 (495 TFLOP/s), which is
-// 7 x closer to the f32 result than bf16 on the same inputs. What bounds it
-// then is bytes: P is 153 MB and dT 93 MB at 256 windows, 0.07 ms from device
-// memory if each is read once, and every 128 x 128 output tile pulls its two
-// operand strips, 31 MB, from L2 into shared memory.
+// 1261 columns and K = 3T' (T' = 9976 triangles padded to 10112) or 3E' (E' =
+// n_eqs padded; 13966 -> 14080 for the fan-out table chip_smoke.py drives):
+// 2 x 9 x 10112 x 1261 = 0.23 GFLOP per window on the identity table. The
+// decode adds 2 x 1050 FLOP per (window, triangle) plus 9 transcendentals.
+// In f32 outside the tensor cores (67 TFLOP/s) the product alone is 0.9 ms at
+// 256 windows. The delta form exists so that a short mantissa is enough: the
+// TPU kernel multiplies dT by P in one bf16 pass with f32 sums. Here the delta
+// product runs on the tensor cores in TF32 (495 TFLOP/s), 7 x closer to the f32
+// result than bf16 on the same inputs. The full body's T is not small, so it
+// needs f32's mantissa, as the TPU kernel's three bf16 passes give: 3xTF32
+// (hi.hi + hi.lo + lo.hi with x = hi + lo, each part a TF32 value, 22 bits
+// together) on the same tensor cores, three times the delta product's
+// operations. What bounds it then is operations: 0.42 ms at 216 windows on
+// the fan-out table, against 1.02 ms for one f32 product on the FMA units.
 //
-// Design, three kernels:
+// Design, three kernels a body:
 //
-// 1. decode_delta_kernel decodes each (window, triangle) exactly once, in f32
-//    (sinf/cosf/sqrtf, no fast-math), and writes dT (W, 9, T') ROUNDED TO TF32
-//    to a scratch tensor. Viewed as (3W, 3T') it is the product's A operand,
-//    row-major with K contiguous.
+// 1. The decode writes the product's A operand to scratch, each value
+//    rounded to TF32 (cvt.rna; the tensor cores would truncate):
+//    decode_delta_kernel decodes each (window, triangle) exactly once, in f32
+//    (sinf/cosf/sqrtf, no fast-math), and writes dT (W, 9, T'), which viewed
+//    as (3W, 3T') is A, row-major with K contiguous. decode_full_kernel
+//    decodes per (window, equation), gathering its triangle's bases, and
+//    writes A' (3W, 9E') = [A_hi | A_hi | A_lo].
 // 2. solve_product_kernel: C = A . B^T on wgmma.mma_async m64n128k8 TF32 with
 //    f32 accumulators in registers. TF32 wgmma takes both operands K-major
-//    only, so the constant P is kept transposed, p_t (N padded to 128, 3T'),
-//    rounded to TF32 on the host once. A block of two warpgroups owns a 128 x
-//    128 tile (64 rows a warpgroup) over one part of K; 16-byte cp.async
-//    copies fill a ring of STAGES shared-memory stages of 32 k (one 128-byte
-//    swizzle row per matrix row, chunk c of row r at c ^ (r % 8)), two blocks
-//    a multiprocessor so that one's barrier and copy requests hide behind the
+//    only, so the constant P is kept transposed, N padded to 128, split or
+//    rounded to TF32 on the host once: p_t (npad, 3T') for the delta body,
+//    B' (npad, 9E') = [B_hi | B_lo | B_hi] for the full body, so that one
+//    product over K' = 9E' is the three products of 3xTF32 with f32 sums and
+//    the kernel needs no change. A block of two warpgroups owns a 128 x 128
+//    tile (64 rows a warpgroup) over one part of K; 16-byte cp.async copies
+//    fill a ring of STAGES shared-memory stages of 32 k (one 128-byte swizzle
+//    row per matrix row, chunk c of row r at c ^ (r % 8)), two blocks a
+//    multiprocessor so that one's barrier and copy requests hide behind the
 //    other's wgmma. K is split over gridDim.z so that the blocks fill the
 //    card (the caller sizes the split from the kernel's occupancy); blocks
 //    that run together walk K together and share their strips through L2.
-//    Each block writes its partial tile to scratch.
-// 3. solve_sum_kernel adds the K parts in part order, then x0[m % 3] in f32.
-//    No atomics: results repeat bit for bit.
+//    Each block writes its partial tile to scratch. The full body's
+//    instantiation adds its accumulators into f32 registers every 4 k tiles
+//    (FULL_PROMOTE): the tensor cores' own f32 sums drift over its long K.
+// 3. solve_sum_kernel adds the K parts in part order, then x0[m % 3] in f32
+//    (delta body only). No atomics: results repeat bit for bit.
 //
 // Tiling the output over NF in one fused kernel would redo the decode and the
-// trig in every NF tile. The dT scratch costs one write and a read through
-// L2, far below the product's time.
+// trig in every NF tile. The scratch costs one write and a read through L2:
+// for the delta body far below the product's time; for the full body A' is
+// 3 x the delta's dT over E' (1.5 MB a window), and a product that issued the
+// three wgmmas from two A and two B strips would read a third fewer bytes
+// (not built: the product is bound by operations).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,30 +88,25 @@ __device__ __forceinline__ float round_tf32(float x) {
   return __uint_as_float(u);
 }
 
-// dt (W, 9, T') = T - T0 per (window, triangle), each value rounded to TF32:
-// the product's A operand. grid (ceil(W / WR), T' / DT): the windows walk
-// fastest, so the blocks that run together read the same triangles' bases and
-// each basis value comes from device memory once.
-__global__ void __launch_bounds__(DT)
-decode_delta_kernel(const float* __restrict__ coef_s, const float* __restrict__ coef_r,
-                    const float* __restrict__ basis_s, const float* __restrict__ means_s,
-                    const float* __restrict__ basis_r, const float* __restrict__ means_r,
-                    const float* __restrict__ t0, float* __restrict__ dt,
-                    int W, int Ks, int Kr, int Tp) {
-  __shared__ float cs[WR][KMAX];
-  __shared__ float cr[WR][KMAX];
-  const int w0 = blockIdx.x * WR;
+// The coefficients of windows w0 .. w0 + WR - 1 into shared memory, zero past W.
+__device__ __forceinline__ void load_coefs(float (&cs)[WR][KMAX], float (&cr)[WR][KMAX],
+                                           const float* __restrict__ coef_s,
+                                           const float* __restrict__ coef_r, int w0, int W,
+                                           int Ks, int Kr) {
   for (int i = threadIdx.x; i < WR * KMAX; i += DT) {
     const int r = i / KMAX, k = i % KMAX, w = w0 + r;
     cs[r][k] = (w < W && k < Ks) ? coef_s[(size_t)w * Ks + k] : 0.0f;
     cr[r][k] = (w < W && k < Kr) ? coef_r[(size_t)w * Kr + k] : 0.0f;
   }
-  __syncthreads();
-  const int t = blockIdx.y * DT + threadIdx.x;
-  if (t >= Tp) return;
+}
 
-  // d[r][k]: plane k of window w0+r at triangle t (6 scale, 3 rotation)
-  float d[WR][9];
+// d[r][k]: the PCA product of plane k of window w0 + r at triangle t (6 scale,
+// 3 rotation), without the means
+__device__ __forceinline__ void decode_planes(const float (&cs)[WR][KMAX],
+                                              const float (&cr)[WR][KMAX],
+                                              const float* __restrict__ basis_s,
+                                              const float* __restrict__ basis_r, int t, int Tp,
+                                              int Ks, int Kr, float (&d)[WR][9]) {
 #pragma unroll
   for (int r = 0; r < WR; ++r)
 #pragma unroll
@@ -114,49 +133,138 @@ decode_delta_kernel(const float* __restrict__ coef_s, const float* __restrict__ 
       for (int k = 0; k < 3; ++k) d[r][6 + k] += c * b[k];
     }
   }
-  float m[9], t0v[9];
+}
+
+// m[k]: the mean of plane k at triangle t
+__device__ __forceinline__ void load_means(const float* __restrict__ means_s,
+                                           const float* __restrict__ means_r, int t, int Tp,
+                                           float (&m)[9]) {
 #pragma unroll
   for (int k = 0; k < 6; ++k) m[k] = means_s[(size_t)k * Tp + t];
 #pragma unroll
   for (int k = 0; k < 3; ++k) m[6 + k] = means_r[(size_t)k * Tp + t];
+}
+
+// tv[3 i + k] = T[i][k] of T = exp(skew(r)) * S, from a triangle's 9 planes p
+__device__ __forceinline__ void transform_entries(const float (&p)[9], float (&tv)[9]) {
+  // symmetric scale S (+I on the diagonal)
+  const float s[3][3] = {{p[0] + 1.0f, p[1], p[2]},
+                         {p[1], p[3] + 1.0f, p[4]},
+                         {p[2], p[4], p[5] + 1.0f}};
+  // rotation R = cos(th) I + sin(th) K + (1 - cos(th)) a a^T, w = (-p8, p7, -p6)
+  const float w0v = -p[8], w1v = p[7], w2v = -p[6];
+  const float theta = sqrtf(w0v * w0v + w1v * w1v + w2v * w2v);
+  const bool small = theta < 1e-6f;
+  const float inv_t = small ? 0.0f : 1.0f / theta;
+  const float a0 = w0v * inv_t, a1 = w1v * inv_t, a2 = w2v * inv_t;
+  const float st = sinf(theta), ct = cosf(theta), omc = 1.0f - ct;
+  float rot[3][3] = {{ct + omc * a0 * a0, -st * a2 + omc * a0 * a1, st * a1 + omc * a0 * a2},
+                     {st * a2 + omc * a1 * a0, ct + omc * a1 * a1, -st * a0 + omc * a1 * a2},
+                     {-st * a1 + omc * a2 * a0, st * a0 + omc * a2 * a1, ct + omc * a2 * a2}};
+  if (small) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) rot[i][k] = i == k ? 1.0f : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      tv[3 * i + k] = rot[i][0] * s[0][k] + rot[i][1] * s[1][k] + rot[i][2] * s[2][k];
+}
+
+// dt (W, 9, T') = T - T0 per (window, triangle), each value rounded to TF32:
+// the delta body's A operand. grid (ceil(W / WR), T' / DT): the windows walk
+// fastest, so the blocks that run together read the same triangles' bases and
+// each basis value comes from device memory once.
+__global__ void __launch_bounds__(DT)
+decode_delta_kernel(const float* __restrict__ coef_s, const float* __restrict__ coef_r,
+                    const float* __restrict__ basis_s, const float* __restrict__ means_s,
+                    const float* __restrict__ basis_r, const float* __restrict__ means_r,
+                    const float* __restrict__ t0, float* __restrict__ dt,
+                    int W, int Ks, int Kr, int Tp) {
+  __shared__ float cs[WR][KMAX];
+  __shared__ float cr[WR][KMAX];
+  const int w0 = blockIdx.x * WR;
+  load_coefs(cs, cr, coef_s, coef_r, w0, W, Ks, Kr);
+  __syncthreads();
+  const int t = blockIdx.y * DT + threadIdx.x;
+  if (t >= Tp) return;
+  float d[WR][9];
+  decode_planes(cs, cr, basis_s, basis_r, t, Tp, Ks, Kr, d);
+  float m[9], t0v[9];
+  load_means(means_s, means_r, t, Tp, m);
 #pragma unroll
   for (int e = 0; e < 9; ++e) t0v[e] = t0[(size_t)e * Tp + t];
-
 #pragma unroll
   for (int r = 0; r < WR; ++r) {
     const int w = w0 + r;
     if (w >= W) break;
-    float p[9];
+    float p[9], tv[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k) p[k] = d[r][k] + m[k];
-    // symmetric scale S (+I on the diagonal)
-    const float s[3][3] = {{p[0] + 1.0f, p[1], p[2]},
-                           {p[1], p[3] + 1.0f, p[4]},
-                           {p[2], p[4], p[5] + 1.0f}};
-    // rotation R = cos(th) I + sin(th) K + (1 - cos(th)) a a^T, w = (-p8, p7, -p6)
-    const float w0v = -p[8], w1v = p[7], w2v = -p[6];
-    const float theta = sqrtf(w0v * w0v + w1v * w1v + w2v * w2v);
-    const bool small = theta < 1e-6f;
-    const float inv_t = small ? 0.0f : 1.0f / theta;
-    const float a0 = w0v * inv_t, a1 = w1v * inv_t, a2 = w2v * inv_t;
-    const float st = sinf(theta), ct = cosf(theta), omc = 1.0f - ct;
-    float rot[3][3] = {{ct + omc * a0 * a0, -st * a2 + omc * a0 * a1, st * a1 + omc * a0 * a2},
-                       {st * a2 + omc * a1 * a0, ct + omc * a1 * a1, -st * a0 + omc * a1 * a2},
-                       {-st * a1 + omc * a2 * a0, st * a0 + omc * a2 * a1, ct + omc * a2 * a2}};
-    if (small) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int k = 0; k < 3; ++k) rot[i][k] = i == k ? 1.0f : 0.0f;
-    }
+    transform_entries(p, tv);
     float* out = dt + (size_t)w * 9 * Tp + t;
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
+    for (int e = 0; e < 9; ++e) out[(size_t)e * Tp] = round_tf32(tv[e] - t0v[e]);
+  }
+}
+
+// a (3W, 9E'): the full body's A operand. Row 3 w + i holds row i of each
+// equation's T for window w, three times along K: [hi | hi | lo], column c E' + e
+// of each copy = T_eq[e][i][c], split into TF32 parts hi = rna(x), lo = rna(x - hi).
+// Equation e reads triangle eq_idx[e], or the identity where that is negative
+// (no source, or the padded tail). grid (ceil(W / WR), E' / DT): the windows
+// walk fastest; neighbouring equations mostly read neighbouring triangles, so
+// the gathered basis reads stay close to coalesced. A triangle with two
+// equations is decoded twice: the decode is 2 x 1050 FLOP a window and
+// equation, the product 2 x 9 x 1261 x 3.
+__global__ void __launch_bounds__(DT)
+decode_full_kernel(const float* __restrict__ coef_s, const float* __restrict__ coef_r,
+                   const float* __restrict__ basis_s, const float* __restrict__ means_s,
+                   const float* __restrict__ basis_r, const float* __restrict__ means_r,
+                   const int* __restrict__ eq_idx, float* __restrict__ a,
+                   int W, int Ks, int Kr, int Tp, int Ep) {
+  __shared__ float cs[WR][KMAX];
+  __shared__ float cr[WR][KMAX];
+  const int w0 = blockIdx.x * WR;
+  load_coefs(cs, cr, coef_s, coef_r, w0, W, Ks, Kr);
+  __syncthreads();
+  const int e = blockIdx.y * DT + threadIdx.x;
+  if (e >= Ep) return;
+  const int src = eq_idx[e];
+  float d[WR][9], m[9];
+  if (src >= 0) {
+    decode_planes(cs, cr, basis_s, basis_r, src, Tp, Ks, Kr, d);
+    load_means(means_s, means_r, src, Tp, m);
+  }
+  const size_t copy = (size_t)3 * Ep;  // one copy's width along K; a row holds three
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float tv = rot[i][0] * s[0][k] + rot[i][1] * s[1][k] + rot[i][2] * s[2][k];
-        out[(size_t)(3 * i + k) * Tp] = round_tf32(tv - t0v[3 * i + k]);
+  for (int r = 0; r < WR; ++r) {
+    const int w = w0 + r;
+    if (w >= W) break;
+    float tv[9];
+    if (src >= 0) {
+      float p[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) p[k] = d[r][k] + m[k];
+      transform_entries(p, tv);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) tv[k] = (k % 4 == 0) ? 1.0f : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      float* row = a + (size_t)(3 * w + i) * 3 * copy + e;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float x = tv[3 * i + c], hi = round_tf32(x), lo = round_tf32(x - hi);
+        row[(size_t)c * Ep] = hi;
+        row[copy + (size_t)c * Ep] = hi;
+        row[2 * copy + (size_t)c * Ep] = lo;
       }
+    }
   }
 }
 
@@ -248,9 +356,25 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
+// The full body's accumulators are added into f32 registers every PROMOTE k
+// tiles. The tensor cores' f32 sums do not round to nearest: over the full
+// body's long K of operands near the identity their error grows with the
+// chain a block sums (at 216 windows on the fan-out table, never promoted:
+// 2.75e-6 m from float64 in 4 K parts, 4.5e-6 in one). Adding each 128 k
+// into the register sums with the FMA units' rounding brings it to the plain
+// float32 product's 6e-8 m, for about 8% of the body's time (every 16 k
+// tiles: 1.7e-7 m, no slower than never). The delta body's short products of
+// small values keep one accumulator (PROMOTE 0). chip_smoke.py --profile
+// times these choices (profile_full_sums).
+#ifndef SDFA_FULL_PROMOTE
+#define SDFA_FULL_PROMOTE 4
+#endif
+constexpr int FULL_PROMOTE = SDFA_FULL_PROMOTE;
+
 // grid (npad / BN, ceil(M / BM), parts), SOLVE_SMEM bytes of dynamic shared
 // memory. A (M, K) and Bt (npad, K) hold TF32 values; part z covers the k
 // tiles z per .. (z + 1) per - 1; rows from M on read as zero.
+template <int PROMOTE>
 __global__ void __launch_bounds__(GT, MINB)
 solve_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
                      float* __restrict__ part, int M, int K, int npad, int per) {
@@ -280,9 +404,13 @@ solve_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
       cp_async16(sb + i * 32 * ROW_BYTES, b_src + (size_t)i * 32 * K + kt * BK, 16);
   };
 
-  float acc[64];
+  float acc[64], total[PROMOTE ? 64 : 1];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  if constexpr (PROMOTE > 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) total[i] = 0.0f;
+  }
 
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) load(s, s);
@@ -303,6 +431,20 @@ solve_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
     for (int kk = 0; kk < BK / 8; ++kk) wgmma_m64n128k8_tf32(acc, da + 2 * kk, db + 2 * kk);
     wgmma_commit();
     wgmma_wait_all();
+    if constexpr (PROMOTE > 0) {
+      if ((kt + 1) % PROMOTE == 0 || kt + 1 == nk) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          asm volatile("" : "+f"(acc[i])::"memory");  // read after the wait
+          total[i] += acc[i];
+          acc[i] = 0.0f;
+        }
+      }
+    }
+  }
+  if constexpr (PROMOTE > 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = total[i];
   }
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
@@ -321,7 +463,8 @@ solve_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
   }
 }
 
-// out (M, N) = part[0] + part[1] + ... in part order, then + x0[m % 3].
+// out (M, N) = part[0] + part[1] + ... in part order, then + x0[m % 3] (none
+// where x0 is null: the full body).
 __global__ void __launch_bounds__(256)
 solve_sum_kernel(const float* __restrict__ part, const float* __restrict__ x0,
                  float* __restrict__ out, int M, int N, int npad, int parts) {
@@ -330,17 +473,21 @@ solve_sum_kernel(const float* __restrict__ part, const float* __restrict__ x0,
   const int m = (int)(i / N), n = (int)(i % N);
   float sum = part[(size_t)m * npad + n];
   for (int z = 1; z < parts; ++z) sum += part[((size_t)z * M + m) * npad + n];
-  out[i] = sum + x0[(size_t)(m % 3) * N + n];
+  out[i] = x0 ? sum + x0[(size_t)(m % 3) * N + n] : sum;
 }
 
 cudaError_t product_smem() {
-  return cudaFuncSetAttribute(solve_product_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              SOLVE_SMEM);
+  cudaError_t err = cudaFuncSetAttribute(solve_product_kernel<0>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SOLVE_SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(solve_product_kernel<FULL_PROMOTE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, SOLVE_SMEM);
 }
 
 }  // namespace
 
-// dt: scratch (W, 9, Tp); part: scratch (parts, 3W, npad); out: (W, 3, NF).
+// The delta body. dt: scratch (W, 9, Tp); part: scratch (parts, 3W, npad); out:
+// (W, 3, NF).
 // p_t (npad, 3 Tp) is P transposed, zero rows from NF on, in TF32 values.
 extern "C" int sdfa_decode_solve(const float* coef_s, const float* coef_r,
                                  const float* basis_s, const float* means_s,
@@ -360,7 +507,7 @@ extern "C" int sdfa_decode_solve(const float* coef_s, const float* coef_r,
   const int per = (K / BK + parts - 1) / parts;
   err = product_smem();  // on the device that is current, also on a thread that launches first
   if (err != cudaSuccess) return (int)err;
-  solve_product_kernel<<<dim3(npad / BN, (M + BM - 1) / BM, parts), GT, SOLVE_SMEM, stream>>>(
+  solve_product_kernel<0><<<dim3(npad / BN, (M + BM - 1) / BM, parts), GT, SOLVE_SMEM, stream>>>(
       dt, p_t, part, M, K, npad, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -369,8 +516,41 @@ extern "C" int sdfa_decode_solve(const float* coef_s, const float* coef_r,
   return (int)cudaGetLastError();
 }
 
-// n[0]: how many blocks of the product kernel the card holds at once; n[1],
-// n[2], n[3]: its tile's rows, columns and k per stage.
+// The full body. a: scratch (3W, 9 Ep); part: scratch (parts, 3W, npad); out:
+// (W, 3, NF). eq_idx (Ep,): an equation's triangle, negative for the identity.
+// b_t (npad, 9 Ep) is [B_hi | B_lo | B_hi] of P transposed, zero rows from NF on.
+extern "C" int sdfa_decode_solve_full(const float* coef_s, const float* coef_r,
+                                      const float* basis_s, const float* means_s,
+                                      const float* basis_r, const float* means_r,
+                                      const int* eq_idx, const float* b_t, float* a,
+                                      float* part, float* out, int W, int Ks, int Kr, int Tp,
+                                      int Ep, int NF, int npad, int parts,
+                                      cudaStream_t stream) {
+  if (Ks <= 0 || Ks > KMAX || Kr <= 0 || Kr > KMAX || Tp <= 0 || Ep <= 0 || (9 * Ep) % BK ||
+      NF <= 0 || npad < NF || npad % BN || parts <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (W <= 0) return 0;
+  decode_full_kernel<<<dim3((W + WR - 1) / WR, (Ep + DT - 1) / DT), DT, 0, stream>>>(
+      coef_s, coef_r, basis_s, means_s, basis_r, means_r, eq_idx, a, W, Ks, Kr, Tp, Ep);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int M = 3 * W, K = 9 * Ep;
+  const int per = (K / BK + parts - 1) / parts;
+  err = product_smem();
+  if (err != cudaSuccess) return (int)err;
+  solve_product_kernel<FULL_PROMOTE>
+      <<<dim3(npad / BN, (M + BM - 1) / BM, parts), GT, SOLVE_SMEM, stream>>>(a, b_t, part, M, K,
+                                                                             npad, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  solve_sum_kernel<<<(unsigned)(((size_t)M * NF + 255) / 256), 256, 0, stream>>>(
+      part, nullptr, out, M, NF, npad, parts);
+  return (int)cudaGetLastError();
+}
+
+// n[0]: how many blocks of the product kernel the card holds at once (the
+// fewer of its two instantiations); n[1], n[2], n[3]: its tile's rows, columns
+// and k per stage.
 extern "C" int sdfa_decode_solve_tiling(int* n) {
   cudaError_t err = product_smem();
   if (err != cudaSuccess) return (int)err;
@@ -378,9 +558,14 @@ extern "C" int sdfa_decode_solve_tiling(int* n) {
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, solve_product_kernel, GT,
+  // both bodies' products: the split of K assumes the fewer of them
+  int full_blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, solve_product_kernel<0>, GT,
                                                       SOLVE_SMEM);
-  n[0] = sms * blocks;
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &full_blocks, solve_product_kernel<FULL_PROMOTE>, GT, SOLVE_SMEM);
+  n[0] = sms * (blocks < full_blocks ? blocks : full_blocks);
   n[1] = BM;
   n[2] = BN;
   n[3] = BK;

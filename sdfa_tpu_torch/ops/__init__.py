@@ -1,7 +1,9 @@
 """Device ops: the deformation solver and the hand-written Hopper kernels —
-``freq_lstm``, ``bilstm2``, ``bilstm_layer`` and ``decode_solve`` on the
-serving path, ``bilstm_core`` (forward and backward) on the training path —
-each beside its plain PyTorch version and a launch counter.
+``freq_lstm``, ``bilstm2``, ``bilstm_layer`` and ``decode_solve`` (its delta
+body on identity equation tables, its full body on tables with triangle
+correspondences) on the serving path, ``bilstm_core`` (forward and backward)
+on the training path — each beside its plain PyTorch version and a launch
+counter.
 
 ``plain_versions()`` routes the model's kernel calls to the plain
 versions for the duration of a ``with`` block — the comparison that

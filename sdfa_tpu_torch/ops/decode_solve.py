@@ -1,45 +1,61 @@
-"""Fused PCA decode + delta-form deformation solve (``csrc/decode_solve.cu``)
-and its plain version.
+"""Fused PCA decode + deformation solve (``csrc/decode_solve.cu``): its two
+bodies and their plain versions.
 
-Counterpart of ``sdfa_tpu/ops/pallas_decode_solve.py`` (delta mode): from
-the heads' raw PCA coefficients, decode the 9 k-major planes per triangle,
-build T = exp(skew(r))·S, and solve onto the free vertices as
-x = x0 + (T − T0)·P. ``prep_consts`` builds the constants once per
-template on the host: k-major bases, T0 (the transform entries of the PCA
-means), x0 (T0's solve, in float64) and P twice: ``p`` in float32 for the
-plain version, ``p_t`` transposed, padded and rounded to TF32 for the kernel.
+Counterpart of ``sdfa_tpu/ops/pallas_decode_solve.py``: from the heads' raw
+PCA coefficients, decode the 9 k-major planes per triangle, build
+T = exp(skew(r))·S and solve onto the free vertices. ``prep_consts`` builds
+the constants once per template on the host, and the template's equation
+table picks the body through their type:
 
-On a card the decode kernel writes ΔT = T − T0 rounded to TF32, and the
-product ΔT·P runs on the tensor cores in TF32 with float32 sums: the delta
-form exists so that a short mantissa is enough (the TPU kernel multiplies in
-one bf16 pass). Both operands are rounded to nearest before the tensor cores
-see them, which would truncate. What is not CUDA — ``p_t``'s layout, into
+- an identity table (equation k reads triangle k) takes the delta body,
+  the counterpart of ``_kernel_delta``: x = x0 + (T − T0)·P.
+  ``DecodeSolveConsts`` holds k-major bases, T0 (the transform entries of
+  the PCA means), x0 (T0's solve, in float64) and P twice: ``p`` in float32
+  for the plain version, ``p_t`` transposed, padded and rounded to TF32 for
+  the kernel. On a card the decode kernel writes ΔT = T − T0 rounded to
+  TF32, and ΔT·P runs on the tensor cores in TF32 with float32 sums: the
+  delta form exists so that a short mantissa is enough (the TPU kernel
+  multiplies in one bf16 pass);
+- a table with triangle correspondences takes the full body, the
+  counterpart of ``_kernel``: x = T_eq·P over the equations, equation k
+  reading triangle ``eq_idx[k]``, or the identity where it has no source.
+  ``DecodeSolveFullConsts`` holds the same bases, the table, ``p`` over the
+  equations and ``b_t``: P transposed, split into TF32 hi and lo parts. On
+  a card the decode kernel writes each equation's T split the same way, and
+  the product runs as 3xTF32 (hi·hi + hi·lo + lo·hi, its sums added into
+  float32 registers every 128 k), float32 grade as the TPU kernel's three
+  bf16 passes are: T is not small, so the product needs the long mantissa.
+
+Both bodies round their operands to nearest before the tensor cores see
+them, which would truncate. What is not CUDA — the operands' layouts, into
 how many parts K is split so that the blocks fill the card, the order the
-parts are added in — lives here; ``round_tf32`` and
-``decode_solve_rounded`` repeat the kernel's rounding in plain tensors for
-the CPU tests, and nothing on a path calls them.
+parts are added in — lives here; ``round_tf32``, ``split_tf32``,
+``decode_solve_rounded`` and ``decode_solve_full_rounded`` repeat the
+kernels' rounding in plain tensors for the CPU tests, and nothing on a path
+calls them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import collections
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
 
 from . import build, note_launch, using_plain
-from .deform_solver import (DeformConsts, DeformationSolver, SolverSpec,
+from .deform_solver import (_EYE9, DeformConsts, DeformationSolver, SolverSpec,
                             assemble_from_free, transform_entries_from_planes)
 
-LAUNCHES = 0  # wrapper calls of ``decode_solve`` that launched the kernels
+LAUNCHES = collections.Counter()  # wrapper calls that launched the kernels, by body: delta, full
 
-T_ALIGN = 128  # triangle padding: the decode kernel's block width
+T_ALIGN = 128  # triangle and equation padding: the decode kernels' block width
 M_TILE, N_TILE, K_TILE = 128, 128, 32  # the product kernel's output tile and k per stage
 MIN_PART_TILES = 16  # a part of K is at least this many k tiles, so that its ring fills
 
 
 class DecodeSolveConsts(NamedTuple):
-    """Kernel constants; T' = n_tris padded to T_ALIGN, NF = n_free.
+    """The delta body's constants; T' = n_tris padded to T_ALIGN, NF = n_free.
     basis_s (Ks, 6, T'), means_s (6, T'), basis_r (Kr, 3, T'), means_r
     (3, T'), p (3, T', NF), t0 (9, T'), x0 (3, NF), p_t (NF padded to
     N_TILE, 3T'). The padded tail has zero bases, means and P rows: its T is
@@ -59,13 +75,43 @@ class DecodeSolveConsts(NamedTuple):
     p_t: torch.Tensor
 
 
+class DecodeSolveFullConsts(NamedTuple):
+    """The full body's constants; T' = n_tris and E' = n_eqs, each padded to
+    T_ALIGN. basis_s, means_s, basis_r, means_r as the delta body's;
+    eq_idx (E',) int32, the source triangle of each equation, −1 where it has
+    none (the identity), the padded tail too; p (3, E', NF) float32, zero rows
+    from n_eqs on; b_t (NF padded to N_TILE, 9E'): P viewed as (3E', NF),
+    transposed, split into TF32 parts hi and lo (``split_tf32``) and laid along
+    K as [hi | lo | hi], zero rows from NF on. The kernel's A operand is each
+    equation's T laid as [hi | hi | lo], so one product over K' = 9E' sums
+    hi·hi + hi·lo + lo·hi. ``p`` stays for the plain version: the card holds P
+    as 3 + 9 floats an entry, 0.86 GB at FLAME's counts with 13966
+    equations."""
+
+    basis_s: torch.Tensor
+    means_s: torch.Tensor
+    basis_r: torch.Tensor
+    means_r: torch.Tensor
+    eq_idx: torch.Tensor
+    p: torch.Tensor
+    b_t: torch.Tensor
+
+
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
     """float32 values rounded to TF32 (10 mantissa bits) to nearest, ties to
     even, in integer arithmetic on the bits; the result is float32 with the
-    13 low bits zero. (The decode kernel rounds ties away from zero,
+    13 low bits zero. (The decode kernels round ties away from zero,
     ``cvt.rna``: the two differ on exact ties only.)"""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """float32 x as two TF32 values (hi, lo): hi = x rounded, lo = x − hi
+    rounded (x − hi is exact in float32). hi + lo keeps 22 of x's 24
+    mantissa bits, and hi·hi + hi·lo + lo·hi misses a product by lo·lo."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
 
 
 def truncate_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -82,28 +128,29 @@ def transposed_p(p: torch.Tensor) -> torch.Tensor:
     return round_tf32(p_t)
 
 
+def split_p(p: torch.Tensor) -> torch.Tensor:
+    """``b_t`` of p (3, E', NF): (NF padded to N_TILE, 9E'), [hi | lo | hi]."""
+    _, ep, nf = p.shape
+    p_t = p.new_zeros(-(-nf // N_TILE) * N_TILE, 3 * ep)
+    p_t[:nf] = p.reshape(3 * ep, nf).T
+    hi, lo = split_tf32(p_t)
+    return torch.cat([hi, lo, hi], dim=1)
+
+
 def prep_consts(scale_comp_t, scale_means, rotat_comp_t, rotat_means,
-                solver: DeformationSolver, device) -> DecodeSolveConsts:
-    """Build the kernel constants from the PCA inversions ((6T, Ks) and
-    (3T, Kr) components with their means) and the solver's host operator.
-    The kernel solves identity equation tables only (equation k reads
-    triangle k); a correspondence table goes through ``ops.solve_fn``."""
+                solver: DeformationSolver, device
+                ) -> Union[DecodeSolveConsts, DecodeSolveFullConsts]:
+    """Build a body's constants from the PCA inversions ((6T, Ks) and (3T, Kr)
+    components with their means) and the solver's host operator: the delta
+    body's on an identity equation table, the full body's on a table with
+    triangle correspondences (``prep_full_consts``)."""
     if not solver.spec.identity_eq:
-        raise ValueError("decode_solve takes identity equation tables only; this template "
-                         f"has {solver.n_eqs} correspondence equations")
+        return prep_full_consts(scale_comp_t, scale_means, rotat_comp_t, rotat_means, solver,
+                                device)
     n = solver.n_tris
     tp = -(-n // T_ALIGN) * T_ALIGN
-
-    def km(comp, means, per_tri):
-        comp = torch.as_tensor(comp, dtype=torch.float32).cpu()
-        means = torch.as_tensor(means, dtype=torch.float32).cpu().reshape(-1)
-        b = comp.reshape(n, per_tri, -1).permute(2, 1, 0)  # (K, per_tri, T)
-        b = torch.nn.functional.pad(b, (0, tp - n))
-        m = torch.nn.functional.pad(means.reshape(n, per_tri).T, (0, tp - n))
-        return b.contiguous(), m.contiguous()
-
-    basis_s, means_s = km(scale_comp_t, scale_means, 6)
-    basis_r, means_r = km(rotat_comp_t, rotat_means, 3)
+    basis_s, means_s, basis_r, means_r = _k_major(scale_comp_t, scale_means, rotat_comp_t,
+                                                  rotat_means, n, tp)
     t = transform_entries_from_planes([means_s[k] for k in range(6)]
                                       + [means_r[k] for k in range(3)])
     t0 = torch.stack([t[i][j] for i in range(3) for j in range(3)])  # (9, T') f32
@@ -119,24 +166,86 @@ def prep_consts(scale_comp_t, scale_means, rotat_comp_t, rotat_means,
                              torch.as_tensor(x0, **to), transposed_p(p).to(**to))
 
 
-def delta_transforms(coef_s, coef_r, dsc: DecodeSolveConsts) -> torch.Tensor:
-    """The decode in plain tensors: (W, Ks), (W, Kr) → ΔT = T − T0, (W, 9, T')."""
+def prep_full_consts(scale_comp_t, scale_means, rotat_comp_t, rotat_means,
+                     solver: DeformationSolver, device) -> DecodeSolveFullConsts:
+    """The full body's constants, on any equation table (an identity table
+    too: the full body then computes the TPU ``_kernel``'s function). ``b_t``
+    is split on ``device``."""
+    n, n_eqs = solver.n_tris, solver.n_eqs
+    tp = -(-n // T_ALIGN) * T_ALIGN
+    ep = -(-n_eqs // T_ALIGN) * T_ALIGN
+    basis_s, means_s, basis_r, means_r = _k_major(scale_comp_t, scale_means, rotat_comp_t,
+                                                  rotat_means, n, tp)
+    eq_idx = np.full(ep, -1, np.int32)
+    eq_idx[:n_eqs] = solver._eq_src
+    p = np.zeros((3, ep, solver.n_free), np.float32)
+    p[:, :n_eqs] = solver.p_planes()
+    to = dict(device=device, dtype=torch.float32)
+    p = torch.from_numpy(p).to(**to)
+    return DecodeSolveFullConsts(basis_s.to(**to), means_s.to(**to), basis_r.to(**to),
+                                 means_r.to(**to), torch.from_numpy(eq_idx).to(device), p,
+                                 split_p(p))
+
+
+def _k_major(scale_comp_t, scale_means, rotat_comp_t, rotat_means, n: int, tp: int):
+    """The bases k-major and padded to ``tp`` triangles: basis_s (Ks, 6, T'),
+    means_s (6, T'), basis_r (Kr, 3, T'), means_r (3, T'), float32 on the host."""
+
+    def km(comp, means, per_tri):
+        comp = torch.as_tensor(comp, dtype=torch.float32).cpu()
+        means = torch.as_tensor(means, dtype=torch.float32).cpu().reshape(-1)
+        b = comp.reshape(n, per_tri, -1).permute(2, 1, 0)  # (K, per_tri, T)
+        b = torch.nn.functional.pad(b, (0, tp - n))
+        m = torch.nn.functional.pad(means.reshape(n, per_tri).T, (0, tp - n))
+        return b.contiguous(), m.contiguous()
+
+    return (*km(scale_comp_t, scale_means, 6), *km(rotat_comp_t, rotat_means, 3))
+
+
+def transforms(coef_s, coef_r, dsc) -> torch.Tensor:
+    """The decode in plain tensors: (W, Ks), (W, Kr) → T's entries per
+    triangle, (W, 9, T'), row-major T[d][c]."""
     w = coef_s.shape[0]
-    tp = dsc.p.shape[1]
+    tp = dsc.basis_s.shape[2]
     d_s = (coef_s @ dsc.basis_s.reshape(dsc.basis_s.shape[0], -1)).reshape(w, 6, tp)
     d_r = (coef_r @ dsc.basis_r.reshape(dsc.basis_r.shape[0], -1)).reshape(w, 3, tp)
     d_s, d_r = d_s + dsc.means_s, d_r + dsc.means_r
     t = transform_entries_from_planes([d_s[:, k] for k in range(6)]
                                       + [d_r[:, k] for k in range(3)])
-    return torch.stack([t[i][j] for i in range(3) for j in range(3)], dim=1) - dsc.t0
+    return torch.stack([t[i][j] for i in range(3) for j in range(3)], dim=1)
+
+
+def delta_transforms(coef_s, coef_r, dsc: DecodeSolveConsts) -> torch.Tensor:
+    """The delta body's decode in plain tensors: ΔT = T − T0, (W, 9, T')."""
+    return transforms(coef_s, coef_r, dsc) - dsc.t0
+
+
+def equation_transforms(coef_s, coef_r, fsc: DecodeSolveFullConsts) -> torch.Tensor:
+    """The full body's decode in plain tensors: each equation's T, (W, 9, E'):
+    the decode per triangle, then the gather of the table, the identity where
+    an equation has no source."""
+    t9 = transforms(coef_s, coef_r, fsc)
+    tp = t9.shape[2]
+    eye = torch.tensor(_EYE9, dtype=t9.dtype, device=t9.device)
+    ext = torch.cat([t9, eye[:, None].expand(t9.shape[:-1] + (1,))], dim=-1)
+    return ext.index_select(-1, torch.where(fsc.eq_idx < 0, tp, fsc.eq_idx))
 
 
 def decode_solve_plain(coef_s, coef_r, dsc: DecodeSolveConsts) -> torch.Tensor:
-    """Plain PyTorch version: (W, Ks), (W, Kr) → (W, 3, NF)."""
+    """The delta body's plain version: (W, Ks), (W, Kr) → (W, 3, NF)."""
     w = coef_s.shape[0]
     _, tp, nf = dsc.p.shape
     dt = delta_transforms(coef_s, coef_r, dsc)
     return (dt.reshape(3 * w, 3 * tp) @ dsc.p.reshape(3 * tp, nf)).reshape(w, 3, nf) + dsc.x0
+
+
+def decode_solve_full_plain(coef_s, coef_r, fsc: DecodeSolveFullConsts) -> torch.Tensor:
+    """The full body's plain version: (W, Ks), (W, Kr) → (W, 3, NF), the
+    decode, the gather and the float32 product over the equations."""
+    w = coef_s.shape[0]
+    _, ep, nf = fsc.p.shape
+    t = equation_transforms(coef_s, coef_r, fsc)
+    return (t.reshape(3 * w, 3 * ep) @ fsc.p.reshape(3 * ep, nf)).reshape(w, 3, nf)
 
 
 def decode_solve_rounded(coef_s, coef_r, dsc: DecodeSolveConsts, rounding=round_tf32):
@@ -150,15 +259,47 @@ def decode_solve_rounded(coef_s, coef_r, dsc: DecodeSolveConsts, rounding=round_
     return (dt @ dsc.p_t[:nf].T).reshape(w, 3, nf) + dsc.x0
 
 
+def full_operand(t: torch.Tensor) -> torch.Tensor:
+    """The full body's A operand of equation transforms t (W, 9, E'): (3W, 9E'),
+    each row [hi | hi | lo] of its 3E' entries, as the decode kernel writes it."""
+    w, _, ep = t.shape
+    hi, lo = split_tf32(t.reshape(3 * w, 3 * ep))
+    return torch.cat([hi, hi, lo], dim=1)
+
+
+def decode_solve_full_rounded(coef_s, coef_r, fsc: DecodeSolveFullConsts) -> torch.Tensor:
+    """``decode_solve_full_plain`` as the kernel multiplies: the A operand of
+    ``full_operand`` times ``b_t`` in one product over K' = 9E', float32 sums."""
+    w = coef_s.shape[0]
+    nf = fsc.p.shape[2]
+    a = full_operand(equation_transforms(coef_s, coef_r, fsc))
+    return (a @ fsc.b_t[:nf].T).reshape(w, 3, nf)
+
+
 def cost(windows: int, ks: int, kr: int, tp: int, nf: int):
-    """(flops, bytes) of one launch at ``tp`` padded triangles and ``nf`` free
-    vertices: the decode, 2 W (6 Ks + 3 Kr) T' FLOP in float32, and the
+    """(flops, bytes) of one delta launch at ``tp`` padded triangles and ``nf``
+    free vertices: the decode, 2 W (6 Ks + 3 Kr) T' FLOP in float32, and the
     product, 2 W 9 T' NF in TF32 on the tensor cores; every input read once
     (the bases, means, T0, x0 and ``p_t``, not ``p``), the output written once."""
     n_pad = -(-nf // N_TILE) * N_TILE
     flops = 2.0 * windows * (6 * ks + 3 * kr) * tp + 2.0 * windows * 9 * tp * nf
     floats = (windows * (ks + kr) + (ks + 1) * 6 * tp + (kr + 1) * 3 * tp + n_pad * 3 * tp
               + 9 * tp + 3 * nf + windows * 3 * nf)
+    return flops, 4.0 * floats
+
+
+def cost_full(windows: int, ks: int, kr: int, tp: int, ep: int, nf: int):
+    """(flops, bytes) of one full launch at ``tp`` padded triangles, ``ep``
+    padded equations and ``nf`` free vertices: the decode, 2 W (6 Ks + 3 Kr) T'
+    FLOP in float32 (each triangle once, the least the function needs; the
+    kernel decodes each equation with a source), and the product as the tensor
+    cores run it, three TF32 products of 2 W 9 E' NF; every input read once
+    (the bases, means, the table and ``b_t``, not ``p``), the output written
+    once."""
+    n_pad = -(-nf // N_TILE) * N_TILE
+    flops = 2.0 * windows * (6 * ks + 3 * kr) * tp + 3 * 2.0 * windows * 9 * ep * nf
+    floats = (windows * (ks + kr) + (ks + 1) * 6 * tp + (kr + 1) * 3 * tp + ep
+              + n_pad * 9 * ep + windows * 3 * nf)
     return flops, 4.0 * floats
 
 
@@ -186,20 +327,25 @@ def resident_blocks(device) -> int:
     return blocks
 
 
+def _check_bases(coef_s, coef_r, c, tp):
+    w, ks = coef_s.shape
+    kr = coef_r.shape[1]
+    build.check("coef_s", coef_s, (w, ks))
+    build.check("coef_r", coef_r, (w, kr))
+    build.check("basis_s", c.basis_s, (ks, 6, tp))
+    build.check("means_s", c.means_s, (6, tp))
+    build.check("basis_r", c.basis_r, (kr, 3, tp))
+    build.check("means_r", c.means_r, (3, tp))
+    return w, ks, kr
+
+
 def decode_solve(coef_s, coef_r, dsc: DecodeSolveConsts) -> torch.Tensor:
     """Decode + delta solve: the CUDA kernels for CUDA tensors, the plain
     version for CPU tensors; any other input raises. → (W, 3, NF)."""
     if coef_s.device.type == "cpu":
         return decode_solve_plain(coef_s, coef_r, dsc)
-    w, ks = coef_s.shape
-    kr = coef_r.shape[1]
     _, tp, nf = dsc.p.shape
-    build.check("coef_s", coef_s, (w, ks))
-    build.check("coef_r", coef_r, (w, kr))
-    build.check("basis_s", dsc.basis_s, (ks, 6, tp))
-    build.check("means_s", dsc.means_s, (6, tp))
-    build.check("basis_r", dsc.basis_r, (kr, 3, tp))
-    build.check("means_r", dsc.means_r, (3, tp))
+    w, ks, kr = _check_bases(coef_s, coef_r, dsc, tp)
     n_pad = dsc.p_t.shape[0]
     build.check("p_t", dsc.p_t, (-(-nf // N_TILE) * N_TILE, 3 * tp))
     build.check("t0", dsc.t0, (9, tp))
@@ -213,15 +359,48 @@ def decode_solve(coef_s, coef_r, dsc: DecodeSolveConsts) -> torch.Tensor:
                  (coef_s, coef_r, dsc.basis_s, dsc.means_s, dsc.basis_r, dsc.means_r, dsc.p_t,
                   dsc.t0, dsc.x0, dt, part, out), (w, ks, kr, tp, nf, n_pad, parts),
                  coef_s.device)
-    global LAUNCHES
-    LAUNCHES += 1
+    LAUNCHES["delta"] += 1
     note_launch("decode_solve", cost(w, ks, kr, tp, nf))
     return out
 
 
-def decode_solve_fused(coef_s, coef_r, dsc: DecodeSolveConsts, consts: DeformConsts,
-                       spec: SolverSpec, cnst_verts) -> torch.Tensor:
-    """Coefficients → full vertices: ``decode_solve`` (its plain version
-    inside ``ops.plain_versions()``) then ``assemble_from_free``."""
-    x = (decode_solve_plain if using_plain() else decode_solve)(coef_s, coef_r, dsc)
-    return assemble_from_free(consts, spec, x, cnst_verts)
+def decode_solve_full(coef_s, coef_r, fsc: DecodeSolveFullConsts) -> torch.Tensor:
+    """Decode + full solve: the CUDA kernels for CUDA tensors, the plain
+    version for CPU tensors; any other input raises. → (W, 3, NF)."""
+    if coef_s.device.type == "cpu":
+        return decode_solve_full_plain(coef_s, coef_r, fsc)
+    tp = fsc.basis_s.shape[2]
+    _, ep, nf = fsc.p.shape
+    w, ks, kr = _check_bases(coef_s, coef_r, fsc, tp)
+    n_pad = fsc.b_t.shape[0]
+    build.check("b_t", fsc.b_t, (-(-nf // N_TILE) * N_TILE, 9 * ep))
+    eq = fsc.eq_idx
+    if eq.device != coef_s.device or eq.dtype != torch.int32 or tuple(eq.shape) != (ep,) \
+            or not eq.is_contiguous():
+        raise ValueError(f"eq_idx: need a contiguous int32 ({ep},) tensor on {coef_s.device}, "
+                         f"got {eq.dtype} {tuple(eq.shape)} on {eq.device}")
+    parts = k_parts(3 * w, n_pad, 9 * ep, resident_blocks(coef_s.device))
+    empty = dict(device=coef_s.device, dtype=torch.float32)
+    a = torch.empty(3 * w, 9 * ep, **empty)           # [hi | hi | lo] of T_eq: 1.5 MB a window
+    part = torch.empty(parts, 3 * w, n_pad, **empty)  # the K parts' partial sums
+    out = torch.empty(w, 3, nf, **empty)
+    build.launch("decode_solve",
+                 (coef_s, coef_r, fsc.basis_s, fsc.means_s, fsc.basis_r, fsc.means_r, eq,
+                  fsc.b_t, a, part, out), (w, ks, kr, tp, ep, nf, n_pad, parts),
+                 coef_s.device, entry="decode_solve_full")
+    LAUNCHES["full"] += 1
+    note_launch("decode_solve_full", cost_full(w, ks, kr, tp, ep, nf))
+    return out
+
+
+def decode_solve_fused(coef_s, coef_r, dsc: Union[DecodeSolveConsts, DecodeSolveFullConsts],
+                       consts: DeformConsts, spec: SolverSpec, cnst_verts) -> torch.Tensor:
+    """Coefficients → full vertices: the body of ``dsc``'s type (the delta
+    body on an identity table, the full body on a correspondence table; their
+    plain versions inside ``ops.plain_versions()``), then
+    ``assemble_from_free``."""
+    if isinstance(dsc, DecodeSolveFullConsts):
+        fn = decode_solve_full_plain if using_plain() else decode_solve_full
+    else:
+        fn = decode_solve_plain if using_plain() else decode_solve
+    return assemble_from_free(consts, spec, fn(coef_s, coef_r, dsc), cnst_verts)

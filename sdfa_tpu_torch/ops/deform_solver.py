@@ -15,8 +15,9 @@ planes, the equation gather, one product with P over the ``n_eqs``
 equations in float32, ``assemble_from_free``), ``solve_mat_fn`` (the same
 from raw matrices) and ``refine_fn`` (the right-hand side by segment sums,
 the dense inverse and iterative refinement: an independent cross-check).
-The fused decode + solve kernel (``ops.decode_solve``) takes identity
-tables only; a correspondence table goes through ``solve_fn``.
+The fused decode + solve kernel (``ops.decode_solve``) takes both kinds of
+table from PCA coefficients; ``solve_fn`` serves models without PCA heads
+and the host-side callers.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ class SolverSpec(NamedTuple):
     n_free: int
     n_cnsts: int
     n_eqs: int
-    identity_eq: bool  # equation k reads triangle k: no gather, and the fused kernel applies
+    identity_eq: bool  # equation k reads triangle k: no gather, and the delta body applies
 
 
 def _gram_schmidt_qr(a: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -179,18 +179,18 @@ class AnimationTask:
 
     def _decode_consts(self):
         """(solver, its device constants, the decode + solve kernel's constants)
-        of a dgrad model, built on first use. The kernel's constants are None
-        on a template with triangle correspondences (the kernel solves
-        identity equation tables only, as the JAX package's does) and for a
-        model without PCA heads (the kernel decodes PCA coefficients): those
-        decode to planes and take ``solve_fn``."""
+        of a dgrad model, built on first use: the delta body's on an identity
+        equation table, the full body's on a table with triangle
+        correspondences. They are None for a model without PCA heads (the
+        kernel decodes PCA coefficients): it decodes to planes and takes
+        ``solve_fn``."""
         if self.model.face_type != "dgrad_3d":
             raise ValueError("decode + solve constants exist for dgrad_3d models only")
         if self._decode is None:
             solver = frame_mod.get_solver()
             m = self.model
             dsc = None
-            if solver.spec.identity_eq and m.using_pca:
+            if m.using_pca:
                 dsc = prep_consts(m.scale_pca.compT.detach(), m.scale_pca.means.detach(),
                                   m.rotat_pca.compT.detach(), m.rotat_pca.means.detach(),
                                   solver, self.device)
@@ -392,9 +392,10 @@ class AnimationTask:
 
     def _verts_base_fn(self):
         """fn(z_frames, frame_idx, spk) → flat float32 vertices (W, V·3) on the
-        device: the suffix, then for dgrad the decode + solve kernel (the
-        decode and ``solve_fn`` on a correspondence template), for the
-        vertex face types the PCA product and, for offsets, the template.
+        device: the suffix, then for dgrad the decode + solve kernel (its
+        body by the template's equation table; the decode and ``solve_fn``
+        for a model without PCA heads), for the vertex face types the PCA
+        product and, for offsets, the template.
         ``z_frames`` is any table of encoded frames (a clip's grid, a session's
         slice, the server's ring)."""
         face_type = self.model.face_type
@@ -414,7 +415,7 @@ class AnimationTask:
 
         def fn(z_frames, frame_idx, spk):
             preds, _, _ = self.model.forward_windows(z_frames, frame_idx, spk, raw_pca=True)
-            if dsc is None:  # correspondences or no PCA heads: decode, gather, product
+            if dsc is None:  # no PCA heads: decode, gather, product
                 planes = self.model.decode_to_anime(preds, planes=True)[:, 0]
                 verts = solve_fn(consts, planes, consts.template_cnst, solver.spec)
             else:

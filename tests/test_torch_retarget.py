@@ -17,8 +17,11 @@ every even triangle, none on every fifth, otherwise one to one):
 
 A narrow network (``test_torch_slice.py::task_pair(narrow=True)``) over a
 correspondence template: ``generate_vertices`` on f32 / i16 / i8d, a
-``StreamingSession`` and ``CoefDecoder`` against the JAX ones; the fused
-decode + solve kernel is not on that path.
+``StreamingSession`` and ``CoefDecoder`` against the JAX ones; those requests
+run the fused decode + solve kernel's full body (its plain version on the
+CPU), where the JAX package decodes to planes and takes ``solve_fn``. The same
+network over the table with every equation twice (not an identity table)
+against no table.
 """
 
 import numpy as np
@@ -31,6 +34,7 @@ from sdfa_tpu.ops import deform_solver as jds
 from sdfa_tpu.streaming import CoefDecoder as JCoefDecoder
 from sdfa_tpu.viewer import frame as jframe
 
+from sdfa_tpu_torch.ops import decode_solve as K3
 from sdfa_tpu_torch.ops import deform_solver as tds
 from sdfa_tpu_torch.streaming import CoefDecoder
 from sdfa_tpu_torch.task import WIRE_LSB, WIRE_LSB8
@@ -202,7 +206,10 @@ def request_f32(tasks):
 def test_wire_f32_matches_jax_and_oracle(tasks, request_f32):
     _, ttask, n_verts = tasks
     sig, (ts_j, verts_j), (ts_t, verts_t) = request_f32
-    assert ttask._decode_consts()[2] is None  # no fused-kernel constants: not its path
+    # the fused kernel's full body is the path: its constants, over the equations
+    fsc = ttask._decode_consts()[2]
+    assert isinstance(fsc, K3.DecodeSolveFullConsts)
+    assert fsc.p.shape[1] >= tframe.get_solver().n_eqs
     assert list(ts_t) == list(ts_j) and verts_t.shape == (len(ts_j), n_verts, 3)
     assert float(np.abs(verts_t - np.asarray(verts_j)).max()) <= JAX_TOL_M
     solver = tframe.get_solver()
@@ -256,3 +263,31 @@ def test_coef_decoder_matches_jax(tasks):
     np.testing.assert_allclose(precise, jdec.decode(coefs, precise=True), rtol=0, atol=2e-8)
     np.testing.assert_allclose(tdec.decode(coefs), precise, rtol=0, atol=5e-7)
     np.testing.assert_allclose(tdec.decode(coefs), jdec.decode(coefs), rtol=0, atol=5e-7)
+
+
+def test_doubled_table_matches_no_table(tasks, request_f32, tmp_path):
+    """Every equation twice is not an identity table, so a request takes the
+    full body; its least-squares solution is the one-to-one solve's, within
+    the JAX budget of the same network over no table."""
+    _, ttask, _ = tasks
+    sig = request_f32[0]
+    solver = tframe.get_solver()
+    verts, faces, cnst = solver.template_verts, tframe.template()[1], solver.cnst_indices
+    doubled = str(tmp_path / "doubled.txt")
+    write_corres(doubled, [(i, i) for i in range(len(faces)) for _ in range(2)])
+    saved = dict(tframe._state)
+    try:
+        out = {}
+        for name, path in (("doubled", doubled), ("none", None)):
+            installed = tframe.set_template_mesh(verts, faces, cnst, corres_path=path)
+            assert installed.spec.identity_eq == (path is None)
+            assert installed.n_eqs == (1 if path is None else 2) * len(faces)
+            task = type(ttask)(ttask.hp, ttask.model, "cpu")
+            kind = K3.DecodeSolveConsts if path is None else K3.DecodeSolveFullConsts
+            assert isinstance(task._decode_consts()[2], kind)
+            out[name] = task.generate_vertices(sig, 1)
+    finally:
+        tframe._state.clear()
+        tframe._state.update(saved)
+    assert list(out["doubled"][0]) == list(out["none"][0])
+    assert float(np.abs(out["doubled"][1] - out["none"][1]).max()) <= JAX_TOL_M

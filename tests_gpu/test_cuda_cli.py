@@ -49,10 +49,11 @@ def test_evaluate_cli_matches_plain(cuda, tmp_path):
     saved = dict(frame._state)
     try:
         freq_lstm.LAUNCHES.clear()
-        decode_solve.LAUNCHES = 0
+        decode_solve.LAUNCHES.clear()
         bilstm2.LAUNCHES.clear()
         main(args + ["--output_dir", str(tmp_path / "kernels")])
-        launches = (freq_lstm.LAUNCHES.total(), bilstm2.LAUNCHES.total(), decode_solve.LAUNCHES)
+        launches = (freq_lstm.LAUNCHES.total(), bilstm2.LAUNCHES.total(),
+                    decode_solve.LAUNCHES.total())
         with ops.plain_versions():
             main(args + ["--output_dir", str(tmp_path / "plain")])
     finally:

@@ -1,7 +1,7 @@
 """Each hand-written kernel on the card against its plain PyTorch version on
 the same inputs: the serving kernels (flagship widths for the LSTMs, K4 and K2
-at H = 128 too, a small mesh for decode + solve; max |diff| < 1e-4, decode +
-solve < 1e-5 m), the routes that keep every kernel width off the plain
+at H = 128 too, a small mesh for decode + solve, both its bodies; max |diff| <
+1e-4, decode + solve < 1e-5 m), the routes that keep every kernel width off the plain
 recurrence, the
 training core, forward and backward, at the cluster tiling's edges (forward
 < 1e-4; gradients < 1e-4 of max |reference|; the backward repeats bit for
@@ -72,6 +72,41 @@ def test_cuda_kernels_match_plain(cuda):
     cr = torch.from_numpy(_rand(rng, (11, 180), 1.0)).to(cuda)
     err = (K3.decode_solve(cs, cr, dsc) - K3.decode_solve_plain(cs, cr, dsc)).abs().max()
     assert float(err) < 1e-5
+
+
+def _fanout(n):
+    """(corr_count, corr_faces): two sources on every even triangle, none on
+    every fifth, otherwise one to one (``chip_smoke.py::fanout_table``)."""
+    count, faces = [], []
+    for i in range(n):
+        count.append(0 if i % 5 == 4 else 2 if i % 2 == 0 else 1)
+        faces.extend([0] if i % 5 == 4 else [i, (i + 3) % n] if i % 2 == 0 else [i])
+    return count, faces
+
+
+@pytest.mark.parametrize("table,windows", [("fanout", 1), ("fanout", 7), ("fanout", 43),
+                                           ("identity", 11)])
+def test_cuda_decode_solve_full_matches_plain(cuda, table, windows):
+    """K3's full body on a small correspondence table and on the identity
+    table against its plain version (< 1e-5 m), two launches bit for bit,
+    each counted once under the full body."""
+    verts, faces, cnst = synthetic_template(0, n_major=8, n_minor=10, n_extra=3, n_free=30)
+    n = len(faces)
+    count, corr = _fanout(n) if table == "fanout" else (None, None)
+    solver = DeformationSolver(verts, faces, cnst, corr_count=count, corr_faces=corr)
+    assert solver.spec.identity_eq == (table == "identity")
+    rng = np.random.default_rng(windows)
+    fsc = K3.prep_full_consts(_rand(rng, (6 * n, 85), 0.01), _rand(rng, (6 * n,), 0.01),
+                              _rand(rng, (3 * n, 180), 0.01), _rand(rng, (3 * n,), 0.01),
+                              solver, cuda)
+    cs = torch.from_numpy(_rand(rng, (windows, 85), 1.0)).to(cuda)
+    cr = torch.from_numpy(_rand(rng, (windows, 180), 1.0)).to(cuda)
+    before = K3.LAUNCHES["full"]
+    got = K3.decode_solve_full(cs, cr, fsc)
+    assert torch.equal(K3.decode_solve_full(cs, cr, fsc), got)
+    assert K3.LAUNCHES["full"] == before + 2
+    assert got.shape == (windows, 3, solver.n_free) and bool(torch.isfinite(got).all())
+    assert float((got - K3.decode_solve_full_plain(cs, cr, fsc)).abs().max()) < 1e-5
 
 
 @pytest.mark.parametrize("rows,steps,n_in,bias", [
