@@ -10,9 +10,12 @@ Run from the repository root with no arguments:
                                      # a train step; the biLSTM step kernel's SM clocks by part
                                      # of a step; the other tile choices of the training core,
                                      # of FreqLstm's step loop and of the solve product; K3's
-                                     # full body with its sums promoted less often or never
+                                     # full body with its sums promoted every 16, 8, 4 k tiles
     python3 chip_smoke.py --cards 4  # on a machine with 4 cards, only this: data_parallel's
                                      # comparison on NCCL, a rank a card, at 2 and 4 ranks
+    python3 chip_smoke.py --k3-turns PARENT . . PARENT  # K3's timed rows with the package of
+                                     # each checkout in turn (PARENT: another commit unpacked
+                                     # by git archive), a process each: two commits on one card
 
 Phases, each printed as one JSON line:
 
@@ -43,14 +46,16 @@ Phases, each printed as one JSON line:
    ``decode_solve_full``, K3's full body (the TPU ``_kernel``), runs on the
    ``retarget`` phase's correspondence table at 216, 128 and 512 windows and on
    the identity table at 256, split into decode, product and sum by kernel name,
-   with the f32 cuBLAS product over the equations as its yardstick and both it
-   and its plain version held to a float64 decode + product (<= 5e-7 m).
+   its bound by the folded reckoning (the decode per triangle, 3xTF32 over 3T')
+   and by the per-equation design's over the equations, with the f32 cuBLAS product over the
+   equations and over the folded triangles as its yardsticks and both it and
+   its plain version held to a float64 decode + product (<= 5e-7 m). The delta
+   body's library column is its product alone as one TF32 ``torch.matmul``.
    Every kernel is also held
    to its plain version, untimed, at
    ragged shapes that reach every edge of its tiling; ``freq_lstm``,
    ``decode_solve``, ``decode_solve_full`` and ``bilstm_core``'s backward must
-   give the same bits twice. One line times the solve's product as a single ``torch.matmul`` in
-   TF32, for orientation: no path uses it.
+   give the same bits twice.
 4. serve: the flagship ``dgrad`` config at full width (seeded weights, seeded
    PCA bases at the shipped dims, a synthetic template with FLAME's 5023
    vertices / 9976 triangles / 1261 free vertices) serves three 3 s requests
@@ -245,7 +250,7 @@ WIDE_HIDDENS = (384, 512, 1024)  # the build line's tilings of the wide step loo
 # kernel_split's parts by a fragment of the kernel's name: a recurrent kernel's, K3 full body's
 RECURRENT_PARTS = (("steps_kernel", "step_loop"), ("proj_kernel", "input_projection"),
                    ("out_parts", "output_projection"), ("out_sum", "output_projection"))
-K3_FULL_PARTS = (("solve_product_kernel", "product"), ("decode_full_kernel", "decode"),
+K3_FULL_PARTS = (("split_product_kernel", "product"), ("decode_delta_kernel", "decode"),
                  ("solve_sum_kernel", "sum"))
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
 TRAIN_STEPS = 5
@@ -398,6 +403,19 @@ def bound(flops: float, nbytes: float, tensor_flops: float = 0.0):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def cost_full_per_equation(windows: int, ks: int, kr: int, tp: int, ep: int, nf: int):
+    """(flops, bytes) of K3's full body as its per-equation design ran it (the
+    table gathered on the card), for the bound by that reckoning: the decode
+    once per triangle, three TF32 products over K' = 9E' (E' padded
+    equations), its inputs the bases, the table and B' = [hi | lo | hi] of
+    1280 x 9E' floats, the output written once."""
+    n_pad = -(-nf // 128) * 128
+    flops = 2.0 * windows * (6 * ks + 3 * kr) * tp + 3 * 2.0 * windows * 9 * ep * nf
+    floats = (windows * (ks + kr) + (ks + 1) * 6 * tp + (kr + 1) * 3 * tp + ep
+              + n_pad * 9 * ep + windows * 3 * nf)
+    return flops, 4.0 * floats
+
+
 def tensor_core_sass(build) -> dict:
     """The tensor-core opcodes (``HGMMA``) in the machine code of the built
     ``decode_solve`` library, by ``cuobjdump -sass``: how many, and the first
@@ -521,7 +539,8 @@ def main():
           "freq_lstm_step_kernel_max_active_clusters": {h: k1_tiling[h] for h in (128, 256)},
           "wide_step_loop_resident_blocks": wide_blocks,
           "wide_step_loop_tiling": wide_tiling,
-          "decode_solve_product_resident_blocks": decode_solve.resident_blocks(dev),
+          "decode_solve_product_resident_blocks": {
+              body: decode_solve.resident_blocks(dev, body) for body in ("delta", "full")},
           "decode_solve_tensor_core_sass": tensor_core_sass(build),
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_INFO.items()}})
 
@@ -570,14 +589,17 @@ def main():
                  "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                  **{k: v for k, v in extra.items()
                     if k in ("err_is", "bound_peaks", "hidden", "out", "split_ms", "table",
-                             "f32_bound_ms", "max_abs_m_vs_f64")}}
+                             "f32_bound_ms", "max_abs_m_vs_f64", "library_f32_ms",
+                             "library_folded_ms", "bound_ms_per_equation")}}
         if primary:
             report[name] = entry
         else:
             report[name].setdefault("other_shapes", []).append(
                 {k: entry[k] for k in ("shape", "hidden", "out", "table", "max_abs_err",
                                        "max_abs_m_vs_f64", "ms", "plain_ms", "bound_ms",
-                                       "f32_bound_ms", "bound_by", "library_ms", "split_ms")
+                                       "f32_bound_ms", "bound_ms_per_equation", "bound_by",
+                                       "library_ms", "library_f32_ms", "library_folded_ms",
+                                       "split_ms")
                  if k in entry})
 
     def forward_case(name, kernel, plain, args, cost, library, source, replaces, primary=True,
@@ -691,8 +713,8 @@ def main():
                 continue
             ms = time_ms(lambda: decode_solve.decode_solve(coef_s, coef_r, dsc), 5)
             plain_ms = time_ms(lambda: decode_solve.decode_solve_plain(coef_s, coef_r, dsc), 5)
-            # for orientation only, used by no path: the solve's product (3W x 3T') . (3T' x NF)
-            # as one library call in TF32
+            # the library column, used by no path: the solve's product (3W x 3T') . (3T' x NF)
+            # as one library call in TF32, and in f32
             dt = decode_solve.delta_transforms(coef_s, coef_r, dsc).reshape(3 * windows, 3 * tp)
             p_mat = dsc.p.reshape(3 * tp, nf)
             try:
@@ -702,26 +724,29 @@ def main():
                 torch.backends.cuda.matmul.allow_tf32 = False
             matmul_f32_ms = time_ms(lambda: dt @ p_mat, 5)
             del dt
-        emit({"phase": "yardstick", "what": "the solve's product alone as one torch.matmul",
-              "shape": [3 * windows, 3 * tp, nf], "tf32_ms": matmul_tf32_ms,
-              "f32_ms": matmul_f32_ms, "card": smi})
         # the decode's operations in float32, the product's in TF32 on the tensor cores
         flops, moved = decode_solve.cost(windows, 85, 180, tp, nf)
         product = 2.0 * windows * 9 * tp * nf
+        # no one call computes decode + solve: the library column is the product alone in
+        # TF32, the kernel's precision (in f32 beside it)
         record("decode_solve", list(got.shape), err, TOL["decode_solve"], ms, plain_ms,
-               flops - product, moved,
-               None,  # no one call computes decode + solve
+               flops - product, moved, matmul_tf32_ms,
                *k3_src, primary=windows == K3_WINDOWS, tensor_flops=product,
                bound_peaks="decode: 67 TFLOP/s f32; product: 495 TFLOP/s TF32 tensor cores",
+               library_is="the product alone, one TF32 torch.matmul",
+               library_f32_ms=matmul_f32_ms,
                repeats_bit_for_bit=twice)
 
     # K3's full body on the retarget phase's fan-out table (13966 equations) at a request's
     # 216 windows and a live tick's 128 and 512, and on the identity table at the 256 windows
     # of the delta body's row, on the same coefficients as the delta rows; then held to the
     # plain version only at 1, 7 and 43 windows. Every case is launched twice and must repeat
-    # bit for bit. Its bound reckons the decode in float32 and the product as the tensor cores
-    # run it, three TF32 products; beside it the f32 reckoning, one product on the FMA units.
-    # The yardstick is the product alone as one f32 cuBLAS call on the same equations.
+    # bit for bit. Its bound reckons the decode once per triangle in float32 and the folded
+    # product as the tensor cores run it, three TF32 products over K = 3T'; beside it the f32
+    # reckoning (one product on the FMA units) and the per-equation design's (the decode per
+    # equation, three products over K' = 9E'). The yardsticks: the product alone as one f32
+    # cuBLAS call over the equations (T_eq @ P, the library column) and over the folded
+    # triangles (T @ Pt).
     fan_count, fan_faces, _ = fanout_table(solver.n_tris)
     fan_solver = DeformationSolver(verts, faces, cnst, corr_count=fan_count, corr_faces=fan_faces)
     pca_bases = (model.scale_pca.compT.detach(), model.scale_pca.means.detach(),
@@ -761,6 +786,10 @@ def main():
                 p_mat = fsc.p.reshape(3 * ep, nf)
                 library_ms = time_ms(lambda: t_eq @ p_mat, 5)
                 del t_eq
+                t_tri = decode_solve.transforms(coef_s, coef_r, fsc).reshape(3 * windows, 3 * tp)
+                pt_mat = (fsc.b_t[0, :nf] + fsc.b_t[1, :nf]).T.contiguous()
+                library_folded_ms = time_ms(lambda: t_tri @ pt_mat, 5)
+                del t_tri, pt_mat
                 # the kernel and the plain version against the float64 decode, gather, product
                 f64 = fsc._replace(**{k: getattr(fsc, k).double() for k in (
                     "basis_s", "means_s", "basis_r", "means_r", "p")})
@@ -775,16 +804,25 @@ def main():
                                        f"{f64_err}")
             split = kernel_split(lambda: decode_solve.decode_solve_full(coef_s, coef_r, fsc),
                                  names=K3_FULL_PARTS)
-            flops, moved = decode_solve.cost_full(windows, 85, 180, tp, ep, nf)
-            product = 2.0 * windows * 9 * ep * nf
+            flops, moved = decode_solve.cost_full(windows, 85, 180, tp, nf)
+            product = 2.0 * windows * 9 * tp * nf
+            eq_flops, eq_moved = cost_full_per_equation(windows, 85, 180, tp, ep, nf)
+            eq_product = 2.0 * windows * 9 * ep * nf
             record("decode_solve_full", list(got.shape), err, TOL["decode_solve_full"], ms,
                    plain_ms, flops - 3 * product, moved, library_ms, *full_src,
                    primary=table == "fanout" and windows == K3_REQUEST_WINDOWS,
                    tensor_flops=3 * product, table=table, n_eqs=fsc_solver.n_eqs,
-                   f32_bound_ms=bound(flops - 2 * product, moved)[0], split_ms=split,
+                   f32_bound_ms=bound(flops - 2 * product, moved)[0],
+                   bound_ms_per_equation=bound(eq_flops - 3 * eq_product, eq_moved,
+                                               3 * eq_product)[0],
+                   library_folded_ms=library_folded_ms, split_ms=split,
                    max_abs_m_vs_f64=f64_err,
                    bound_peaks="decode: 67 TFLOP/s f32; product: 3 TF32 passes at 495 TFLOP/s "
-                               "(f32_bound_ms: one product at 67 TFLOP/s f32)",
+                               "(f32_bound_ms: one product at 67 TFLOP/s f32; "
+                               "bound_ms_per_equation: a decode per equation and "
+                               "3 TF32 passes over 9E')",
+                   library_is="the f32 cuBLAS product alone over the equations "
+                              "(library_folded_ms: over the folded triangles)",
                    repeats_bit_for_bit=twice)
         del fsc
     del fan_solver
@@ -3598,14 +3636,26 @@ def profile_core_tiles(build, dev, smi):
 
 def build_variants(build, name, variants):
     """``csrc/<name>.cu`` built once per entry of ``variants`` (tag -> extra nvcc
-    flags), side by side; -> {tag: the loaded library}."""
+    flags), side by side; -> {tag: the loaded library}. A library's file is
+    named by a hash of its flags and the sources, and built once: a process
+    keeps a library it loaded mapped, and loading its path again returns that
+    library, whatever was built there since."""
     import concurrent.futures
     import ctypes
+    import glob
+    import hashlib
 
     src = os.path.join(build.CSRC, name + ".cu")
+    source = b""
+    for path in [src] + sorted(glob.glob(os.path.join(build.CSRC, "*.cuh"))):
+        with open(path, "rb") as fp:
+            source += fp.read()
 
     def compile_one(tag):
-        path = os.path.join(build.BUILD_ROOT, f"lib{name}_{tag}.so")
+        digest = hashlib.sha256(" ".join(variants[tag]).encode() + source).hexdigest()[:12]
+        path = os.path.join(build.BUILD_ROOT, f"lib{name}_{tag}_{digest}.so")
+        if os.path.exists(path):
+            return ctypes.CDLL(path)
         subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, *variants[tag], "-o", path, src],
                        capture_output=True, text=True, check=True, timeout=600)
         return ctypes.CDLL(path)
@@ -3630,12 +3680,17 @@ def call_entry(lib, entry, tensors, ints, dev):
 
 
 def profile_full_sums(build, dev, smi, pca_bases, template):
-    """Why K3's full body adds its tensor-core sums into float32 registers every 4
-    k tiles: ``csrc/decode_solve.cu`` as built and with the sums promoted every 16
-    k tiles or never (``-DSDFA_FULL_PROMOTE``), at a request's 216 windows on the
-    retarget phase's fan-out table, K split as the wrapper splits it and in one
-    part; each build timed twice in turns, and its max |diff| from the float64
-    decode, gather and product."""
+    """Whether K3's full body needs its tensor-core sums promoted into float32
+    registers: ``csrc/decode_solve.cu`` as built (never promoted) and with the
+    sums promoted every 16, 8 and 4 k tiles (``-DSDFA_FULL_PROMOTE``), each at
+    the ring as built and at 4 stages and one block a multiprocessor
+    (``-DSDFA_FULL_STAGES=4 -DSDFA_FULL_MINB=1``, where the promoted sums need
+    no spill), at a request's 216 windows on the retarget phase's fan-out
+    table, K split by the wrapper's rule from each build's own occupancy and
+    in one part; each build timed twice in turns, with its ptxas line and its
+    max |diff| from the float64 decode, gather and product."""
+    import ctypes
+
     import torch
 
     from sdfa_tpu_torch.ops import decode_solve
@@ -3645,7 +3700,7 @@ def profile_full_sums(build, dev, smi, pca_bases, template):
     count, corr, _ = fanout_table(len(faces))
     solver = DeformationSolver(verts, faces, cnst, corr_count=count, corr_faces=corr)
     fsc = decode_solve.prep_full_consts(*pca_bases, solver, dev)
-    tp, (ep, nf), n_pad = fsc.basis_s.shape[2], fsc.p.shape[1:], fsc.b_t.shape[0]
+    tp, nf, n_pad = fsc.t0.shape[1], fsc.x0.shape[1], fsc.b_t.shape[1]
     windows = K3_REQUEST_WINDOWS
     gen = torch.Generator().manual_seed(300 + windows)
     coef_s = torch.randn(windows, 85, generator=gen).to(dev)
@@ -3655,30 +3710,38 @@ def profile_full_sums(build, dev, smi, pca_bases, template):
             "basis_s", "means_s", "basis_r", "means_r", "p")})
         exact = decode_solve.decode_solve_full_plain(coef_s.double(), coef_r.double(), f64)
         del f64
-    libs = build_variants(build, "decode_solve", {"promote_4": [],
-                                                  "promote_16": ["-DSDFA_FULL_PROMOTE=16"],
-                                                  "promote_never": ["-DSDFA_FULL_PROMOTE=0"]})
+    one_block = ["-DSDFA_FULL_STAGES=4", "-DSDFA_FULL_MINB=1"]
+    variants = {"as_built": [], "4_stages_1_block": one_block}
+    for every in (16, 8, 4):
+        variants[f"promote_{every}"] = [f"-DSDFA_FULL_PROMOTE={every}"]
+        variants[f"promote_{every}_4_stages_1_block"] = [f"-DSDFA_FULL_PROMOTE={every}",
+                                                         *one_block]
+    libs = build_variants(build, "decode_solve", variants)
     empty = dict(device=dev, dtype=torch.float32)
-    a, out = torch.empty(3 * windows, 9 * ep, **empty), torch.empty(windows, 3, nf, **empty)
-    split = decode_solve.k_parts(3 * windows, n_pad, 9 * ep, decode_solve.resident_blocks(dev))
+    dt, out = torch.empty(windows, 9, tp, **empty), torch.empty(windows, 3, nf, **empty)
     lines = {}
     for turn in range(2):
         for tag, lib in libs.items():
-            for parts in (split, 1):
+            found = (ctypes.c_int * 5)()
+            if lib.sdfa_decode_solve_tiling(found) != 0:
+                raise RuntimeError(f"{tag}: sdfa_decode_solve_tiling failed")
+            split = decode_solve.k_parts(3 * windows, n_pad, 3 * tp, found[4])
+            for parts in sorted({split, 1}):
                 part = torch.empty(parts, 3 * windows, n_pad, **empty)
 
                 def call():
                     call_entry(lib, "sdfa_decode_solve_full",
                                (coef_s, coef_r, fsc.basis_s, fsc.means_s, fsc.basis_r,
-                                fsc.means_r, fsc.eq_idx, fsc.b_t, a, part, out),
-                               (windows, 85, 180, tp, ep, nf, n_pad, parts), dev)
+                                fsc.means_r, fsc.b_t, fsc.t0, fsc.x0, dt, part, out),
+                               (windows, 85, 180, tp, nf, n_pad, parts), dev)
 
                 ms = time_ms(call, 5)
-                line = lines.setdefault(f"{tag}_{parts}_parts", {"ms": []})
+                line = lines.setdefault(f"{tag}_{parts}_parts", {
+                    "resident_blocks": found[4], "wrapper_split": parts == split, "ms": []})
                 line["ms"].append(ms)
                 line["max_abs_m_vs_f64"] = float((out.double() - exact).abs().max())
     emit({"phase": "profile_full_sums", "windows": windows, "n_eqs": solver.n_eqs,
-          "wrapper_k_parts": split, "builds": lines, "card": smi})
+          "builds": lines, "card": smi})
 
 
 def profile_serving_tiles(build, dev, smi, k1_weights, dsc):
@@ -3741,7 +3804,7 @@ def profile_serving_tiles(build, dev, smi, k1_weights, dsc):
         dt, out = torch.empty(windows, 9, tp, **empty), torch.empty(windows, 3, nf, **empty)
         for turn in range(2):
             for tag, lib in libs.items():
-                resident = tiling(lib, "sdfa_decode_solve_tiling", 4)[0]
+                resident = tiling(lib, "sdfa_decode_solve_tiling", 5)[0]
                 parts = decode_solve.k_parts(3 * windows, n_pad, 3 * tp, resident)
                 part = torch.empty(parts, 3 * windows, n_pad, **empty)
                 ms = time_ms(lambda: call_entry(
@@ -4211,6 +4274,85 @@ def cards_main(n_cards: int):
                                  "count": torch.cuda.device_count()}})
 
 
+def k3_rows(root: str):
+    """``chip_smoke.py --k3-rows ROOT``: the package at ROOT (a checkout of this
+    repository, this one or another commit's unpacked by ``git archive``)
+    times K3's rows of the kernel phase, the full body on the fan-out table at
+    216, 128 and 512 windows and on the identity table at 256, the delta body at
+    256, 216, 128 and 512, on seeded bases and coefficients, 20 launches after
+    a warm-up each; prints one JSON line of ms by row."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import sdfa_tpu_torch
+    from sdfa_tpu_torch.mesh import synthetic_template
+    from sdfa_tpu_torch.ops import build, decode_solve
+    from sdfa_tpu_torch.ops.deform_solver import DeformationSolver
+
+    if not os.path.abspath(sdfa_tpu_torch.__file__).startswith(root + os.sep):
+        sys.exit(f"--k3-rows: imported {sdfa_tpu_torch.__file__}, not the package at {root}")
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py --k3-rows: torch.cuda.is_available() is false")
+    dev = torch.device("cuda:0")
+    build.load_libraries(["decode_solve"])
+    verts, faces, cnst = synthetic_template(SEED)
+    pca = seeded_pca()
+    bases = (pca["scale_compT"], pca["scale_means"], pca["rotat_compT"], pca["rotat_means"])
+    ident = DeformationSolver(verts, faces, cnst)
+    count, corr, _ = fanout_table(len(faces))
+    fan = DeformationSolver(verts, faces, cnst, corr_count=count, corr_faces=corr)
+
+    def coefs(windows):
+        gen = torch.Generator().manual_seed(3 if windows == K3_WINDOWS else 300 + windows)
+        return (torch.randn(windows, 85, generator=gen).to(dev),
+                torch.randn(windows, 180, generator=gen).to(dev))
+
+    ms = {}
+    with torch.inference_mode():
+        dsc = decode_solve.prep_consts(*bases, ident, dev)
+        for windows in (K3_WINDOWS, K3_REQUEST_WINDOWS) + LIVE_WINDOWS:
+            cs, cr = coefs(windows)
+            ms[f"delta_{windows}"] = time_ms(lambda: decode_solve.decode_solve(cs, cr, dsc), 20)
+        del dsc
+        for table, solver, rows in (("fanout", fan, (K3_REQUEST_WINDOWS,) + LIVE_WINDOWS),
+                                    ("identity", ident, (K3_WINDOWS,))):
+            fsc = decode_solve.prep_full_consts(*bases, solver, dev)
+            for windows in rows:
+                cs, cr = coefs(windows)
+                ms[f"full_{table}_{windows}"] = time_ms(
+                    lambda: decode_solve.decode_solve_full(cs, cr, fsc), 20)
+            del fsc
+    emit({"phase": "k3_rows", "root": root, "ms": ms})
+
+
+def k3_turns(roots):
+    """``chip_smoke.py --k3-turns ROOT [ROOT ...]``: ``--k3-rows`` of each ROOT
+    in a process of its own, in the order given (parent, change, change,
+    parent compares two commits on one card), then each row's times by
+    root; ends with the card's name and power limit and the result line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py --k3-turns: torch.cuda.is_available() is false; this needs a GPU")
+    smi = nvidia_smi_line()
+    by_root = {}
+    for turn, root in enumerate(roots):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--k3-rows", root],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"--k3-rows {root} exited {proc.returncode}: "
+                               f"{(proc.stdout + proc.stderr)[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        emit({"phase": "k3_turn", "turn": turn, **line, "card": smi})
+        for row, ms in line["ms"].items():
+            by_root.setdefault(line["root"], {}).setdefault(row, []).append(ms)
+    emit({"phase": "k3_turns", "ms_by_root": by_root, "card": smi})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         dp_rank(sys.argv[2:])
@@ -4218,5 +4360,9 @@ if __name__ == "__main__":
         dp_launched(sys.argv[2], int(sys.argv[3]))
     elif sys.argv[1:2] == ["--cards"]:
         cards_main(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--k3-rows"]:
+        k3_rows(sys.argv[2])
+    elif sys.argv[1:2] == ["--k3-turns"]:
+        k3_turns(sys.argv[2:])
     else:
         main()

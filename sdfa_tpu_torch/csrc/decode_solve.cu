@@ -4,10 +4,16 @@
 // from the template's equation table (ops/decode_solve.py::prep_consts):
 //
 //   delta (identity tables): x[w][d] = x0[d] + sum_c sum_t (T[w][d][c](t) - T0[3d+c](t)) P[c][t]
-//   full (any table):        x[w][d] = sum_c sum_e T[w][d][c](src(e)) P[c][e]
+//   full (any table):        x[w][d] = x0f[d] + sum_c sum_t (T[w][d][c](t) - T0[3d+c](t)) Pt[c][t]
 //
-// where equation e reads triangle src(e) = eq_idx[e], or the identity where
-// eq_idx[e] < 0 (a target triangle with no source, or the padded tail).
+// The full body's function is sum_c sum_e T[w][d][c](src(e)) P[c][e], where
+// equation e reads triangle src(e), or the identity where src(e) < 0 (a target
+// triangle with no source). The solve is linear in T, so the host folds the
+// table into the constants once per template, in float64
+// (ops/decode_solve.py::prep_full_consts): Pt[c][t] = sum over the equations
+// e of triangle t of P[c][e], x_id[d] = sum over the equations with no source
+// of P[d][e], and x0f = T0 . Pt + x_id. What runs on the card is then the delta
+// body's structure over the triangles: no gather, one decode per triangle.
 //
 // Replaces sdfa_tpu/ops/pallas_decode_solve.py:_kernel_delta (the delta body,
 // sdfa_decode_solve) and :_kernel (the full body, sdfa_decode_solve_full),
@@ -17,56 +23,51 @@
 // float32 product over the equations, which is the full body's function here.
 //
 // What bounds it on the H100: the solve is a product of M = 3W rows, N = NF =
-// 1261 columns and K = 3T' (T' = 9976 triangles padded to 10112) or 3E' (E' =
-// n_eqs padded; 13966 -> 14080 for the fan-out table chip_smoke.py drives):
-// 2 x 9 x 10112 x 1261 = 0.23 GFLOP per window on the identity table. The
-// decode adds 2 x 1050 FLOP per (window, triangle) plus 9 transcendentals.
-// In f32 outside the tensor cores (67 TFLOP/s) the product alone is 0.9 ms at
-// 256 windows. The delta form exists so that a short mantissa is enough: the
-// TPU kernel multiplies dT by P in one bf16 pass with f32 sums. Here the delta
-// product runs on the tensor cores in TF32 (495 TFLOP/s), 7 x closer to the f32
-// result than bf16 on the same inputs. The full body's T is not small, so it
-// needs f32's mantissa, as the TPU kernel's three bf16 passes give: 3xTF32
-// (hi.hi + hi.lo + lo.hi with x = hi + lo, each part a TF32 value, 22 bits
-// together) on the same tensor cores, three times the delta product's
-// operations. What bounds it then is operations: 0.42 ms at 216 windows on
-// the fan-out table, against 1.02 ms for one f32 product on the FMA units.
+// 1261 columns and K = 3T' (T' = 9976 triangles padded to 10112): 2 x 9 x
+// 10112 x 1261 = 0.23 GFLOP per window. The decode adds 2 x 1050 FLOP per
+// (window, triangle) plus 9 transcendentals. In f32 outside the tensor cores
+// (67 TFLOP/s) the product alone is 0.9 ms at 256 windows. The delta form
+// exists so that a short mantissa is enough: the TPU kernel multiplies dT by P
+// in one bf16 pass with f32 sums. Here the delta product runs on the tensor
+// cores in TF32 (495 TFLOP/s), 7 x closer to the f32 result than bf16 on the
+// same inputs. The full body is held to the float32 product over the
+// equations (the TPU kernel's three bf16 passes): 3xTF32 (hi.hi + hi.lo +
+// lo.hi with x = hi + lo, each part a TF32 value, 22 bits together) on the
+// same tensor cores, three times the delta product's operations: 0.30 ms at
+// 216 windows, bound by operations.
 //
 // Design, three kernels a body:
 //
-// 1. The decode writes the product's A operand to scratch, each value
-//    rounded to TF32 (cvt.rna; the tensor cores would truncate):
-//    decode_delta_kernel decodes each (window, triangle) exactly once, in f32
-//    (sinf/cosf/sqrtf, no fast-math), and writes dT (W, 9, T'), which viewed
-//    as (3W, 3T') is A, row-major with K contiguous. decode_full_kernel
-//    decodes per (window, equation), gathering its triangle's bases, and
-//    writes A' (3W, 9E') = [A_hi | A_hi | A_lo].
-// 2. solve_product_kernel: C = A . B^T on wgmma.mma_async m64n128k8 TF32 with
-//    f32 accumulators in registers. TF32 wgmma takes both operands K-major
-//    only, so the constant P is kept transposed, N padded to 128, split or
-//    rounded to TF32 on the host once: p_t (npad, 3T') for the delta body,
-//    B' (npad, 9E') = [B_hi | B_lo | B_hi] for the full body, so that one
-//    product over K' = 9E' is the three products of 3xTF32 with f32 sums and
-//    the kernel needs no change. A block of two warpgroups owns a 128 x 128
-//    tile (64 rows a warpgroup) over one part of K; 16-byte cp.async copies
-//    fill a ring of STAGES shared-memory stages of 32 k (one 128-byte swizzle
-//    row per matrix row, chunk c of row r at c ^ (r % 8)), two blocks a
-//    multiprocessor so that one's barrier and copy requests hide behind the
-//    other's wgmma. K is split over gridDim.z so that the blocks fill the
-//    card (the caller sizes the split from the kernel's occupancy); blocks
-//    that run together walk K together and share their strips through L2.
-//    Each block writes its partial tile to scratch. The full body's
-//    instantiation adds its accumulators into f32 registers every 4 k tiles
-//    (FULL_PROMOTE): the tensor cores' own f32 sums drift over its long K.
-// 3. solve_sum_kernel adds the K parts in part order, then x0[m % 3] in f32
-//    (delta body only). No atomics: results repeat bit for bit.
+// 1. decode_delta_kernel decodes each (window, triangle) exactly once, in f32
+//    (sinf/cosf/sqrtf, no fast-math), and writes dT (W, 9, T') = T - T0,
+//    which viewed as (3W, 3T') is A, row-major with K contiguous: for the
+//    delta body each value rounded to TF32 (cvt.rna; the tensor cores would
+//    truncate), for the full body in f32.
+// 2. The product C = A . B^T on wgmma.mma_async m64n128k8 TF32 with f32
+//    accumulators in registers. TF32 wgmma takes both operands K-major only,
+//    so the constant P is kept transposed, N padded to 128, rounded or split
+//    to TF32 on the host once: p_t (npad, 3T') for the delta body, b_t (2,
+//    npad, 3T') = Pt's hi and lo parts for the full body. A block of two
+//    warpgroups owns a 128 x 128 tile (64 rows a warpgroup) over one part of
+//    K; 16-byte cp.async copies fill a ring of shared-memory stages of 32 k
+//    (one 128-byte swizzle row per matrix row, chunk c of row r at c ^ (r %
+//    8)). solve_product_kernel (delta) stages A and B and issues from shared
+//    memory, two blocks a multiprocessor so that one's barrier and copy
+//    requests hide behind the other's wgmma. split_product_kernel (full)
+//    stages dT in f32 and Pt's two strips, splits its A fragments in
+//    registers and issues the three passes with A from registers: two A and
+//    two B strips a k tile, not a [hi | hi | lo] x [hi | lo | hi]
+//    concatenation, so that a k tile stages 48 KB for three passes. K is
+//    split over gridDim.z so that the blocks fill the card (the caller sizes
+//    the split from each kernel's occupancy); blocks that run together walk
+//    K together and share their strips through L2. Each block writes its
+//    partial tile to scratch.
+// 3. solve_sum_kernel adds the K parts in part order, then x0[m % 3] (x0f for
+//    the full body) in f32. No atomics: results repeat bit for bit.
 //
 // Tiling the output over NF in one fused kernel would redo the decode and the
-// trig in every NF tile. The scratch costs one write and a read through L2:
-// for the delta body far below the product's time; for the full body A' is
-// 3 x the delta's dT over E' (1.5 MB a window), and a product that issued the
-// three wgmmas from two A and two B strips would read a third fewer bytes
-// (not built: the product is bound by operations).
+// trig in every NF tile. The scratch dT costs one write and a read through L2
+// (364 KB a window), far below the product's time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -174,10 +175,12 @@ __device__ __forceinline__ void transform_entries(const float (&p)[9], float (&t
       tv[3 * i + k] = rot[i][0] * s[0][k] + rot[i][1] * s[1][k] + rot[i][2] * s[2][k];
 }
 
-// dt (W, 9, T') = T - T0 per (window, triangle), each value rounded to TF32:
-// the delta body's A operand. grid (ceil(W / WR), T' / DT): the windows walk
+// dt (W, 9, T') = T - T0 per (window, triangle), the product's A operand: each
+// value rounded to TF32 for the delta body (TF32), in f32 for the full body,
+// whose product splits it. grid (ceil(W / WR), T' / DT): the windows walk
 // fastest, so the blocks that run together read the same triangles' bases and
 // each basis value comes from device memory once.
+template <bool TF32>
 __global__ void __launch_bounds__(DT)
 decode_delta_kernel(const float* __restrict__ coef_s, const float* __restrict__ coef_r,
                     const float* __restrict__ basis_s, const float* __restrict__ means_s,
@@ -207,64 +210,8 @@ decode_delta_kernel(const float* __restrict__ coef_s, const float* __restrict__ 
     transform_entries(p, tv);
     float* out = dt + (size_t)w * 9 * Tp + t;
 #pragma unroll
-    for (int e = 0; e < 9; ++e) out[(size_t)e * Tp] = round_tf32(tv[e] - t0v[e]);
-  }
-}
-
-// a (3W, 9E'): the full body's A operand. Row 3 w + i holds row i of each
-// equation's T for window w, three times along K: [hi | hi | lo], column c E' + e
-// of each copy = T_eq[e][i][c], split into TF32 parts hi = rna(x), lo = rna(x - hi).
-// Equation e reads triangle eq_idx[e], or the identity where that is negative
-// (no source, or the padded tail). grid (ceil(W / WR), E' / DT): the windows
-// walk fastest; neighbouring equations mostly read neighbouring triangles, so
-// the gathered basis reads stay close to coalesced. A triangle with two
-// equations is decoded twice: the decode is 2 x 1050 FLOP a window and
-// equation, the product 2 x 9 x 1261 x 3.
-__global__ void __launch_bounds__(DT)
-decode_full_kernel(const float* __restrict__ coef_s, const float* __restrict__ coef_r,
-                   const float* __restrict__ basis_s, const float* __restrict__ means_s,
-                   const float* __restrict__ basis_r, const float* __restrict__ means_r,
-                   const int* __restrict__ eq_idx, float* __restrict__ a,
-                   int W, int Ks, int Kr, int Tp, int Ep) {
-  __shared__ float cs[WR][KMAX];
-  __shared__ float cr[WR][KMAX];
-  const int w0 = blockIdx.x * WR;
-  load_coefs(cs, cr, coef_s, coef_r, w0, W, Ks, Kr);
-  __syncthreads();
-  const int e = blockIdx.y * DT + threadIdx.x;
-  if (e >= Ep) return;
-  const int src = eq_idx[e];
-  float d[WR][9], m[9];
-  if (src >= 0) {
-    decode_planes(cs, cr, basis_s, basis_r, src, Tp, Ks, Kr, d);
-    load_means(means_s, means_r, src, Tp, m);
-  }
-  const size_t copy = (size_t)3 * Ep;  // one copy's width along K; a row holds three
-#pragma unroll
-  for (int r = 0; r < WR; ++r) {
-    const int w = w0 + r;
-    if (w >= W) break;
-    float tv[9];
-    if (src >= 0) {
-      float p[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) p[k] = d[r][k] + m[k];
-      transform_entries(p, tv);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 9; ++k) tv[k] = (k % 4 == 0) ? 1.0f : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      float* row = a + (size_t)(3 * w + i) * 3 * copy + e;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float x = tv[3 * i + c], hi = round_tf32(x), lo = round_tf32(x - hi);
-        row[(size_t)c * Ep] = hi;
-        row[copy + (size_t)c * Ep] = hi;
-        row[2 * copy + (size_t)c * Ep] = lo;
-      }
-    }
+    for (int e = 0; e < 9; ++e)
+      out[(size_t)e * Tp] = TF32 ? round_tf32(tv[e] - t0v[e]) : tv[e] - t0v[e];
   }
 }
 
@@ -356,25 +303,9 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
-// The full body's accumulators are added into f32 registers every PROMOTE k
-// tiles. The tensor cores' f32 sums do not round to nearest: over the full
-// body's long K of operands near the identity their error grows with the
-// chain a block sums (at 216 windows on the fan-out table, never promoted:
-// 2.75e-6 m from float64 in 4 K parts, 4.5e-6 in one). Adding each 128 k
-// into the register sums with the FMA units' rounding brings it to the plain
-// float32 product's 6e-8 m, for about 8% of the body's time (every 16 k
-// tiles: 1.7e-7 m, no slower than never). The delta body's short products of
-// small values keep one accumulator (PROMOTE 0). chip_smoke.py --profile
-// times these choices (profile_full_sums).
-#ifndef SDFA_FULL_PROMOTE
-#define SDFA_FULL_PROMOTE 4
-#endif
-constexpr int FULL_PROMOTE = SDFA_FULL_PROMOTE;
-
 // grid (npad / BN, ceil(M / BM), parts), SOLVE_SMEM bytes of dynamic shared
 // memory. A (M, K) and Bt (npad, K) hold TF32 values; part z covers the k
 // tiles z per .. (z + 1) per - 1; rows from M on read as zero.
-template <int PROMOTE>
 __global__ void __launch_bounds__(GT, MINB)
 solve_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
                      float* __restrict__ part, int M, int K, int npad, int per) {
@@ -404,13 +335,9 @@ solve_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
       cp_async16(sb + i * 32 * ROW_BYTES, b_src + (size_t)i * 32 * K + kt * BK, 16);
   };
 
-  float acc[64], total[PROMOTE ? 64 : 1];
+  float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  if constexpr (PROMOTE > 0) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) total[i] = 0.0f;
-  }
 
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) load(s, s);
@@ -431,20 +358,6 @@ solve_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
     for (int kk = 0; kk < BK / 8; ++kk) wgmma_m64n128k8_tf32(acc, da + 2 * kk, db + 2 * kk);
     wgmma_commit();
     wgmma_wait_all();
-    if constexpr (PROMOTE > 0) {
-      if ((kt + 1) % PROMOTE == 0 || kt + 1 == nk) {
-#pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          asm volatile("" : "+f"(acc[i])::"memory");  // read after the wait
-          total[i] += acc[i];
-          acc[i] = 0.0f;
-        }
-      }
-    }
-  }
-  if constexpr (PROMOTE > 0) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = total[i];
   }
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
@@ -463,8 +376,202 @@ solve_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
   }
 }
 
-// out (M, N) = part[0] + part[1] + ... in part order, then + x0[m % 3] (none
-// where x0 is null: the full body).
+// --- the full body's product: 3xTF32 over K = 3T' from two A and two B strips ---
+//
+// part[z] = dT_hi . Pt_hi^T + dT_hi . Pt_lo^T + dT_lo . Pt_hi^T over part z of K,
+// where x = hi + lo splits an f32 value into two TF32 values (hi = rna(x), lo =
+// rna(x - hi)). A stage holds dT in f32 (A, 16 KB) and Pt's hi and lo strips (B,
+// 16 KB each), copied as the delta product copies its two. Each thread reads its
+// A fragments of the stage from shared memory, splits them in registers and
+// issues the three products a k step with A from registers (wgmma's register
+// form), B through descriptors: 48 KB staged for 12 wgmmas a warpgroup, where
+// the delta product stages 32 KB for 4.
+#ifndef SDFA_FULL_STAGES
+#define SDFA_FULL_STAGES 2
+#endif
+#ifndef SDFA_FULL_MINB
+#define SDFA_FULL_MINB 2
+#endif
+// Every PROMOTE k tiles the accumulators are added into f32 registers (0:
+// never). The tensor cores' f32 sums do not round to nearest: over a K of 9E'
+// entries of T near the identity (a product over the equations) they drifted
+// 2.75e-6 m from float64. The products of dT are small, and never promoting
+// keeps the plain float32 product's error; chip_smoke.py --profile measures
+// the choices (profile_full_sums).
+#ifndef SDFA_FULL_PROMOTE
+#define SDFA_FULL_PROMOTE 0
+#endif
+constexpr int FULL_STAGES = SDFA_FULL_STAGES;  // ring depth; FULL_STAGES - 1 copies in flight
+constexpr int FULL_MINB = SDFA_FULL_MINB;      // blocks a multiprocessor should hold
+constexpr int FULL_PROMOTE = SDFA_FULL_PROMOTE;
+constexpr int FULL_STAGE_BYTES = A_BYTES + 2 * B_BYTES;                // 48 KB
+constexpr int FULL_SMEM = FULL_STAGES * FULL_STAGE_BYTES + 1024;
+
+// x as its TF32 value's bits, rounded to nearest (ties away from zero)
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
+  return u;
+}
+
+// acc (64 x 128 of a warpgroup, f32) += A (64 x 8, this thread's 4 TF32 values
+// in registers) . B (128 x 8)^T in TF32
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&acc)[64], const uint32_t (&a)[4],
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
+        "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]),
+        "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]),
+        "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]),
+        "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]),
+        "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]),
+        "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
+        "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31]),
+        "+f"(acc[32]), "+f"(acc[33]), "+f"(acc[34]), "+f"(acc[35]),
+        "+f"(acc[36]), "+f"(acc[37]), "+f"(acc[38]), "+f"(acc[39]),
+        "+f"(acc[40]), "+f"(acc[41]), "+f"(acc[42]), "+f"(acc[43]),
+        "+f"(acc[44]), "+f"(acc[45]), "+f"(acc[46]), "+f"(acc[47]),
+        "+f"(acc[48]), "+f"(acc[49]), "+f"(acc[50]), "+f"(acc[51]),
+        "+f"(acc[52]), "+f"(acc[53]), "+f"(acc[54]), "+f"(acc[55]),
+        "+f"(acc[56]), "+f"(acc[57]), "+f"(acc[58]), "+f"(acc[59]),
+        "+f"(acc[60]), "+f"(acc[61]), "+f"(acc[62]), "+f"(acc[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// grid (npad / BN, ceil(M / BM), parts), FULL_SMEM bytes of dynamic shared
+// memory. A (M, K) holds f32 values; Bt (2, npad, K) the TF32 parts hi, then lo;
+// part z covers the k tiles z per .. (z + 1) per - 1; rows from M on read as zero.
+template <int PROMOTE>
+__global__ void __launch_bounds__(GT, FULL_MINB)
+split_product_kernel(const float* __restrict__ A, const float* __restrict__ Bt,
+                     float* __restrict__ part, int M, int K, int npad, int per) {
+  extern __shared__ uint8_t ring_raw[];
+  const uint32_t ring_off = ((smem_u32(ring_raw) + 1023u) & ~1023u) - smem_u32(ring_raw);
+  const uint32_t ring = smem_u32(ring_raw) + ring_off;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int kt0 = blockIdx.z * per;
+  const int nk = min(K / BK, kt0 + per) - kt0;  // this part's k tiles
+
+  // The copy, as the delta product's, of three strips a stage: A, B hi, B lo.
+  const int c = tid % 8, r0 = tid / 8;
+  const uint32_t dst0 = (uint32_t)(r0 * ROW_BYTES + ((c ^ (r0 & 7)) << 4));
+  const float* a_src = A + (size_t)(m0 + r0) * K + (size_t)kt0 * BK + c * 4;
+  const float* bh_src = Bt + (size_t)(n0 + r0) * K + (size_t)kt0 * BK + c * 4;
+  const float* bl_src = bh_src + (size_t)npad * K;
+  auto load = [&](int kt, int slot) {
+    const uint32_t sa = ring + slot * FULL_STAGE_BYTES + dst0, sh = sa + A_BYTES,
+                   sl = sh + B_BYTES;
+#pragma unroll
+    for (int i = 0; i < BM / 32; ++i) {
+      const bool ok = m0 + r0 + 32 * i < M;
+      cp_async16(sa + i * 32 * ROW_BYTES,
+                 ok ? a_src + (size_t)i * 32 * K + kt * BK : A, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 32; ++i) {
+      cp_async16(sh + i * 32 * ROW_BYTES, bh_src + (size_t)i * 32 * K + kt * BK, 16);
+      cp_async16(sl + i * 32 * ROW_BYTES, bl_src + (size_t)i * 32 * K + kt * BK, 16);
+    }
+  };
+
+  // This thread's A fragment of a k step (8 columns): a[0] (g, t), a[1] (g + 8,
+  // t), a[2] (g, t + 4), a[3] (g + 8, t + 4), rows of its warp's 16 in its
+  // warpgroup's 64, g = lane / 4, t = lane % 4. Rows 8 apart share the swizzle
+  // (row % 8 = g): column 8 kk + 4 h lies in chunk (2 kk + h) ^ g of its row.
+  const int g = lane / 4;
+  const uint8_t* frag = ring_raw + ring_off +
+                        (wg * 64 + 16 * ((tid % 128) / 32) + g) * ROW_BYTES + (lane % 4) * 4;
+
+  float acc[64], total[PROMOTE ? 64 : 1];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  if constexpr (PROMOTE > 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) total[i] = 0.0f;
+  }
+
+  for (int s = 0; s < FULL_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<FULL_STAGES - 2>();  // this thread's copies of tile kt have landed
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();  // everyone's have; and everyone is done with tile kt - 1's slot
+    const int nxt = kt + FULL_STAGES - 1;
+    if (nxt < nk) load(nxt, nxt % FULL_STAGES);
+    cp_async_commit();
+    const int slot = kt % FULL_STAGES;
+    uint32_t hi[BK / 8][4], lo[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = *reinterpret_cast<const float*>(
+            frag + slot * FULL_STAGE_BYTES + (i & 1) * 8 * ROW_BYTES +
+            (((2 * kk + (i >> 1)) ^ g) << 4));
+        hi[kk][i] = tf32_bits(x);
+        lo[kk][i] = tf32_bits(x - __uint_as_float(hi[kk][i]));
+      }
+    const uint32_t stage = ring + slot * FULL_STAGE_BYTES;
+    const uint64_t dh = smem_desc(stage + A_BYTES), dl = smem_desc(stage + A_BYTES + B_BYTES);
+    wgmma_fence();  // the fragments are written: order them before the products read them
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      wgmma_m64n128k8_tf32_rs(acc, hi[kk], dh + 2 * kk);
+      wgmma_m64n128k8_tf32_rs(acc, hi[kk], dl + 2 * kk);
+      wgmma_m64n128k8_tf32_rs(acc, lo[kk], dh + 2 * kk);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    // the products read the fragments until the wait: keep their registers till here
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(hi[kk][i]), "r"(lo[kk][i]));
+    if constexpr (PROMOTE > 0) {
+      if ((kt + 1) % PROMOTE == 0 || kt + 1 == nk) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          asm volatile("" : "+f"(acc[i])::"memory");  // read after the wait
+          total[i] += acc[i];
+          acc[i] = 0.0f;
+        }
+      }
+    }
+  }
+  if constexpr (PROMOTE > 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = total[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+  // the accumulators as the delta product's
+  const int row = m0 + wg * 64 + 16 * ((tid % 128) / 32) + g;
+  float* out = part + ((size_t)blockIdx.z * M + row) * npad + n0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    if (row < M)
+      *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (row + 8 < M)
+      *reinterpret_cast<float2*>(out + (size_t)8 * npad + 8 * j) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// out (M, N) = part[0] + part[1] + ... in part order, then + x0[m % 3].
 __global__ void __launch_bounds__(256)
 solve_sum_kernel(const float* __restrict__ part, const float* __restrict__ x0,
                  float* __restrict__ out, int M, int N, int npad, int parts) {
@@ -473,15 +580,48 @@ solve_sum_kernel(const float* __restrict__ part, const float* __restrict__ x0,
   const int m = (int)(i / N), n = (int)(i % N);
   float sum = part[(size_t)m * npad + n];
   for (int z = 1; z < parts; ++z) sum += part[((size_t)z * M + m) * npad + n];
-  out[i] = x0 ? sum + x0[(size_t)(m % 3) * N + n] : sum;
+  out[i] = sum + x0[(size_t)(m % 3) * N + n];
 }
 
 cudaError_t product_smem() {
-  cudaError_t err = cudaFuncSetAttribute(solve_product_kernel<0>,
+  cudaError_t err = cudaFuncSetAttribute(solve_product_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SOLVE_SMEM);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(solve_product_kernel<FULL_PROMOTE>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, SOLVE_SMEM);
+  return cudaFuncSetAttribute(split_product_kernel<FULL_PROMOTE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, FULL_SMEM);
+}
+
+// Both bodies: the decode (dT rounded to TF32 for the delta body, in f32 for
+// the full body), the product, the sum of the parts + x0.
+template <bool FULL>
+int decode_solve(const float* coef_s, const float* coef_r, const float* basis_s,
+                 const float* means_s, const float* basis_r, const float* means_r,
+                 const float* b_t, const float* t0, const float* x0, float* dt, float* part,
+                 float* out, int W, int Ks, int Kr, int Tp, int NF, int npad, int parts,
+                 cudaStream_t stream) {
+  if (Ks <= 0 || Ks > KMAX || Kr <= 0 || Kr > KMAX || Tp <= 0 || (3 * Tp) % BK ||
+      NF <= 0 || npad < NF || npad % BN || parts <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (W <= 0) return 0;
+  decode_delta_kernel<!FULL><<<dim3((W + WR - 1) / WR, (Tp + DT - 1) / DT), DT, 0, stream>>>(
+      coef_s, coef_r, basis_s, means_s, basis_r, means_r, t0, dt, W, Ks, Kr, Tp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int M = 3 * W, K = 3 * Tp;
+  const int per = (K / BK + parts - 1) / parts;
+  err = product_smem();  // on the device that is current, also on a thread that launches first
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(npad / BN, (M + BM - 1) / BM, parts);
+  if constexpr (FULL)
+    split_product_kernel<FULL_PROMOTE><<<grid, GT, FULL_SMEM, stream>>>(dt, b_t, part, M, K,
+                                                                        npad, per);
+  else
+    solve_product_kernel<<<grid, GT, SOLVE_SMEM, stream>>>(dt, b_t, part, M, K, npad, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  solve_sum_kernel<<<(unsigned)(((size_t)M * NF + 255) / 256), 256, 0, stream>>>(
+      part, x0, out, M, NF, npad, parts);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -495,80 +635,44 @@ extern "C" int sdfa_decode_solve(const float* coef_s, const float* coef_r,
                                  const float* p_t, const float* t0, const float* x0,
                                  float* dt, float* part, float* out, int W, int Ks, int Kr,
                                  int Tp, int NF, int npad, int parts, cudaStream_t stream) {
-  if (Ks <= 0 || Ks > KMAX || Kr <= 0 || Kr > KMAX || Tp <= 0 || (3 * Tp) % BK ||
-      NF <= 0 || npad < NF || npad % BN || parts <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (W <= 0) return 0;
-  decode_delta_kernel<<<dim3((W + WR - 1) / WR, (Tp + DT - 1) / DT), DT, 0, stream>>>(
-      coef_s, coef_r, basis_s, means_s, basis_r, means_r, t0, dt, W, Ks, Kr, Tp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int M = 3 * W, K = 3 * Tp;
-  const int per = (K / BK + parts - 1) / parts;
-  err = product_smem();  // on the device that is current, also on a thread that launches first
-  if (err != cudaSuccess) return (int)err;
-  solve_product_kernel<0><<<dim3(npad / BN, (M + BM - 1) / BM, parts), GT, SOLVE_SMEM, stream>>>(
-      dt, p_t, part, M, K, npad, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  solve_sum_kernel<<<(unsigned)(((size_t)M * NF + 255) / 256), 256, 0, stream>>>(
-      part, x0, out, M, NF, npad, parts);
-  return (int)cudaGetLastError();
+  return decode_solve<false>(coef_s, coef_r, basis_s, means_s, basis_r, means_r, p_t, t0, x0,
+                             dt, part, out, W, Ks, Kr, Tp, NF, npad, parts, stream);
 }
 
-// The full body. a: scratch (3W, 9 Ep); part: scratch (parts, 3W, npad); out:
-// (W, 3, NF). eq_idx (Ep,): an equation's triangle, negative for the identity.
-// b_t (npad, 9 Ep) is [B_hi | B_lo | B_hi] of P transposed, zero rows from NF on.
+// The full body, the same arguments: b_t (2, npad, 3 Tp) is the folded Pt
+// transposed and split into TF32 parts hi, lo, zero rows from NF on; x0 the
+// fold's x0f; dt holds dT in f32.
 extern "C" int sdfa_decode_solve_full(const float* coef_s, const float* coef_r,
                                       const float* basis_s, const float* means_s,
                                       const float* basis_r, const float* means_r,
-                                      const int* eq_idx, const float* b_t, float* a,
-                                      float* part, float* out, int W, int Ks, int Kr, int Tp,
-                                      int Ep, int NF, int npad, int parts,
+                                      const float* b_t, const float* t0, const float* x0,
+                                      float* dt, float* part, float* out, int W, int Ks,
+                                      int Kr, int Tp, int NF, int npad, int parts,
                                       cudaStream_t stream) {
-  if (Ks <= 0 || Ks > KMAX || Kr <= 0 || Kr > KMAX || Tp <= 0 || Ep <= 0 || (9 * Ep) % BK ||
-      NF <= 0 || npad < NF || npad % BN || parts <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (W <= 0) return 0;
-  decode_full_kernel<<<dim3((W + WR - 1) / WR, (Ep + DT - 1) / DT), DT, 0, stream>>>(
-      coef_s, coef_r, basis_s, means_s, basis_r, means_r, eq_idx, a, W, Ks, Kr, Tp, Ep);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int M = 3 * W, K = 9 * Ep;
-  const int per = (K / BK + parts - 1) / parts;
-  err = product_smem();
-  if (err != cudaSuccess) return (int)err;
-  solve_product_kernel<FULL_PROMOTE>
-      <<<dim3(npad / BN, (M + BM - 1) / BM, parts), GT, SOLVE_SMEM, stream>>>(a, b_t, part, M, K,
-                                                                             npad, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  solve_sum_kernel<<<(unsigned)(((size_t)M * NF + 255) / 256), 256, 0, stream>>>(
-      part, nullptr, out, M, NF, npad, parts);
-  return (int)cudaGetLastError();
+  return decode_solve<true>(coef_s, coef_r, basis_s, means_s, basis_r, means_r, b_t, t0, x0,
+                            dt, part, out, W, Ks, Kr, Tp, NF, npad, parts, stream);
 }
 
-// n[0]: how many blocks of the product kernel the card holds at once (the
-// fewer of its two instantiations); n[1], n[2], n[3]: its tile's rows, columns
-// and k per stage.
+// n[0]: how many blocks of the delta body's product kernel the card holds at
+// once; n[1], n[2], n[3]: the products' tile rows, columns and k per stage;
+// n[4]: how many blocks of the full body's product kernel.
 extern "C" int sdfa_decode_solve_tiling(int* n) {
   cudaError_t err = product_smem();
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, blocks = 0;
+  int dev = 0, sms = 0, blocks = 0, full_blocks = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  // both bodies' products: the split of K assumes the fewer of them
-  int full_blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, solve_product_kernel<0>, GT,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, solve_product_kernel, GT,
                                                       SOLVE_SMEM);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &full_blocks, solve_product_kernel<FULL_PROMOTE>, GT, SOLVE_SMEM);
-  n[0] = sms * (blocks < full_blocks ? blocks : full_blocks);
+      &full_blocks, split_product_kernel<FULL_PROMOTE>, GT, FULL_SMEM);
+  n[0] = sms * blocks;
   n[1] = BM;
   n[2] = BN;
   n[3] = BK;
+  n[4] = sms * full_blocks;
   return (int)err;
 }
 

@@ -19,20 +19,27 @@ table picks the body through their type:
 - a table with triangle correspondences takes the full body, the
   counterpart of ``_kernel``: x = T_eq·P over the equations, equation k
   reading triangle ``eq_idx[k]``, or the identity where it has no source.
-  ``DecodeSolveFullConsts`` holds the same bases, the table, ``p`` over the
-  equations and ``b_t``: P transposed, split into TF32 hi and lo parts. On
-  a card the decode kernel writes each equation's T split the same way, and
-  the product runs as 3xTF32 (hi·hi + hi·lo + lo·hi, its sums added into
-  float32 registers every 128 k), float32 grade as the TPU kernel's three
-  bf16 passes are: T is not small, so the product needs the long mantissa.
+  The solve is linear in T, so ``fold_table`` folds the table into P once,
+  in float64: Pt[c][t] sums P[c][e] over the equations e of triangle t,
+  x_id[d] sums P[d][e] over the equations with no source, and with T0 and
+  x0f = T0·Pt + x_id the full body is x = x0f + (T − T0)·Pt, the delta
+  body's structure over the triangles. ``DecodeSolveFullConsts`` holds the
+  same bases, T0, x0f, ``b_t`` (Pt transposed and split into TF32 hi and lo
+  parts) and, for the plain version, the table and ``p`` over the
+  equations. On a card the decode kernel writes ΔT in float32 once per
+  triangle, and the product runs as 3xTF32 (ΔT_hi·Pt_hi + ΔT_hi·Pt_lo +
+  ΔT_lo·Pt_hi, ΔT split in registers), float32 grade as the TPU kernel's
+  three bf16 passes are. The plain version stays the decode, the gather
+  and the float32 product over the equations: a check of the fold, not a
+  copy of it.
 
 Both bodies round their operands to nearest before the tensor cores see
-them, which would truncate. What is not CUDA — the operands' layouts, into
-how many parts K is split so that the blocks fill the card, the order the
-parts are added in — lives here; ``round_tf32``, ``split_tf32``,
-``decode_solve_rounded`` and ``decode_solve_full_rounded`` repeat the
-kernels' rounding in plain tensors for the CPU tests, and nothing on a path
-calls them.
+them, which would truncate. What is not CUDA — the fold, the operands'
+layouts, into how many parts K is split so that the blocks fill the card,
+the order the parts are added in — lives here; ``round_tf32``,
+``split_tf32``, ``decode_solve_rounded`` and ``decode_solve_full_rounded``
+repeat the kernels' rounding in plain tensors for the CPU tests, and
+nothing on a path calls them.
 """
 
 from __future__ import annotations
@@ -77,16 +84,17 @@ class DecodeSolveConsts(NamedTuple):
 
 class DecodeSolveFullConsts(NamedTuple):
     """The full body's constants; T' = n_tris and E' = n_eqs, each padded to
-    T_ALIGN. basis_s, means_s, basis_r, means_r as the delta body's;
-    eq_idx (E',) int32, the source triangle of each equation, −1 where it has
-    none (the identity), the padded tail too; p (3, E', NF) float32, zero rows
-    from n_eqs on; b_t (NF padded to N_TILE, 9E'): P viewed as (3E', NF),
-    transposed, split into TF32 parts hi and lo (``split_tf32``) and laid along
-    K as [hi | lo | hi], zero rows from NF on. The kernel's A operand is each
-    equation's T laid as [hi | hi | lo], so one product over K' = 9E' sums
-    hi·hi + hi·lo + lo·hi. ``p`` stays for the plain version: the card holds P
-    as 3 + 9 floats an entry, 0.86 GB at FLAME's counts with 13966
-    equations."""
+    T_ALIGN. basis_s, means_s, basis_r, means_r and t0 as the delta body's;
+    x0 (3, NF): x0f = T0·Pt + x_id of ``fold_table``, in float64, rounded once
+    to float32; b_t (2, NF padded to N_TILE, 3T'): Pt viewed as (3T', NF),
+    transposed, zero rows from NF on, split into TF32 parts hi (``b_t[0]``)
+    and lo (``b_t[1]``) by ``split_tf32``. For the plain version: eq_idx
+    (E',) int32, the source triangle of each equation, −1 where it has none
+    (the identity), the padded tail too; p (3, E', NF) float32, zero rows
+    from n_eqs on. The card holds P as 3 floats an equation entry and 6 a
+    triangle entry: 0.57 GB at FLAME's counts with 13966 equations (a kernel
+    over the equations, B' = [hi | lo | hi] of 9 floats an equation entry,
+    held 0.86 GB)."""
 
     basis_s: torch.Tensor
     means_s: torch.Tensor
@@ -94,6 +102,8 @@ class DecodeSolveFullConsts(NamedTuple):
     means_r: torch.Tensor
     eq_idx: torch.Tensor
     p: torch.Tensor
+    t0: torch.Tensor
+    x0: torch.Tensor
     b_t: torch.Tensor
 
 
@@ -120,21 +130,19 @@ def truncate_tf32(x: torch.Tensor) -> torch.Tensor:
     return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
-def transposed_p(p: torch.Tensor) -> torch.Tensor:
-    """``p_t`` of p (3, T', NF): (NF padded to N_TILE, 3T'), rounded to TF32."""
+def _padded_t(p: torch.Tensor) -> torch.Tensor:
+    """p (3, T', NF) viewed as (3T', NF), transposed, zero rows from NF to NF
+    padded to N_TILE: TF32 tensor-core products take both operands with K
+    contiguous."""
     _, tp, nf = p.shape
     p_t = p.new_zeros(-(-nf // N_TILE) * N_TILE, 3 * tp)
     p_t[:nf] = p.reshape(3 * tp, nf).T
-    return round_tf32(p_t)
+    return p_t
 
 
-def split_p(p: torch.Tensor) -> torch.Tensor:
-    """``b_t`` of p (3, E', NF): (NF padded to N_TILE, 9E'), [hi | lo | hi]."""
-    _, ep, nf = p.shape
-    p_t = p.new_zeros(-(-nf // N_TILE) * N_TILE, 3 * ep)
-    p_t[:nf] = p.reshape(3 * ep, nf).T
-    hi, lo = split_tf32(p_t)
-    return torch.cat([hi, lo, hi], dim=1)
+def transposed_p(p: torch.Tensor) -> torch.Tensor:
+    """``p_t`` of p (3, T', NF): (NF padded to N_TILE, 3T'), rounded to TF32."""
+    return round_tf32(_padded_t(p))
 
 
 def prep_consts(scale_comp_t, scale_means, rotat_comp_t, rotat_means,
@@ -151,12 +159,9 @@ def prep_consts(scale_comp_t, scale_means, rotat_comp_t, rotat_means,
     tp = -(-n // T_ALIGN) * T_ALIGN
     basis_s, means_s, basis_r, means_r = _k_major(scale_comp_t, scale_means, rotat_comp_t,
                                                   rotat_means, n, tp)
-    t = transform_entries_from_planes([means_s[k] for k in range(6)]
-                                      + [means_r[k] for k in range(3)])
-    t0 = torch.stack([t[i][j] for i in range(3) for j in range(3)])  # (9, T') f32
+    t0 = _t0(means_s, means_r)
     p64 = solver.p_planes()  # (3, T, NF) f64
-    t064 = t0.double().numpy()[:, :n]
-    x0 = np.stack([sum(t064[3 * dd + c] @ p64[c] for c in range(3)) for dd in range(3)])
+    x0 = fold_x0(t0.numpy()[:, :n], p64, 0.0)
     p = np.zeros((3, tp, solver.n_free), np.float32)
     p[:, :n] = p64
     p = torch.from_numpy(p)
@@ -166,25 +171,66 @@ def prep_consts(scale_comp_t, scale_means, rotat_comp_t, rotat_means,
                              torch.as_tensor(x0, **to), transposed_p(p).to(**to))
 
 
+def fold_table(solver: DeformationSolver, tp: int):
+    """The equation table folded into P, in float64: (Pt (3, ``tp``, NF), x_id
+    (3, NF)). Pt[c][t] = Σ P[c][e] over the equations e whose source is
+    triangle t (zero for a triangle with none, and for the padded tail);
+    x_id[d] = Σ P[d][e] over the equations with no source, whose T is the
+    identity. Then Σ_e T_src(e)·P[e] = Σ_t T_t·Pt[t] + x_id for any T."""
+    p64 = torch.from_numpy(solver.p_planes())  # (3, n_eqs, NF)
+    src = torch.from_numpy(np.asarray(solver._eq_src, np.int64))
+    has = src >= 0
+    pt = p64.new_zeros(3, tp, p64.shape[2]).index_add_(1, src[has], p64[:, has])
+    return pt.numpy(), p64[:, ~has].sum(dim=1).numpy()
+
+
+def fold_x0(t0: np.ndarray, pt: np.ndarray, x_id: np.ndarray) -> np.ndarray:
+    """x0f (3, NF) = T0·Pt + x_id in float64, from T0 (9, T') and the fold:
+    the solve of the PCA means, the full body's reference point."""
+    t0 = np.asarray(t0, np.float64)
+    return np.stack([sum(t0[3 * dd + c] @ pt[c] for c in range(3)) for dd in range(3)]) + x_id
+
+
 def prep_full_consts(scale_comp_t, scale_means, rotat_comp_t, rotat_means,
                      solver: DeformationSolver, device) -> DecodeSolveFullConsts:
     """The full body's constants, on any equation table (an identity table
-    too: the full body then computes the TPU ``_kernel``'s function). ``b_t``
-    is split on ``device``."""
+    too: the full body then computes the TPU ``_kernel``'s function). The
+    table is folded into P on the host in float64 (``fold_table``), x0f =
+    T0·Pt + x_id in float64 and rounded once; ``b_t`` is split on
+    ``device``."""
     n, n_eqs = solver.n_tris, solver.n_eqs
     tp = -(-n // T_ALIGN) * T_ALIGN
     ep = -(-n_eqs // T_ALIGN) * T_ALIGN
     basis_s, means_s, basis_r, means_r = _k_major(scale_comp_t, scale_means, rotat_comp_t,
                                                   rotat_means, n, tp)
+    t0 = _t0(means_s, means_r)
+    pt, x_id = fold_table(solver, tp)
+    x0 = fold_x0(t0.numpy(), pt, x_id)
     eq_idx = np.full(ep, -1, np.int32)
     eq_idx[:n_eqs] = solver._eq_src
     p = np.zeros((3, ep, solver.n_free), np.float32)
     p[:, :n_eqs] = solver.p_planes()
     to = dict(device=device, dtype=torch.float32)
-    p = torch.from_numpy(p).to(**to)
+    pt32 = torch.from_numpy(pt.astype(np.float32)).to(**to)
     return DecodeSolveFullConsts(basis_s.to(**to), means_s.to(**to), basis_r.to(**to),
-                                 means_r.to(**to), torch.from_numpy(eq_idx).to(device), p,
-                                 split_p(p))
+                                 means_r.to(**to), torch.from_numpy(eq_idx).to(device),
+                                 torch.from_numpy(p).to(**to), t0.to(**to),
+                                 torch.as_tensor(x0, **to), split_pt(pt32))
+
+
+def split_pt(pt: torch.Tensor) -> torch.Tensor:
+    """``b_t`` of Pt (3, T', NF) float32: (2, NF padded to N_TILE, 3T'), Pt
+    transposed and split into TF32 parts hi and lo."""
+    return torch.stack(split_tf32(_padded_t(pt)))
+
+
+def _t0(means_s, means_r) -> torch.Tensor:
+    """T0 (9, T'), the transform entries of the PCA means in float32: the value
+    the decode kernel subtracts, so that T = ΔT + T0 exactly. The padded tail
+    has zero means: its T0 is the identity, as is its T."""
+    t = transform_entries_from_planes([means_s[k] for k in range(6)]
+                                      + [means_r[k] for k in range(3)])
+    return torch.stack([t[i][j] for i in range(3) for j in range(3)])
 
 
 def _k_major(scale_comp_t, scale_means, rotat_comp_t, rotat_means, n: int, tp: int):
@@ -215,8 +261,8 @@ def transforms(coef_s, coef_r, dsc) -> torch.Tensor:
     return torch.stack([t[i][j] for i in range(3) for j in range(3)], dim=1)
 
 
-def delta_transforms(coef_s, coef_r, dsc: DecodeSolveConsts) -> torch.Tensor:
-    """The delta body's decode in plain tensors: ΔT = T − T0, (W, 9, T')."""
+def delta_transforms(coef_s, coef_r, dsc) -> torch.Tensor:
+    """Either body's decode in plain tensors: ΔT = T − T0, (W, 9, T')."""
     return transforms(coef_s, coef_r, dsc) - dsc.t0
 
 
@@ -259,21 +305,16 @@ def decode_solve_rounded(coef_s, coef_r, dsc: DecodeSolveConsts, rounding=round_
     return (dt @ dsc.p_t[:nf].T).reshape(w, 3, nf) + dsc.x0
 
 
-def full_operand(t: torch.Tensor) -> torch.Tensor:
-    """The full body's A operand of equation transforms t (W, 9, E'): (3W, 9E'),
-    each row [hi | hi | lo] of its 3E' entries, as the decode kernel writes it."""
-    w, _, ep = t.shape
-    hi, lo = split_tf32(t.reshape(3 * w, 3 * ep))
-    return torch.cat([hi, hi, lo], dim=1)
-
-
 def decode_solve_full_rounded(coef_s, coef_r, fsc: DecodeSolveFullConsts) -> torch.Tensor:
-    """``decode_solve_full_plain`` as the kernel multiplies: the A operand of
-    ``full_operand`` times ``b_t`` in one product over K' = 9E', float32 sums."""
+    """``decode_solve_full_plain`` as the kernel computes it: ΔT over the
+    triangles split into TF32 parts, times ``b_t``'s parts, ΔT_hi·Pt_hi +
+    ΔT_hi·Pt_lo + ΔT_lo·Pt_hi with float32 sums, + x0f."""
     w = coef_s.shape[0]
-    nf = fsc.p.shape[2]
-    a = full_operand(equation_transforms(coef_s, coef_r, fsc))
-    return (a @ fsc.b_t[:nf].T).reshape(w, 3, nf)
+    nf = fsc.x0.shape[1]
+    tp = fsc.t0.shape[1]
+    hi, lo = split_tf32(delta_transforms(coef_s, coef_r, fsc).reshape(3 * w, 3 * tp))
+    b_hi, b_lo = fsc.b_t[0, :nf].T, fsc.b_t[1, :nf].T
+    return (hi @ b_hi + hi @ b_lo + lo @ b_hi).reshape(w, 3, nf) + fsc.x0
 
 
 def cost(windows: int, ks: int, kr: int, tp: int, nf: int):
@@ -288,18 +329,17 @@ def cost(windows: int, ks: int, kr: int, tp: int, nf: int):
     return flops, 4.0 * floats
 
 
-def cost_full(windows: int, ks: int, kr: int, tp: int, ep: int, nf: int):
-    """(flops, bytes) of one full launch at ``tp`` padded triangles, ``ep``
-    padded equations and ``nf`` free vertices: the decode, 2 W (6 Ks + 3 Kr) T'
-    FLOP in float32 (each triangle once, the least the function needs; the
-    kernel decodes each equation with a source), and the product as the tensor
-    cores run it, three TF32 products of 2 W 9 E' NF; every input read once
-    (the bases, means, the table and ``b_t``, not ``p``), the output written
-    once."""
+def cost_full(windows: int, ks: int, kr: int, tp: int, nf: int):
+    """(flops, bytes) of one full launch at ``tp`` padded triangles and ``nf``
+    free vertices: the decode once per triangle, 2 W (6 Ks + 3 Kr) T' FLOP
+    in float32, and the folded product as the tensor cores run it, three TF32
+    products of 2 W 9 T' NF; every input read once (the bases, means, T0,
+    x0f and ``b_t``, not ``p`` or the table, which only the plain version
+    reads), the output written once."""
     n_pad = -(-nf // N_TILE) * N_TILE
-    flops = 2.0 * windows * (6 * ks + 3 * kr) * tp + 3 * 2.0 * windows * 9 * ep * nf
-    floats = (windows * (ks + kr) + (ks + 1) * 6 * tp + (kr + 1) * 3 * tp + ep
-              + n_pad * 9 * ep + windows * 3 * nf)
+    flops = 2.0 * windows * (6 * ks + 3 * kr) * tp + 3 * 2.0 * windows * 9 * tp * nf
+    floats = (windows * (ks + kr) + (ks + 1) * 6 * tp + (kr + 1) * 3 * tp + 2 * n_pad * 3 * tp
+              + 9 * tp + 3 * nf + windows * 3 * nf)
     return flops, 4.0 * floats
 
 
@@ -316,27 +356,45 @@ def k_parts(m: int, n_pad: int, k: int, resident: int) -> int:
     return -(-k_tiles // per)
 
 
-def resident_blocks(device) -> int:
-    """How many blocks of the product kernel ``device`` holds at once (its
-    occupancy times the multiprocessors). Also checks that the tile the kernel
-    was built with is this module's."""
-    blocks, *tile = build.query_ints("decode_solve", "decode_solve_tiling", 4, device)
+def resident_blocks(device, body: str = "delta") -> int:
+    """How many blocks of a body's product kernel (``"delta"`` or ``"full"``)
+    ``device`` holds at once (its occupancy times the multiprocessors). Also
+    checks that the tile the kernels were built with is this module's."""
+    delta, *tile, full = build.query_ints("decode_solve", "decode_solve_tiling", 5, device)
+    blocks = {"delta": delta, "full": full}[body]
     if tuple(tile) != (M_TILE, N_TILE, K_TILE) or blocks < 1:
         raise RuntimeError(f"decode_solve.cu multiplies in tiles of {tile}, {blocks} resident; "
                            f"this module says {(M_TILE, N_TILE, K_TILE)}")
     return blocks
 
 
-def _check_bases(coef_s, coef_r, c, tp):
+def _launch(body: str, coef_s, coef_r, c, b_t, b_lead=()) -> torch.Tensor:
+    """Check a body's inputs and launch its three kernels on ``coef_s``'s
+    card: the delta body (``sdfa_decode_solve``, ``b_t`` = ``p_t``) or the full
+    body (``sdfa_decode_solve_full``, ``b_t`` = Pt's two parts, ``b_lead`` =
+    (2,)), which take the same arguments; counts the launch under ``body``.
+    → (W, 3, NF)."""
+    tp, nf = c.t0.shape[1], c.x0.shape[1]
     w, ks = coef_s.shape
     kr = coef_r.shape[1]
-    build.check("coef_s", coef_s, (w, ks))
-    build.check("coef_r", coef_r, (w, kr))
-    build.check("basis_s", c.basis_s, (ks, 6, tp))
-    build.check("means_s", c.means_s, (6, tp))
-    build.check("basis_r", c.basis_r, (kr, 3, tp))
-    build.check("means_r", c.means_r, (3, tp))
-    return w, ks, kr
+    n_pad = -(-nf // N_TILE) * N_TILE
+    for name, t, shape in (("coef_s", coef_s, (w, ks)), ("coef_r", coef_r, (w, kr)),
+                           ("basis_s", c.basis_s, (ks, 6, tp)), ("means_s", c.means_s, (6, tp)),
+                           ("basis_r", c.basis_r, (kr, 3, tp)), ("means_r", c.means_r, (3, tp)),
+                           ("b_t", b_t, (*b_lead, n_pad, 3 * tp)), ("t0", c.t0, (9, tp)),
+                           ("x0", c.x0, (3, nf))):
+        build.check(name, t, shape)
+    parts = k_parts(3 * w, n_pad, 3 * tp, resident_blocks(coef_s.device, body))
+    empty = dict(device=coef_s.device, dtype=torch.float32)
+    dt = torch.empty(w, 9, tp, **empty)           # ΔT, TF32 values or float32: 364 KB a window
+    part = torch.empty(parts, 3 * w, n_pad, **empty)  # the K parts' partial sums
+    out = torch.empty(w, 3, nf, **empty)
+    build.launch("decode_solve",
+                 (coef_s, coef_r, c.basis_s, c.means_s, c.basis_r, c.means_r, b_t, c.t0, c.x0,
+                  dt, part, out), (w, ks, kr, tp, nf, n_pad, parts), coef_s.device,
+                 entry="decode_solve" if body == "delta" else "decode_solve_full")
+    LAUNCHES[body] += 1
+    return out
 
 
 def decode_solve(coef_s, coef_r, dsc: DecodeSolveConsts) -> torch.Tensor:
@@ -344,23 +402,9 @@ def decode_solve(coef_s, coef_r, dsc: DecodeSolveConsts) -> torch.Tensor:
     version for CPU tensors; any other input raises. → (W, 3, NF)."""
     if coef_s.device.type == "cpu":
         return decode_solve_plain(coef_s, coef_r, dsc)
-    _, tp, nf = dsc.p.shape
-    w, ks, kr = _check_bases(coef_s, coef_r, dsc, tp)
-    n_pad = dsc.p_t.shape[0]
-    build.check("p_t", dsc.p_t, (-(-nf // N_TILE) * N_TILE, 3 * tp))
-    build.check("t0", dsc.t0, (9, tp))
-    build.check("x0", dsc.x0, (3, nf))
-    parts = k_parts(3 * w, n_pad, 3 * tp, resident_blocks(coef_s.device))
-    empty = dict(device=coef_s.device, dtype=torch.float32)
-    dt = torch.empty(w, 9, tp, **empty)           # ΔT in TF32 values: 364 KB a window
-    part = torch.empty(parts, 3 * w, n_pad, **empty)  # the K parts' partial sums
-    out = torch.empty(w, 3, nf, **empty)
-    build.launch("decode_solve",
-                 (coef_s, coef_r, dsc.basis_s, dsc.means_s, dsc.basis_r, dsc.means_r, dsc.p_t,
-                  dsc.t0, dsc.x0, dt, part, out), (w, ks, kr, tp, nf, n_pad, parts),
-                 coef_s.device)
-    LAUNCHES["delta"] += 1
-    note_launch("decode_solve", cost(w, ks, kr, tp, nf))
+    out = _launch("delta", coef_s, coef_r, dsc, dsc.p_t)
+    note_launch("decode_solve", cost(out.shape[0], coef_s.shape[1], coef_r.shape[1],
+                                     dsc.t0.shape[1], out.shape[2]))
     return out
 
 
@@ -369,27 +413,9 @@ def decode_solve_full(coef_s, coef_r, fsc: DecodeSolveFullConsts) -> torch.Tenso
     version for CPU tensors; any other input raises. → (W, 3, NF)."""
     if coef_s.device.type == "cpu":
         return decode_solve_full_plain(coef_s, coef_r, fsc)
-    tp = fsc.basis_s.shape[2]
-    _, ep, nf = fsc.p.shape
-    w, ks, kr = _check_bases(coef_s, coef_r, fsc, tp)
-    n_pad = fsc.b_t.shape[0]
-    build.check("b_t", fsc.b_t, (-(-nf // N_TILE) * N_TILE, 9 * ep))
-    eq = fsc.eq_idx
-    if eq.device != coef_s.device or eq.dtype != torch.int32 or tuple(eq.shape) != (ep,) \
-            or not eq.is_contiguous():
-        raise ValueError(f"eq_idx: need a contiguous int32 ({ep},) tensor on {coef_s.device}, "
-                         f"got {eq.dtype} {tuple(eq.shape)} on {eq.device}")
-    parts = k_parts(3 * w, n_pad, 9 * ep, resident_blocks(coef_s.device))
-    empty = dict(device=coef_s.device, dtype=torch.float32)
-    a = torch.empty(3 * w, 9 * ep, **empty)           # [hi | hi | lo] of T_eq: 1.5 MB a window
-    part = torch.empty(parts, 3 * w, n_pad, **empty)  # the K parts' partial sums
-    out = torch.empty(w, 3, nf, **empty)
-    build.launch("decode_solve",
-                 (coef_s, coef_r, fsc.basis_s, fsc.means_s, fsc.basis_r, fsc.means_r, eq,
-                  fsc.b_t, a, part, out), (w, ks, kr, tp, ep, nf, n_pad, parts),
-                 coef_s.device, entry="decode_solve_full")
-    LAUNCHES["full"] += 1
-    note_launch("decode_solve_full", cost_full(w, ks, kr, tp, ep, nf))
+    out = _launch("full", coef_s, coef_r, fsc, fsc.b_t, (2,))
+    note_launch("decode_solve_full", cost_full(out.shape[0], coef_s.shape[1], coef_r.shape[1],
+                                               fsc.t0.shape[1], out.shape[2]))
     return out
 
 

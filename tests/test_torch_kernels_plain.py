@@ -84,6 +84,30 @@ def test_bilstm2_plain_matches_reference(bias):
     assert float(np.abs(got - want).max()) < 1e-5  # f32 both sides
 
 
+K2_GATE = 1e-4  # K2's kernel against its plain version (chip_smoke.py TOL["bilstm2"])
+
+
+def test_bilstm2_bf16_output_misses_the_kernel_gate():
+    """Why K2's and K4's output stays float32 (the JAX package's TPU default
+    stores it in bf16, ``SDFA_LSTM_STAGE_BF16``): h lies in (−1, 1), and a
+    bf16 store errs by up to 2^-9 there, past K2's 1e-4 gate against its
+    plain version at these narrow shapes. What it would save is half of K2's
+    output traffic: 28 MB at a request's 216 windows, written and read once,
+    about 17 µs at 3.35 TB/s in float32."""
+    rng = np.random.default_rng(2)
+    rows, T, IN, H = 5, 9, 12, 8
+    tx = [torch.from_numpy(a) for a in (
+        _rand(rng, (rows, T, IN), 1.0), _rand(rng, (2, IN, 4 * H), 0.2),
+        _rand(rng, (2, H, 4 * H), 0.2), _rand(rng, (2, 4 * H), 0.1),
+        _rand(rng, (2, 2 * H, 4 * H), 0.2), _rand(rng, (2, H, 4 * H), 0.2),
+        _rand(rng, (2, 4 * H), 0.1))]
+    plain = K2.bilstm2_plain(*tx)
+    assert float(plain.abs().max()) < 1.0
+    bf16 = plain.to(torch.bfloat16).float()
+    assert float((bf16 - plain).abs().max()) > K2_GATE
+    assert float((bf16 - plain).abs().max()) <= 2.0 ** -9
+
+
 @pytest.mark.parametrize("bias", [True, False])
 def test_bilstm_layer_plain_matches_reference(bias):
     rng = np.random.default_rng(5)

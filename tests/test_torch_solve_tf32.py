@@ -89,7 +89,50 @@ def small():
     _, tp, nf = dsc.p.shape
     exact = ((dt.double().reshape(3 * rows, 3 * tp) @ dsc.p.double().reshape(3 * tp, nf))
              .reshape(rows, 3, nf) + dsc.x0.double())
-    return dict(dsc=dsc, jdsc=jdsc, cs=cs, cr=cr, coef_s=coef_s, coef_r=coef_r, exact=exact)
+    return dict(dsc=dsc, jdsc=jdsc, cs=cs, cr=cr, coef_s=coef_s, coef_r=coef_r, exact=exact,
+                n=n, bases=(sc, sm, rc, rm), jsolver=jsolver)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_product(cs, cr, dsc):
+    """The delta product with P staged in bf16, as the JAX package's TPU
+    default does (``SDFA_SOLVE_P_BF16``): ΔT and P each rounded to bf16, their
+    products exact in float32, float32 sums, + x0."""
+    w = cs.shape[0]
+    _, tp, nf = dsc.p.shape
+    dt = K3.delta_transforms(cs, cr, dsc).reshape(3 * w, 3 * tp)
+    return (_bf16(dt) @ _bf16(dsc.p.reshape(3 * tp, nf))).reshape(w, 3, nf) + dsc.x0
+
+
+def test_p_bf16_rounding_is_the_jax_default_staging(small, monkeypatch):
+    """The port's bf16 rounding of its float32 P equals, bit for bit, the P
+    that the JAX ``prep_consts`` stages by default in delta mode (bf16) on
+    the unpadded triangles (JAX pads them to 512, the port to 128)."""
+    monkeypatch.delenv("SDFA_SOLVE_DELTA", raising=False)
+    monkeypatch.delenv("SDFA_SOLVE_P_BF16", raising=False)
+    sc, sm, rc, rm = small["bases"]
+    jsolver = small["jsolver"]
+    jdsc = jpds.prep_consts({"compT": sc, "means": sm}, {"compT": rc, "means": rm},
+                            jsolver.consts, jsolver.spec)
+    assert jdsc.p.dtype == jnp.bfloat16
+    n = small["n"]
+    want = torch.from_numpy(np.array(jdsc.p[:, :n].astype(jnp.float32)))
+    got = _bf16(small["dsc"].p[:, :n])
+    assert torch.equal(_bits(got), _bits(want))
+    assert float((got - small["dsc"].p[:, :n]).abs().max()) > 0.0  # P is not a bf16 value
+
+
+def test_bf16_product_misses_the_kernel_gate_where_tf32_holds_it(small):
+    """Why P stays in TF32: ΔT and P in bf16 miss the kernel's 1e-5 m gate
+    against the plain version on the seeded small solver, where the port's
+    TF32 product holds it."""
+    cs, cr, dsc = small["cs"], small["cr"], small["dsc"]
+    plain = K3.decode_solve_plain(cs, cr, dsc)
+    assert float((_bf16_product(cs, cr, dsc) - plain).abs().max()) > KERNEL_TOL_M
+    assert float((K3.decode_solve_rounded(cs, cr, dsc) - plain).abs().max()) <= KERNEL_TOL_M
 
 
 def test_p_t_is_p_transposed_padded_and_rounded(small):
@@ -224,3 +267,14 @@ def test_fitted_bases_truncation_would_err_further(fitted):
     err_trunc = (K3.decode_solve_rounded(cs, cr, truncated_p, rounding=K3.truncate_tf32)
                  .double() - exact).abs()
     assert float(err_trunc.mean()) > 1.5 * float(err_round.mean())
+
+
+def test_fitted_bases_bf16_errs_further_from_float64_than_tf32(fitted):
+    """At trained magnitudes too, P and ΔT in bf16 err further from the
+    float64 decode + product than the port's TF32 product does."""
+    dsc, cs, cr = fitted["dsc"], fitted["cs"], fitted["cr"]
+    exact = K3.decode_solve_plain(cs.double(), cr.double(),
+                                  K3.DecodeSolveConsts(*(t.double() for t in dsc)))
+    err_bf16 = float((_bf16_product(cs, cr, dsc).double() - exact).abs().max())
+    err_tf32 = float((K3.decode_solve_rounded(cs, cr, dsc).double() - exact).abs().max())
+    assert err_bf16 > 2 * err_tf32

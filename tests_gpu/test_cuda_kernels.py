@@ -87,9 +87,12 @@ def _fanout(n):
 @pytest.mark.parametrize("table,windows", [("fanout", 1), ("fanout", 7), ("fanout", 43),
                                            ("identity", 11)])
 def test_cuda_decode_solve_full_matches_plain(cuda, table, windows):
-    """K3's full body on a small correspondence table and on the identity
-    table against its plain version (< 1e-5 m), two launches bit for bit,
-    each counted once under the full body."""
+    """K3's full body (the table folded into Pt, ΔT decoded per triangle,
+    3xTF32 over K = 3T') on a small correspondence table and on the identity
+    table against its plain version, the decode, gather and float32 product
+    over the equations (< 1e-5 m), within 5e-7 m of the float64 product and
+    1e-6 m of its operands repeated in plain tensors; two launches bit for
+    bit, each counted once under the full body."""
     verts, faces, cnst = synthetic_template(0, n_major=8, n_minor=10, n_extra=3, n_free=30)
     n = len(faces)
     count, corr = _fanout(n) if table == "fanout" else (None, None)
@@ -99,6 +102,7 @@ def test_cuda_decode_solve_full_matches_plain(cuda, table, windows):
     fsc = K3.prep_full_consts(_rand(rng, (6 * n, 85), 0.01), _rand(rng, (6 * n,), 0.01),
                               _rand(rng, (3 * n, 180), 0.01), _rand(rng, (3 * n,), 0.01),
                               solver, cuda)
+    assert fsc.b_t.shape == (2, 128, 3 * fsc.t0.shape[1])
     cs = torch.from_numpy(_rand(rng, (windows, 85), 1.0)).to(cuda)
     cr = torch.from_numpy(_rand(rng, (windows, 180), 1.0)).to(cuda)
     before = K3.LAUNCHES["full"]
@@ -107,6 +111,11 @@ def test_cuda_decode_solve_full_matches_plain(cuda, table, windows):
     assert K3.LAUNCHES["full"] == before + 2
     assert got.shape == (windows, 3, solver.n_free) and bool(torch.isfinite(got).all())
     assert float((got - K3.decode_solve_full_plain(cs, cr, fsc)).abs().max()) < 1e-5
+    assert float((got - K3.decode_solve_full_rounded(cs, cr, fsc)).abs().max()) < 1e-6
+    f64 = fsc._replace(**{k: getattr(fsc, k).double() for k in (
+        "basis_s", "means_s", "basis_r", "means_r", "p")})
+    exact = K3.decode_solve_full_plain(cs.double(), cr.double(), f64)
+    assert float((got.double() - exact).abs().max()) < 5e-7
 
 
 @pytest.mark.parametrize("rows,steps,n_in,bias", [
