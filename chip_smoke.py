@@ -3,9 +3,12 @@
 
 Run from the repository root with no arguments:
 
-    python3 chip_smoke.py            # about four minutes
-    python3 chip_smoke.py --profile  # about five. Also torch.profiler breakdowns: a request
-                                     # (with its host-to-device copies counted), a server tick,
+    python3 chip_smoke.py            # about ten minutes (640 s on an NVIDIA H100 80GB HBM3,
+                                     # 700 W, with the stream_capacity, longrun and examples
+                                     # phases; 297 s before them)
+    python3 chip_smoke.py --profile  # a minute or two more. Also torch.profiler breakdowns: a
+                                     # request (with its host-to-device copies counted), a
+                                     # server tick,
                                      # both also for the offsets model,
                                      # a train step; the biLSTM step kernel's SM clocks by part
                                      # of a step; the other tile choices of the training core,
@@ -16,6 +19,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py --k3-turns PARENT . . PARENT  # K3's timed rows with the package of
                                      # each checkout in turn (PARENT: another commit unpacked
                                      # by git archive), a process each: two commits on one card
+    python3 chip_smoke.py --longrun 2500  # the longrun phase alone at that many steps
 
 Phases, each printed as one JSON line:
 
@@ -205,6 +209,37 @@ Phases, each printed as one JSON line:
    width), the first step's loss terms within 1e-5 and its gradients within 1e-4 of the
    largest against the plain versions'.
 
+22. stream_capacity (after ``wide_variants``): ``tools/stream_capacity_torch.py`` as a
+   subprocess on the full-width dgrad model (seeded weights and bases, the synthetic
+   template), N streams of the same 8 s formant clip in one ``StreamingServer(capacity=N)``
+   until all are done: delivered and pipelined at N = 8, 32, 128 on i16, device-only at 8
+   and 128, on coef at 8 with the client's ``CoefDecoder`` timed a frame. Each round's wall,
+   per-stream and aggregate times real time, frames (N times an offline request's of the
+   same clip) and K1 / K2 / K3 launches (K3 0 on coef).
+
+23. longrun: ``tools/longrun_train_torch.py --steps 300`` as a subprocess (it generates
+   its dataset, then ``api.train_model`` with PCA targets and an unbounded epoch cap): wall
+   seconds, the median interval between step dispatches, every epoch's train losses (all
+   finite, the position loss of the last below the first's), K5 900 / 900, the checkpoints
+   written; then, in
+   process, the last checkpoint's validation loss over the dataset's validation windows in
+   eval mode (K1 / K2 a batch, within 1e-5 of the plain versions'; the shipped config runs
+   no validation epoch) and in training mode (BatchNorm on each batch's statistics).
+
+24. examples, on the long run's ``last.ckpt``, four subprocesses started together:
+   ``examples/torch_serve_vertices.py`` on a 3 s formant wav (its OBJs the offline request's
+   count, the middle one read back within 1e-4 m of the native float64 solve of the same
+   frame's planes), ``evaluate_torch.sh`` on a 1 s wav (video included) and
+   ``examples/torch_render_template.py`` (both exit 0, their files not empty), and ``python
+   -m sdfa_tpu_torch serve --capacity 8``; then, alone beside it,
+   ``examples/torch_stream_client.py`` pushing the wav in 100 ms chunks at real pace on
+   loopback (the offline count, frames during the push, wall against the clip's seconds).
+
+The kernel phase also gives ``proj_kernel<0>``, the wide layers' input projection, a row
+of its own at wide512's first K2 layer (216 x 64 x 512 -> 2048) and wide384's deeper K4
+layers (216 x 64 x 768 -> 1536): its device ms from K4's split, its bound, its plain
+version and the f32 cuBLAS product.
+
 At the end ``ops.PLAIN_ROUTES`` must read 0: no path this script drives has a
 recurrent shape that no kernel takes.
 
@@ -247,6 +282,9 @@ WIDE_K4 = ((384, 384), (384, 768), (512, 512), (512, 1024), (1024, 1024))
 WIDE_K5 = ((64, 100, 512, 512), (64, 100, 384, 384), (32, 6400, 256, 64), (32, 6400, 384, 64),
            (32, 6400, 512, 64))
 WIDE_HIDDENS = (384, 512, 1024)  # the build line's tilings of the wide step loop
+# proj_kernel<0> as a row of its own, at WIDE_K4's (H, in) of wide512's first K2 layer (216 x 64
+# x 512 -> 4H = 2048) and of wide384's layers 2 and 3 (216 x 64 x 768 -> 1536)
+PROJ0_SHAPES = ((512, 512), (384, 768))
 # kernel_split's parts by a fragment of the kernel's name: a recurrent kernel's, K3 full body's
 RECURRENT_PARTS = (("steps_kernel", "step_loop"), ("proj_kernel", "input_projection"),
                    ("out_parts", "output_projection"), ("out_sum", "output_projection"))
@@ -315,6 +353,18 @@ BILATERAL_CARD_TOL = 1e-6
 NATIVE_TOL_M = 1e-4       # native float64 vs K3's vertices (the wav → vertices budget)
 NATIVE_FRAMES = 16
 PLOT_TRAINER_STEPS = 4
+# stream_capacity: tools/stream_capacity_torch.py as a subprocess on the full-width dgrad model,
+# one 8 s clip a stream, each run's rounds (mode, arguments); the frames of every round must be N
+# times an offline request's
+CAPACITY_CLIP_S = 8.0
+CAPACITY_RUNS = (("delivered", ("--n", "8", "32", "128")),
+                 ("device_only", ("--n", "8", "128", "--device-only")),
+                 ("coef", ("--n", "8", "--wire", "coef")))
+# longrun: tools/longrun_train_torch.py for LONGRUN_STEPS (its own default is 2500)
+LONGRUN_STEPS = 300
+# examples: the long run's checkpoint through the three examples and evaluate_torch.sh
+EXAMPLE_CLIP_S, EXAMPLE_EVAL_S = 3.0, 1.0
+TOOL_TIMEOUT_S = 600     # a tool or example subprocess
 F32_PEAK = 67e12      # H100 SXM, float32 outside the tensor cores, FLOP/s (data sheet)
 TF32_PEAK = 495e12    # H100 SXM, TF32 on the tensor cores, dense, FLOP/s (data sheet)
 HBM_RATE = 3.35e12    # H100 SXM, bytes/s (data sheet)
@@ -962,15 +1012,41 @@ def main():
                      primary=False, hidden=hid,
                      split_ms=kernel_split(lambda: bilstm2.bilstm2(*args2)))
         del x2, args2, lib2w, x_lib
+    def proj_case(x, w_ih, gate_bias, proj_ms):
+        """``proj_kernel<0>``, the wide layers' input projection at a run-time gate
+        width, as a row of its own: its device ms from K4's split, beside its bound
+        (2 directions' product in float32, every operand once), its plain version
+        (``projection_tiled``) and the f32 cuBLAS product of the same operands."""
+        rows, steps, n_in = x.shape
+        gdim = w_ih.shape[-1]
+        x2 = x.reshape(rows * steps, n_in)
+        with torch.inference_mode():
+            plain_ms = time_ms(lambda: bilstm_layer.projection_tiled(x, w_ih, gate_bias), 3)
+            library_ms = time_ms(lambda: torch.matmul(x2, w_ih), 5)
+        flops = 2.0 * 2 * rows * steps * n_in * gdim
+        moved = 4.0 * (x.numel() + w_ih.numel() + gate_bias.numel() + 2 * rows * steps * gdim)
+        bound_ms, bound_by = bound(flops, moved)
+        line = {"shape": [rows, steps, n_in], "gates": gdim, "ms": proj_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "gflop": flops / 1e9, "mbytes": moved / 1e6}
+        emit({"phase": "kernel", "name": "proj_kernel<0>", **line,
+              "ms_is": "device ms of proj_kernel in bilstm_layer's torch.profiler split",
+              "library_is": "f32 torch.matmul of x (rows T, in) by w_ih (2, in, 4H)",
+              "card": smi})
+        report["bilstm_layer"].setdefault("proj_kernel_0", []).append(line)
+
     for i, (hid, n_in) in enumerate(WIDE_K4):
         x4 = randn(440 + i, K3_REQUEST_WINDOWS, 64, n_in, scale=0.5)
         lib4w, x_lib = library_lstm(n_in, hid, 1, 440 + i), x4.transpose(0, 1).contiguous()
         args4 = (x4, *lstm_weights(441 + i, n_in, hid))
+        split = kernel_split(lambda: bilstm_layer.bilstm_layer(*args4))
         forward_case("bilstm_layer", bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain,
                      args4, bilstm_layer.cost(*x4.shape, hid),
                      lambda: lib4w(x_lib), "sdfa_tpu_torch/csrc/bilstm_layer.cu",
                      "sdfa_tpu/ops/pallas_bilstm.py:42", primary=False, hidden=hid,
-                     split_ms=kernel_split(lambda: bilstm_layer.bilstm_layer(*args4)))
+                     split_ms=split)
+        if (hid, n_in) in PROJ0_SHAPES:
+            proj_case(x4, args4[1], args4[3], split["input_projection"])
         del x4, args4, lib4w, x_lib
     layer_wave = bilstm_layer.wide_wave_rows(384, wide_blocks["bilstm_layer"])
     for i, (rows, steps, n_in, hid, bias) in enumerate((
@@ -1311,6 +1387,12 @@ def main():
     with tempfile.TemporaryDirectory(prefix="sdfa_chip_wide_") as wide_tmp:
         path_launches["wide_variants"] = wide_variants_phase(task, pca, sig0, spk0, solver, dev,
                                                              smi, wide_tmp)
+    # --- the last JAX-only surfaces: N live streams to capacity, a long training run, the
+    #     examples and evaluate_torch.sh on its checkpoint ------------------------------
+    path_launches["stream_capacity"] = stream_capacity_phase(task, root, smi)
+    with tempfile.TemporaryDirectory(prefix="sdfa_chip_longrun_") as long_tmp:
+        path_launches["longrun"], longrun = longrun_phase(root, dev, smi, long_tmp)
+        path_launches["examples"] = examples_phase(longrun, root, dev, smi, long_tmp)
     if ops.PLAIN_ROUTES:
         raise RuntimeError(f"{ops.PLAIN_ROUTES} plain recurrences were taken on the card: a "
                            "path this script drives has a shape no kernel takes")
@@ -3136,6 +3218,361 @@ def retarget_phase(hp, model, sig, spk, v_ref, dev, sr, smi, tmp):
     return lines["f32"]["launches"]
 
 
+def longrun_main(steps: int):
+    """``python3 chip_smoke.py --longrun STEPS``: the ``longrun`` phase alone at
+    ``STEPS`` steps (the tool's own default is 2500), then the card's name and
+    power limit and the result line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "sdfa_tpu_torch")):
+        sys.exit("chip_smoke.py: the sdfa_tpu_torch package is not beside this script")
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: torch.cuda.is_available() is false; this needs a GPU")
+    processes_before = group_processes()
+    from sdfa_tpu_torch.ops import build
+
+    build.load_libraries(["freq_lstm", "bilstm2", "decode_solve", "bilstm_layer", "bilstm_core"])
+    smi = nvidia_smi_line()
+    with tempfile.TemporaryDirectory(prefix="sdfa_chip_longrun_") as tmp:
+        longrun_phase(root, torch.device("cuda:0"), smi, tmp, steps)
+    check_no_process_left(processes_before)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def load_file(repo, path):
+    """A tool or example of the repository, imported from its file."""
+    import importlib.util
+
+    name = "_chip_" + os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, os.path.join(repo, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_json(cmd, repo, what):
+    """Run ``cmd`` from the repository's root to its end; its stdout's JSON lines
+    and its wall seconds. Raises with the end of its output if it fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise RuntimeError(f"{what} exited {proc.returncode}: {proc.stdout[-2000:]}\n"
+                           f"{proc.stderr[-3000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")], wall
+
+
+def stream_capacity_phase(task, repo, smi):
+    """``tools/stream_capacity_torch.py`` as a subprocess on the full-width dgrad
+    model (seeded weights, the synthetic template): N streams of an 8 s clip
+    each until all are done, delivered and pipelined at N = 8, 32, 128 on i16,
+    device-only at 8 and 128, on coef at 8 with the client's decode timed.
+    Every round's frames must be N times an offline request's of the same clip;
+    K1, K2 and K3's delta body must launch on i16, K3 not at all on coef.
+    Returns the launches of the timed rounds, summed."""
+    out = {"phase": "stream_capacity", "card": smi, "clip_s": CAPACITY_CLIP_S, "rounds": [],
+           "wall_s": {}}
+    path = collections.Counter()
+    try:
+        clip = load_file(repo, "tools/stream_capacity_torch.py")._clip(task.hp, CAPACITY_CLIP_S)
+        offline = out["offline_frames"] = len(task.generate_vertices(clip, 0)[0])
+        for mode, args in CAPACITY_RUNS:
+            lines, out["wall_s"][mode] = run_json(
+                [sys.executable, os.path.join(repo, "tools", "stream_capacity_torch.py"),
+                 "--clip-s", str(CAPACITY_CLIP_S), *args], repo, f"stream_capacity {mode}")
+            for line in lines:
+                if "n" in line:
+                    out["rounds"].append({"mode": mode, **line})
+                elif "client_decode" in line:
+                    out["client_decode"] = line["client_decode"]
+                elif "capacity" in line:
+                    out.setdefault("capacity", {})[mode] = line["capacity"]
+        for r in out["rounds"]:
+            launches, coef = r["launches"], r["mode"] == "coef"
+            path.update(launches)
+            if r["frames"] != r["n"] * offline:
+                raise RuntimeError(f"stream_capacity {r['mode']} N = {r['n']}: {r['frames']} "
+                                   f"frames, not {r['n']} x {offline}")
+            if not (launches["freq_lstm"] > 0 and launches["bilstm2"] > 0
+                    and (launches["decode_solve"] == 0 if coef else launches["decode_solve"] > 0)
+                    and launches["decode_solve_full"] == 0):
+                raise RuntimeError(f"stream_capacity {r['mode']} N = {r['n']}: launches "
+                                   f"{launches}")
+        want = {(mode, n) for mode, args in CAPACITY_RUNS for n in args[1:] if n.isdigit()}
+        if {(r["mode"], str(r["n"])) for r in out["rounds"]} != want or "client_decode" not in out:
+            raise RuntimeError(f"stream_capacity: rounds {out['rounds']}")
+    finally:
+        emit(out)  # what was measured, also when a check failed
+    return {k: path[k] for k in ("freq_lstm", "bilstm2", "decode_solve")}
+
+
+def longrun_phase(repo, dev, smi, tmp, steps=LONGRUN_STEPS):
+    """``tools/longrun_train_torch.py --steps STEPS`` as a subprocess: the dataset
+    it generates, then ``api.train_model`` on it in raw mode with PCA targets.
+    Its wall seconds, the median interval between step dispatches, the first
+    and last epochs' train losses (every one finite; the position loss of the
+    last below the first's: the total is divided by each term's running RMS,
+    the dynamic scalers, and need not fall), its K5 launches (3 + 3 a step),
+    the checkpoints written. The shipped config runs no validation epoch, so
+    the last checkpoint's validation loss is taken here, in process, over the
+    dataset's validation windows (K1 / K2 once a batch; the plain versions'
+    within ``STEP_LOSS_RTOL``), and in training mode. Returns the launches and
+    what the ``examples`` phase reuses."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from sdfa_tpu_torch import ops
+    from sdfa_tpu_torch.config import ConfigDict
+    from sdfa_tpu_torch.data import DatasetSlidingWindow
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.ops import bilstm2, freq_lstm
+    from sdfa_tpu_torch.train import Experiment
+
+    run, root = os.path.join(tmp, "longrun"), os.path.join(tmp, "longrun_voca")
+    out = {"phase": "longrun", "card": smi, "steps": steps}
+    try:
+        lines, out["wall_s"] = run_json(
+            [sys.executable, os.path.join(repo, "tools", "longrun_train_torch.py"), "--steps",
+             str(steps), "--run-dir", run, "--root", root], repo, "longrun")
+        path = dict(lines[-1]["launches"])
+        out["launches"] = dict(path)
+        with open(os.path.join(run, "train_log", "loss", "epoch-loss.csv"), newline="") as fp:
+            rows = list(csv.DictReader(fp))
+        train_keys = sorted(k for k in rows[0] if k.startswith("train_"))
+        out.update(epochs=len(rows), **train_timing(run),
+                   first_epoch=({k: float(rows[0][k]) for k in train_keys}),
+                   last_epoch=({k: float(rows[-1][k]) for k in train_keys}),
+                   epoch_train_total=[float(r["train_total"]) for r in rows],
+                   checkpoints=sorted(f for f in os.listdir(run) if f.endswith(".ckpt")))
+        bad = [(r["epoch"], k) for r in rows for k, v in r.items()
+               if k != "epoch" and not np.isfinite(float(v))]
+        core = (path["bilstm_core_fwd"], path["bilstm_core_bwd"])
+        ploss = "train_scalar_ploss"
+        if bad or core != (3 * steps,) * 2 or "last.ckpt" not in out["checkpoints"] or \
+                not out["last_epoch"][ploss] < out["first_epoch"][ploss]:
+            raise RuntimeError(f"longrun: non-finite {bad}, launches {path}, "
+                               f"checkpoints {out['checkpoints']}, {ploss} "
+                               f"{out['first_epoch'][ploss]} -> {out['last_epoch'][ploss]}")
+
+        # the last checkpoint's validation loss, through the kernels in eval mode
+        hp = ConfigDict.parse_file(os.path.join(run, "hparams.json"))
+        ckpt = os.path.join(run, "last.ckpt")
+        exp = Experiment(hp, build_model(hp), os.path.join(tmp, "longrun_valid"), dev,
+                         load_from=ckpt)
+        reset_counts({"freq_lstm": freq_lstm, "bilstm2": bilstm2})
+        t0 = time.perf_counter()
+        batches = DatasetSlidingWindow(hp, training=False).raw_batches(
+            int(hp.trainer.anime_loader.batch_size), shuffle=False)
+        batches = list(batches)
+        rows = [{k: float(v) for k, v in exp.eval_step(b).items()} for b in batches]
+        torch.cuda.synchronize()
+        valid = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]} if rows else {}
+        out["validation"] = {"batches": len(rows), "s": time.perf_counter() - t0,
+                             "launches": {"freq_lstm": launched(freq_lstm),
+                                          "bilstm2": launched(bilstm2)}, "loss": valid}
+        path["freq_lstm"] += launched(freq_lstm)
+        path["bilstm2"] += launched(bilstm2)
+        # eval mode through the plain versions, and the same windows in training mode
+        # (BatchNorm on each batch's statistics, not the running ones; no update): how far
+        # eval mode's running statistics lag
+        with ops.plain_versions():
+            out["validation"]["plain_scalar_ploss"] = float(np.mean(
+                [float(exp.eval_step(b)["scalar_ploss"]) for b in batches]))
+        exp.model.train()
+        with torch.no_grad():
+            out["validation"]["training_mode_scalar_ploss"] = float(np.mean([float(
+                exp.loss_fn(exp.scalers, exp.put_batch(b), True)[1]["scalars"]["scalar_ploss"])
+                for b in batches]))
+        del exp
+        plain_rel = abs(out["validation"]["plain_scalar_ploss"] / valid["scalar_ploss"] - 1)
+        out["validation"]["kernels_vs_plain_rel"] = plain_rel
+        if not rows or not all(np.isfinite(v) for v in valid.values()) or \
+                min(out["validation"]["launches"].values()) < len(rows) or \
+                not plain_rel <= STEP_LOSS_RTOL:
+            raise RuntimeError(f"longrun validation: {out['validation']}")
+    finally:
+        emit(out)  # what was measured, also when a check failed
+    return path, {"ckpt": ckpt, "root": root}
+
+
+def examples_phase(longrun, repo, dev, smi, tmp):
+    """The long run's ``last.ckpt`` through the port's examples. ``python -m
+    sdfa_tpu_torch serve --capacity 8``, ``examples/torch_serve_vertices.py`` on
+    a 3 s formant wav, ``evaluate_torch.sh`` (a 1 s wav, with video) and
+    ``examples/torch_render_template.py`` start first as subprocesses, side by
+    side. The OBJ count must equal an offline request's frames (K1 / K2 / K3
+    1 / 1 / 1, in process), and its middle frame, read back, be within
+    ``ORACLE_TOL_M`` of the native float64 solve of the same frame's planes;
+    the evaluation and the renderer must exit 0 and their files exist and not
+    be empty. Then, alone beside the service, ``examples/torch_stream_client.py``
+    pushes the wav in 100 ms chunks at real pace on loopback, writing no OBJ:
+    the offline frame count, and frames while still pushing; the service is
+    terminated and reaped. Returns the in-process request's launches."""
+    import numpy as np
+    import torch
+
+    from sdfa_tpu_torch import api, native
+    from sdfa_tpu_torch.audio import io as audio_io
+    from sdfa_tpu_torch.audio import rms
+    from sdfa_tpu_torch.mesh import FLAME_COUNTS, synthetic_template, write_ply
+    from sdfa_tpu_torch.ops import bilstm2, decode_solve, freq_lstm
+    from sdfa_tpu_torch.viewer import frame
+
+    counters = {"freq_lstm": freq_lstm, "bilstm2": bilstm2, "decode_solve": decode_solve}
+    ckpt, root = longrun["ckpt"], longrun["root"]
+    out = {"phase": "examples", "card": smi, "wall_s": {}}
+    procs, logs = {}, {}
+    saved_frame = dict(frame._state)
+    t_phase = time.perf_counter()
+
+    def start(name, cmd, cwd=repo):
+        # the package from this checkout also where the command runs elsewhere
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        logs[name] = os.path.join(tmp, f"example_{name}.log")
+        with open(logs[name], "w") as fp:
+            procs[name] = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=fp,
+                                           stderr=subprocess.STDOUT)
+
+    def finish(name):
+        try:
+            procs[name].wait(timeout=TOOL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"{name}: no exit within {TOOL_TIMEOUT_S} s")
+        with open(logs[name]) as fp:
+            text = fp.read()
+        if procs[name].returncode:
+            raise RuntimeError(f"{name} exited {procs[name].returncode}: {text[-3000:]}")
+        return text
+
+    try:
+        sr = 8000
+        utterance = load_file(repo, "tools/stream_capacity_torch.py")._formant_utterance
+        wav, wav_eval, ply, cnst_txt = (os.path.join(tmp, name) for name in (
+            "example.wav", "example_eval.wav", "template.ply", "constraints.txt"))
+        audio_io.save(wav, utterance(sr, EXAMPLE_CLIP_S), sr)
+        audio_io.save(wav_eval, utterance(sr, EXAMPLE_EVAL_S), sr)
+        verts, faces, cnst = synthetic_template(SEED)
+        write_ply(ply, verts, faces)
+        with open(cnst_txt, "w") as fp:
+            fp.write(" ".join(str(int(i)) for i in cnst))
+        objs = os.path.join(tmp, "example_objs")
+        eval_cwd, png = os.path.join(tmp, "example_eval"), os.path.join(tmp, "template.png")
+        os.makedirs(eval_cwd)
+        # every subprocess starts now, so that their start-ups overlap; the paced client
+        # comes last, alone beside the service
+        t0 = time.perf_counter()
+        start("serve", [sys.executable, "-m", "sdfa_tpu_torch", "serve", "--load_from", ckpt,
+                        "--port", "0", "--capacity", "8", "--template_mesh", ply,
+                        "--mesh_constraints", cnst_txt])
+        start("serve_vertices", [sys.executable, os.path.join(repo, "examples",
+                                                               "torch_serve_vertices.py"),
+                                 ckpt, wav, objs])
+        start("evaluate", ["bash", os.path.join(repo, "evaluate_torch.sh"), wav_eval, "m0", ckpt,
+                           root, ply, cnst_txt], cwd=eval_cwd)
+        start("render", [sys.executable, os.path.join(repo, "examples",
+                                                       "torch_render_template.py"), "--out", png])
+
+        # the offline request in process, and the planes of its middle frame
+        frame.set_template_mesh(verts, faces, cnst)
+        task = api.load_task(ckpt, device=dev)
+        sig, _ = audio_io.load(wav, sr=sr)
+        sig = rms.normalize(sig, task.hp.dataset_anime.get("audio_target_db", -24.5))
+        task.warmup(1.0)
+        reset_counts(counters)
+        ts, v = task.generate_vertices(sig, 0)
+        path = read_counts(counters, "examples offline request")
+        mid = len(ts) // 2
+        with torch.inference_mode():
+            frame_idx, _, z, _ = task._overlap_prefix(sig)
+            preds, _, _ = task.model.forward_windows(
+                z, torch.from_numpy(frame_idx[mid:mid + 1]).long().to(dev),
+                torch.zeros(1, dtype=torch.long, device=dev), raw_pca=True)
+            planes = task.model.decode_to_anime(preds)[:, 0].cpu().numpy()
+        if not native.set_target(verts, faces, cnst):
+            raise RuntimeError("native.set_target failed on the synthetic template")
+        oracle = native.get_meshes(planes, len(verts)).reshape(len(verts), 3)
+
+        finish("serve_vertices")
+        out["wall_s"]["serve_vertices"] = time.perf_counter() - t0
+        files = sorted(f for f in os.listdir(objs) if f.endswith(".obj"))
+        got = obj_vertices(os.path.join(objs, f"{mid:06d}.obj")) if files else None
+        out["serve_vertices"] = {
+            "audio_s": EXAMPLE_CLIP_S, "objs": len(files), "offline_frames": len(ts),
+            "launches_offline": path, "frame": mid,
+            "max_abs_m_vs_float64": float(np.abs(got - oracle).max()) if files else None,
+            "max_abs_m_vs_offline": float(np.abs(got - v[mid]).max()) if files else None,
+            "tol_m": ORACLE_TOL_M}
+        if v.shape != (len(ts), FLAME_COUNTS[0], 3) or len(files) != len(ts) or \
+                not out["serve_vertices"]["max_abs_m_vs_float64"] <= ORACLE_TOL_M:
+            raise RuntimeError(f"examples serve_vertices: {out['serve_vertices']}")
+
+        # evaluate_torch.sh and the renderer
+        for name in ("render", "evaluate"):
+            finish(name)
+            out["wall_s"][name] = time.perf_counter() - t0
+        written = [os.path.join(base, f) for base, _, names in os.walk(eval_cwd) for f in names]
+        out["evaluate"] = {"audio_s": EXAMPLE_EVAL_S, "files": len(written),
+                           "kinds": sorted({f.rsplit(".", 1)[-1] for f in written}),
+                           "empty": sum(os.path.getsize(f) == 0 for f in written)}
+        out["render"] = {"png_bytes": os.path.getsize(png) if os.path.exists(png) else 0}
+        if not written or out["evaluate"]["empty"] or "obj" not in out["evaluate"]["kinds"] or \
+                not out["render"]["png_bytes"]:
+            raise RuntimeError(f"examples evaluate / render: {out['evaluate']} {out['render']}")
+
+        # the paced client against the service, its port read from the service's log
+        deadline = time.time() + TOOL_TIMEOUT_S
+        while True:
+            with open(logs["serve"]) as fp:
+                bound_port = re.search(r"streaming server on 127\.0\.0\.1:(\d+)", fp.read())
+            if bound_port:
+                break
+            if procs["serve"].poll() is not None:
+                finish("serve")
+                raise RuntimeError("serve exited before it logged its port")
+            if time.time() > deadline:
+                raise RuntimeError("serve never logged its port")
+            time.sleep(0.25)
+        out["wall_s"]["serve_port_open_seen"] = time.perf_counter() - t0
+        # no out_dir: writing an OBJ a frame in the client's reader thread (400 KB of
+        # text each) holds the pushes back, and the wall would time the client's disk
+        start("stream_client", [sys.executable, os.path.join(repo, "examples",
+                                                              "torch_stream_client.py"),
+                                wav, "127.0.0.1", bound_port.group(1)])
+        text = finish("stream_client")
+        said = re.search(r"(\d+) frames for a ([\d.]+)s clip in ([\d.]+)s .*; (\d+) frames "
+                         r"arrived while still pushing", text)
+        alive = procs["serve"].poll() is None
+        procs["serve"].terminate()
+        procs["serve"].wait(timeout=60)
+        out["stream_client"] = {
+            "said": said.group(0) if said else text[-500:],
+            "frames": int(said.group(1)) if said else None,
+            "clip_s": float(said.group(2)) if said else None,
+            "wall_s": float(said.group(3)) if said else None,
+            "during_push": int(said.group(4)) if said else None,
+            "offline_frames": len(ts), "service_alive_until_terminated": alive}
+        if not (said and alive and out["stream_client"]["frames"] == len(ts)
+                and out["stream_client"]["during_push"] > 0):
+            raise RuntimeError(f"examples stream_client: {out['stream_client']}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        frame._state.clear()
+        frame._state.update(saved_frame)
+        out["wall_s"]["phase"] = time.perf_counter() - t_phase
+        emit(out)  # what was measured, also when a check failed
+    return path
+
+
 def launched(mod) -> int:
     """A wrapper's launches since ``reset_counts``: K1, K2 and K4 keep theirs
     by hidden width, K3 by body (all of them here)."""
@@ -4364,5 +4801,7 @@ if __name__ == "__main__":
         k3_rows(sys.argv[2])
     elif sys.argv[1:2] == ["--k3-turns"]:
         k3_turns(sys.argv[2:])
+    elif sys.argv[1:2] == ["--longrun"]:
+        longrun_main(int(sys.argv[2]))
     else:
         main()

@@ -25,26 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..audio import dsp
-
-
-def pink_noise(nrows: int, scale: float = 1.0, ncols: int = 16,
-               rng: Optional[np.random.Generator] = None) -> np.ndarray:
-    """Voss-McCartney pink noise (copy of ``sdfa_tpu/audio/misc.py::pink_noise``)."""
-    rng = rng or np.random.default_rng()
-    array = np.full((nrows, ncols), np.nan)
-    array[0, :] = rng.random(ncols)
-    array[:, 0] = rng.random(nrows)
-    cols = rng.geometric(0.5, nrows)
-    cols[cols >= ncols] = 0
-    rows = rng.integers(0, nrows, size=nrows)
-    array[rows, cols] = rng.random(nrows)
-    # forward-fill along axis 0 without pandas
-    mask = np.isnan(array)
-    idx = np.where(mask, 0, np.arange(nrows)[:, None])
-    np.maximum.accumulate(idx, axis=0, out=idx)
-    filled = array[idx, np.arange(ncols)[None, :]]
-    filled = np.where(np.isnan(filled), 0.0, filled)
-    return (filled.sum(axis=1) * scale).astype(np.float32)
+from ..audio.misc import pink_noise
 
 
 def _fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:

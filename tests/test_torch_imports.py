@@ -3,8 +3,10 @@ matplotlib nor tensorboard (the GPU host has no scikit-learn, no OpenCV, no
 matplotlib and no TensorBoard), and importing it builds nothing.
 Checked in a fresh interpreter: this test process has jax loaded by conftest.
 The sources are also read statement by statement: no import of jax, flax,
-sdfa_tpu or sklearn anywhere in the port or in ``chip_smoke.py``, and OpenCV,
-matplotlib and TensorBoard only inside the functions that need them."""
+sdfa_tpu, sklearn or ``bench`` anywhere in the port, in ``chip_smoke.py`` or in
+the port's tools and examples (``tools/*_torch.py``, ``examples/torch_*.py``),
+and OpenCV, matplotlib and TensorBoard only inside the functions that need
+them."""
 
 import ast
 import os
@@ -154,17 +156,27 @@ def _imports(path, full=False):
 
 
 def _sources():
+    """The port, ``chip_smoke.py``, and the port's tools and examples beside the
+    JAX package's (``tools/*_torch.py``, ``examples/torch_*.py``)."""
     out = [os.path.join(REPO, "chip_smoke.py")]
     for base, _, files in os.walk(os.path.join(REPO, "sdfa_tpu_torch")):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    out += [os.path.join(REPO, "tools", f) for f in os.listdir(os.path.join(REPO, "tools"))
+            if f.endswith("_torch.py")]
+    out += [os.path.join(REPO, "examples", f)
+            for f in os.listdir(os.path.join(REPO, "examples"))
+            if f.startswith("torch_") and f.endswith(".py")]
     return sorted(out)
 
 
 def test_sources_import_no_jax_and_no_cv2_at_module_level():
     found = {os.path.relpath(p, REPO): list(_imports(p)) for p in _sources()}
     assert "sdfa_tpu_torch/__main__.py" in found and len(found) >= 53
+    assert {"tools/stream_capacity_torch.py", "tools/longrun_train_torch.py",
+            "examples/torch_serve_vertices.py", "examples/torch_stream_client.py",
+            "examples/torch_render_template.py"} <= set(found)
     jax_like = {p: n for p, names in found.items() for n, _ in names
-                if n in ("jax", "jaxlib", "flax", "sdfa_tpu", "sklearn")}
+                if n in ("jax", "jaxlib", "flax", "sdfa_tpu", "sklearn", "bench")}
     assert not jax_like, jax_like
     top_level = {p: n for p, names in found.items() for n, top in names
                  if top and n in ("cv2", "matplotlib")}
@@ -176,5 +188,6 @@ def test_sources_import_no_jax_and_no_cv2_at_module_level():
     assert ("cv2", False) in found["sdfa_tpu_torch/viewer/render.py"]
     assert ("matplotlib", False) in found["sdfa_tpu_torch/viewer/video.py"]
     assert ("matplotlib", False) in found["sdfa_tpu_torch/utils/visualizer.py"]
+    assert ("cv2", False) in found["examples/torch_render_template.py"]
     assert ("torch.utils.tensorboard", False) in _imports(
         os.path.join(REPO, "sdfa_tpu_torch/train/summary.py"), full=True)
