@@ -19,6 +19,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py --k3-turns PARENT . . PARENT  # K3's timed rows with the package of
                                      # each checkout in turn (PARENT: another commit unpacked
                                      # by git archive), a process each: two commits on one card
+    python3 chip_smoke.py --proj-turns PARENT . . PARENT  # the same for the input projection's
+                                     # rows (proj_kernel at each instantiation)
     python3 chip_smoke.py --longrun 2500  # the longrun phase alone at that many steps
 
 Phases, each printed as one JSON line:
@@ -31,11 +33,15 @@ Phases, each printed as one JSON line:
    hidden width, the wide step loop's tiling for each of its kernels at H =
    384, 512 and 1024 (units a block U, rows a block R, blocks and rows one
    cooperative launch takes), how many
-   blocks of the solve product, and the tensor-core
-   opcodes (``HGMMA``) in the machine code of ``decode_solve``.
+   blocks of the solve product and of the input projection ``proj_kernel`` the card
+   holds, ptxas' registers and spills of the projection's kernels, and the
+   tensor-core opcodes (``HGMMA``) in the machine code of ``decode_solve``,
+   ``bilstm_layer``, ``bilstm2`` and ``freq_lstm``.
 3. kernels: runs each kernel at its path's shapes, holds it against its plain
    PyTorch version on the same inputs, times both with CUDA events, computes
-   the card's bound for the same work, and times the one library call that
+   the card's bound for the same work (the recurrent kernels' input projection
+   at the TF32 rate in three passes, the rest of their work at the f32 rate;
+   ``f32_bound_ms`` all at the f32 rate), and times the one library call that
    computes the same function where there is one (``torch.nn.LSTM`` through
    cuDNN for the recurrences), as a yardstick that no path uses. ``freq_lstm``
    and ``decode_solve`` are timed at a request's own shape as well (768 rows,
@@ -235,10 +241,14 @@ Phases, each printed as one JSON line:
    ``examples/torch_stream_client.py`` pushing the wav in 100 ms chunks at real pace on
    loopback (the offline count, frames during the push, wall against the clip's seconds).
 
-The kernel phase also gives ``proj_kernel<0>``, the wide layers' input projection, a row
-of its own at wide512's first K2 layer (216 x 64 x 512 -> 2048) and wide384's deeper K4
-layers (216 x 64 x 768 -> 1536): its device ms from K4's split, its bound, its plain
-version and the f32 cuBLAS product.
+The kernel phase also gives the input projection ``proj_kernel`` (3xTF32 on the tensor
+cores) rows of its own at every instantiation on the path's shapes (``proj_row_specs``:
+``<512>`` in K1 at 3072, 768, 512, 128, 12 rows and K4 over LSTM2d's frequency layer,
+``<1024>`` in K2 at 256, 216, 128, 512 windows and K4 at 256 rows, ``<0>`` at the wide
+rows): its device ms from the kernel's torch.profiler split (the product and the staging of
+w_ih), its bound in 3xTF32 (f32 beside it), the f32 cuBLAS product of the same operands,
+its plain version, and the projection launched alone against the plain version (<= 1e-4)
+and a float64 product (<= 1e-5 of the largest |xp|).
 
 At the end ``ops.PLAIN_ROUTES`` must read 0: no path this script drives has a
 recurrent shape that no kernel takes.
@@ -282,12 +292,19 @@ WIDE_K4 = ((384, 384), (384, 768), (512, 512), (512, 1024), (1024, 1024))
 WIDE_K5 = ((64, 100, 512, 512), (64, 100, 384, 384), (32, 6400, 256, 64), (32, 6400, 384, 64),
            (32, 6400, 512, 64))
 WIDE_HIDDENS = (384, 512, 1024)  # the build line's tilings of the wide step loop
-# proj_kernel<0> as a row of its own, at WIDE_K4's (H, in) of wide512's first K2 layer (216 x 64
-# x 512 -> 4H = 2048) and of wide384's layers 2 and 3 (216 x 64 x 768 -> 1536)
-PROJ0_SHAPES = ((512, 512), (384, 768))
+PROJ_F64_REL = 1e-5  # the input projection vs a float64 product, over the row's largest |xp|
 # kernel_split's parts by a fragment of the kernel's name: a recurrent kernel's, K3 full body's
 RECURRENT_PARTS = (("steps_kernel", "step_loop"), ("proj_kernel", "input_projection"),
-                   ("out_parts", "output_projection"), ("out_sum", "output_projection"))
+                   ("proj_", "input_projection_staging"), ("out_parts", "output_projection"),
+                   ("out_sum", "output_projection"))
+# the whole input projection of a call, for --proj-rows: proj_kernel, and in a checkout whose
+# projection stages w_ih first, proj_weights_kernel (and proj_pad_kernel)
+PROJ_PARTS = (("proj_", "input_projection"),)
+# kernel_split profiles a call again when its trace lost device records, and pads the traced
+# window with idle host time at both ends (records past its edges are dropped)
+PROFILE_ATTEMPTS = 4
+PROFILE_PAD_S = 0.1
+PROFILES_LOST = []  # the first part's label of each such profile, for the seconds_by_part line
 K3_FULL_PARTS = (("split_product_kernel", "product"), ("decode_delta_kernel", "decode"),
                  ("solve_sum_kernel", "sum"))
 TRAIN_WINDOWS = 100   # 50 adjacent-frame pairs, the shipped batch
@@ -466,18 +483,152 @@ def cost_full_per_equation(windows: int, ks: int, kr: int, tp: int, ep: int, nf:
     return flops, 4.0 * floats
 
 
-def tensor_core_sass(build) -> dict:
+def kernel_split(fn, n=3, names=None):
+    """Device ms a call of ``fn`` spends in each part of a kernel, from
+    torch.profiler's kernel names (``n`` calls after a warm-up): ``names`` maps
+    a fragment of a kernel's name to its part (the first fragment that matches
+    wins), the first part must be there. By default a recurrent kernel's
+    (``RECURRENT_PARTS``): the step loop (``steps_kernel``, ``wide_steps_kernel``)
+    apart from the input projection (``proj_kernel``, and the staging of w_ih
+    before it, ``proj_weights_kernel`` / ``proj_pad_kernel``) and K1's output
+    projection (``out_parts`` + ``out_sum``). A profile that holds no device
+    record, or a kernel a number of times that is no multiple of ``n``, lost
+    records and is taken again, up to PROFILE_ATTEMPTS times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = RECURRENT_PARTS if names is None else names
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_PAD_S)
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_PAD_S)
+        parts, whole = collections.Counter(), True
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            part = next((label for fragment, label in names if fragment in e.key), "other")
+            parts[part] += e.self_device_time_total / 1e3 / n
+            whole = whole and e.count % n == 0
+        if parts and whole:
+            break
+        # every call launches the same kernels, so a kernel seen a number of times that is no
+        # multiple of n (or no device record at all) is a trace that lost records at its edges:
+        # the calls are profiled once more
+        PROFILES_LOST.append(names[0][1])
+        print(f"kernel_split: profile {attempt} of {PROFILE_ATTEMPTS} lost device records "
+              f"({dict(parts)}), profiling again", file=sys.stderr, flush=True)
+    if not parts[names[0][1]]:
+        raise RuntimeError(f"no {names[0][1]} kernel in the profile: {dict(parts)}")
+    return dict(parts)
+
+
+def tensor_core_sass(build, name: str) -> dict:
     """The tensor-core opcodes (``HGMMA``) in the machine code of the built
-    ``decode_solve`` library, by ``cuobjdump -sass``: how many, and the first
-    one. Raises if the product was compiled to none."""
-    lib = build.load_library("decode_solve")._name
+    library ``name``, by ``cuobjdump -sass``: how many, and the first one.
+    Raises if its product was compiled to none."""
+    lib = build.load_library(name)._name
     sass = subprocess.run([os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"), "-sass",
                            lib], capture_output=True, text=True, check=True, timeout=120).stdout
     found = [line.split("*/")[1].split("/*")[0].strip(" ;") for line in sass.splitlines()
              if "GMMA" in line and "*/" in line]
     if not found:
-        raise RuntimeError("decode_solve: no warpgroup matrix opcode in the machine code")
+        raise RuntimeError(f"{name}: no warpgroup matrix opcode in the machine code")
     return {"count": len(found), "first": found[0]}
+
+
+def ptxas_kernels(ptxas: str, fragment: str) -> list:
+    """Registers and spill bytes of each kernel whose mangled name holds
+    ``fragment``, from ``nvcc -Xptxas -v``'s report of one build."""
+    found, name = [], None
+    for line in ptxas.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) if fragment in m.group(1) else None
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            found.append({"function": name, "spill_stores": int(st), "spill_loads": int(ld)})
+        elif name and "Used" in line and found and found[-1]["function"] == name:
+            found[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    return found
+
+
+def proj_instance(hidden: int) -> int:
+    """The template argument of proj_kernel at ``hidden`` units: the gate
+    width 4H at 128 and 256, 0 (at run time) from 384 on."""
+    return 4 * hidden if hidden in (128, 256) else 0
+
+
+def proj_row_specs():
+    """The rows the input projection (``proj_kernel``) is timed at, every
+    instantiation on the path's shapes: (row, kernel, H, (rows, T, in), out).
+    <512>: K1 at the kernel phase's 3072 rows, a request's 768 and live
+    serving's 12 / 128 / 512, K4 at H = 128 over LSTM2d's frequency layer (216 x
+    64 rows of 32 steps); <1024>: K2 at 256, 216, 128 and 512 windows, K4 at
+    256 rows of 256 and 512 inputs; then the wide rows (WIDE_K1, of which H =
+    256 is <1024>, WIDE_K2, WIDE_K4 with H = 1024): <0>."""
+    specs = [(f"k1_{r}", "freq_lstm", 128, (r, 32, 64), 256)
+             for r in (K1_ROWS, K1_REQUEST_ROWS) + K1_LIVE_ROWS]
+    specs.append(("k4_h128_lstm2d_freq", "bilstm_layer", 128, K4_H128_SHAPES[1], None))
+    specs += [(f"k2_{w}", "bilstm2", 256, (w, 64, 256), None)
+              for w in (K2_WINDOWS, K3_REQUEST_WINDOWS) + LIVE_WINDOWS]
+    specs += [(f"k4_in{n}", "bilstm_layer", 256, (K4_ROWS, 64, n), None) for n in (256, 512)]
+    specs += [(f"k1_h{h}_out{o}", "freq_lstm", h, (K1_REQUEST_ROWS, 32, 64), o)
+              for h, o in WIDE_K1]
+    specs += [(f"k2_h{h}", "bilstm2", h, (K3_REQUEST_WINDOWS, 64, n), None) for h, n in WIDE_K2]
+    specs += [(f"k4_h{h}_in{n}", "bilstm_layer", h, (K3_REQUEST_WINDOWS, 64, n), None)
+              for h, n in WIDE_K4]
+    return specs
+
+
+def proj_row_call(spec, kernels, dev, seed):
+    """The kernel call of a projection row (``proj_row_specs``) on seeded
+    inputs at PyTorch's LSTM scale, and the operands of the projections it
+    runs, [(x, w_ih, gate bias)] layer by layer: K2's second layer reads the
+    first's output, computed here by K4. ``kernels``: the modules freq_lstm,
+    bilstm2, bilstm_layer of the package to call."""
+    import torch
+
+    _, kernel, hid, (rows, steps, n_in), out = spec
+    freq_lstm, bilstm2, bilstm_layer = kernels
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    def layer(n):
+        return (randn(2, n, 4 * hid, scale=hid ** -0.5), randn(2, hid, 4 * hid, scale=hid ** -0.5),
+                randn(2, 4 * hid, scale=0.1))
+
+    x, w1 = randn(rows, steps, n_in, scale=0.5), layer(n_in)
+    if kernel == "freq_lstm":
+        args = (x, *w1, randn(steps * 2 * hid, out, scale=0.02), randn(out, scale=0.1))
+        return (lambda: freq_lstm.freq_lstm(*args)), [(x, w1[0], w1[2])]
+    if kernel == "bilstm_layer":
+        return (lambda: bilstm_layer.bilstm_layer(x, *w1)), [(x, w1[0], w1[2])]
+    w2 = layer(2 * hid)
+    with torch.inference_mode():
+        stack = bilstm_layer.bilstm_layer(x, *w1)
+    return (lambda: bilstm2.bilstm2(x, *w1, *w2)), [(x, w1[0], w1[2]), (stack, w2[0], w2[2])]
+
+
+def proj_cost(layers):
+    """(flops, bytes) of the projections on ``layers``' operands: one product
+    of both directions, 2 M in 8H FLOP a layer, and x, w_ih, the bias read once,
+    xp written once."""
+    flops = moved = 0.0
+    for x, w, g in layers:
+        pairs, gdim = x.numel() // x.shape[-1], w.shape[-1]
+        flops += 2.0 * pairs * x.shape[-1] * 2 * gdim
+        moved += 4.0 * (x.numel() + w.numel() + g.numel() + 2 * pairs * gdim)
+    return flops, moved
 
 
 def nbytes(*tensors) -> int:
@@ -537,6 +688,11 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; this needs a GPU")
     processes_before = group_processes()
+    marks = [("start", time.perf_counter())]  # wall seconds by part of the run, printed at the end
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -591,9 +747,14 @@ def main():
           "wide_step_loop_tiling": wide_tiling,
           "decode_solve_product_resident_blocks": {
               body: decode_solve.resident_blocks(dev, body) for body in ("delta", "full")},
-          "decode_solve_tensor_core_sass": tensor_core_sass(build),
+          "tensor_core_sass": {name: tensor_core_sass(build, name)
+                               for name in ("decode_solve", "bilstm_layer", "bilstm2", "freq_lstm")},
+          "proj_kernel_ptxas": ptxas_kernels(
+              build.BUILD_INFO.get("bilstm_layer", {}).get("ptxas", ""), "proj_"),
+          "proj_kernel_tiling": bilstm_layer.proj_tiling(dev),
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_INFO.items()}})
 
+    mark("device_and_build")
     # --- the flagship model at full width, seeded ---------------------------
     hp = configure("dgrad")
     pca = seeded_pca()
@@ -654,8 +815,11 @@ def main():
 
     def forward_case(name, kernel, plain, args, cost, library, source, replaces, primary=True,
                      **extra):
-        """``cost``: the kernel module's (flops, bytes) of one launch on ``args``,
-        the work its bound reckons."""
+        """A recurrent kernel (K1, K2, K4) against its plain version. ``cost``: the
+        kernel module's (flops, bytes) of one launch on ``args``, the work its bound
+        reckons: the input projections' product (w_ih is ``args[1]``, K2's second
+        layer's ``args[4]``) at the TF32 rate in three passes, the rest at the f32
+        rate; ``f32_bound_ms`` reckons it all at the f32 rate."""
         with torch.inference_mode():
             got = kernel(*args)
             torch.cuda.synchronize()
@@ -666,8 +830,16 @@ def main():
             ms = time_ms(lambda: kernel(*args), 5)
             plain_ms = time_ms(lambda: plain(*args), 3)
             library_ms = time_ms(library, 5) if library else None
-        record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, *cost, library_ms,
-               source, replaces, primary, **extra)
+        pairs = args[0].numel() // args[0].shape[-1]
+        proj = sum(2.0 * pairs * w.shape[1] * 2 * w.shape[2]
+                   for w in ((args[1], args[4]) if name == "bilstm2" else (args[1],)))
+        flops, moved = cost
+        record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, flops - proj, moved,
+               library_ms, source, replaces, primary, tensor_flops=3 * proj,
+               f32_bound_ms=bound(flops, moved)[0],
+               bound_peaks="recurrence and output projection: 67 TFLOP/s f32; input "
+                           "projection: 3 TF32 passes at 495 TFLOP/s (f32_bound_ms: all at 67)",
+               **extra)
 
     def repeats(name, kernel, args, first):
         """Two launches on the same inputs must be equal bit for bit."""
@@ -675,33 +847,6 @@ def main():
             raise RuntimeError(f"{name} {tuple(args[0].shape)}: two launches on the same inputs "
                                "differ")
         return True
-
-    def kernel_split(fn, n=3, names=RECURRENT_PARTS):
-        """Device ms a call of ``fn`` spends in each part of a kernel, from
-        torch.profiler's kernel names (``n`` calls after a warm-up): ``names`` maps
-        a fragment of a kernel's name to its part, the first part must be there. By
-        default a recurrent kernel's: the step loop (``steps_kernel``,
-        ``wide_steps_kernel``) apart from the input projection (``proj_kernel``) and
-        K1's output projection (``out_parts`` + ``out_sum``)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with torch.inference_mode():
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-        parts = collections.Counter()
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            part = next((label for fragment, label in names if fragment in e.key), "other")
-            parts[part] += e.self_device_time_total / 1e3 / n
-        if not parts[names[0][1]]:
-            raise RuntimeError(f"no {names[0][1]} kernel in the profile: {dict(parts)}")
-        return dict(parts)
 
     enc = model.audio_encoder
     fl = enc.built_layers_6
@@ -1012,29 +1157,6 @@ def main():
                      primary=False, hidden=hid,
                      split_ms=kernel_split(lambda: bilstm2.bilstm2(*args2)))
         del x2, args2, lib2w, x_lib
-    def proj_case(x, w_ih, gate_bias, proj_ms):
-        """``proj_kernel<0>``, the wide layers' input projection at a run-time gate
-        width, as a row of its own: its device ms from K4's split, beside its bound
-        (2 directions' product in float32, every operand once), its plain version
-        (``projection_tiled``) and the f32 cuBLAS product of the same operands."""
-        rows, steps, n_in = x.shape
-        gdim = w_ih.shape[-1]
-        x2 = x.reshape(rows * steps, n_in)
-        with torch.inference_mode():
-            plain_ms = time_ms(lambda: bilstm_layer.projection_tiled(x, w_ih, gate_bias), 3)
-            library_ms = time_ms(lambda: torch.matmul(x2, w_ih), 5)
-        flops = 2.0 * 2 * rows * steps * n_in * gdim
-        moved = 4.0 * (x.numel() + w_ih.numel() + gate_bias.numel() + 2 * rows * steps * gdim)
-        bound_ms, bound_by = bound(flops, moved)
-        line = {"shape": [rows, steps, n_in], "gates": gdim, "ms": proj_ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms, "gflop": flops / 1e9, "mbytes": moved / 1e6}
-        emit({"phase": "kernel", "name": "proj_kernel<0>", **line,
-              "ms_is": "device ms of proj_kernel in bilstm_layer's torch.profiler split",
-              "library_is": "f32 torch.matmul of x (rows T, in) by w_ih (2, in, 4H)",
-              "card": smi})
-        report["bilstm_layer"].setdefault("proj_kernel_0", []).append(line)
-
     for i, (hid, n_in) in enumerate(WIDE_K4):
         x4 = randn(440 + i, K3_REQUEST_WINDOWS, 64, n_in, scale=0.5)
         lib4w, x_lib = library_lstm(n_in, hid, 1, 440 + i), x4.transpose(0, 1).contiguous()
@@ -1045,8 +1167,6 @@ def main():
                      lambda: lib4w(x_lib), "sdfa_tpu_torch/csrc/bilstm_layer.cu",
                      "sdfa_tpu/ops/pallas_bilstm.py:42", primary=False, hidden=hid,
                      split_ms=split)
-        if (hid, n_in) in PROJ0_SHAPES:
-            proj_case(x4, args4[1], args4[3], split["input_projection"])
         del x4, args4, lib4w, x_lib
     layer_wave = bilstm_layer.wide_wave_rows(384, wide_blocks["bilstm_layer"])
     for i, (rows, steps, n_in, hid, bias) in enumerate((
@@ -1067,6 +1187,53 @@ def main():
         with torch.inference_mode():
             repeats("freq_lstm", freq_lstm.freq_lstm, args, freq_lstm.freq_lstm(*args))
 
+    mark("setup_and_kernels_k1_to_wide")
+    # The input projection alone (proj_kernel, 3xTF32 on the tensor cores) at every
+    # instantiation on the path's shapes (proj_row_specs): its device ms from torch.profiler's
+    # split of the kernel that runs it (the product and the staging of w_ih before it), beside its
+    # bound (3xTF32 at 495 TFLOP/s; one f32 product at 67 in f32_bound_ms), the f32 cuBLAS product
+    # of the same operands, its plain version (projection_tiled), and the projection launched
+    # alone (bilstm_layer.projection) against the plain version and a float64 product
+    for i, spec in enumerate(proj_row_specs()):
+        label, host, hid, shape, _ = spec
+        call, layers = proj_row_call(spec, (freq_lstm, bilstm2, bilstm_layer), dev, 600 + i)
+        split = kernel_split(call)
+        product_ms = split["input_projection"]
+        staging_ms = split.get("input_projection_staging", 0.0)
+        err = rel = 0.0
+        with torch.inference_mode():
+            for x, w, g in layers:
+                got = bilstm_layer.projection(x, w, g)
+                err = max(err, float((got - bilstm_layer.projection_tiled(x, w, g)).abs().max()))
+                exact = torch.stack([x.double() @ w[d].double() for d in range(2)])
+                exact += g.double()[:, None, None]
+                rel = max(rel, float((got.double() - exact).abs().max() / exact.abs().max()))
+                del got, exact
+            plain_ms = time_ms(lambda: [bilstm_layer.projection_tiled(*op) for op in layers], 2)
+            library_ms = time_ms(lambda: [torch.matmul(x.reshape(-1, x.shape[-1]), w)
+                                          for x, w, _ in layers], 5)
+        flops, moved = proj_cost(layers)
+        bound_ms, bound_by = bound(0.0, moved, 3 * flops)
+        line = {"row": label, "in_kernel": host, "shape": list(shape), "hidden": hid,
+                "layers": len(layers), "ms": product_ms + staging_ms, "product_ms": product_ms,
+                "staging_ms": staging_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "f32_bound_ms": bound(flops, moved)[0], "library_ms": library_ms,
+                "plain_ms": plain_ms, "max_abs_err": err, "max_rel_vs_f64": rel,
+                "gflop": flops / 1e9, "mbytes": moved / 1e6}
+        emit({"phase": "kernel", "name": f"proj_kernel<{proj_instance(hid)}>", **line,
+              "split_ms": split,
+              "ms_is": "device ms of proj_kernel + proj_weights_kernel in the torch.profiler split",
+              "bound_peaks": "3 TF32 passes at 495 TFLOP/s (f32_bound_ms: one at 67 TFLOP/s f32)",
+              "library_is": "f32 torch.matmul of x (rows T, in) by w_ih (2, in, 4H), each layer",
+              "card": smi})
+        if not (err <= TOL["bilstm_layer"] and rel <= PROJ_F64_REL):
+            raise RuntimeError(f"proj_kernel {label}: {err} from its plain version, {rel} of the "
+                               f"largest |xp| from float64")
+        report[host].setdefault("proj_kernel", []).append(line)
+        del call, layers
+    torch.cuda.empty_cache()
+
+    mark("projection_rows")
     # K5 at the train step's two shapes (the FreqLstm core first: it is the larger), then,
     # held to the plain version only, ragged shapes that reach every edge of the cluster
     # tiling at both widths: one row; a partial row tile with T = 2 (the double buffers'
@@ -1150,6 +1317,7 @@ def main():
         core_case(*case)
     torch.cuda.empty_cache()
 
+    mark("kernels_k5")
     # --- the serving path: warm up, then three requests --------------------
     sr = int(hp.audio.sample_rate)
     warm_s = task.warmup(3.0)
@@ -1209,6 +1377,7 @@ def main():
         profile_serving_tiles(build, dev, smi, k1_weights, dsc)
         profile_full_sums(build, dev, smi, pca_bases, (verts, faces, cnst))
 
+    mark("serve_and_live")
     # --- K4's path: a stack that is not 2 layers deep serves through bilstm_layer ---
     hp1 = configure("dgrad")
     hp1.model.audio_encoder.set_key("layers", [
@@ -1354,6 +1523,7 @@ def main():
         if "--profile" in sys.argv[1:]:
             profile_train_step(exp, batches, smi, step_ms[len(step_ms) // 2])
 
+    mark("k4_path_and_train")
     # --- training from a dataset on disk, then its checkpoint served; then the CLI on
     #     the same dataset and checkpoint --------------------------------------------
     with tempfile.TemporaryDirectory(prefix="sdfa_chip_data_") as data_tmp:
@@ -1368,10 +1538,12 @@ def main():
             step_ms[len(step_ms) // 2], dev, smi, data_tmp)
     del trained
 
+    mark("data_train_to_last_modules")
     # --- the offsets model family: served, streamed, then trained from disk and served ---
     path_launches["offsets"] = offsets_phase(dev, sr, smi)
     path_launches["offsets_train"] = offsets_train_phase(dev, smi)
 
+    mark("offsets")
     # --- VOCASET preprocessing, training on its output; retargeting onto a template
     #     with triangle correspondences ------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="sdfa_chip_pre_") as pre_tmp:
@@ -1379,20 +1551,28 @@ def main():
         path_launches["retarget"] = retarget_phase(hp, model, sig0, spk0, v0, dev, sr, smi,
                                                    pre_tmp)
     launches["decode_solve_full"] = path_launches["retarget"]["decode_solve_full"]
+    mark("preprocess_and_retarget")
     # --- every layer a spec can name: three variants at the dgrad model's widths -------
     with tempfile.TemporaryDirectory(prefix="sdfa_chip_spec_") as spec_tmp:
         path_launches["spec_variants"] = spec_variants_phase(task, pca, sig0, spk0, solver, dev,
                                                              smi, spec_tmp)
+    mark("spec_variants")
     # --- the recurrent stacks widened: H = 256 / 384 / 512 through the wide step loop ---
     with tempfile.TemporaryDirectory(prefix="sdfa_chip_wide_") as wide_tmp:
         path_launches["wide_variants"] = wide_variants_phase(task, pca, sig0, spk0, solver, dev,
                                                              smi, wide_tmp)
+    mark("wide_variants")
     # --- the last JAX-only surfaces: N live streams to capacity, a long training run, the
     #     examples and evaluate_torch.sh on its checkpoint ------------------------------
     path_launches["stream_capacity"] = stream_capacity_phase(task, root, smi)
     with tempfile.TemporaryDirectory(prefix="sdfa_chip_longrun_") as long_tmp:
         path_launches["longrun"], longrun = longrun_phase(root, dev, smi, long_tmp)
         path_launches["examples"] = examples_phase(longrun, root, dev, smi, long_tmp)
+    mark("stream_capacity_longrun_examples")
+    emit({"phase": "seconds_by_part", **{name: t - t0 for (_, t0), (name, t) in
+                                         zip(marks, marks[1:])},
+          "total": marks[-1][1] - marks[0][1],
+          "profiles_lost": collections.Counter(PROFILES_LOST)})
     if ops.PLAIN_ROUTES:
         raise RuntimeError(f"{ops.PLAIN_ROUTES} plain recurrences were taken on the card: a "
                            "path this script drives has a shape no kernel takes")
@@ -4009,7 +4189,7 @@ def profile_step_clocks(build, dev, smi):
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-DSDFA_STEP_CLOCKS", "-o", lib_path,
                     src], capture_output=True, text=True, check=True, timeout=600)
     lib = ctypes.CDLL(lib_path)
-    lib.sdfa_bilstm_layer.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.sdfa_bilstm_layer.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.sdfa_bilstm_layer_step_clocks.argtypes = [ctypes.c_void_p]
     steps, n_in = 64, 256
     for rows in (224, 256):
@@ -4017,13 +4197,15 @@ def profile_step_clocks(build, dev, smi):
         x = (0.5 * torch.randn(rows, steps, n_in, generator=gen)).to(dev)
         w_ih = (torch.randn(2, n_in, 1024, generator=gen) / 16).to(dev)
         w_hh = (torch.randn(2, 256, 1024, generator=gen) / 16).to(dev)
+        wt = torch.empty(2, 2048, n_in, device=dev)  # w_ih staged for the input projection
         xp = torch.empty(2, rows, steps, 1024, device=dev)
         out = torch.empty(rows, steps, 512, device=dev)
 
         def call():
             code = lib.sdfa_bilstm_layer(x.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), None,
-                                         xp.data_ptr(), out.data_ptr(), rows, steps, n_in, 256,
-                                         rows, torch.cuda.current_stream(dev).cuda_stream)
+                                         wt.data_ptr(), None, xp.data_ptr(), out.data_ptr(), rows,
+                                         steps, n_in, 256, rows,
+                                         torch.cuda.current_stream(dev).cuda_stream)
             if code != 0:
                 raise RuntimeError(f"bilstm_layer (step clocks build): CUDA error {code}")
 
@@ -4219,7 +4401,10 @@ def profile_serving_tiles(build, dev, smi, k1_weights, dsc):
                 wave = clusters // 2 * row_tile
                 chunk = max(wave, 1024 - 1024 % wave)  # whole waves, about 1024 rows
                 n = min(rows, chunk)
-                scratch = (torch.empty(2, n, 32, 512, **empty), torch.empty(n, 32, 256, **empty),
+                # w_ih staged for the input projection (C = 64: one k tile of 32 pads nothing),
+                # no padded x, then xp, h and the partial sums
+                scratch = (torch.empty(2, 1024, 64, **empty), None,
+                           torch.empty(2, n, 32, 512, **empty), torch.empty(n, 32, 256, **empty),
                            torch.empty(16, n, 256, **empty))
                 ms = time_ms(lambda: call_entry(lib, "sdfa_freq_lstm",
                                                 (x, *k1_weights, *scratch, out),
@@ -4763,28 +4948,60 @@ def k3_rows(root: str):
     emit({"phase": "k3_rows", "root": root, "ms": ms})
 
 
-def k3_turns(roots):
-    """``chip_smoke.py --k3-turns ROOT [ROOT ...]``: ``--k3-rows`` of each ROOT
-    in a process of its own, in the order given (parent, change, change,
-    parent compares two commits on one card), then each row's times by
-    root; ends with the card's name and power limit and the result line."""
+def proj_rows(root: str):
+    """``chip_smoke.py --proj-rows ROOT``: the package at ROOT (as ``--k3-rows``
+    takes it) times the input projection's rows of the kernel phase
+    (``proj_row_specs``): the device ms of the whole projection in a call of the
+    kernel that runs it (every kernel whose name holds ``proj_``: the product
+    and, where the checkout has it, the staging of w_ih), by torch.profiler over
+    10 calls after a warm-up, on the same seeded inputs; prints one JSON line of
+    ms by row."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import sdfa_tpu_torch
+    from sdfa_tpu_torch.ops import bilstm2, bilstm_layer, build, freq_lstm
+
+    if not os.path.abspath(sdfa_tpu_torch.__file__).startswith(root + os.sep):
+        sys.exit(f"--proj-rows: imported {sdfa_tpu_torch.__file__}, not the package at {root}")
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py --proj-rows: torch.cuda.is_available() is false")
+    dev = torch.device("cuda:0")
+    build.load_libraries(["freq_lstm", "bilstm2", "bilstm_layer"])
+    ms = {}
+    for i, spec in enumerate(proj_row_specs()):
+        call, _ = proj_row_call(spec, (freq_lstm, bilstm2, bilstm_layer), dev, 600 + i)
+        ms[spec[0]] = kernel_split(call, 10, PROJ_PARTS)["input_projection"]
+        del call
+        torch.cuda.empty_cache()
+    emit({"phase": "proj_rows", "root": root, "ms": ms})
+
+
+def rows_in_turns(kind: str, roots):
+    """``chip_smoke.py --k3-turns ROOT [ROOT ...]`` (``kind`` "k3") or
+    ``--proj-turns`` (``kind`` "proj"): ``--k3-rows`` / ``--proj-rows`` of each
+    ROOT in a process of its own, in the order given (parent, change, change,
+    parent compares two commits on one card), then each row's times by root;
+    ends with the card's name and power limit and the result line."""
     import torch
 
     if not torch.cuda.is_available():
-        sys.exit("chip_smoke.py --k3-turns: torch.cuda.is_available() is false; this needs a GPU")
+        sys.exit(f"chip_smoke.py --{kind}-turns: torch.cuda.is_available() is false; this needs "
+                 "a GPU")
     smi = nvidia_smi_line()
     by_root = {}
     for turn, root in enumerate(roots):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--k3-rows", root],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), f"--{kind}-rows", root],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
-            raise RuntimeError(f"--k3-rows {root} exited {proc.returncode}: "
+            raise RuntimeError(f"--{kind}-rows {root} exited {proc.returncode}: "
                                f"{(proc.stdout + proc.stderr)[-3000:]}")
         line = json.loads(proc.stdout.strip().splitlines()[-1])
-        emit({"phase": "k3_turn", "turn": turn, **line, "card": smi})
+        emit({"phase": f"{kind}_turn", "turn": turn, **line, "card": smi})
         for row, ms in line["ms"].items():
             by_root.setdefault(line["root"], {}).setdefault(row, []).append(ms)
-    emit({"phase": "k3_turns", "ms_by_root": by_root, "card": smi})
+    emit({"phase": f"{kind}_turns", "ms_by_root": by_root, "card": smi})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -4800,7 +5017,11 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--k3-rows"]:
         k3_rows(sys.argv[2])
     elif sys.argv[1:2] == ["--k3-turns"]:
-        k3_turns(sys.argv[2:])
+        rows_in_turns("k3", sys.argv[2:])
+    elif sys.argv[1:2] == ["--proj-rows"]:
+        proj_rows(sys.argv[2])
+    elif sys.argv[1:2] == ["--proj-turns"]:
+        rows_in_turns("proj", sys.argv[2:])
     elif sys.argv[1:2] == ["--longrun"]:
         longrun_main(int(sys.argv[2]))
     else:

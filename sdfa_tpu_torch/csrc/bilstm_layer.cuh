@@ -21,11 +21,11 @@
 //
 // 1. proj_kernel: xp[d] = x . W_ih[d] (+ gate bias) for every (row, t) of
 //    the chunk and both directions at once: nothing in it depends on the
-//    recurrence, so it is one tiled f32 product outside the dependent chain
-//    (128 x 128 tile, 16 deep, 8 x 8 outputs per thread, the next tile
-//    fetched into registers while this one is multiplied). xp (2, rows, T,
-//    4H) is scratch in device memory, written once and read once. The kernel
-//    is a template on the gate width (4 x 256 or 4 x 128).
+//    recurrence, so it is one product outside the dependent chain, on the
+//    tensor cores in 3xTF32 (wgmma: see "the input projection" below;
+//    proj_weights_kernel stages W_ih transposed and split once per call). xp (2, rows, T, 4H) is scratch in device memory, written once and
+//    read once. The kernel is a template on the gate width (4 x 256 or 4 x
+//    128; 0: at run time).
 // 2. steps_kernel (as described at H = 256; at H = 128 a cluster is 4
 //    blocks, 64 KB of W_hh each): a cluster of CL = 8 blocks owns RT = 32 rows of one
 //    direction. One direction's W_hh is 256 x 1024 f32 = 1 MB: no block's
@@ -53,19 +53,23 @@
 //    well, at H = 256 and at H = 128 (a cluster of 4 blocks); FreqLstm runs
 //    it over its frequency steps, a row's steps together, at H = 128 and
 //    (as the layer kernels' instantiation) 256, and the layer kernels at
-//    either width (run_layer<HH>).
+//    either width (run_layer_h).
 // 3. From H = 384 on (any multiple of 128), where no cluster's shared memory
 //    holds one direction's W_hh, wide_steps_kernel and wide_bwd_kernel below
 //    take the step loop's place for all four kernels: W_hh read through L2,
 //    one grid-wide barrier a step (see "the wide step loop").
 //
-// f32 throughout (expf/tanhf, correctly rounded reciprocal, no fast-math).
-// Sums run in another order than the plain version's: k in four interleaved
-// quarters for h.W_hh, sequential for x.W_ih.
+// The recurrence in f32 (expf/tanhf, correctly rounded reciprocal, no
+// fast-math), its sums in another order than the plain version's: k in four
+// interleaved quarters for h.W_hh. x.W_ih in 3xTF32, k tile by k tile of 32 and
+// within a tile k step by k step of 8 (hi.hi, hi.lo, lo.hi), the bias last:
+// ops/bilstm_layer.py::projection_tiled computes it that way.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_tf32.cuh"
 
 namespace bilstm {
 
@@ -74,128 +78,260 @@ namespace cg = cooperative_groups;
 // --- the input projection: xp[d] (M, GW) = x (M, K) . W_ih[d] (K, GW) + gb[d] ---
 // GW is the gate width, 4 x the hidden width: 4 x 256 or 4 x 128 as a template
 // argument; GW = 0 takes it at run time (`gw`, the wide step loop's 4 x 384 and up).
+//
+// 3xTF32 on the tensor cores: with v = hi + lo for each f32 operand (hi =
+// rna(v), lo = rna(v - hi), two TF32 values, 22 bits together), x . W = x_hi
+// W_hi + x_hi W_lo + x_lo W_hi (missing x_lo W_lo, under 2^-22 of each product).
+// What bounds it on the H100: operations, 3 passes of 2 M K 8H FLOP at 495
+// TFLOP/s (TF32), and for K = 64 (FreqLstm) the xp it writes, 2 M 4H floats at
+// 3.35 TB/s. TF32 wgmma takes both operands K-major, and W_ih comes (2, K, GW),
+// so proj_weights_kernel first writes W_ih^T split into its two parts, wt (2, 2
+// GW, KW): part 0 hi, part 1 lo, row d GW + c the column c of W_ih[d], K padded
+// with zeros to KW = a multiple of PBK. It runs in the same C launch as the
+// product, on every call (0.5-8 MB of wt at the shipped widths, 2-9 us on the
+// H100): no split weights outlive the call, so an update of W_ih in place is
+// always seen.
+//
+// proj_kernel then runs as csrc/decode_solve.cu's split_product_kernel: a block
+// of two warpgroups owns a PBM x PBN tile of xp (64 rows a warpgroup); 16-byte
+// cp.async copies fill a ring of PSTAGES stages of PBK k (x, W hi, W lo: 48 KB a
+// stage, one 128-byte swizzle row per matrix row); each thread reads its x
+// fragments of a stage from shared memory, splits them in registers, and issues
+// the three products a k step with A from registers and B through descriptors
+// (wgmma m64n128k8, f32 accumulators in registers, never promoted). Sum order:
+// for each k tile of PBK from k = 0 on and each k step of 8 in it, hi.hi, hi.lo,
+// lo.hi into one accumulator; then the gate bias. The tensor cores' f32 sums do
+// not round to nearest, and their error grows with K: on the H100 xp lands 6e-7
+// (K = 64) to 7.9e-6 (K = 1024) of the largest |xp| from a float64 product,
+// where a float32 product is 2-7e-7 from it (chip_smoke.py's projection rows;
+// promoting the sums to f32 registers would cost 64 registers a thread, beyond
+// two blocks a multiprocessor). The output tile goes through shared memory (the
+// ring, once the products are done) so that every warp stores whole 512-byte
+// rows of xp as float4.
+//
+// x is read with 16-byte copies: K a multiple of 4 and x 16-byte aligned.
+// Otherwise (one route, `proj_needs_pad`) proj_pad_kernel first copies x into
+// the caller's scratch xpad (M, K rounded up to 4), zero-filled. Rows past M and
+// k past K read as zero (the copy's source size); rows past M are never stored.
 
-constexpr int PM = 128, PN = 128, PK = 16, PT = 256;  // tile and threads
+constexpr int PBM = 128, PBN = 128, PBK = 32, PTH = 256;  // tile rows, columns, k a stage; threads
+constexpr int PSTAGES = 2;                                 // ring depth: one copy in flight
+constexpr int PROW = PBK * 4;                              // a tile row of a stage: 128 bytes
+constexpr int PA_BYTES = PBM * PROW, PB_BYTES = PBN * PROW;
+constexpr int PSTAGE_BYTES = PA_BYTES + 2 * PB_BYTES;      // 48 KB
+constexpr int POUT_LD = PBN + 8;  // floats a row of the staged output tile: the float2 writes of
+                                  // a half-warp (8 rows x 4 column pairs) fall in 32 banks
+constexpr int PROJ_SMEM =
+    (PSTAGES * PSTAGE_BYTES > PBM * POUT_LD * 4 ? PSTAGES * PSTAGE_BYTES : PBM * POUT_LD * 4) +
+    1024;                                                  // + room to align the ring to 1024 B
+constexpr int PGROUP = 16;  // row tiles walked together: the blocks that run at once share
+                            // their x rows and W columns through L2 (W hi + lo is 64 MB at
+                            // H = 1024, K = 1024)
+static_assert(PROW == 128 && PTH / 8 == 32 && PBM % 32 == 0 && PBN % 32 == 0, "copy layout");
+static_assert(PBN == 4 * 32 && PTH == 2 * 128, "epilogue: a warp stores a row as 32 float4");
 
-// Eight consecutive k of one row of A from k on, zero from K on or for a row
-// past M. `vec`: the row's K-range is a multiple of 4 long and 16-byte aligned.
-__device__ __forceinline__ void load_a(const float* arow, bool row_ok, int k, int K, int vec,
-                                       float (&ar)[8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) ar[i] = 0.0f;
-  if (!row_ok) return;
-  if (vec) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (k + 4 * h < K) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(arow + k + 4 * h));
-        ar[4 * h] = v.x; ar[4 * h + 1] = v.y; ar[4 * h + 2] = v.z; ar[4 * h + 3] = v.w;
-      }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      if (k + i < K) ar[i] = __ldg(arow + k + i);
+// KW: the weight strips' K, padded to whole k tiles.
+inline int proj_kw(int K) { return (K + PBK - 1) / PBK * PBK; }
+// Whether x goes through xpad first: 16-byte copies need K % 4 == 0 and x aligned.
+inline bool proj_needs_pad(const float* x, int K) {
+  return K % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0;
+}
+// Columns of xpad: K rounded up to 4.
+inline int proj_kpad(int K) { return (K + 3) / 4 * 4; }
+
+// wt (2, 2 gw, KW) from w_ih (2, K, gw): transposed, split, zero from K on.
+// grid (KW / 32, 2 gw / 32), 256 threads: a 32 x 32 tile through shared memory,
+// read along the gate columns and written along k.
+static __global__ void __launch_bounds__(256)
+proj_weights_kernel(const float* __restrict__ w_ih, float* __restrict__ wt, int K, int KW,
+                    int gw) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;  // n over both directions' 2 gw
+  const int d = n0 / gw, c0 = n0 % gw;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += 8)
+    tile[i][tx] = k0 + i < K ? w_ih[((size_t)d * K + k0 + i) * gw + c0 + tx] : 0.0f;
+  __syncthreads();
+  const size_t part = (size_t)2 * gw * KW;
+  for (int i = ty; i < 32; i += 8) {
+    const float v = tile[tx][i];  // (k0 + tx, n0 + i)
+    const float hi = __uint_as_float(tf32mma::tf32_bits(v));
+    const size_t at = (size_t)(n0 + i) * KW + k0 + tx;
+    wt[at] = hi;
+    wt[part + at] = __uint_as_float(tf32mma::tf32_bits(v - hi));
   }
 }
 
-// Two float4 of B's rows k and k + 8 (zero from K on); B has LDB floats to a row
-// (LDB = 0: `ldb`, a width known only at run time).
-template <int LDB>
-__device__ __forceinline__ void load_b(const float* bcol, int k, int K, float4 (&br)[2],
-                                       int ldb = LDB) {
-  const int stride = LDB > 0 ? LDB : ldb;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int kk = k + 8 * h;
-    br[h] = kk < K ? __ldg(reinterpret_cast<const float4*>(bcol + (size_t)kk * stride))
-                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
+// xpad (M, kp) = x (M, K), zero from K on
+static __global__ void __launch_bounds__(256)
+proj_pad_kernel(const float* __restrict__ x, float* __restrict__ xpad, int M, int K, int kp) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)M * kp) return;
+  const size_t m = i / kp;
+  const int k = (int)(i % kp);
+  xpad[i] = k < K ? x[m * K + k] : 0.0f;
 }
 
-// grid (2 GW / PN, ceil(M / PM)): blockIdx.x walks the columns of both
-// directions, so neighbouring blocks share their rows of x.
+// grid (2 gw / PBN x ceil(M / PBM)), PTH threads, PROJ_SMEM bytes of dynamic
+// shared memory. x (M, K) with K % 4 == 0 and 16-byte rows; wt (2, 2 gw, KW)
+// from proj_weights_kernel; gb (2, gw) or null.
 template <int GW>
-static __global__ void __launch_bounds__(PT, 2)
-proj_kernel(const float* __restrict__ x, const float* __restrict__ w_ih,
-            const float* __restrict__ gb, float* __restrict__ xp, int M, int K, int vec,
+static __global__ void __launch_bounds__(PTH, 2)
+proj_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+            const float* __restrict__ gb, float* __restrict__ xp, int M, int K, int KW,
             int gw_arg) {
-  __shared__ __align__(16) float As[2][PK][PM];
-  __shared__ __align__(16) float Bs[2][PK][PN];
+  using namespace tf32mma;
+  extern __shared__ uint8_t proj_smem[];
+  const uint32_t ring_off = ((smem_u32(proj_smem) + 1023u) & ~1023u) - smem_u32(proj_smem);
+  const uint32_t ring = smem_u32(proj_smem) + ring_off;
   const int gw = GW > 0 ? GW : gw_arg;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int d = blockIdx.x / (gw / PN), n0 = (blockIdx.x % (gw / PN)) * PN;
-  const int m0 = blockIdx.y * PM;
-  const int a_m = tid % PM, a_k = (tid / PM) * 8;  // x tile: 8 k of one row per thread
-  const int b_k = tid / 32, b_n = (tid % 32) * 4;  // W tile: rows b_k, b_k + 8, one float4 each
-  const bool row_ok = m0 + a_m < M;
-  const float* arow = x + (size_t)(row_ok ? m0 + a_m : 0) * K;
-  const float* bcol = w_ih + (size_t)d * K * gw + n0 + b_n;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  // the tile: PGROUP row tiles at a time, their row tiles fastest, then the columns
+  const int ntn = 2 * gw / PBN, ntm = (M + PBM - 1) / PBM;
+  const int per_group = PGROUP * ntn, first = (int)blockIdx.x / per_group * PGROUP;
+  const int rows_in = ntm - first < PGROUP ? ntm - first : PGROUP;
+  const int in_group = (int)blockIdx.x % per_group;
+  const int m0 = (first + in_group % rows_in) * PBM;
+  const int n0 = in_group / rows_in * PBN;  // over both directions' 2 gw columns
+  const int nk = KW / PBK;
 
-  float ar[8];
-  float4 br[2];
-  load_a(arow, row_ok, a_k, K, vec, ar);
-  load_b<GW>(bcol, b_k, K, br, gw);
-  const int tiles = (K + PK - 1) / PK;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int buf = tile & 1;
+  // The copy: thread (r0, c) moves 16-byte chunk c of rows r0, r0 + 32, ... of
+  // the three strips; rows 32 apart share r % 8, so its swizzled chunk is one.
+  const int c = tid % 8, r0 = tid / 8;
+  const uint32_t dst0 = (uint32_t)(r0 * PROW + ((c ^ (r0 & 7)) << 4));
+  const float* a_src = x + (size_t)(m0 + r0) * K + c * 4;
+  const float* bh_src = wt + (size_t)(n0 + r0) * KW + c * 4;
+  const float* bl_src = bh_src + (size_t)2 * gw * KW;
+  auto load = [&](int kt, int slot) {
+    const uint32_t sa = ring + slot * PSTAGE_BYTES + dst0, sh = sa + PA_BYTES,
+                   sl = sh + PB_BYTES;
+    const bool k_ok = kt * PBK + c * 4 < K;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) As[buf][a_k + i][a_m] = ar[i];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) *reinterpret_cast<float4*>(&Bs[buf][b_k + 8 * h][b_n]) = br[h];
-    __syncthreads();  // this tile is in place; the other buffer's readers are done (see below)
-    if (tile + 1 < tiles) {
-      load_a(arow, row_ok, (tile + 1) * PK + a_k, K, vec, ar);
-      load_b<GW>(bcol, (tile + 1) * PK + b_k, K, br, gw);
+    for (int i = 0; i < PBM / 32; ++i) {
+      const bool ok = k_ok && m0 + r0 + 32 * i < M;
+      cp_async16(sa + i * 32 * PROW, ok ? a_src + (size_t)i * 32 * K + kt * PBK : x,
+                 ok ? 16 : 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < PK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
+    for (int i = 0; i < PBN / 32; ++i) {
+      cp_async16(sh + i * 32 * PROW, bh_src + (size_t)i * 32 * KW + kt * PBK, 16);
+      cp_async16(sl + i * 32 * PROW, bl_src + (size_t)i * 32 * KW + kt * PBK, 16);
     }
-    // No barrier here: the next turn writes the other buffer, whose last
-    // readers all passed this turn's barrier after they finished with it.
+  };
+
+  // This thread's A fragment of a k step (8 columns): a[0] (g, t), a[1] (g + 8,
+  // t), a[2] (g, t + 4), a[3] (g + 8, t + 4), rows of its warp's 16 in its
+  // warpgroup's 64, g = lane / 4, t = lane % 4. Rows 8 apart share the swizzle
+  // (row % 8 = g): column 8 kk + 4 h lies in chunk (2 kk + h) ^ g of its row.
+  const int g = lane / 4;
+  const uint8_t* frag =
+      proj_smem + ring_off + (wg * 64 + 16 * ((tid % 128) / 32) + g) * PROW + (lane % 4) * 4;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  for (int s = 0; s < PSTAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
   }
-
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<PSTAGES - 2>();  // this thread's copies of tile kt have landed
+    // wgmma reads shared memory through the async proxy: make the copies visible to it
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();  // everyone's have; and everyone is done with tile kt - 1's slot
+    const int nxt = kt + PSTAGES - 1;
+    if (nxt < nk) load(nxt, nxt % PSTAGES);
+    cp_async_commit();
+    const int slot = kt % PSTAGES;
+    uint32_t hi[PBK / 8][4], lo[PBK / 8][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i / 4) * 64 + ty * 4 + i % 4;
-    if (m >= M) continue;
+    for (int kk = 0; kk < PBK / 8; ++kk)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int n = n0 + half * 64 + tx * 4;
-      float4 v = make_float4(acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2],
-                             acc[i][4 * half + 3]);
-      if (gb) {
-        const float4 bv = *reinterpret_cast<const float4*>(gb + d * gw + n);
-        v.x += bv.x; v.y += bv.y; v.z += bv.z; v.w += bv.w;
+      for (int i = 0; i < 4; ++i) {
+        const float v = *reinterpret_cast<const float*>(
+            frag + slot * PSTAGE_BYTES + (i & 1) * 8 * PROW + (((2 * kk + (i >> 1)) ^ g) << 4));
+        hi[kk][i] = tf32_bits(v);
+        lo[kk][i] = tf32_bits(v - __uint_as_float(hi[kk][i]));
       }
-      *reinterpret_cast<float4*>(xp + ((size_t)d * M + m) * gw + n) = v;
+    const uint32_t stage = ring + slot * PSTAGE_BYTES;
+    const uint64_t dh = smem_desc(stage + PA_BYTES), dl = smem_desc(stage + PA_BYTES + PB_BYTES);
+    wgmma_fence();  // the fragments are written: order them before the products read them
+#pragma unroll
+    for (int kk = 0; kk < PBK / 8; ++kk) {
+      wgmma_m64n128k8_tf32_rs(acc, hi[kk], dh + 2 * kk);
+      wgmma_m64n128k8_tf32_rs(acc, hi[kk], dl + 2 * kk);
+      wgmma_m64n128k8_tf32_rs(acc, lo[kk], dh + 2 * kk);
     }
+    wgmma_commit();
+    wgmma_wait_all();
+    // the products read the fragments until the wait: keep their registers till here
+#pragma unroll
+    for (int kk = 0; kk < PBK / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(hi[kk][i]), "r"(lo[kk][i]));
   }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+  // The output tile through the ring: each thread writes its accumulators
+  // (rows g and g + 8 of its warp's 16, columns 8 j + 2 t, + 1), then warp w
+  // stores rows w, w + 8, ... of the tile, lane l its columns 4 l .. 4 l + 3.
+  __syncthreads();  // both warpgroups' products are done with the ring
+  float* tile = reinterpret_cast<float*>(proj_smem + ring_off);
+  const int row = wg * 64 + 16 * ((tid % 128) / 32) + g;
+#pragma unroll
+  for (int j = 0; j < PBN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(tile + row * POUT_LD + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(tile + (row + 8) * POUT_LD + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  __syncthreads();
+  const int d = n0 / gw, col = n0 % gw + 4 * lane;  // n0 never straddles the directions
+  const float4 bias = gb ? *reinterpret_cast<const float4*>(gb + (size_t)d * gw + col)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int r = tid / 32; r < PBM && m0 + r < M; r += PTH / 32) {
+    float4 v = *reinterpret_cast<const float4*>(tile + r * POUT_LD + 4 * lane);
+    v.x += bias.x; v.y += bias.y; v.z += bias.z; v.w += bias.w;
+    *reinterpret_cast<float4*>(xp + ((size_t)d * M + m0 + r) * gw + col) = v;
+  }
+}
+
+// wt (2, 2 gw, proj_kw(K)) from w_ih (2, K, gw) on `stream`: once per call of
+// a kernel, before its row chunks.
+inline cudaError_t prep_proj_weights(const float* w_ih, int K, float* wt, int gw,
+                                     cudaStream_t stream) {
+  const int kw = proj_kw(K);
+  proj_weights_kernel<<<dim3(kw / 32, 2 * gw / 32), 256, 0, stream>>>(w_ih, wt, K, kw, gw);
+  return cudaGetLastError();
 }
 
 // proj_kernel over M rows of x (M, in) on `stream`: xp (2, M, GW), or (2, M,
-// gw) with GW = 0.
+// gw) with GW = 0. wt from prep_proj_weights; xpad (M, proj_kpad(in)) scratch,
+// used (and needed) only where proj_needs_pad.
 template <int GW>
-inline cudaError_t launch_proj(const float* x, int in, const float* w_ih, const float* gb,
-                               float* xp, int M, cudaStream_t stream, int gw = GW) {
-  const int vec = in % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  proj_kernel<GW><<<dim3(2 * gw / PN, (M + PM - 1) / PM), PT, 0, stream>>>(x, w_ih, gb, xp, M, in,
-                                                                         vec, gw);
+inline cudaError_t launch_proj(const float* x, int in, const float* wt, const float* gb,
+                               float* xpad, float* xp, int M, cudaStream_t stream, int gw = GW) {
+  if (M <= 0) return cudaSuccess;
+  if (gw % PBN) return cudaErrorInvalidValue;
+  int K = in;
+  if (proj_needs_pad(x, in)) {
+    if (!xpad) return cudaErrorInvalidValue;
+    K = proj_kpad(in);
+    const size_t n = (size_t)M * K;
+    proj_pad_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(x, xpad, M, in, K);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    x = xpad;
+  }
+  // granted on the device that is current: also on a thread that launches first
+  cudaError_t err = cudaFuncSetAttribute(proj_kernel<GW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, PROJ_SMEM);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)(2 * gw / PBN) * (unsigned)((M + PBM - 1) / PBM);
+  proj_kernel<GW><<<blocks, PTH, PROJ_SMEM, stream>>>(x, wt, gb, xp, M, K, proj_kw(in), gw);
   return cudaGetLastError();
 }
 
@@ -490,24 +626,21 @@ inline StepsKernel layer_steps_kernel() {
   return steps_kernel<HH, 2, RowMajor, false, HH == 128 ? 2 : 1>;
 }
 
-// One layer over `rows` rows (one chunk) at HH hidden units: x (rows, T, in)
-// -> out (rows, T, 2 HH); xp is scratch for 2 * rows * T * 4 HH floats. A
-// refused launch returns CUDA's error: there is no other path.
+// The step loop of one layer over `rows` rows (one chunk) at HH hidden units:
+// xp (2, rows, T, 4 HH) -> out (rows, T, 2 HH). A refused launch returns
+// CUDA's error: there is no other path.
 template <int HH>
-inline cudaError_t run_layer(const float* x, int in, const float* w_ih, const float* w_hh,
-                             const float* gb, float* xp, float* out, int rows, int T,
-                             cudaStream_t stream) {
+inline cudaError_t run_layer_steps(const float* xp, const float* w_hh, float* out, int rows, int T,
+                                   cudaStream_t stream) {
   using D = LayerDims<HH>;
-  cudaError_t err = launch_proj<D::G>(x, in, w_ih, gb, xp, rows * T, stream);
-  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr;
-  err = cluster_config(config, attr, layer_steps_kernel<HH>(),
-                       dim3(D::CL, (rows + D::RT - 1) / D::RT, 2), D::THREADS, D::SMEM, D::CL,
-                       stream);
+  const cudaError_t err = cluster_config(config, attr, layer_steps_kernel<HH>(),
+                                         dim3(D::CL, (rows + D::RT - 1) / D::RT, 2), D::THREADS,
+                                         D::SMEM, D::CL, stream);
   if (err != cudaSuccess) return err;
-  return cudaLaunchKernelEx(&config, layer_steps_kernel<HH>(), (const float*)xp, w_hh, out,
-                            (float*)nullptr, (float*)nullptr, rows, T);
+  return cudaLaunchKernelEx(&config, layer_steps_kernel<HH>(), xp, w_hh, out, (float*)nullptr,
+                            (float*)nullptr, rows, T);
 }
 
 // How many clusters of a layer's step loop at HH hidden units the card runs at
@@ -865,17 +998,28 @@ using WideStepsKernel = void (*)(const float*, const float*, float*, float*, flo
 // The wide step loop of a layer: a row's steps together, nothing saved.
 inline WideStepsKernel layer_wide_kernel() { return wide_steps_kernel<RowMajor, false>; }
 
+// The input projection of a layer at H units over M (row, step) pairs:
+// proj_kernel<512> at H = 128, <1024> at 256, <0> from 384 on. wt from
+// prep_proj_weights; xpad as launch_proj takes it.
+inline cudaError_t run_proj_h(int H, const float* x, int in, const float* wt, const float* gb,
+                              float* xpad, float* xp, int M, cudaStream_t stream) {
+  if (H == 128) return launch_proj<512>(x, in, wt, gb, xpad, xp, M, stream);
+  if (H == 256) return launch_proj<1024>(x, in, wt, gb, xpad, xp, M, stream);
+  return launch_proj<0>(x, in, wt, gb, xpad, xp, M, stream, 4 * H);
+}
+
 // One layer over `rows` rows (one chunk) at any H the JAX gate sends to a
-// kernel (a multiple of 128): the cluster step at 128 and 256, the wide loop
-// from 384 up. x (rows, T, in) -> out (rows, T, 2H); xp is scratch for 2 *
-// rows * T * 4H floats.
-inline cudaError_t run_layer_h(int H, const float* x, int in, const float* w_ih,
-                               const float* w_hh, const float* gb, float* xp, float* out,
-                               int rows, int T, cudaStream_t stream) {
-  if (H == 128) return run_layer<128>(x, in, w_ih, w_hh, gb, xp, out, rows, T, stream);
-  if (H == 256) return run_layer<256>(x, in, w_ih, w_hh, gb, xp, out, rows, T, stream);
-  const cudaError_t err = launch_proj<0>(x, in, w_ih, gb, xp, rows * T, stream, 4 * H);
+// kernel (a multiple of 128): the input projection, then the cluster step at
+// 128 and 256, the wide loop from 384 up. x (rows, T, in) -> out (rows, T, 2H);
+// wt: W_ih as prep_proj_weights stages it; xpad and xp are scratch for rows * T
+// * proj_kpad(in) (used only where x needs it) and 2 * rows * T * 4H floats.
+inline cudaError_t run_layer_h(int H, const float* x, int in, const float* wt,
+                               const float* w_hh, const float* gb, float* xpad, float* xp,
+                               float* out, int rows, int T, cudaStream_t stream) {
+  const cudaError_t err = run_proj_h(H, x, in, wt, gb, xpad, xp, rows * T, stream);
   if (err != cudaSuccess) return err;
+  if (H == 128) return run_layer_steps<128>(xp, w_hh, out, rows, T, stream);
+  if (H == 256) return run_layer_steps<256>(xp, w_hh, out, rows, T, stream);
   return wide_run(layer_wide_kernel(), H, rows, stream, (const float*)xp, w_hh, out,
                   (float*)nullptr, (float*)nullptr, rows, T, H);
 }

@@ -21,9 +21,10 @@
 //
 // Design, three phases per chunk of rows, each a kernel (four launches):
 //
-// 1. proj_kernel<4H> of bilstm_layer.cuh: xp[d] = x.W_ih[d] + gate bias for all
-//    (row, f) pairs and both directions, one tiled f32 product ahead of the
-//    recurrence.
+// 1. proj_kernel of bilstm_layer.cuh (<512> at H = 128, <1024> at 256, <0>
+//    from 384 on): xp[d] = x.W_ih[d] + gate bias for all (row, f) pairs and
+//    both directions, one product ahead of the recurrence, in 3xTF32 on the
+//    tensor cores (W_ih staged transposed and split once per call).
 // 2. the step loop of bilstm_layer.cuh over the frequency steps. At H = 128,
 //    steps_kernel<128, ...>, the cluster step of the other biLSTM kernels: a
 //    cluster of 4 blocks holds ONE direction's W_hh (256 KB) in shared
@@ -34,7 +35,7 @@
 //    blocks, 32 rows), from H = 384 on the wide step loop (W_hh through L2,
 //    one grid-wide barrier a step). h (rows, F, 2H) goes to scratch.
 // 3. out_parts_kernel + out_sum_kernel: out = h.reshape(rows, F 2H).W_proj +
-//    b_proj as the same tiled f32 product. With 256 output columns and a few
+//    b_proj as a tiled f32 product on the FMA units. With 256 output columns and a few
 //    hundred rows a plain tiling has a dozen tiles for 132 multiprocessors, so
 //    K = F 2H is split in slabs of KSLAB, one block per (tile, slab), partial
 //    sums to scratch; out_sum_kernel adds the slabs in slab order, then the
@@ -43,15 +44,17 @@
 //    an OUT that is no multiple of 4 (or an unaligned W_proj / b_proj) takes
 //    scalar loads and stores instead of float4.
 //
-// Scratch, sized by the caller for one chunk of rows: xp 2 x 4H floats per
+// Scratch, sized by the caller: W_ih staged (2, 8H, K padded to 32) for the
+// call; for one chunk of rows xp 2 x 4H floats per
 // (row, f) pair (128 KB a row at F = 32, H = 128), h 2H floats per pair (32
 // KB a row), the partial sums F 2H / KSLAB x OUT floats a row (16 KB). The
 // caller takes whole waves of resident clusters (of the wide loop's row tiles,
 // both directions) as a chunk (62 clusters of 4 on the H100 at H = 128: 992
 // rows), so no chunk ends in a barely filled wave of its own making.
 //
-// f32 throughout (expf/tanhf, no fast-math), sums in another order than the
-// plain version's.
+// The recurrence and the output projection in f32 (expf/tanhf, no
+// fast-math), the input projection in 3xTF32 (f32-grade), sums in another
+// order than the plain version's.
 #include "bilstm_layer.cuh"
 
 using namespace bilstm;
@@ -59,7 +62,27 @@ using namespace bilstm;
 namespace {
 
 constexpr int KSLAB = 512;  // K range of one partial sum of the output projection
+
+// The output projection's tile: PM x PN outputs, PK deep, PT threads holding 8
+// x 8 outputs each.
+constexpr int PM = 128, PN = 128, PK = 16, PT = 256;
 static_assert(KSLAB % PK == 0 && KSLAB % 4 == 0, "the product's tiles");
+
+// Eight consecutive k of one row of A from k on as two float4, zero from K on
+// or for a row past M (K and the row's start are multiples of 4 floats: h's
+// rows are F 2H long).
+__device__ __forceinline__ void load_a(const float* arow, bool row_ok, int k, int K,
+                                       float (&ar)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ar[i] = 0.0f;
+  if (!row_ok) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (k + 4 * h < K) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(arow + k + 4 * h));
+      ar[4 * h] = v.x; ar[4 * h + 1] = v.y; ar[4 * h + 2] = v.z; ar[4 * h + 3] = v.w;
+    }
+}
 
 // Row groups of 8 to a sub-tile (a cluster owns 16 RG rows) and blocks a
 // multiprocessor should hold at H = 128: compile-time constants, chosen on the
@@ -88,12 +111,12 @@ __device__ __forceinline__ float4 load_b4(const float* b, int k, int K, int n, i
 }
 
 // part[s] (M, N) = h[:, s KSLAB .. (s + 1) KSLAB) . W_proj[the same rows].
-// grid (ceil(N / PN), ceil(M / PM), slabs). It is proj_kernel's tile (PM x PN,
-// PK deep, 8 x 8 outputs a thread, the next tile fetched into registers while
-// this one is multiplied) over a K range of its own, with a row stride of A
-// apart from that range and the output width N a run-time value, its last
-// tile padded; the layer kernels' proj_kernel is left as it is, since one loop
-// shared by both cost their projection 1% on the card.
+// grid (ceil(N / PN), ceil(M / PM), slabs): a SIMT f32 tile (PM x PN, PK deep,
+// 8 x 8 outputs a thread, the next tile fetched into registers while this one
+// is multiplied; sums k by k from the slab's first) over a K range of its own,
+// with a row stride of A apart from that range and the output width N a
+// run-time value, its last tile padded. It is what the input projection was
+// before it moved to the tensor cores (bilstm_layer.cuh::proj_kernel).
 template <bool VEC>
 __global__ void __launch_bounds__(PT, 2)
 out_parts_kernel(const float* __restrict__ h, const float* __restrict__ w_proj,
@@ -116,7 +139,7 @@ out_parts_kernel(const float* __restrict__ h, const float* __restrict__ w_proj,
 
   float ar[8];
   float4 br[2];
-  load_a(arow, row_ok, k0 + a_k, k1, 1, ar);
+  load_a(arow, row_ok, k0 + a_k, k1, ar);
 #pragma unroll
   for (int i = 0; i < 2; ++i) br[i] = load_b4<VEC>(w_proj, k0 + b_k + 8 * i, k1, n0 + b_n, N);
   const int tiles = (k1 - k0 + PK - 1) / PK;
@@ -129,7 +152,7 @@ out_parts_kernel(const float* __restrict__ h, const float* __restrict__ w_proj,
     __syncthreads();  // this tile is in place; the other buffer's readers are done (see below)
     if (tile + 1 < tiles) {
       const int kn = k0 + (tile + 1) * PK;
-      load_a(arow, row_ok, kn + a_k, k1, 1, ar);
+      load_a(arow, row_ok, kn + a_k, k1, ar);
 #pragma unroll
       for (int i = 0; i < 2; ++i) br[i] = load_b4<VEC>(w_proj, kn + b_k + 8 * i, k1, n0 + b_n, N);
     }
@@ -221,13 +244,13 @@ cudaError_t run_steps(const float* xp, const float* w_hh, float* h, int n, int F
                             F);
 }
 
-// One chunk of n rows through the three phases.
-cudaError_t run_chunk(const float* x, const float* w_ih, const float* w_hh, const float* gb,
-                      const float* w_proj, const float* b_proj, float* xp, float* h, float* part,
-                      float* out, int n, int F, int C, int H, int N, cudaStream_t stream) {
-  cudaError_t err = H == 128   ? launch_proj<512>(x, C, w_ih, gb, xp, n * F, stream)
-                    : H == 256 ? launch_proj<1024>(x, C, w_ih, gb, xp, n * F, stream)
-                               : launch_proj<0>(x, C, w_ih, gb, xp, n * F, stream, 4 * H);
+// One chunk of n rows through the three phases; wt: W_ih staged by
+// prep_proj_weights.
+cudaError_t run_chunk(const float* x, const float* wt, const float* w_hh, const float* gb,
+                      const float* w_proj, const float* b_proj, float* xpad, float* xp, float* h,
+                      float* part, float* out, int n, int F, int C, int H, int N,
+                      cudaStream_t stream) {
+  cudaError_t err = run_proj_h(H, x, C, wt, gb, xpad, xp, n * F, stream);
   if (err != cudaSuccess) return err;
   err = run_steps(xp, w_hh, h, n, F, H, stream);
   if (err != cudaSuccess) return err;
@@ -253,22 +276,24 @@ cudaError_t run_chunk(const float* x, const float* w_ih, const float* w_hh, cons
 
 }  // namespace
 
-// xp (2, chunk, F, 4H), h (chunk, F, 2H) and part (slabs, chunk, OUT) are
-// scratch for one chunk of rows; the rows are walked `chunk` at a time.
+// wt (2, 8H, proj_kw(C)) is scratch for the staged W_ih; xpad (chunk F,
+// proj_kpad(C)) where x needs it (proj_needs_pad), else null; xp (2, chunk, F,
+// 4H), h (chunk, F, 2H) and part (slabs, chunk, OUT) are scratch for one chunk
+// of rows; the rows are walked `chunk` at a time.
 extern "C" int sdfa_freq_lstm(const float* x, const float* w_ih, const float* w_hh,
                               const float* gb, const float* w_proj, const float* b_proj,
-                              float* xp, float* h, float* part, float* out, int rows, int F,
-                              int C, int hidden, int out_dim, int chunk, cudaStream_t stream) {
+                              float* wt, float* xpad, float* xp, float* h, float* part,
+                              float* out, int rows, int F, int C, int hidden, int out_dim,
+                              int chunk, cudaStream_t stream) {
   if (!takes_hidden(hidden) || out_dim <= 0 || C <= 0 || F <= 0 || chunk <= 0)
     return (int)cudaErrorInvalidValue;
-  for (int row0 = 0; row0 < rows; row0 += chunk) {
+  cudaError_t err = prep_proj_weights(w_ih, C, wt, 4 * hidden, stream);
+  for (int row0 = 0; row0 < rows && err == cudaSuccess; row0 += chunk) {
     const int n = rows - row0 < chunk ? rows - row0 : chunk;
-    const cudaError_t err =
-        run_chunk(x + (size_t)row0 * F * C, w_ih, w_hh, gb, w_proj, b_proj, xp, h, part,
-                  out + (size_t)row0 * out_dim, n, F, C, hidden, out_dim, stream);
-    if (err != cudaSuccess) return (int)err;
+    err = run_chunk(x + (size_t)row0 * F * C, wt, w_hh, gb, w_proj, b_proj, xpad, xp, h, part,
+                    out + (size_t)row0 * out_dim, n, F, C, hidden, out_dim, stream);
   }
-  return 0;
+  return (int)err;
 }
 
 // n[0], n[1]: how many clusters of the step kernel the card holds at once at H

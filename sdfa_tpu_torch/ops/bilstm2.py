@@ -5,8 +5,9 @@ arguments of ``bilstm_2layer_fused`` — x (rows, T, in), per layer w_ih
 (2, in, 4H), w_hh (2, H, 4H), gate bias (2, 4H) or None; direction 0
 forward, 1 reverse — and returns (rows, T, 2H) float32.
 
-One entry point, one call into the library: per row chunk it enqueues the
-layer of ``csrc/bilstm_layer.cuh`` twice (tiled input projection, then the
+One entry point, one call into the library: it stages both layers' w_ih
+for the input projection, then per row chunk it enqueues the layer of
+``csrc/bilstm_layer.cuh`` twice (the input projection in 3xTF32, then the
 step loop: the cluster step at H = 128 and 256, the wide step loop from 384
 on), layer 1's output stack in a scratch tensor between them. It takes what
 the per-layer kernel takes for both layers (``bilstm_layer.takes``: any H
@@ -21,8 +22,8 @@ import collections
 import torch
 
 from . import build, note_launch
-from .bilstm_layer import (bilstm_layer_plain, chunk_rows, layer_tiled_chunk, scratch_rows,
-                           takes)  # one layer, one tiling, one limit
+from .bilstm_layer import (bilstm_layer_plain, chunk_rows, layer_tiled_chunk, proj_scratch,
+                           scratch_rows, takes)  # one layer, one tiling, one limit
 from .bilstm_layer import cost as layer_cost
 
 LAUNCHES = collections.Counter()  # kernel launches by ``bilstm2`` in this process, by hidden width
@@ -78,10 +79,12 @@ def bilstm2(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2):
             build.check(name, gb, (2, gdim))
     build.check_aligned(w_ih1=w_ih1, w_hh1=w_hh1, gb1=gb1, w_ih2=w_ih2, w_hh2=w_hh2, gb2=gb2)
     n = scratch_rows(rows, steps, hid)  # one chunk's rows: the scratch does not grow with the batch
+    (wt1, wt2), xpad = proj_scratch(x, n_in, hid, n * steps, w_ih_inputs=(2 * hid,))
     xp = torch.empty(2, n, steps, gdim, device=x.device, dtype=torch.float32)
     stack = torch.empty(n, steps, 2 * hid, device=x.device, dtype=torch.float32)
     out = torch.empty(rows, steps, 2 * hid, device=x.device, dtype=torch.float32)
-    build.launch("bilstm2", (x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2, xp, stack, out),
+    build.launch("bilstm2", (x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2, wt1, wt2, xpad, xp, stack,
+                             out),
                  (rows, steps, n_in, hid, chunk_rows(steps, hid)), x.device)
     LAUNCHES[hid] += 1
     note_launch("bilstm2", cost(rows, steps, n_in, hid, gb1 is not None))

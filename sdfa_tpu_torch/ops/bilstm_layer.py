@@ -7,9 +7,10 @@ forward, 1 reverse; gate order i, f, g, o — and returns (rows, T, 2H)
 float32, forward h in ``[..., :H]`` and reverse h in ``[..., H:]``.
 
 On a card the layer is two hand-written kernels per row chunk
-(``csrc/bilstm_layer.cuh``): a tiled product computes the input projection
+(``csrc/bilstm_layer.cuh``): a product computes the input projection
 xp = x·w_ih (+ bias) for all steps at once into a scratch tensor (any input
-width), then the step loop. At ``HIDDENS`` (128 and 256) the step loop holds
+width), in 3xTF32 on the tensor cores (``projection_tiled`` says how), then
+the step loop. At ``HIDDENS`` (128 and 256) the step loop holds
 w_hh in the shared memory of a cluster of H / 32 blocks (8 at H = 256, 4 at
 H = 128): block s of a cluster owns hidden units 32s … 32s+31 of one
 direction for a tile of 32 rows. From H = 384 on (any multiple of 128) no
@@ -21,6 +22,15 @@ JAX gate sends to its kernel). What is not CUDA — the row chunks, the
 scratch size, which gate columns a block owns, the waves — lives here, and
 ``bilstm_layer_tiled`` walks the same tiling in plain tensors so that the CPU
 tests reach it.
+
+The input projection's scratch (``proj_scratch``, also for ``bilstm2`` and
+``freq_lstm``): w_ih transposed and split into its TF32 parts, written by a
+kernel of the same launch on every call (nothing is cached, so a weight
+updated in place between calls is always read anew); and, where x cannot be
+copied 16 bytes at a time (an input width that is no multiple of 4, or x not
+16-byte aligned: ``proj_needs_pad``, the one route for such inputs), a copy of
+x with its rows padded with zeros to a multiple of 4, which the launch fills.
+``projection`` runs the projection alone, for the tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import collections
 import torch
 
 from . import build, note_launch
+from .tf32 import split_tf32
 
 LAUNCHES = collections.Counter()  # kernel launches by ``bilstm_layer`` in this process, by hidden width
 
@@ -37,7 +48,8 @@ HIDDENS = (128, 256)       # the widths of the cluster step; the wide step loop 
 UNITS_PER_BLOCK = 32       # hidden units a block of a cluster owns, whatever the width
 ROW_TILE = 32              # rows per cluster, walked as two sub-tiles that take turns
 SUB_TILE = ROW_TILE // 2
-PROJ_K = 16                # the input projection's k depth of a tile
+PROJ_K = 32                # the input projection's k depth of a stage (its weights' K is
+                           # padded to a multiple)
 WIDE_ROW_TILE = 32         # the wide step loop: rows a block owns,
 WIDE_UNITS = 32            # hidden units it owns (4 · 32 gate columns),
 WIDE_K = 16                # the k depth of one staged tile of its product
@@ -137,13 +149,40 @@ def block_columns(block: int, hidden: int) -> torch.Tensor:
 
 
 def projection_tiled(x, w_ih, gate_bias):
-    """The input projection the way its kernel computes it: xp[d] = x · w_ih[d]
-    summed tile by tile of ``PROJ_K`` input features (the last tile partial:
-    any input width), then the gate bias: (rows, T, in) → (2, rows, T, 4H)."""
+    """The input projection the way its kernel computes it, (rows, T, in) →
+    (2, rows, T, 4H): x and w_ih split into TF32 parts (``split_tf32``; the
+    kernel rounds ties away from zero, this ties to even: they differ on exact
+    ties only), then per k tile of ``PROJ_K`` input features (the last one
+    partial: any input width) the three products x_hi·w_hi, x_hi·w_lo,
+    x_lo·w_hi added to one sum, then the gate bias."""
+    x_hi, x_lo = split_tf32(x)
+    w_hi, w_lo = split_tf32(w_ih)
     xp = x.new_zeros(2, *x.shape[:-1], w_ih.shape[-1])
     for k0 in range(0, x.shape[-1], PROJ_K):
-        xp = xp + x[None, ..., k0:k0 + PROJ_K] @ w_ih[:, None, k0:k0 + PROJ_K]
+        ks = slice(k0, k0 + PROJ_K)
+        a_hi, a_lo = x_hi[None, ..., ks], x_lo[None, ..., ks]
+        b_hi, b_lo = w_hi[:, None, ks], w_lo[:, None, ks]
+        xp = xp + a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
     return xp if gate_bias is None else xp + gate_bias[:, None, None]
+
+
+def proj_needs_pad(x) -> bool:
+    """Whether the projection reads x through the padded copy: its rows
+    cannot be copied 16 bytes at a time (``bilstm_layer.cuh::proj_needs_pad``)."""
+    return x.shape[-1] % 4 != 0 or x.data_ptr() % 16 != 0
+
+
+def proj_scratch(x, n_in: int, hidden: int, pairs: int, w_ih_inputs=()):
+    """The input projection's scratch for one call on ``x``: (wt, xpad). wt
+    (2, 8H, K padded to ``PROJ_K``) holds w_ih transposed and split, one for
+    ``n_in`` and one more for each width in ``w_ih_inputs`` (a later layer's
+    input); xpad (pairs, ``n_in`` rounded up to 4) is allocated only where
+    ``proj_needs_pad(x)``, for the (row, step) pairs of one chunk."""
+    empty = dict(device=x.device, dtype=torch.float32)
+    wts = [torch.empty(2, 8 * hidden, -(-k // PROJ_K) * PROJ_K, **empty)
+           for k in (n_in, *w_ih_inputs)]
+    xpad = torch.empty(pairs, -(-n_in // 4) * 4, **empty) if proj_needs_pad(x) else None
+    return wts, xpad
 
 
 def layer_tiled_chunk(x, w_ih, w_hh, gate_bias, capacity=None):
@@ -286,11 +325,45 @@ def bilstm_layer(x, w_ih, w_hh, gate_bias):
     if gate_bias is not None:
         build.check("gate_bias", gate_bias, (2, gdim))
     build.check_aligned(w_ih=w_ih, w_hh=w_hh, gate_bias=gate_bias)
-    xp = torch.empty(2, scratch_rows(rows, steps, hid), steps, gdim, device=x.device,
-                     dtype=torch.float32)
+    n = scratch_rows(rows, steps, hid)
+    (wt,), xpad = proj_scratch(x, n_in, hid, n * steps)
+    xp = torch.empty(2, n, steps, gdim, device=x.device, dtype=torch.float32)
     out = torch.empty(rows, steps, 2 * hid, device=x.device, dtype=torch.float32)
-    build.launch("bilstm_layer", (x, w_ih, w_hh, gate_bias, xp, out),
+    build.launch("bilstm_layer", (x, w_ih, w_hh, gate_bias, wt, xpad, xp, out),
                  (rows, steps, n_in, hid, chunk_rows(steps, hid)), x.device)
     LAUNCHES[hid] += 1
     note_launch("bilstm_layer", cost(rows, steps, n_in, hid, gate_bias is not None))
     return out
+
+
+def projection(x, w_ih, gate_bias):
+    """The input projection alone, as the layer kernels run it: (rows, T, in)
+    → (2, rows, T, 4H). The kernel for CUDA tensors (no launch counter: no
+    path calls it, the tests and ``chip_smoke.py`` hold it to
+    ``projection_tiled``), ``projection_tiled`` for CPU tensors."""
+    if x.device.type == "cpu":
+        return projection_tiled(x, w_ih, gate_bias)
+    rows, steps, n_in = x.shape
+    gdim = w_ih.shape[-1]
+    if gdim % 4 or not takes(gdim // 4, n_in):
+        raise ValueError(f"projection takes 4H with H a multiple of 128; got w_ih "
+                         f"{tuple(w_ih.shape)}")
+    build.check("x", x, (rows, steps, n_in))
+    build.check("w_ih", w_ih, (2, n_in, gdim))
+    if gate_bias is not None:
+        build.check("gate_bias", gate_bias, (2, gdim))
+    build.check_aligned(w_ih=w_ih, gate_bias=gate_bias)
+    (wt,), xpad = proj_scratch(x, n_in, gdim // 4, rows * steps)
+    xp = torch.empty(2, rows, steps, gdim, device=x.device, dtype=torch.float32)
+    build.launch("bilstm_layer", (x, w_ih, gate_bias, wt, xpad, xp),
+                 (rows * steps, n_in, gdim // 4), x.device, entry="bilstm_layer_projection")
+    return xp
+
+
+def proj_tiling(device) -> dict:
+    """The input projection as built: its k depth of a stage (checked against
+    ``PROJ_K``) and how many of its blocks ``device`` holds at once."""
+    k, blocks = build.query_ints("bilstm_layer", "bilstm_layer_proj_tiling", 2, device)
+    if k != PROJ_K:
+        raise RuntimeError(f"bilstm_layer.cuh's projection stages {k} k; PROJ_K says {PROJ_K}")
+    return {"k_tile": k, "resident_blocks": blocks}

@@ -36,10 +36,10 @@ table picks the body through their type:
 Both bodies round their operands to nearest before the tensor cores see
 them, which would truncate. What is not CUDA — the fold, the operands'
 layouts, into how many parts K is split so that the blocks fill the card,
-the order the parts are added in — lives here; ``round_tf32``,
-``split_tf32``, ``decode_solve_rounded`` and ``decode_solve_full_rounded``
-repeat the kernels' rounding in plain tensors for the CPU tests, and
-nothing on a path calls them.
+the order the parts are added in — lives here; ``round_tf32`` and
+``split_tf32`` (``ops/tf32.py``, shared with the recurrent kernels' input
+projection), ``decode_solve_rounded`` and ``decode_solve_full_rounded``
+repeat the kernels' rounding in plain tensors for the CPU tests.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ import torch
 from . import build, note_launch, using_plain
 from .deform_solver import (_EYE9, DeformConsts, DeformationSolver, SolverSpec,
                             assemble_from_free, transform_entries_from_planes)
+from .tf32 import round_tf32, split_tf32
 
 LAUNCHES = collections.Counter()  # wrapper calls that launched the kernels, by body: delta, full
 
@@ -105,23 +106,6 @@ class DecodeSolveFullConsts(NamedTuple):
     t0: torch.Tensor
     x0: torch.Tensor
     b_t: torch.Tensor
-
-
-def round_tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 values rounded to TF32 (10 mantissa bits) to nearest, ties to
-    even, in integer arithmetic on the bits; the result is float32 with the
-    13 low bits zero. (The decode kernels round ties away from zero,
-    ``cvt.rna``: the two differ on exact ties only.)"""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF).view(torch.float32)
-
-
-def split_tf32(x: torch.Tensor):
-    """float32 x as two TF32 values (hi, lo): hi = x rounded, lo = x − hi
-    rounded (x − hi is exact in float32). hi + lo keeps 22 of x's 24
-    mantissa bits, and hi·hi + hi·lo + lo·hi misses a product by lo·lo."""
-    hi = round_tf32(x)
-    return hi, round_tf32(x - hi)
 
 
 def truncate_tf32(x: torch.Tensor) -> torch.Tensor:

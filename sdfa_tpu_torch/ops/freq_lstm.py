@@ -7,9 +7,10 @@ index f·2H + d·H + h, b_proj (out,) or None — and returns (rows, out).
 
 On a card a chunk of rows goes through three phases, each a hand-written
 kernel: the input projection xp = x·w_ih (+ bias) for all frequency steps
-and both directions at once; the recurrence on the step loop of
-``csrc/bilstm_layer.cuh`` (at H = 128 and 256 the cluster step: a cluster
-of 4 or 8 blocks holds one direction's w_hh in shared memory and owns
+and both directions at once, in 3xTF32 on the tensor cores (w_ih staged once
+per call: ``bilstm_layer.proj_scratch``); the recurrence on the step loop of
+``csrc/bilstm_layer.cuh`` (at H = 128 and 256 the cluster step: a cluster of
+4 or 8 blocks holds one direction's w_hh in shared memory and owns
 ``ROW_TILE`` rows, the two directions in different clusters side by side;
 from H = 384 on the wide step loop, w_hh through L2), its h (rows, F, 2H)
 written to scratch; the output projection h·w_proj as a tiled product whose
@@ -27,7 +28,8 @@ import collections
 import torch
 
 from . import build, note_launch
-from .bilstm_layer import HIDDENS, WIDE_UNITS, bilstm_layer_plain, layer_tiled_chunk
+from .bilstm_layer import (HIDDENS, WIDE_UNITS, bilstm_layer_plain, layer_tiled_chunk,
+                           proj_scratch)
 from .bilstm_layer import takes as layer_takes
 
 LAUNCHES = collections.Counter()  # wrapper calls that launched the kernels, by hidden width
@@ -183,11 +185,13 @@ def freq_lstm(x, w_ih, w_hh, gate_bias, w_proj, b_proj):
     groups = resident_groups(x.device, hid)
     n = scratch_rows(rows, n_freq, groups, hid)
     empty = dict(device=x.device, dtype=torch.float32)
+    (wt,), xpad = proj_scratch(x, n_in, hid, n * n_freq)
     xp = torch.empty(2, n, n_freq, gdim, **empty)
     h = torch.empty(n, n_freq, 2 * hid, **empty)
     part = torch.empty(out_slabs(k), n, out_dim, **empty)
     out = torch.empty(rows, out_dim, **empty)
-    build.launch("freq_lstm", (x, w_ih, w_hh, gate_bias, w_proj, b_proj, xp, h, part, out),
+    build.launch("freq_lstm", (x, w_ih, w_hh, gate_bias, w_proj, b_proj, wt, xpad, xp, h, part,
+                               out),
                  (rows, n_freq, n_in, hid, out_dim, chunk_rows(n_freq, groups, hid)), x.device)
     LAUNCHES[hid] += 1
     note_launch("freq_lstm", cost(rows, n_freq, n_in, hid, out_dim, gate_bias is not None,

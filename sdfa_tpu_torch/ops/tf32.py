@@ -1,0 +1,30 @@
+"""TF32 rounding in plain tensors: the operands the tensor cores see.
+
+The kernels that multiply on Hopper's tensor cores in TF32 (K3's products in
+``csrc/decode_solve.cu``, the recurrent kernels' input projection in
+``csrc/bilstm_layer.cuh``) round each float32 operand to nearest first; the
+tensor cores would truncate it. 3xTF32 keeps float32 grade from two TF32
+parts of each value. ``round_tf32`` and ``split_tf32`` repeat that rounding
+for the plain versions, the constant builds and the CPU tests.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to TF32 (10 mantissa bits) to nearest, ties to
+    even, in integer arithmetic on the bits; the result is float32 with the
+    13 low bits zero. (The kernels round ties away from zero, ``cvt.rna``:
+    the two differ on exact ties only.)"""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """float32 x as two TF32 values (hi, lo): hi = x rounded, lo = x − hi
+    rounded (x − hi is exact in float32). hi + lo keeps 22 of x's 24
+    mantissa bits, and hi·hi + hi·lo + lo·hi misses a product by lo·lo."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)

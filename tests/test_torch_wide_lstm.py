@@ -225,8 +225,9 @@ def test_wide_freq_tiled_matches_plain(rows, n_freq, hid, out, groups):
 
 
 def test_projection_walks_k_tiles_past_512():
-    """The input projection's k tiles of 16, the last one partial, against one
-    product: 1024 and 1000 inputs, with and without the gate bias."""
+    """The input projection's k tiles of 32 in 3xTF32, the last one partial,
+    against one float32 product: 1024 and 1000 inputs, with and without the
+    gate bias."""
     rng = np.random.default_rng(60)
     for n_in in (1024, 1000):
         x = torch.from_numpy(_rand(rng, (3, 2, n_in), 1.0))

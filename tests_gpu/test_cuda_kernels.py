@@ -297,3 +297,63 @@ def test_cuda_wide_training_core_matches_plain(cuda, steps, rows, hid):
     for g, w in zip(got, want):
         assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-4
     assert torch.equal(got[0], torch.autograd.grad(K5.bilstm_core(xp, w_hh), (xp,), dout)[0])
+
+
+# --- the input projection alone (proj_kernel in 3xTF32), at each instantiation -------
+
+
+@pytest.mark.parametrize("hid,rows,steps,n_in,bias", [
+    (128, 7, 32, 64, True),      # <512>: K1's input width; 224 pairs, a partial row tile
+    (128, 3, 5, 67, False),      # an input width off 4: through the padded copy
+    (256, 5, 64, 256, True),     # <1024>: K2's first layer; 320 pairs
+    (256, 3, 7, 100, False),     # K = 100: a partial k tile, padded copy
+    (384, 2, 9, 768, True),      # <0>: wide384's deeper layers
+    (1024, 1, 3, 1024, False)])  # <0> at H = 1024: 8192 gate columns, 3 pairs
+def test_cuda_projection_matches_plain_and_float64(cuda, hid, rows, steps, n_in, bias):
+    """The projection alone against ``projection_tiled`` (< 1e-4) and against a
+    float64 product (< 1e-5 of the largest |xp|), with and without the gate
+    bias, at M not a multiple of the 128-row tile."""
+    rng = np.random.default_rng(hid + n_in)
+    x = torch.from_numpy(_rand(rng, (rows, steps, n_in), 1.0)).to(cuda)
+    w_ih = torch.from_numpy(_rand(rng, (2, n_in, 4 * hid), n_in ** -0.5)).to(cuda)
+    gb = torch.from_numpy(_rand(rng, (2, 4 * hid), 0.1)).to(cuda) if bias else None
+    got = K4.projection(x, w_ih, gb)
+    assert float((got - K4.projection_tiled(x, w_ih, gb)).abs().max()) < 1e-4
+    exact = torch.stack([x.double() @ w_ih[d].double() for d in range(2)])
+    if bias:
+        exact = exact + gb.double()[:, None, None]
+    assert float((got.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+
+
+def test_cuda_projection_reads_x_off_16_bytes(cuda):
+    """An x that starts 4 bytes past an aligned address goes through the
+    padded copy and gives the aligned x's result bit for bit."""
+    rng = np.random.default_rng(9)
+    buf = torch.from_numpy(_rand(rng, (1 + 9 * 16 * 64,), 1.0)).to(cuda)
+    x = buf[1:].view(9, 16, 64)
+    w_ih = torch.from_numpy(_rand(rng, (2, 64, 512), 0.125)).to(cuda)
+    assert K4.proj_needs_pad(x)
+    assert torch.equal(K4.projection(x, w_ih, None), K4.projection(x.clone(), w_ih, None))
+
+
+def test_cuda_projection_sees_a_weight_updated_in_place(cuda):
+    """The split weights are staged anew on every launch: after w_ih is changed
+    in place (as an optimizer step does between two ``plot_forward`` calls),
+    each of K4, K2 and K1 gives the new weights' result, not the old one's."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(_rand(rng, (5, 6, 256), 0.5)).to(cuda)
+    w = [torch.from_numpy(a).to(cuda) for a in (
+        _rand(rng, (2, 256, 1024), 0.06), _rand(rng, (2, 256, 1024), 0.06),
+        _rand(rng, (2, 1024), 0.06), _rand(rng, (2, 512, 1024), 0.06),
+        _rand(rng, (2, 256, 1024), 0.06), _rand(rng, (2, 1024), 0.06))]
+    x1 = [None if a is None else torch.from_numpy(a).to(cuda)
+          for a in _k1_args(rng, 9, 32, 64, 128, 256)]
+    before = (K4.bilstm_layer(x, *w[:3]), K2.bilstm2(x, *w), K1.freq_lstm(*x1))
+    with torch.no_grad():
+        for weight in (w[0], w[3], x1[1]):  # K4's / K2's first, K2's second layer, K1's w_ih
+            weight.mul_(-0.5)
+    after = (K4.bilstm_layer(x, *w[:3]), K2.bilstm2(x, *w), K1.freq_lstm(*x1))
+    plain = (K4.bilstm_layer_plain(x, *w[:3]), K2.bilstm2_plain(x, *w), K1.freq_lstm_plain(*x1))
+    for old, new, want in zip(before, after, plain):
+        assert float((new - want).abs().max()) < 1e-4
+        assert float((old - want).abs().max()) > 1e-2
