@@ -21,6 +21,8 @@ Run from the repository root with no arguments:
                                      # by git archive), a process each: two commits on one card
     python3 chip_smoke.py --proj-turns PARENT . . PARENT  # the same for the input projection's
                                      # rows (proj_kernel at each instantiation)
+    python3 chip_smoke.py --outproj-turns PARENT . . PARENT  # the same for K1's output
+                                     # projection's rows (out_parts_kernel + out_sum_kernel)
     python3 chip_smoke.py --longrun 2500  # the longrun phase alone at that many steps
 
 Phases, each printed as one JSON line:
@@ -33,14 +35,16 @@ Phases, each printed as one JSON line:
    hidden width, the wide step loop's tiling for each of its kernels at H =
    384, 512 and 1024 (units a block U, rows a block R, blocks and rows one
    cooperative launch takes), how many
-   blocks of the solve product and of the input projection ``proj_kernel`` the card
-   holds, ptxas' registers and spills of the projection's kernels, and the
+   blocks of the solve product, of the input projection ``proj_kernel`` and of K1's
+   output projection ``out_parts_kernel`` the card holds, ptxas' registers and
+   spills of the two projections' kernels, and the
    tensor-core opcodes (``HGMMA``) in the machine code of ``decode_solve``,
    ``bilstm_layer``, ``bilstm2`` and ``freq_lstm``.
 3. kernels: runs each kernel at its path's shapes, holds it against its plain
    PyTorch version on the same inputs, times both with CUDA events, computes
    the card's bound for the same work (the recurrent kernels' input projection
-   at the TF32 rate in three passes, the rest of their work at the f32 rate;
+   and K1's output projection at the TF32 rate in three passes, the rest of
+   their work at the f32 rate;
    ``f32_bound_ms`` all at the f32 rate), and times the one library call that
    computes the same function where there is one (``torch.nn.LSTM`` through
    cuDNN for the recurrences), as a yardstick that no path uses. ``freq_lstm``
@@ -53,6 +57,12 @@ Phases, each printed as one JSON line:
    output widths, K4 with a 1024-wide input and at H = 1024, K5 at 6400 rows and H =
    512), each wide row also split by kernel under ``torch.profiler`` (the step loop
    apart from the input projection ``proj_kernel`` and K1's output projection).
+   The two projections (3xTF32 on the tensor cores) have rows of their own: the
+   input projection at every instantiation (``proj_row_specs``), K1's output
+   projection at every K1 shape (``outproj_row_specs``), each its device ms from
+   the split beside its bound, cuBLAS's f32 product and its plain walk, and
+   launched alone against the plain walk and a float64 product (<= 1e-5 of the
+   largest value), the output projection also twice for the same bits.
    ``decode_solve_full``, K3's full body (the TPU ``_kernel``), runs on the
    ``retarget`` phase's correspondence table at 216, 128 and 512 windows and on
    the identity table at 256, split into decode, product and sum by kernel name,
@@ -292,7 +302,8 @@ WIDE_K4 = ((384, 384), (384, 768), (512, 512), (512, 1024), (1024, 1024))
 WIDE_K5 = ((64, 100, 512, 512), (64, 100, 384, 384), (32, 6400, 256, 64), (32, 6400, 384, 64),
            (32, 6400, 512, 64))
 WIDE_HIDDENS = (384, 512, 1024)  # the build line's tilings of the wide step loop
-PROJ_F64_REL = 1e-5  # the input projection vs a float64 product, over the row's largest |xp|
+PROJ_F64_REL = 1e-5  # a projection (input, or K1's output) vs a float64 product, over the
+                     # largest value it computes
 # kernel_split's parts by a fragment of the kernel's name: a recurrent kernel's, K3 full body's
 RECURRENT_PARTS = (("steps_kernel", "step_loop"), ("proj_kernel", "input_projection"),
                    ("proj_", "input_projection_staging"), ("out_parts", "output_projection"),
@@ -300,6 +311,8 @@ RECURRENT_PARTS = (("steps_kernel", "step_loop"), ("proj_kernel", "input_project
 # the whole input projection of a call, for --proj-rows: proj_kernel, and in a checkout whose
 # projection stages w_ih first, proj_weights_kernel (and proj_pad_kernel)
 PROJ_PARTS = (("proj_", "input_projection"),)
+# the whole output projection of a K1 call, for --outproj-rows: the slabs' product and their sum
+OUTPROJ_PARTS = (("out_parts", "output_projection"), ("out_sum", "output_projection"))
 # kernel_split profiles a call again when its trace lost device records, and pads the traced
 # window with idle host time at both ends (records past its edges are dropped)
 PROFILE_ATTEMPTS = 4
@@ -619,6 +632,40 @@ def proj_row_call(spec, kernels, dev, seed):
     return (lambda: bilstm2.bilstm2(x, *w1, *w2)), [(x, w1[0], w1[2]), (stack, w2[0], w2[2])]
 
 
+def outproj_row_specs():
+    """The rows K1's output projection (``out_parts_kernel`` + ``out_sum_kernel``)
+    is timed at, every K1 shape of the path: (row, H, rows, out). At H = 128,
+    out 256 (K = 8192): the kernel phase's 3072 rows, a request's 768, live
+    serving's 12 / 128 / 512, ``plot_forward``'s 6400; then the WIDE_K1 shapes
+    at a request's 768 rows (K = 16384, 24576, 32768)."""
+    specs = [(f"k1_{r}", 128, r, 256)
+             for r in (K1_ROWS, K1_REQUEST_ROWS) + K1_LIVE_ROWS + (K1_PLOT_ROWS,)]
+    specs += [(f"k1_h{h}_out{o}", h, K1_REQUEST_ROWS, o) for h, o in WIDE_K1]
+    return specs
+
+
+def outproj_row_call(spec, freq_lstm, dev, seed):
+    """The K1 call of an output-projection row (``outproj_row_specs``) on seeded
+    inputs (x (rows, 32, 64), weights at PyTorch's LSTM scale, w_proj at 0.02),
+    and the projection's own operands: an h of the shape K1 gives it, (rows, 32
+    · 2H) with |h| < 1, the same w_proj and b_proj. ``freq_lstm``: the module
+    of the package to call."""
+    import torch
+
+    _, hid, rows, out = spec
+    steps, k = 32, 32 * 2 * hid
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    args = (randn(rows, steps, 64, scale=0.5), randn(2, 64, 4 * hid, scale=hid ** -0.5),
+            randn(2, hid, 4 * hid, scale=hid ** -0.5), randn(2, 4 * hid, scale=0.1),
+            randn(k, out, scale=0.02), randn(out, scale=0.1))
+    h = (2 * torch.rand(rows, k, generator=gen) - 1).to(dev)
+    return (lambda: freq_lstm.freq_lstm(*args)), (h, *args[4:])
+
+
 def proj_cost(layers):
     """(flops, bytes) of the projections on ``layers``' operands: one product
     of both directions, 2 M in 8H FLOP a layer, and x, w_ih, the bias read once,
@@ -752,6 +799,9 @@ def main():
           "proj_kernel_ptxas": ptxas_kernels(
               build.BUILD_INFO.get("bilstm_layer", {}).get("ptxas", ""), "proj_"),
           "proj_kernel_tiling": bilstm_layer.proj_tiling(dev),
+          "out_parts_kernel_ptxas": ptxas_kernels(
+              build.BUILD_INFO.get("freq_lstm", {}).get("ptxas", ""), "out_parts"),
+          "out_parts_kernel_tiling": freq_lstm.out_tiling(dev),
           "ptxas": {k: v["ptxas"] for k, v in build.BUILD_INFO.items()}})
 
     mark("device_and_build")
@@ -818,8 +868,9 @@ def main():
         """A recurrent kernel (K1, K2, K4) against its plain version. ``cost``: the
         kernel module's (flops, bytes) of one launch on ``args``, the work its bound
         reckons: the input projections' product (w_ih is ``args[1]``, K2's second
-        layer's ``args[4]``) at the TF32 rate in three passes, the rest at the f32
-        rate; ``f32_bound_ms`` reckons it all at the f32 rate."""
+        layer's ``args[4]``) and K1's output projection (w_proj is ``args[4]``) at
+        the TF32 rate in three passes, the rest at the f32 rate; ``f32_bound_ms``
+        reckons it all at the f32 rate."""
         with torch.inference_mode():
             got = kernel(*args)
             torch.cuda.synchronize()
@@ -833,12 +884,14 @@ def main():
         pairs = args[0].numel() // args[0].shape[-1]
         proj = sum(2.0 * pairs * w.shape[1] * 2 * w.shape[2]
                    for w in ((args[1], args[4]) if name == "bilstm2" else (args[1],)))
+        if name == "freq_lstm":  # K1's output projection, (rows, F 2H) . (F 2H, out)
+            proj += 2.0 * args[0].shape[0] * args[4].shape[0] * args[4].shape[1]
         flops, moved = cost
         record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, flops - proj, moved,
                library_ms, source, replaces, primary, tensor_flops=3 * proj,
                f32_bound_ms=bound(flops, moved)[0],
-               bound_peaks="recurrence and output projection: 67 TFLOP/s f32; input "
-                           "projection: 3 TF32 passes at 495 TFLOP/s (f32_bound_ms: all at 67)",
+               bound_peaks="recurrence: 67 TFLOP/s f32; input projection (and K1's output "
+                           "projection): 3 TF32 passes at 495 TFLOP/s (f32_bound_ms: all at 67)",
                **extra)
 
     def repeats(name, kernel, args, first):
@@ -1234,6 +1287,48 @@ def main():
     torch.cuda.empty_cache()
 
     mark("projection_rows")
+    # K1's output projection alone (out_parts_kernel + out_sum_kernel, 3xTF32 on the tensor
+    # cores) at every K1 shape of the path (outproj_row_specs): its device ms from torch.profiler's
+    # split of the K1 call, beside its bound (3xTF32 at 495 TFLOP/s; one f32 product at 67 in
+    # f32_bound_ms), the f32 cuBLAS torch.addmm of the same operands, its plain version
+    # (output_projection_tiled), and the projection launched alone (output_projection) on an h
+    # of the kernel's shape against the plain walk, a float64 product and itself (the same bits)
+    for i, spec in enumerate(outproj_row_specs()):
+        label, hid, rows, out_dim = spec
+        call, (h, w_p, b_p) = outproj_row_call(spec, freq_lstm, dev, 700 + i)
+        split = kernel_split(call)
+        with torch.inference_mode():
+            got = freq_lstm.output_projection(h, w_p, b_p)
+            torch.cuda.synchronize()
+            err = float((got - freq_lstm.output_projection_tiled(h, w_p, b_p)).abs().max())
+            exact = torch.addmm(b_p.double(), h.double(), w_p.double())
+            rel = float((got.double() - exact).abs().max() / exact.abs().max())
+            del exact
+            twice = repeats("output_projection", freq_lstm.output_projection, (h, w_p, b_p), got)
+            plain_ms = time_ms(lambda: freq_lstm.output_projection_tiled(h, w_p, b_p), 2)
+            library_ms = time_ms(lambda: torch.addmm(b_p, h, w_p), 20)
+        flops = 2.0 * h.numel() * out_dim
+        moved = 4.0 * (h.numel() + w_p.numel() + out_dim + rows * out_dim)
+        bound_ms, bound_by = bound(0.0, moved, 3 * flops)
+        line = {"row": label, "shape": [rows, h.shape[1], out_dim], "hidden": hid,
+                "ms": split["output_projection"], "bound_ms": bound_ms, "bound_by": bound_by,
+                "f32_bound_ms": bound(flops, moved)[0], "library_ms": library_ms,
+                "plain_ms": plain_ms, "max_abs_err": err, "max_rel_vs_f64": rel,
+                "repeats_bit_for_bit": twice, "gflop": flops / 1e9, "mbytes": moved / 1e6}
+        emit({"phase": "kernel", "name": "out_parts_kernel", **line, "split_ms": split,
+              "ms_is": "device ms of out_parts_kernel + out_sum_kernel in the torch.profiler "
+                       "split of the K1 call",
+              "bound_peaks": "3 TF32 passes at 495 TFLOP/s (f32_bound_ms: one at 67 TFLOP/s f32)",
+              "library_is": "f32 torch.addmm(b_proj, h, w_proj), h (rows, F 2H)",
+              "card": smi})
+        if not (err <= TOL["freq_lstm"] and rel <= PROJ_F64_REL):
+            raise RuntimeError(f"out_parts_kernel {label}: {err} from its plain version, {rel} of "
+                               f"the largest |out| from float64")
+        report["freq_lstm"].setdefault("output_projection", []).append(line)
+        del call, h, w_p, b_p, got
+    torch.cuda.empty_cache()
+
+    mark("output_projection_rows")
     # K5 at the train step's two shapes (the FreqLstm core first: it is the larger), then,
     # held to the plain version only, ragged shapes that reach every edge of the cluster
     # tiling at both widths: one row; a partial row tile with T = 2 (the double buffers'
@@ -4978,9 +5073,39 @@ def proj_rows(root: str):
     emit({"phase": "proj_rows", "root": root, "ms": ms})
 
 
+def outproj_rows(root: str):
+    """``chip_smoke.py --outproj-rows ROOT``: the package at ROOT (as ``--k3-rows``
+    takes it) times K1's output projection at its rows of the kernel phase
+    (``outproj_row_specs``): the device ms of ``out_parts_kernel`` +
+    ``out_sum_kernel`` in a call of the public ``freq_lstm.freq_lstm``, by
+    torch.profiler over 10 calls after a warm-up, on the same seeded inputs;
+    prints one JSON line of ms by row."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import sdfa_tpu_torch
+    from sdfa_tpu_torch.ops import build, freq_lstm
+
+    if not os.path.abspath(sdfa_tpu_torch.__file__).startswith(root + os.sep):
+        sys.exit(f"--outproj-rows: imported {sdfa_tpu_torch.__file__}, not the package at {root}")
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py --outproj-rows: torch.cuda.is_available() is false")
+    dev = torch.device("cuda:0")
+    build.load_libraries(["freq_lstm"])
+    ms = {}
+    for i, spec in enumerate(outproj_row_specs()):
+        call, _ = outproj_row_call(spec, freq_lstm, dev, 700 + i)
+        ms[spec[0]] = kernel_split(call, 10, OUTPROJ_PARTS)["output_projection"]
+        del call
+        torch.cuda.empty_cache()
+    emit({"phase": "outproj_rows", "root": root, "ms": ms})
+
+
 def rows_in_turns(kind: str, roots):
-    """``chip_smoke.py --k3-turns ROOT [ROOT ...]`` (``kind`` "k3") or
-    ``--proj-turns`` (``kind`` "proj"): ``--k3-rows`` / ``--proj-rows`` of each
+    """``chip_smoke.py --k3-turns ROOT [ROOT ...]`` (``kind`` "k3"),
+    ``--proj-turns`` (``kind`` "proj") or ``--outproj-turns`` (``kind``
+    "outproj"): ``--k3-rows`` / ``--proj-rows`` / ``--outproj-rows`` of each
     ROOT in a process of its own, in the order given (parent, change, change,
     parent compares two commits on one card), then each row's times by root;
     ends with the card's name and power limit and the result line."""
@@ -5022,6 +5147,10 @@ if __name__ == "__main__":
         proj_rows(sys.argv[2])
     elif sys.argv[1:2] == ["--proj-turns"]:
         rows_in_turns("proj", sys.argv[2:])
+    elif sys.argv[1:2] == ["--outproj-rows"]:
+        outproj_rows(sys.argv[2])
+    elif sys.argv[1:2] == ["--outproj-turns"]:
+        rows_in_turns("outproj", sys.argv[2:])
     elif sys.argv[1:2] == ["--longrun"]:
         longrun_main(int(sys.argv[2]))
     else:

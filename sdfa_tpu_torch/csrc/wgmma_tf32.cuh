@@ -1,11 +1,12 @@
 // Hopper building blocks of a 3xTF32 product on the tensor cores: 16-byte
-// cp.async copies into a ring of shared-memory stages in the 128-byte swizzle,
-// the shared-memory descriptor of a K-major operand tile, the split of an f32
-// value into two TF32 parts, and wgmma.mma_async m64n128k8 TF32 with A from
-// registers and f32 accumulators. The input projection of the recurrent
-// kernels (bilstm_layer.cuh::proj_kernel) is built from them; they are the
-// ones csrc/decode_solve.cu's split_product_kernel runs, which keeps its own
-// copy.
+// (and 4-byte) cp.async copies into a ring of shared-memory stages, the
+// shared-memory descriptor of a K-major operand tile in the 128-byte swizzle,
+// the split of an f32 value into two TF32 parts, and wgmma.mma_async
+// m64n128k8 TF32 with A from registers and f32 accumulators. Two products are
+// built from them: the input projection of the recurrent kernels
+// (bilstm_layer.cuh::proj_kernel) and FreqLstm's output projection
+// (freq_lstm.cu::out_parts_kernel). They are the ones csrc/decode_solve.cu's
+// split_product_kernel runs, which keeps its own copy.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -19,6 +20,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronously (through L1); src_bytes = 0 writes a zero.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
 }

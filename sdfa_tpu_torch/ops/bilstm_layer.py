@@ -40,7 +40,7 @@ import collections
 import torch
 
 from . import build, note_launch
-from .tf32 import split_tf32
+from .tf32 import tiled_product
 
 LAUNCHES = collections.Counter()  # kernel launches by ``bilstm_layer`` in this process, by hidden width
 
@@ -155,14 +155,7 @@ def projection_tiled(x, w_ih, gate_bias):
     ties only), then per k tile of ``PROJ_K`` input features (the last one
     partial: any input width) the three products x_hi·w_hi, x_hi·w_lo,
     x_lo·w_hi added to one sum, then the gate bias."""
-    x_hi, x_lo = split_tf32(x)
-    w_hi, w_lo = split_tf32(w_ih)
-    xp = x.new_zeros(2, *x.shape[:-1], w_ih.shape[-1])
-    for k0 in range(0, x.shape[-1], PROJ_K):
-        ks = slice(k0, k0 + PROJ_K)
-        a_hi, a_lo = x_hi[None, ..., ks], x_lo[None, ..., ks]
-        b_hi, b_lo = w_hi[:, None, ks], w_lo[:, None, ks]
-        xp = xp + a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+    xp = tiled_product(x[None], w_ih[:, None], PROJ_K)  # (2, rows, T, 4H)
     return xp if gate_bias is None else xp + gate_bias[:, None, None]
 
 

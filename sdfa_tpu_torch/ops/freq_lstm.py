@@ -13,12 +13,21 @@ per call: ``bilstm_layer.proj_scratch``); the recurrence on the step loop of
 4 or 8 blocks holds one direction's w_hh in shared memory and owns
 ``ROW_TILE`` rows, the two directions in different clusters side by side;
 from H = 384 on the wide step loop, w_hh through L2), its h (rows, F, 2H)
-written to scratch; the output projection h·w_proj as a tiled product whose
-K = F·2H is split in slabs of ``K_SLAB``, the slabs' partial sums added in
-slab order, at any output width. What is not CUDA — the row chunks (whole
-waves of resident clusters, or of the wide loop's row tiles), the scratch
-sizes, the slabs and their order — lives here, and ``freq_lstm_tiled`` walks
-the same tiling in plain tensors so that the CPU tests reach it.
+written to scratch; the output projection h·w_proj in 3xTF32 on the tensor
+cores too, at any output width: K = F·2H is split in slabs of ``K_SLAB``,
+each slab's partial sum taken k tile by k tile of ``OUT_K`` (three TF32
+products, h and w_proj split into hi and lo parts, in ``wgmma``'s truncating
+f32 sums), the slabs added in slab order in f32, then the bias. The kernel
+computes the transposed product w_proj^T·h^T, so that w_proj is read as it
+lies, (K, out), and split in registers, and h, K-major as the step loop
+writes it, is the operand the tensor cores read from shared memory: nothing
+is staged before the call, and a w_proj updated in place is always read
+anew. What is not CUDA — the row chunks (whole waves of resident clusters,
+or of the wide loop's row tiles), the scratch sizes, the slabs and their
+order, the k tiles — lives here, and ``freq_lstm_tiled`` walks the same
+tiling in plain tensors so that the CPU tests reach it
+(``output_projection_tiled`` for the last phase). ``output_projection`` runs
+that phase alone, for the tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -31,11 +40,13 @@ from . import build, note_launch
 from .bilstm_layer import (HIDDENS, WIDE_UNITS, bilstm_layer_plain, layer_tiled_chunk,
                            proj_scratch)
 from .bilstm_layer import takes as layer_takes
+from .tf32 import tiled_product
 
 LAUNCHES = collections.Counter()  # wrapper calls that launched the kernels, by hidden width
 
 ROW_TILE = 32               # rows per cluster (per block of the wide loop) at every width
 K_SLAB = 512                # K range of one partial sum of the output projection
+OUT_K = 32                  # the output projection's k depth of a stage
 # Rows are walked in chunks of at most ``row_steps(H)`` (row, step) pairs, so
 # the scratch does not grow with the batch. Per pair at H = 128 and out = 256:
 # xp 2 · 4H floats, h 2H floats, and out / K_SLAB · 2H floats of partial sums:
@@ -122,7 +133,8 @@ def freq_lstm_tiled(x, w_ih, w_hh, gate_bias, w_proj, b_proj, groups: int, slab_
     step loop with the directions apart (``layer_tiled_chunk``; from H = 384
     on the wide loop with ``groups`` · H / 32 resident blocks, so that its
     waves are the chunk's) into the h scratch, then the output projection as
-    one partial sum per K slab, added by ``sum_slabs``."""
+    ``output_projection_tiled``: a 3xTF32 partial sum per K slab, added by
+    ``sum_slabs``."""
     rows, n_freq, _ = x.shape
     hid = w_hh.shape[1]
     chunk = chunk_rows(n_freq, groups, hid)
@@ -130,11 +142,21 @@ def freq_lstm_tiled(x, w_ih, w_hh, gate_bias, w_proj, b_proj, groups: int, slab_
     outs = []
     for r in range(0, rows, chunk):
         h = layer_tiled_chunk(x[r:r + chunk], w_ih, w_hh, gate_bias, capacity)  # (n, F, 2H)
-        h = h.reshape(h.shape[0], -1)
-        parts = [h[:, k:k + K_SLAB] @ w_proj[k:k + K_SLAB]
-                 for k in range(0, h.shape[1], K_SLAB)]
-        outs.append(sum_slabs(parts, b_proj, slab_order))
+        outs.append(output_projection_tiled(h.reshape(h.shape[0], -1), w_proj, b_proj,
+                                            slab_order))
     return torch.cat(outs)
+
+
+def output_projection_tiled(h, w_proj, b_proj, slab_order=None):
+    """The output projection (rows, K) → (rows, out) the way its kernel
+    computes it: one partial sum per K slab of ``K_SLAB``, each in 3xTF32 k
+    tile by k tile of ``OUT_K`` (``tiled_product``: h and w_proj split into
+    TF32 parts, the kernel rounding ties away from zero, this to even), the
+    slabs added by ``sum_slabs`` in slab order (or ``slab_order``), the bias
+    last."""
+    parts = [tiled_product(h[:, k:k + K_SLAB], w_proj[k:k + K_SLAB], OUT_K)
+             for k in range(0, h.shape[1], K_SLAB)]
+    return sum_slabs(parts, b_proj, slab_order)
 
 
 def tiling(device) -> dict:
@@ -150,6 +172,15 @@ def tiling(device) -> dict:
                            f"{k_slab}, {c128} / {c256} clusters, {wide} wide blocks resident; "
                            f"this module says {ROW_TILE} and {K_SLAB}")
     return {128: c128, 256: c256, "wide": wide}
+
+
+def out_tiling(device) -> dict:
+    """The output projection as built: its k depth of a stage (checked
+    against ``OUT_K``) and how many of its blocks ``device`` holds at once."""
+    k, blocks = build.query_ints("freq_lstm", "freq_lstm_out_tiling", 2, device)
+    if k != OUT_K:
+        raise RuntimeError(f"freq_lstm.cu's output projection stages {k} k; OUT_K says {OUT_K}")
+    return {"k_tile": k, "resident_blocks": blocks}
 
 
 def resident_groups(device, hidden: int) -> int:
@@ -196,4 +227,30 @@ def freq_lstm(x, w_ih, w_hh, gate_bias, w_proj, b_proj):
     LAUNCHES[hid] += 1
     note_launch("freq_lstm", cost(rows, n_freq, n_in, hid, out_dim, gate_bias is not None,
                                   b_proj is not None))
+    return out
+
+
+def output_projection(h, w_proj, b_proj):
+    """The output projection alone, as a chunk of ``freq_lstm`` runs it: h
+    (rows, K) → (rows, out). The kernel for CUDA tensors (no launch counter:
+    no path calls it, the tests and ``chip_smoke.py`` hold it to
+    ``output_projection_tiled``), ``output_projection_tiled`` for CPU
+    tensors."""
+    if h.device.type == "cpu":
+        return output_projection_tiled(h, w_proj, b_proj)
+    rows, k = h.shape
+    out_dim = w_proj.shape[-1]
+    if k % 4 or out_dim < 1:
+        raise ValueError(f"output_projection takes K a multiple of 4, out >= 1; got h "
+                         f"{tuple(h.shape)}, w_proj {tuple(w_proj.shape)}")
+    build.check("h", h, (rows, k))
+    build.check("w_proj", w_proj, (k, out_dim))
+    if b_proj is not None:
+        build.check("b_proj", b_proj, (out_dim,))
+    build.check_aligned(h=h)
+    empty = dict(device=h.device, dtype=torch.float32)
+    part = torch.empty(out_slabs(k), rows, out_dim, **empty)
+    out = torch.empty(rows, out_dim, **empty)
+    build.launch("freq_lstm", (h, w_proj, b_proj, part, out), (rows, k, out_dim), h.device,
+                 entry="freq_lstm_output_projection")
     return out

@@ -4,7 +4,8 @@
 that is not arithmetic: row chunks of whole waves of resident clusters, the
 input projection ahead of the recurrence, the gate columns each of a
 cluster's four blocks owns, the two directions apart, the h scratch, and the
-output projection summed slab by slab in a fixed order. It is held to the
+output projection in 3xTF32 summed slab by slab in a fixed order (its
+accuracy alone: tests/test_torch_outproj_tf32.py). It is held to the
 plain version (1e-5: float32 on both sides, the sums taken in another order)
 and to the JAX package's reference and its Pallas kernel in interpret mode
 (5e-5, the repo's forward budget) at the shipped encoder's hidden size and
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 
 from sdfa_tpu.ops.pallas_freq_lstm import freq_lstm_fused, freq_lstm_reference
 from sdfa_tpu_torch.ops import freq_lstm as K1
+from sdfa_tpu_torch.ops.tf32 import tiled_product
 
 import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
 
@@ -93,12 +95,13 @@ def test_slab_sum_order_is_fixed():
     other = K1.sum_slabs(parts, bias, order=[4, 3, 2, 1, 0])
     assert not torch.equal(other, want)
     assert float((other - want).abs().max()) < 1e-5
-    # the tiled walk's output is the slab chain's, bit for bit
+    # the tiled walk's output is the slab chain's, bit for bit: each slab a
+    # 3xTF32 product k tile by k tile (tiled_product), the slabs added first to last
     tx = [None if a is None else torch.from_numpy(a) for a in _args(5, 6, 5, 7, True)]
     h = K1.layer_tiled_chunk(*tx[:4]).reshape(6, -1)
-    chain = h[:, :512] @ tx[4][:512]
+    chain = tiled_product(h[:, :512], tx[4][:512], K1.OUT_K)
     for k in (512, 1024):
-        chain = chain + h[:, k:k + 512] @ tx[4][k:k + 512]
+        chain = chain + tiled_product(h[:, k:k + 512], tx[4][k:k + 512], K1.OUT_K)
     assert torch.equal(K1.freq_lstm_tiled(*tx, groups=2), chain + tx[5])
 
 

@@ -5,8 +5,9 @@ at H = 128 too, a small mesh for decode + solve, both its bodies; max |diff| <
 recurrence, the
 training core, forward and backward, at the cluster tiling's edges (forward
 < 1e-4; gradients < 1e-4 of max |reference|; the backward repeats bit for
-bit), and the wide step loop (H = 384 and up, inputs past 512; K1 at H = 256
-and any output width) at its edges."""
+bit), the wide step loop (H = 384 and up, inputs past 512; K1 at H = 256
+and any output width) at its edges, and the two projections alone (3xTF32 on
+the tensor cores) against their plain walks and float64."""
 
 import numpy as np
 import pytest
@@ -275,6 +276,80 @@ def test_cuda_freq_lstm_at_other_widths_matches_plain(cuda, rows, n_freq, hid, o
     assert got.shape == (rows, out)
     assert float((got - K1.freq_lstm_plain(*x1)).abs().max()) < 1e-4
     assert torch.equal(got, K1.freq_lstm(*x1))
+
+
+# --- K1's output projection alone (out_parts_kernel + out_sum_kernel, 3xTF32) -------
+
+
+def _out_operands(rows, k, out, seed, bias=True):
+    """h as the step loop leaves it (|h| < 1), w_proj and b_proj at the kernel
+    phase's scales."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-1, 1, (rows, k)).astype(np.float32), _rand(rng, (k, out), 0.02),
+            _rand(rng, (out,), 0.1) if bias else None)
+
+
+@pytest.mark.parametrize("rows,k,out,bias", [
+    (768, 8192, 256, True),    # a request's, H = 128
+    (12, 8192, 256, True),     # a stream's first block
+    (129, 16384, 512, False),  # H = 256, out 512: one row past a 128-row tile
+    (37, 24576, 384, True),    # H = 384
+    (5, 32768, 512, False),    # H = 512
+    (33, 1280, 201, True),     # an output width off the 128-column tile; a half slab
+    (3, 8192, 7, False)])      # an output width off 4: 4-byte copies, scalar stores
+def test_cuda_output_projection_matches_plain_and_float64(cuda, rows, k, out, bias):
+    """The output projection alone against ``output_projection_tiled`` (< 1e-4)
+    and against a float64 product (< 1e-5 of the largest |out|), launched twice
+    for the same bits."""
+    h, w, b = (None if a is None else torch.from_numpy(a).to(cuda)
+               for a in _out_operands(rows, k, out, rows + k + out, bias))
+    got = K1.output_projection(h, w, b)
+    assert got.shape == (rows, out)
+    assert float((got - K1.output_projection_tiled(h, w, b)).abs().max()) < 1e-4
+    exact = h.double() @ w.double()
+    if b is not None:
+        exact = exact + b.double()
+    assert float((got.double() - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+    assert torch.equal(got, K1.output_projection(h, w, b))
+
+
+def test_cuda_output_projection_rows_do_not_depend_on_the_call(cuda):
+    """A row's output is the same bits whichever rows share its call (a
+    session's 12-row block against a server's round): the tiles and the slabs
+    do not depend on the row count. The same holds for K1 as a whole."""
+    h, w, b = (torch.from_numpy(a).to(cuda) for a in _out_operands(300, 8192, 256, 6))
+    whole = K1.output_projection(h, w, b)
+    assert torch.equal(K1.output_projection(h[:12].contiguous(), w, b), whole[:12])
+    assert torch.equal(K1.output_projection(h[130:200].contiguous(), w, b), whole[130:200])
+    rng = np.random.default_rng(13)
+    x1 = [torch.from_numpy(a).to(cuda) for a in _k1_args(rng, 140, 32, 64, 128, 256)]
+    k1_whole = K1.freq_lstm(*x1)
+    assert torch.equal(K1.freq_lstm(x1[0][:12].contiguous(), *x1[1:]), k1_whole[:12])
+
+
+def test_cuda_output_projection_reads_w_proj_off_16_bytes(cuda):
+    """A w_proj that starts 4 bytes past an aligned address is copied 4 bytes at
+    a time and gives the aligned w_proj's result bit for bit."""
+    h, w, b = (torch.from_numpy(a).to(cuda) for a in _out_operands(50, 2048, 256, 5))
+    buf = torch.empty(1 + w.numel(), device=cuda)
+    off = buf[1:].view(w.shape)
+    off.copy_(w)
+    assert off.data_ptr() % 16
+    assert torch.equal(K1.output_projection(h, off, b), K1.output_projection(h, w, b))
+
+
+def test_cuda_output_projection_sees_a_weight_updated_in_place(cuda):
+    """w_proj is read as it lies on every launch: after it is changed in place
+    (as an optimizer step does between two ``plot_forward`` calls), K1 gives the
+    new weights' result, not the old one's."""
+    rng = np.random.default_rng(12)
+    x1 = [torch.from_numpy(a).to(cuda) for a in _k1_args(rng, 9, 32, 64, 128, 256)]
+    before = K1.freq_lstm(*x1)
+    with torch.no_grad():
+        x1[4].mul_(-0.5)
+    after, want = K1.freq_lstm(*x1), K1.freq_lstm_plain(*x1)
+    assert float((after - want).abs().max()) < 1e-4
+    assert float((before - want).abs().max()) > 1e-2
 
 
 @pytest.mark.parametrize("steps,rows,hid", [
