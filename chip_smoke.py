@@ -23,6 +23,9 @@ Run from the repository root with no arguments:
                                      # rows (proj_kernel at each instantiation)
     python3 chip_smoke.py --outproj-turns PARENT . . PARENT  # the same for K1's output
                                      # projection's rows (out_parts_kernel + out_sum_kernel)
+    python3 chip_smoke.py --wide-turns PARENT . . PARENT  # the same for the wide step loop's
+                                     # rows (wide_steps_kernel, wide_bwd_kernel: K1, K2, K4,
+                                     # K5 from H = 384), with each row's drift from float64
     python3 chip_smoke.py --longrun 2500  # the longrun phase alone at that many steps
 
 Phases, each printed as one JSON line:
@@ -573,6 +576,12 @@ def ptxas_kernels(ptxas: str, fragment: str) -> list:
     return found
 
 
+def wide_hidden(hidden: int) -> bool:
+    """Whether the recurrent kernels run the wide step loop at ``hidden`` units:
+    a multiple of 128 from 384 on."""
+    return hidden >= 384 and hidden % 128 == 0
+
+
 def proj_instance(hidden: int) -> int:
     """The template argument of proj_kernel at ``hidden`` units: the gate
     width 4H at 128 and 256, 0 (at run time) from 384 on."""
@@ -630,6 +639,91 @@ def proj_row_call(spec, kernels, dev, seed):
     with torch.inference_mode():
         stack = bilstm_layer.bilstm_layer(x, *w1)
     return (lambda: bilstm2.bilstm2(x, *w1, *w2)), [(x, w1[0], w1[2]), (stack, w2[0], w2[2])]
+
+
+def wide_row_specs():
+    """The rows the wide step loop (H = 384 and up) is timed at by ``--wide-rows``:
+    (row, kernel, H, shape, out). K1 at a request's 768 rows (WIDE_K1 from H =
+    384), K2 at its 216 windows (WIDE_K2), K4 at them (WIDE_K4), and K5's forward
+    (``core_fwd``: ``wide_steps_kernel`` by time, gates and c saved) and backward
+    (``core_bwd``: ``wide_bwd_kernel``) at the train step's shapes (WIDE_K5 from H =
+    384; shape (T, rows))."""
+    specs = [(f"k1_h{h}_out{o}", "freq_lstm", h, (K1_REQUEST_ROWS, 32, 64), o)
+             for h, o in WIDE_K1 if wide_hidden(h)]
+    specs += [(f"k2_h{h}", "bilstm2", h, (K3_REQUEST_WINDOWS, 64, n), None) for h, n in WIDE_K2]
+    specs += [(f"k4_h{h}_in{n}", "bilstm_layer", h, (K3_REQUEST_WINDOWS, 64, n), None)
+              for h, n in WIDE_K4]
+    for steps, rows, h, _ in WIDE_K5:
+        if wide_hidden(h):
+            specs += [(f"k5_{which}_{steps}x{rows}x{h}", f"core_{which}", h, (steps, rows), None)
+                      for which in ("fwd", "bwd")]
+    return specs
+
+
+# a wide row's step loop by kernel name: K1 / K2 / K4 (RECURRENT_PARTS' first), K5's passes
+WIDE_PARTS = {"core_fwd": (("wide_steps_kernel", "step_loop"),),
+              "core_bwd": (("wide_bwd_kernel", "step_loop"),)}
+
+
+def wide_row_call(spec, kernels, dev, seed):
+    """The kernel call of a wide row (``wide_row_specs``) on seeded inputs at
+    PyTorch's LSTM scale, and a function giving its drift from float64: for K1,
+    K2, K4 and K5's forward the largest |kernel - float64| of the output (the
+    module's plain version on float64 operands), for K5's backward that of d(xp)
+    over its largest |value| (the backward step in float64 on the kernel's
+    residuals). ``kernels``: the modules freq_lstm, bilstm2, bilstm_layer,
+    bilstm_core of the package to call."""
+    import torch
+
+    _, kernel, hid, shape, out = spec
+    freq_lstm, bilstm2, bilstm_layer, bilstm_core = kernels
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(*size, scale=1.0):
+        return (scale * torch.randn(*size, generator=gen)).to(dev)
+
+    def layer(n):
+        return (randn(2, n, 4 * hid, scale=hid ** -0.5), randn(2, hid, 4 * hid, scale=hid ** -0.5),
+                randn(2, 4 * hid, scale=0.1))
+
+    def f64(args):
+        return [a if a is None else a.double() for a in args]
+
+    def drift_of(fn, plain, args):
+        def drift():
+            with torch.inference_mode():
+                return float((fn().double() - plain(*f64(args))).abs().max())
+        return drift
+
+    if kernel.startswith("core_"):
+        steps, rows = shape
+        xp, w_hh = randn(2, steps, rows, 4 * hid, scale=0.5), randn(2, hid, 4 * hid,
+                                                                    scale=hid ** -0.5)
+        if kernel == "core_fwd":
+            call = lambda: bilstm_core._forward_kernel(xp, w_hh)[0]  # noqa: E731
+            return call, drift_of(call, lambda a, b: bilstm_core.forward_steps(a, b)[0],
+                                  (xp, w_hh))
+        dout = randn(steps, rows, 2 * hid)
+        with torch.inference_mode():
+            _, gates, cs = bilstm_core._forward_kernel(xp, w_hh)
+        call = lambda: bilstm_core._backward_kernel(gates, cs, w_hh, dout)  # noqa: E731
+
+        def drift():
+            with torch.inference_mode():
+                exact = bilstm_core.backward_steps(*f64((gates, cs, w_hh, dout)))
+                return float((call().double() - exact).abs().max() / exact.abs().max())
+        return call, drift
+    rows, steps, n_in = shape
+    x, w1 = randn(rows, steps, n_in, scale=0.5), layer(n_in)
+    if kernel == "freq_lstm":
+        args = (x, *w1, randn(steps * 2 * hid, out, scale=0.02), randn(out, scale=0.1))
+        module = freq_lstm.freq_lstm, freq_lstm.freq_lstm_plain
+    elif kernel == "bilstm_layer":
+        args, module = (x, *w1), (bilstm_layer.bilstm_layer, bilstm_layer.bilstm_layer_plain)
+    else:
+        args, module = (x, *w1, *layer(2 * hid)), (bilstm2.bilstm2, bilstm2.bilstm2_plain)
+    call = lambda: module[0](*args)  # noqa: E731
+    return call, drift_of(call, module[1], args)
 
 
 def outproj_row_specs():
@@ -851,16 +945,16 @@ def main():
                  **{k: v for k, v in extra.items()
                     if k in ("err_is", "bound_peaks", "hidden", "out", "split_ms", "table",
                              "f32_bound_ms", "max_abs_m_vs_f64", "library_f32_ms",
-                             "library_folded_ms", "bound_ms_per_equation")}}
+                             "library_folded_ms", "bound_ms_per_equation", "max_abs_vs_f64")}}
         if primary:
             report[name] = entry
         else:
             report[name].setdefault("other_shapes", []).append(
                 {k: entry[k] for k in ("shape", "hidden", "out", "table", "max_abs_err",
-                                       "max_abs_m_vs_f64", "ms", "plain_ms", "bound_ms",
-                                       "f32_bound_ms", "bound_ms_per_equation", "bound_by",
-                                       "library_ms", "library_f32_ms", "library_folded_ms",
-                                       "split_ms")
+                                       "max_abs_m_vs_f64", "max_abs_vs_f64", "ms", "plain_ms",
+                                       "bound_ms", "f32_bound_ms", "bound_ms_per_equation",
+                                       "bound_by", "library_ms", "library_f32_ms",
+                                       "library_folded_ms", "split_ms")
                  if k in entry})
 
     def forward_case(name, kernel, plain, args, cost, library, source, replaces, primary=True,
@@ -869,8 +963,12 @@ def main():
         kernel module's (flops, bytes) of one launch on ``args``, the work its bound
         reckons: the input projections' product (w_ih is ``args[1]``, K2's second
         layer's ``args[4]``) and K1's output projection (w_proj is ``args[4]``) at
-        the TF32 rate in three passes, the rest at the f32 rate; ``f32_bound_ms``
-        reckons it all at the f32 rate."""
+        the TF32 rate in three passes, and from H = 384 on (the wide step loop,
+        ``wide_hidden``) the recurrence too, the rest at the f32 rate;
+        ``f32_bound_ms`` reckons it all at the f32 rate. A wide row is also held to
+        the plain version in float64 (``max_abs_vs_f64``, the plain version's own
+        beside it)."""
+        wide = wide_hidden(extra.get("hidden", 0))
         with torch.inference_mode():
             got = kernel(*args)
             torch.cuda.synchronize()
@@ -878,6 +976,11 @@ def main():
             if not bool(torch.isfinite(got).all()):
                 raise RuntimeError(f"{name}: non-finite output")
             err = float((got - want).abs().max())
+            if wide:
+                exact = plain(*(a if a is None else a.double() for a in args))
+                extra["max_abs_vs_f64"] = {"kernel": float((got.double() - exact).abs().max()),
+                                           "plain": float((want.double() - exact).abs().max())}
+                del exact
             ms = time_ms(lambda: kernel(*args), 5)
             plain_ms = time_ms(lambda: plain(*args), 3)
             library_ms = time_ms(library, 5) if library else None
@@ -887,11 +990,15 @@ def main():
         if name == "freq_lstm":  # K1's output projection, (rows, F 2H) . (F 2H, out)
             proj += 2.0 * args[0].shape[0] * args[4].shape[0] * args[4].shape[1]
         flops, moved = cost
-        record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, flops - proj, moved,
-               library_ms, source, replaces, primary, tensor_flops=3 * proj,
+        on_tensor_cores = flops if wide else proj  # the wide loop's h . w_hh too
+        record(name, list(args[0].shape), err, TOL[name], ms, plain_ms, flops - on_tensor_cores,
+               moved, library_ms, source, replaces, primary, tensor_flops=3 * on_tensor_cores,
                f32_bound_ms=bound(flops, moved)[0],
-               bound_peaks="recurrence: 67 TFLOP/s f32; input projection (and K1's output "
-                           "projection): 3 TF32 passes at 495 TFLOP/s (f32_bound_ms: all at 67)",
+               bound_peaks=("recurrence (the wide step loop), input projection (and K1's output "
+                            "projection): 3 TF32 passes at 495 TFLOP/s" if wide else
+                            "recurrence: 67 TFLOP/s f32; input projection (and K1's output "
+                            "projection): 3 TF32 passes at 495 TFLOP/s") +
+                           " (f32_bound_ms: all at 67)",
                **extra)
 
     def repeats(name, kernel, args, first):
@@ -1231,7 +1338,7 @@ def main():
                     first)
         ragged_case("bilstm2", bilstm2.bilstm2, bilstm2.bilstm2_plain,
                     first + lstm_weights(464 + 10 * i, 2 * hid, hid, bias))
-    k1_wave = k1_tiling["wide"] // (384 // 32) // 2 * freq_lstm.ROW_TILE
+    k1_wave = bilstm_layer.wide_wave_rows(384, k1_tiling["wide"])
     for i, (rows, n_freq, n_in, hid, out_dim, bias) in enumerate((
             (5, 32, 64, 256, 201, True), (k1_wave + 1, 2, 64, 384, 200, False),
             (33, 3, 100, 512, 384, True), (1, 1, 64, 256, 7, False))):
@@ -1347,8 +1454,8 @@ def main():
     cases += [(32, 3200, 128, 64), (64, 50, 256, 256)]
     # the wide step loop at the wide_variants phase's train step shapes (timed), then its edges
     # (held to the plain version): one row; T = 2 at a partial row tile; T = 1; one row more
-    # than one cooperative launch takes at H = 384 and 512; H = 640 (20 runs of 32 units);
-    # H = 1024 (32 runs)
+    # than one cooperative launch takes at H = 384 and 512; H = 640 (40 runs of 16 units);
+    # H = 1024 (64 runs)
     core_blocks = min(wide_blocks["bilstm_core_fwd"], wide_blocks["bilstm_core_bwd"])
     cases += list(WIDE_K5) + [(3, 1, 384, 0), (2, 7, 512, 0), (1, 33, 384, 0),
                               (3, bilstm_layer.wide_wave_rows(384, core_blocks) + 1, 384, 0),
@@ -1385,7 +1492,7 @@ def main():
             if not (err_f <= TOL["bilstm_core_fwd"] and err_b <= BWD_REL_TOL):
                 raise RuntimeError(f"bilstm_core {(steps, rows, hid)}: {err_f}, {err_b}")
             return
-        del ref, ref_g, got_g, again
+        del ref, ref_g, got_g
         lib5 = library_lstm(n_in, hid, 1, 5).train()
         x5 = randn(53, steps, rows, n_in, scale=0.5).requires_grad_()
         with torch.no_grad():
@@ -1397,15 +1504,31 @@ def main():
         plain_bwd_ms = time_backward_ms(lambda: bilstm_core.bilstm_core_plain(xp, w_core),
                                         (xp, w_core), dout, 2)
         lib_bwd_ms = time_backward_ms(lambda: lib5(x5)[0], (x5, *lib5.parameters()), dout, 3)
-        cost = bilstm_core.cost(steps, rows, hid)  # either pass: its operands and its bytes
+        flops, moved = bilstm_core.cost(steps, rows, hid)  # either pass: operands and bytes
         primary = (steps, rows, hid) == (32, 6400, 128)
+        wide = {}  # from H = 384 on: the product in 3 TF32 passes; both passes against float64
+        if wide_hidden(hid):
+            with torch.no_grad():
+                ex_out, ex_gates, ex_cs = bilstm_core.forward_steps(xp_d.double(), w_d.double())
+                fwd_f64 = float((out.detach().double() - ex_out).abs().max())
+                ex_dg = bilstm_core.backward_steps(gates.double(), cs.double(), w_d.double(),
+                                                   dout.double())
+                bwd_f64 = float((again.double() - ex_dg).abs().max() / ex_dg.abs().max())
+                del ex_out, ex_gates, ex_cs, ex_dg
+            wide = {"tensor_flops": 3 * flops, "f32_bound_ms": bound(flops, moved)[0],
+                    "bound_peaks": "the product: 3 TF32 passes at 495 TFLOP/s (f32_bound_ms: "
+                                   "one at 67 TFLOP/s f32)"}
+        del again
         record("bilstm_core_fwd", [steps, rows, hid], err_f, TOL["bilstm_core_fwd"], fwd_ms,
-               plain_fwd_ms, *cost, lib_fwd_ms, core_src,
-               "sdfa_tpu/ops/pallas_bilstm_train.py:101", primary)
+               plain_fwd_ms, 0.0 if wide else flops, moved, lib_fwd_ms, core_src,
+               "sdfa_tpu/ops/pallas_bilstm_train.py:101", primary, **wide,
+               **({"max_abs_vs_f64": fwd_f64} if wide else {}))
         record("bilstm_core_bwd", [steps, rows, hid], err_b, BWD_REL_TOL, bwd_ms, plain_bwd_ms,
-               *cost, lib_bwd_ms, core_src,
-               "sdfa_tpu/ops/pallas_bilstm_train.py:198", primary,
-               err_is="max |diff| / max |reference| over d(xp) and d(w_hh)",
+               0.0 if wide else flops, moved, lib_bwd_ms, core_src,
+               "sdfa_tpu/ops/pallas_bilstm_train.py:198", primary, **wide,
+               **({"max_abs_vs_f64": bwd_f64} if wide else {}),
+               err_is="max |diff| / max |reference| over d(xp) and d(w_hh)"
+                      + ("; max_abs_vs_f64: d(xp)'s, over its largest" if wide else ""),
                dw_hh_library_product_ms=dw_ms, repeats_bit_for_bit=repeats)
 
     for case in cases:
@@ -1923,7 +2046,8 @@ def wide_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
     width, wall and device busy ms) within ``VARIANT_PLAIN_TOL_M`` of the same
     call under ``ops.plain_versions()`` and ``ORACLE_TOL_M`` of the float64
     solve, then ``Experiment`` takes ``VARIANT_TRAIN_STEPS`` steps of 100
-    windows (K5 launches by width), its first step's loss terms within
+    windows (K5 launches by width; one step more under torch.profiler for its
+    device busy ms), its first step's loss terms within
     ``STEP_LOSS_RTOL`` and every gradient within ``STEP_GRAD_RTOL`` of the
     largest against the same step through the plain versions.
     ``ops.PLAIN_ROUTES`` must stay 0."""
@@ -2018,6 +2142,10 @@ def wide_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
                 g_kernel = {n: p.grad.clone() for n, p in exp.model.named_parameters()}
                 step_counts = counts()
         train = counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            exp.train_step(batches[0])  # one step more, profiled: the step's device busy ms
+            torch.cuda.synchronize()
+        step_device, step_busy_ms = device_kernels(prof, TRAIN_SPANS)
         del exp
         plain_exp = Experiment(hp, build_model(hp, pca=pca), os.path.join(tmp, name + "_plain"),
                                dev, seed=SEED)
@@ -2045,6 +2173,9 @@ def wide_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
               "top_device_ms": [{"name": k[:60], "ms": ms, "calls": c} for k, ms, c in device[:6]],
               "train_steps": len(losses), "train_losses": losses,
               "train_step_ms_median": sorted(step_ms)[len(step_ms) // 2],
+              "train_step_device_busy_ms": step_busy_ms,
+              "train_step_top_device_ms": [{"name": k[:60], "ms": ms, "calls": c}
+                                           for k, ms, c in step_device[:6]],
               "first_step_launches": {k: n for k, n in step_counts.items()
                                       if k.startswith("bilstm_core_")},
               "train_launches": {k: n for k, n in train.items() if k.startswith("bilstm_core_")},
@@ -4232,6 +4363,10 @@ def profile_server_tick(task, sr, smi, phase="profile_server_tick"):
                                      for k, ms, c in device[:16]], "card": smi})
 
 
+# the record_function spans of Experiment.train_step: ranges, not kernels, in a profile
+TRAIN_SPANS = ("train/upload", "train/forward_loss", "train/backward", "train/clip_adam")
+
+
 def device_kernels(prof, spans=()):
     """(name, device ms, launches) of every kernel and copy in a profile, largest
     first, and their sum; ``spans`` names record_function ranges to leave out."""
@@ -4552,7 +4687,7 @@ def profile_train_step(exp, batches, smi, step_ms_unprofiled):
             exp.train_step(batch)
         torch.cuda.synchronize()
     span_ms = 1e3 * (time.perf_counter() - t0)
-    spans = ("train/upload", "train/forward_loss", "train/backward", "train/clip_adam")
+    spans = TRAIN_SPANS
     device, busy_ms = device_kernels(prof, spans)
     # a span's device time is that of the kernels launched inside it on the calling
     # thread; autograd launches the backward's kernels from its own thread, so the
@@ -5102,12 +5237,49 @@ def outproj_rows(root: str):
     emit({"phase": "outproj_rows", "root": root, "ms": ms})
 
 
+def wide_rows(root: str):
+    """``chip_smoke.py --wide-rows ROOT``: the package at ROOT (as ``--k3-rows``
+    takes it) times the wide step loop at its rows of the kernel phase
+    (``wide_row_specs``): the device ms of the step loop's kernel in a call
+    (``wide_steps_kernel`` for K1, K2, K4 and K5's forward, ``wide_bwd_kernel``
+    for K5's backward) and of the whole call (``row_ms``), by torch.profiler over
+    10 calls after a warm-up, on the same seeded inputs, and each row's drift from
+    float64 (``wide_row_call``); prints one JSON line."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import sdfa_tpu_torch
+    from sdfa_tpu_torch.ops import bilstm2, bilstm_core, bilstm_layer, build, freq_lstm
+
+    if not os.path.abspath(sdfa_tpu_torch.__file__).startswith(root + os.sep):
+        sys.exit(f"--wide-rows: imported {sdfa_tpu_torch.__file__}, not the package at {root}")
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py --wide-rows: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    build.load_libraries(["freq_lstm", "bilstm2", "bilstm_layer", "bilstm_core"])
+    ms, row_ms, drift = {}, {}, {}
+    for i, spec in enumerate(wide_row_specs()):
+        call, f64_drift = wide_row_call(spec, (freq_lstm, bilstm2, bilstm_layer, bilstm_core),
+                                        dev, 800 + i)
+        split = kernel_split(call, 10, WIDE_PARTS.get(spec[1], RECURRENT_PARTS))
+        ms[spec[0]], row_ms[spec[0]] = split["step_loop"], sum(split.values())
+        drift[spec[0]] = f64_drift()
+        del call, f64_drift
+        torch.cuda.empty_cache()
+    emit({"phase": "wide_rows", "root": root, "ms": ms, "row_ms": row_ms, "f64_drift": drift,
+          "f64_drift_is": "max |kernel - float64| (K5 bwd: of d(xp), over its largest)"})
+
+
 def rows_in_turns(kind: str, roots):
     """``chip_smoke.py --k3-turns ROOT [ROOT ...]`` (``kind`` "k3"),
-    ``--proj-turns`` (``kind`` "proj") or ``--outproj-turns`` (``kind``
-    "outproj"): ``--k3-rows`` / ``--proj-rows`` / ``--outproj-rows`` of each
-    ROOT in a process of its own, in the order given (parent, change, change,
-    parent compares two commits on one card), then each row's times by root;
+    ``--proj-turns`` (``kind`` "proj"), ``--outproj-turns`` (``kind``
+    "outproj") or ``--wide-turns`` (``kind`` "wide"): ``--k3-rows`` /
+    ``--proj-rows`` / ``--outproj-rows`` / ``--wide-rows`` of each ROOT in a
+    process of its own, in the order given (parent, change, change, parent
+    compares two commits on one card), then each row's times (and, where a
+    mode gives them, its whole call's ms and its drift from float64) by root;
     ends with the card's name and power limit and the result line."""
     import torch
 
@@ -5115,7 +5287,7 @@ def rows_in_turns(kind: str, roots):
         sys.exit(f"chip_smoke.py --{kind}-turns: torch.cuda.is_available() is false; this needs "
                  "a GPU")
     smi = nvidia_smi_line()
-    by_root = {}
+    by_root, extra_by_root = {}, {}
     for turn, root in enumerate(roots):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), f"--{kind}-rows", root],
                               capture_output=True, text=True, timeout=900)
@@ -5126,7 +5298,12 @@ def rows_in_turns(kind: str, roots):
         emit({"phase": f"{kind}_turn", "turn": turn, **line, "card": smi})
         for row, ms in line["ms"].items():
             by_root.setdefault(line["root"], {}).setdefault(row, []).append(ms)
-    emit({"phase": f"{kind}_turns", "ms_by_root": by_root, "card": smi})
+        for key in ("row_ms", "f64_drift"):
+            for row, v in line.get(key, {}).items():
+                extra_by_root.setdefault(key, {}).setdefault(line["root"], {}).setdefault(
+                    row, []).append(v)
+    emit({"phase": f"{kind}_turns", "ms_by_root": by_root,
+          **{f"{k}_by_root": v for k, v in extra_by_root.items()}, "card": smi})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -5151,6 +5328,10 @@ if __name__ == "__main__":
         outproj_rows(sys.argv[2])
     elif sys.argv[1:2] == ["--outproj-turns"]:
         rows_in_turns("outproj", sys.argv[2:])
+    elif sys.argv[1:2] == ["--wide-rows"]:
+        wide_rows(sys.argv[2])
+    elif sys.argv[1:2] == ["--wide-turns"]:
+        rows_in_turns("wide", sys.argv[2:])
     elif sys.argv[1:2] == ["--longrun"]:
         longrun_main(int(sys.argv[2]))
     else:

@@ -23,8 +23,8 @@
 // what other blocks wrote). One cluster holding both directions would need
 // 16 blocks, a non-portable size that fits fewer clusters on the card, and
 // gains only that round trip. From H = 384 on each layer runs the wide step
-// loop of bilstm_layer.cuh instead (W_hh through L2, one grid-wide barrier a
-// step). The caller sizes the scratch: xp (2, chunk, T, 4H) and stack
+// loop of bilstm_layer.cuh instead (W_hh streamed through L2, h.W_hh in
+// 3xTF32 on the tensor cores, one grid-wide barrier a step). The caller sizes the scratch: xp (2, chunk, T, 4H) and stack
 // (chunk, T, 2H), shared by all chunks. H is any multiple of 128 and the
 // first layer's input any width: what the JAX gate sends to its kernel
 // (sdfa_tpu/nn/recurrent.py:236-238).

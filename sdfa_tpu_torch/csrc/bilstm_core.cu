@@ -56,8 +56,9 @@
 // From H = 384 on (any multiple of 128), where no cluster's shared memory
 // holds one direction's W_hh, both passes run the wide step loop of
 // bilstm_layer.cuh instead: wide_steps_kernel indexed by time with the gates
-// and c saved, and wide_bwd_kernel (W_hh through L2, one grid-wide barrier a
-// step, d_pre of the previous step read back from dg).
+// and c saved, and wide_bwd_kernel (d_pre of the previous step read back from
+// dg); both stream W_hh through L2 and multiply on the tensor cores in
+// 3xTF32, one grid-wide barrier a step.
 //
 // f32 throughout (expf/tanhf, no fast-math).
 #include "bilstm_layer.cuh"
@@ -371,8 +372,8 @@ extern "C" int sdfa_bilstm_core_fwd(const float* xp, const float* w_hh, float* o
   if (rows <= 0) return 0;
   if (hidden == 128) return (int)Core<128>::forward(xp, w_hh, out, gates, cs, T, rows, stream);
   if (hidden == 256) return (int)Core<256>::forward(xp, w_hh, out, gates, cs, T, rows, stream);
-  return (int)wide_run(wide_fwd_kernel(), hidden, rows, stream, xp, w_hh, out, gates, cs, rows, T,
-                       hidden);
+  return (int)wide_run(wide_fwd_kernel(), WF_SMEM, hidden, rows, stream, xp, w_hh,
+                       out, gates, cs, rows, T, hidden);
 }
 
 extern "C" int sdfa_bilstm_core_bwd(const float* gates, const float* cs, const float* w_hh,
@@ -382,8 +383,8 @@ extern "C" int sdfa_bilstm_core_bwd(const float* gates, const float* cs, const f
   if (rows <= 0) return 0;
   if (hidden == 128) return (int)Core<128>::backward(gates, cs, w_hh, dout, dg, T, rows, stream);
   if (hidden == 256) return (int)Core<256>::backward(gates, cs, w_hh, dout, dg, T, rows, stream);
-  return (int)wide_run(wide_bwd_kernel, hidden, rows, stream, gates, cs, w_hh, dout, dg, rows, T,
-                       hidden);
+  return (int)wide_run(wide_bwd_kernel, WB_SMEM, hidden, rows, stream, gates, cs, w_hh,
+                       dout, dg, rows, T, hidden);
 }
 
 // n[0..3]: how many clusters the card holds at once of the forward and the
@@ -397,12 +398,12 @@ extern "C" int sdfa_bilstm_core_clusters(int* n) {
 // n[0], n[1]: how many blocks of the wide loop's forward and backward kernels
 // the card holds at once.
 extern "C" int sdfa_bilstm_core_wide_blocks(int* n) {
-  const cudaError_t err = wide_capacity(n, wide_fwd_kernel());
+  const cudaError_t err = wide_capacity(n, wide_fwd_kernel(), WF_SMEM);
   if (err != cudaSuccess) return (int)err;
-  return (int)wide_capacity(n + 1, wide_bwd_kernel);
+  return (int)wide_capacity(n + 1, wide_bwd_kernel, WB_SMEM);
 }
 
-// Rows a cluster (a block of the wide loop, from H = 384 on) owns at `hidden`
+// Rows a cluster (a block of the wide loop, from H = 384 on: WR) owns at `hidden`
 // units (0 for a width the kernels do not take).
 extern "C" int sdfa_bilstm_core_row_tile(int hidden) {
   if (hidden == 128) return Core<128>::S::RT;

@@ -13,8 +13,9 @@
 // cores, any input width; W_ih staged transposed and split once per call),
 // then the step loop. At H = 128 and 256 the step loop holds W_hh in the
 // shared memory of a cluster (4 or 8 blocks); from H = 384 on, where no
-// cluster's shared memory holds it, the wide step loop reads W_hh through L2
-// with one grid-wide barrier a step. The JAX gate takes any H and input that
+// cluster's shared memory holds it, the wide step loop streams W_hh through
+// L2 and multiplies on the tensor cores in 3xTF32, one grid-wide barrier a
+// step. The JAX gate takes any H and input that
 // are multiples of 128 (sdfa_tpu/nn/recurrent.py:293-296); this one takes any
 // H that is a multiple of 128 and any input width.
 //
@@ -89,10 +90,12 @@ extern "C" int sdfa_bilstm_layer_clusters(int* n) {
 }
 
 // n[0]: how many blocks of the wide step loop the card holds at once; n[1]:
-// the rows a block owns.
+// the rows a block owns, n[2] its units, n[3] the k depth of a stage.
 extern "C" int sdfa_bilstm_layer_wide_blocks(int* n) {
   n[1] = WR;
-  return (int)wide_capacity(n, layer_wide_kernel());
+  n[2] = WU;
+  n[3] = WK;
+  return (int)wide_capacity(n, layer_wide_kernel(), WF_SMEM);
 }
 
 #ifdef SDFA_STEP_CLOCKS

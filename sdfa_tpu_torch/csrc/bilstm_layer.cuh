@@ -56,12 +56,14 @@
 //    either width (run_layer_h).
 // 3. From H = 384 on (any multiple of 128), where no cluster's shared memory
 //    holds one direction's W_hh, wide_steps_kernel and wide_bwd_kernel below
-//    take the step loop's place for all four kernels: W_hh read through L2,
-//    one grid-wide barrier a step (see "the wide step loop").
+//    take the step loop's place for all four kernels: W_hh streamed through
+//    L2, the step's product in 3xTF32 on the tensor cores, one grid-wide
+//    barrier a step (see "the wide step loop").
 //
 // The recurrence in f32 (expf/tanhf, correctly rounded reciprocal, no
 // fast-math), its sums in another order than the plain version's: k in four
-// interleaved quarters for h.W_hh. x.W_ih in 3xTF32, k tile by k tile of 32 and
+// interleaved quarters for h.W_hh (the wide loop: 3xTF32, k tile by k tile of
+// WK, see there). x.W_ih in 3xTF32, k tile by k tile of 32 and
 // within a tile k step by k step of 8 (hi.hi, hi.lo, lo.hi), the bias last:
 // ops/bilstm_layer.py::projection_tiled computes it that way.
 #pragma once
@@ -644,7 +646,8 @@ inline cudaError_t run_layer_steps(const float* xp, const float* w_hh, float* ou
 }
 
 // How many clusters of a layer's step loop at HH hidden units the card runs at
-// once (at H = 256, 16 cover 256 rows x 2 directions in one wave).
+// once (at H = 256 the H100 holds 15: 256 rows x 2 directions, 16 clusters,
+// take two waves).
 template <int HH>
 inline cudaError_t layer_max_active_clusters(int* n) {
   using D = LayerDims<HH>;
@@ -658,165 +661,329 @@ inline cudaError_t layer_max_active_clusters(int* n) {
 // would need 12 of them with 196,608 B of W_hh each beside its h buffers,
 // more than the 232,448 B a block has; at H = 512 (4 MB) even a
 // non-portable cluster of 16 holds only 3.7 MB. So W_hh is not held: the
-// wide loop reads it through L2 (both directions' W_hh are 8 MiB at H = 512
-// against a 50 MB L2), and a step is one tiled product per block followed by
-// one grid-wide barrier.
+// wide loop streams it through L2 (both directions' W_hh are 8 MiB at H = 512
+// against a 50 MB L2), and a step is one product per block followed by one
+// grid-wide barrier.
 //
 // One cooperative launch (cudaLaunchAttributeCooperative: every block is
 // resident, so `grid.sync()` cannot deadlock) walks all T steps for a wave of
 // rows; the rows are walked in waves of whole row tiles whose blocks fit the
 // card at once (wide_capacity: resident blocks a multiprocessor x
-// multiprocessors). Block (x, y, z) owns the four gates of hidden units
-// WU x .. WU x + 31 of direction z for rows WR y .. WR y + 31 of the wave,
-// for the whole launch, so the cell state stays in registers. Each step it
-// multiplies the previous h of its rows (H wide) by its 128 gate columns of
-// W_hh, in tiles of WK = 16 k staged in shared memory (h as [k][row], W_hh as
-// [k][gate][unit], both double-buffered, the next tile fetched into
-// registers while this one is multiplied); a thread holds 4 rows x 2 units x
-// 4 gates and finishes their cell in registers. The previous h is the
-// output itself, read at the previous time index through L2 (`__ldcg`: it
-// was written in this launch, by other blocks, before the last barrier), so
-// there is no h buffer. The backward step is the same loop over the gate
-// columns: dh of a block's units is the previous step's d_pre of all 4 H
-// columns (read back from dg) times W_hh's rows of those units.
+// multiprocessors). Block (x, y, z), one warpgroup, owns hidden units WU x ..
+// WU x + 15 of direction z for rows WR y .. WR y + 63 of the wave, in both
+// passes and for the whole launch, so the cell state (forward) and dc
+// (backward) stay in registers.
 //
-// Sums: each thread adds its products k by k from k = 0 on, then the xp
-// slab (forward) or d(out) (backward). f32 throughout, the cell as the
-// cluster step has it (expf/tanhf, correctly rounded reciprocal).
+// What bounds it on the H100: the latency of a step, not the card's peak. A
+// step's product is small (64 rows x 64 columns x H a block forward) and every
+// step waits for the one before it, so a block's warps run one after the other:
+// the step's first copies, the k tiles' copies, splits and products, the cell,
+// the barrier. The product runs on the tensor cores in 3xTF32 (each f32
+// operand as TF32 hi + lo; hi.hi + hi.lo + lo.hi, missing lo.lo, under 2^-22
+// of each product: three passes at 495 TFLOP/s against one at 67 on the FMA
+// units), its operands through a ring of cp.async stages of WK k: one L2
+// round trip a step is exposed, the next tiles are in flight behind the
+// products. Every W_hh tile a block reads serves its 64 rows. The TF32 parts
+// are rounded as cvt.rna rounds (tf32_bits_finite: two integer instructions
+// for the finite operands these are, against cvt.rna's four), since a step's
+// splits, not its products, were most of its instructions.
+//
+// Forward (wide_steps_kernel): the block's pre-activations, 64 rows x 64 gate
+// columns = h_prev (64 x H) . W_hh[:, its columns], computed transposed,
+// pre^T = W_slice^T . h_prev^T: TF32 wgmma reads B K-major only, and W_hh
+// lies (H, 4H) with the columns fastest. A = W_slice^T comes from registers,
+// so its tile is copied as it lies ([k][column], WK x 64 floats, the columns
+// XOR-swizzled by k so that a warp's fragment reads fall in 32 banks) and each
+// thread splits its fragments there. B = h_prev is K-major as the step before
+// wrote it: the output itself at the previous time index ((rows, 2H), k
+// fastest; there is no h buffer), copied in the 128-byte swizzle and split in
+// shared memory by the thread that copied each chunk, hi in place and lo
+// beside it. wgmma m64n64k8; a 3-stage ring of 24 KB, three blocks a
+// multiprocessor.
+//
+// Backward (wide_bwd_kernel): dh of the block's 64 rows x 16 units is the
+// previous step's d_pre of all 4H columns (read back from dg) times W_hh's rows
+// of its units, a product of K = 4H, computed directly: A = d_pre, K-major as
+// dg holds it, copied in the 128-byte swizzle and split in registers (as
+// proj_kernel's x); B = W_hh's unit rows, K-major as they lie, split in shared
+// memory. wgmma m64n16k8; a 4-stage ring of 12 KB, three blocks a
+// multiprocessor (four would spill). Neither pass stages anything before the call: W_hh is read
+// in f32 on every call, an update in place always seen.
+//
+// The cells: after the last k tile a block's product goes through shared
+// memory (a ring slot no copy targets any more), so that each thread takes one
+// row and 8 neighbouring units: its xp slab, residuals and d(out) come in, and
+// h, the gates, c or d_pre go out, 16 bytes at a time, the slab asked for
+// before the step's product.
+//
+// Coherence: h (d_pre) was written in this launch by other blocks before the
+// last grid.sync(); cp.async.cg reads it from L2, past L1. The splits are
+// generic stores that wgmma reads through the async proxy: fence.proxy.async,
+// then the block barrier of the stage.
+//
+// Sums: for each k tile of WK from k = 0 on, the tensor cores add its k steps
+// of 8 (hi.hi, hi.lo, lo.hi each) into one accumulator, whose sum is then
+// added to a total in f32 registers (promoted every k tile: the tensor cores'
+// truncating sums never run deeper than WK); then the xp slab (forward) or
+// d(out) (backward). The cell in f32 as the cluster step has it (expf/tanhf,
+// correctly rounded reciprocal). ops/bilstm_layer.py::wide_steps_tiled and
+// ops/bilstm_core.py::wide_backward_steps_tiled walk the same tiling and sums.
 
-constexpr int WR = 32;   // rows a block owns
-constexpr int WU = 32;   // hidden units a block owns: 4 WU = 128 gate columns
-constexpr int WK = 16;   // k depth of a staged tile
-constexpr int WT = 128;  // threads: tx = tid % 16 owns units 2 tx, 2 tx + 1 of the block,
-                         // ty = tid / 16 rows 4 ty .. 4 ty + 3 of its tile
+constexpr int WR = 64;   // rows a block owns: the forward product's N, the backward's M
+constexpr int WU = 16;   // hidden units a block owns: 4 WU = 64 gate columns (the forward's M)
+constexpr int WK = 32;   // k depth of a stage
+constexpr int WT = 128;  // threads: one warpgroup
+constexpr int WROW = WK * 4;  // a K-major tile row of a stage: 128 bytes, one swizzle row
+constexpr int WF_STAGES = 3;                                  // the forward's ring
+constexpr int WF_H_BYTES = WR * WROW;                         // h's tile (hi), and its lo part
+constexpr int WF_W_BYTES = WK * 4 * WU * 4;                   // W_hh's tile, [k][64 columns]
+constexpr int WF_STAGE_BYTES = 2 * WF_H_BYTES + WF_W_BYTES;   // 24 KB
+constexpr int WF_SMEM = WF_STAGES * WF_STAGE_BYTES + 1024;    // + room to align the ring
+constexpr int WB_STAGES = 4;                                  // the backward's ring
+constexpr int WB_A_BYTES = WR * WROW;                         // d_pre's tile
+constexpr int WB_B_BYTES = WU * WROW;                         // W_hh's unit rows (hi), and lo
+constexpr int WB_STAGE_BYTES = WB_A_BYTES + 2 * WB_B_BYTES;   // 12 KB
+constexpr int WB_SMEM = WB_STAGES * WB_STAGE_BYTES + 1024;
+static_assert(WT == 128 && WR == 64 && WU == 16 && WK == 32 && WROW == 128 && WT / 8 == WU,
+              "the tiling and the copies");
+static_assert(WF_STAGE_BYTES % 1024 == 0 && WF_H_BYTES % 1024 == 0 && WB_STAGE_BYTES % 1024 == 0 &&
+                  WB_A_BYTES % 1024 == 0 && WB_B_BYTES % 1024 == 0,
+              "descriptor tiles on 1024 B");
 
-// grid (H / WU, row tiles of the wave, 2 directions), WT threads, cooperative.
-// `rows` and `T` give the tensors' layout (Order), [row0, row0 + nrows) the
-// rows of this launch. With SAVE the post-activation gates (laid out as xp)
-// and the cell state (as xp, H wide) are written too, as steps_kernel does.
+constexpr int WPRE_LD = 4 * WU + 4;  // floats a row of the forward's product re-laid [row][column]
+constexpr int WDH_LD = WU + 4;       // floats a row of the backward's dh re-laid [row][unit]
+static_assert(WR * WPRE_LD * 4 <= WF_STAGE_BYTES && WR * WDH_LD * 4 <= WB_STAGE_BYTES,
+              "the re-laid product fits a ring slot");
+
+// v's hi and lo TF32 parts, each component's (tf32_bits_finite).
+__device__ __forceinline__ void split4(const float4& v, float4& hi, float4& lo) {
+  using tf32mma::tf32_bits_finite;
+  hi.x = __uint_as_float(tf32_bits_finite(v.x));
+  hi.y = __uint_as_float(tf32_bits_finite(v.y));
+  hi.z = __uint_as_float(tf32_bits_finite(v.z));
+  hi.w = __uint_as_float(tf32_bits_finite(v.w));
+  lo.x = __uint_as_float(tf32_bits_finite(v.x - hi.x));
+  lo.y = __uint_as_float(tf32_bits_finite(v.y - hi.y));
+  lo.z = __uint_as_float(tf32_bits_finite(v.z - hi.z));
+  lo.w = __uint_as_float(tf32_bits_finite(v.w - hi.w));
+}
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+// Component i (a constant once unrolled) of v.
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The ring's first 1024-byte boundary in a kernel's dynamic shared memory.
+__device__ __forceinline__ uint32_t ring_offset(const uint8_t* smem) {
+  return ((tf32mma::smem_u32(smem) + 1023u) & ~1023u) - tf32mma::smem_u32(smem);
+}
+
+// grid (H / WU, row tiles of the wave, 2 directions), WT threads, WF_SMEM
+// bytes of dynamic shared memory, cooperative. `rows` and `T` give the tensors'
+// layout (Order), [row0, row0 + nrows) the rows of this launch. With SAVE the
+// post-activation gates (laid out as xp) and the cell state (as xp, H wide)
+// are written too, as steps_kernel does.
 template <class Order, bool SAVE>
-static __global__ void __launch_bounds__(WT)
+static __global__ void __launch_bounds__(WT, 3)
 wide_steps_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
                   float* out, float* __restrict__ gates, float* __restrict__ cs, int rows,
                   int T, int H, int row0, int nrows) {
-  __shared__ __align__(16) float As[2][WK][WR];      // h of the previous step, [k][row]
-  __shared__ __align__(16) float Bs[2][WK][4 * WU];  // W_hh, [k][gate][unit]
+  using namespace tf32mma;
+  extern __shared__ uint8_t wide_smem[];
+  const uint32_t ring_off = ring_offset(wide_smem);
+  const uint32_t ring = smem_u32(wide_smem) + ring_off;
+  uint8_t* const ring_p = wide_smem + ring_off;
   cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int d = blockIdx.z, G = 4 * H;
-  const int j0 = blockIdx.x * WU, j = j0 + 2 * tx;  // the block's first unit; this thread's
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32, g = lane / 4, t4 = lane % 4;
+  const int d = blockIdx.z, G = 4 * H, nk = H / WK;
+  const int u0 = blockIdx.x * WU;  // the block's first unit
   const int rt = row0 + blockIdx.y * WR, end = row0 + nrows;
   const size_t dir = (size_t)d * rows * T;  // direction d of xp, gates and c, in (row, t) pairs
   const float* wd = w_hh + (size_t)d * H * G;
-  const int a_r = tid / 4, a_k = (tid % 4) * 4;  // the h tile: 4 k of one row per thread
-  const bool a_ok = rt + a_r < end;
+
+  // Row m of the product (pre^T) is gate m / 16 of unit u0 + m % 16. W's copy:
+  // thread (k rows wk, wk + 8, ...; chunk wc) moves W_hh[k][columns of 4 wc .. 4 wc + 3]
+  // to the tile's row k at 4 wc XOR (k % 4) 8, k % 4 = wk % 4 for all its rows.
+  const int wc = tid % 16, wk = tid / 16;
+  const float* w_src = wd + (size_t)wk * G + (wc / 4) * H + u0 + 4 * (wc % 4);
+  const uint32_t w_dst =
+      2 * WF_H_BYTES + (uint32_t)(wk * 4 * WU + ((4 * wc) ^ ((wk & 3) << 3))) * 4;
+  // h's copy: thread (r0, c) moves 16-byte chunk c of tile rows r0, r0 + 16, ...;
+  // rows 16 apart share r % 8, so its swizzled chunk is one.
+  const int c = tid % 8, r0 = tid / 8;
+  const uint32_t h_dst = (uint32_t)(r0 * WROW + ((c ^ (r0 & 7)) << 4));
+  // This thread's A fragment of a k step: row 16 w + g (+ 8) at k t4 (+ 4), all of
+  // them at k % 4 = t4, so XOR t4 8: a warp's 32 reads fall in 32 banks.
+  const int col_a = (16 * w + g) ^ (t4 << 3), col_b = (16 * w + g + 8) ^ (t4 << 3);
+  // The cells this thread finishes: row rt + rr, units u0 + uc .. u0 + uc + 7.
+  const int rr = tid / 2, uc = 8 * (tid % 2), row = rt + rr;
+  const bool row_ok = row < end;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
-  float c_state[4][2];
+  float c_state[8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) c_state[r][0] = c_state[r][1] = 0.0f;
+  for (int u = 0; u < 8; ++u) c_state[u] = 0.0f;
 
   for (int step = 0; step < T; ++step) {
     const int t = d == 0 ? step : T - 1 - step;
     const int tp = d == 0 ? t - 1 : t + 1;  // the direction's previous step
 
-    // this step's slab of xp, asked for now and used after the product
-    float2 xv[4][4];
+    const float* h_src[4];
+    bool h_ok[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = rt + 4 * ty + r;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        xv[r][q] = row < end ? __ldcs(reinterpret_cast<const float2*>(
-                                   xp + (dir + Order::pos(row, t, rows, T)) * G + q * H + j))
-                             : make_float2(0.0f, 0.0f);
+    for (int i = 0; i < 4; ++i) {
+      const int r = rt + r0 + 16 * i;
+      h_ok[i] = r < end;
+      h_src[i] = out + Order::pos(h_ok[i] ? r : row0, tp, rows, T) * (2 * H) + d * H + c * 4;
     }
+    auto load = [&](int kt, int slot) {
+      const uint32_t st = ring + slot * WF_STAGE_BYTES;
+      const int k0 = kt * WK;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cp_async16(st + h_dst + i * 16 * WROW, h_src[i] + k0, h_ok[i] ? 16 : 0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cp_async16(st + w_dst + i * 8 * 4 * WU * 4, w_src + (size_t)(k0 + 8 * i) * G, 16);
+    };
+    if (step > 0)  // the step's first tiles, asked for before anything else
+      for (int s = 0; s < WF_STAGES - 1; ++s) {  // nk >= 12 > WF_STAGES - 1
+        load(s, s);
+        cp_async_commit();
+      }
 
-    float acc[4][2][4];  // [row][unit][gate]
+    // this step's slab of xp (its row, 4 gates x 8 units), asked for now and used after
+    // the product
+    const size_t p = Order::pos(row_ok ? row : row0, t, rows, T);
+    float4 xv[4][2];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int u = 0; u < 2; ++u)
+      for (int hh = 0; hh < 2; ++hh)
+        xv[q][hh] = row_ok ? __ldcs(reinterpret_cast<const float4*>(
+                                 xp + (dir + p) * G + q * H + u0 + uc + 4 * hh))
+                           : zero;
+
+    float tot[32];  // the product, promoted every k tile: [j][row g / g + 8][e] as wgmma's
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][u][q] = 0.0f;
+    for (int i = 0; i < 32; ++i) tot[i] = 0.0f;
 
     if (step > 0) {
-      const float* arow =
-          out + Order::pos(a_ok ? rt + a_r : row0, tp, rows, T) * (2 * H) + d * H + a_k;
-      float4 ar, br[4];
-      auto fetch = [&](int k0) {
-        ar = a_ok ? __ldcg(reinterpret_cast<const float4*>(arow + k0)) : zero;
+      for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<WF_STAGES - 2>();  // this thread's copies of tile kt have landed
+        const int slot = kt % WF_STAGES;
+        uint8_t* const st_p = ring_p + slot * WF_STAGE_BYTES;
+        // h's chunks this thread copied: hi in place, lo into the tile beside
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int idx = tid + WT * i, k = idx / 32, q = (idx / 8) % 4, u4 = (idx % 8) * 4;
-          br[i] = __ldg(reinterpret_cast<const float4*>(wd + (size_t)(k0 + k) * G + q * H +
-                                                        j0 + u4));
+          float4* const ph = reinterpret_cast<float4*>(st_p + h_dst + i * 16 * WROW);
+          const float4 v = *ph;
+          float4 hi, lo;
+          split4(v, hi, lo);
+          *ph = hi;
+          *reinterpret_cast<float4*>(st_p + WF_H_BYTES + h_dst + i * 16 * WROW) = lo;
         }
-      };
-      fetch(0);
-      const int tiles = H / WK;
-      for (int tile = 0; tile < tiles; ++tile) {
-        const int buf = tile & 1;
-        As[buf][a_k][a_r] = ar.x;
-        As[buf][a_k + 1][a_r] = ar.y;
-        As[buf][a_k + 2][a_r] = ar.z;
-        As[buf][a_k + 3][a_r] = ar.w;
+        // wgmma reads shared memory through the async proxy: make the split visible to it
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();  // every tile of kt is in place; everyone is done with tile kt - 1's slot
+        const int nxt = kt + WF_STAGES - 1;
+        if (nxt < nk) load(nxt, nxt % WF_STAGES);
+        cp_async_commit();
+        const float* ws = reinterpret_cast<const float*>(st_p + 2 * WF_H_BYTES) + t4 * 4 * WU;
+        uint32_t hi[WK / 8][4], lo[WK / 8][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int idx = tid + WT * i;
-          *reinterpret_cast<float4*>(&Bs[buf][idx / 32][(idx % 32) * 4]) = br[i];
+        for (int kk = 0; kk < WK / 8; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float v = ws[(8 * kk + 4 * (i >> 1)) * 4 * WU + ((i & 1) ? col_b : col_a)];
+            hi[kk][i] = tf32_bits_finite(v);
+            lo[kk][i] = tf32_bits_finite(v - __uint_as_float(hi[kk][i]));
+          }
+        const uint32_t stage = ring + slot * WF_STAGE_BYTES;
+        const uint64_t dh = smem_desc(stage), dl = smem_desc(stage + WF_H_BYTES);
+        float acc[32];
+        wgmma_fence();  // the fragments are written: order them before the products read them
+#pragma unroll
+        for (int kk = 0; kk < WK / 8; ++kk) {
+          wgmma_m64n64k8_tf32_rs(acc, hi[kk], dh + 2 * kk, kk > 0);
+          wgmma_m64n64k8_tf32_rs(acc, hi[kk], dl + 2 * kk, 1);
+          wgmma_m64n64k8_tf32_rs(acc, lo[kk], dh + 2 * kk, 1);
         }
-        __syncthreads();  // this tile is in place; the other buffer's readers are done
-        if (tile + 1 < tiles) fetch((tile + 1) * WK);
+        wgmma_commit();
+        wgmma_wait_all();
+        // the products read the fragments until the wait: keep their registers till here,
+        // and read the accumulators only after it
 #pragma unroll
-        for (int kk = 0; kk < WK; ++kk) {
-          const float4 a4 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
-          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-          float2 b[4];
+        for (int kk = 0; kk < WK / 8; ++kk)
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            b[q] = *reinterpret_cast<const float2*>(&Bs[buf][kk][q * WU + 2 * tx]);
+          for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(hi[kk][i]), "r"(lo[kk][i]));
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              acc[r][0][q] += a[r] * b[q].x;
-              acc[r][1][q] += a[r] * b[q].y;
-            }
+        for (int i = 0; i < 32; ++i) {
+          asm volatile("" : "+f"(acc[i])::"memory");
+          tot[i] += acc[i];
         }
-        // No barrier here: the next turn writes the other buffer, whose last
-        // readers all passed this turn's barrier after they finished with it
-        // (H / WK is even, so a step ends on buffer 1 and the next begins on 0).
       }
     }
 
+    // The product through shared memory, [row][column], so that this thread reads its
+    // row's 4 gates x 8 units: in the ring slot of tile nk, which no copy of this step
+    // targets and which every thread was done with at the last tile's barrier.
+    float* const pre_s = reinterpret_cast<float*>(ring_p + (nk % WF_STAGES) * WF_STAGE_BYTES);
+    float4 pv[4][2];
+    if (step > 0) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = rt + 4 * ty + r;
-      float hv[2], cv[2], act[2][4];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        float g[4];
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) g[q] = acc[r][u][q] + (u ? xv[r][q].y : xv[r][q].x);
-        act[u][0] = sigm(g[0]);
-        act[u][1] = sigm(g[1]);
-        act[u][2] = tanhf(g[2]);
-        act[u][3] = sigm(g[3]);
-        const float cn = act[u][1] * c_state[r][u] + act[u][0] * act[u][2];
-        c_state[r][u] = cn;
-        cv[u] = cn;
-        hv[u] = act[u][3] * tanhf(cn);
+          for (int e = 0; e < 2; ++e)
+            pre_s[(8 * j + 2 * t4 + e) * WPRE_LD + 16 * w + g + 8 * h] = tot[4 * j + 2 * h + e];
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          pv[q][hh] = *reinterpret_cast<const float4*>(pre_s + rr * WPRE_LD + 16 * q + uc + 4 * hh);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pv[q][0] = pv[q][1] = zero;
+    }
+
+    float act[4][8], hv[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float4 s = add4(pv[q][hh], xv[q][hh]);
+        act[q][4 * hh] = s.x;
+        act[q][4 * hh + 1] = s.y;
+        act[q][4 * hh + 2] = s.z;
+        act[q][4 * hh + 3] = s.w;
       }
-      if (row < end) {
-        const size_t p = Order::pos(row, t, rows, T);
-        *reinterpret_cast<float2*>(out + p * (2 * H) + d * H + j) = make_float2(hv[0], hv[1]);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      act[0][u] = sigm(act[0][u]);
+      act[1][u] = sigm(act[1][u]);
+      act[2][u] = tanhf(act[2][u]);
+      act[3][u] = sigm(act[3][u]);
+      c_state[u] = act[1][u] * c_state[u] + act[0][u] * act[2][u];
+      hv[u] = act[3][u] * tanhf(c_state[u]);
+    }
+    if (row_ok) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int u = 4 * hh;
+        *reinterpret_cast<float4*>(out + p * (2 * H) + d * H + u0 + uc + u) =
+            make_float4(hv[u], hv[u + 1], hv[u + 2], hv[u + 3]);
         if (SAVE) {
 #pragma unroll
           for (int q = 0; q < 4; ++q)
-            *reinterpret_cast<float2*>(gates + (dir + p) * G + q * H + j) =
-                make_float2(act[0][q], act[1][q]);
-          *reinterpret_cast<float2*>(cs + (dir + p) * H + j) = make_float2(cv[0], cv[1]);
+            *reinterpret_cast<float4*>(gates + (dir + p) * G + q * H + u0 + uc + u) =
+                make_float4(act[q][u], act[q][u + 1], act[q][u + 2], act[q][u + 3]);
+          *reinterpret_cast<float4*>(cs + (dir + p) * H + u0 + uc + u) =
+              make_float4(c_state[u], c_state[u + 1], c_state[u + 2], c_state[u + 3]);
         }
       }
     }
@@ -824,140 +991,218 @@ wide_steps_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
   }
 }
 
-// grid (H / WU, row tiles of the wave, 2 directions), WT threads, cooperative:
-// the training core's backward at a wide H. Inputs and output are
-// time-ordered as in core_bwd_kernel (bilstm_core.cu): gates (2, T, rows, 4H)
-// post-activation, c (2, T, rows, H), d(out) (T, rows, 2H) -> dg (2, T, rows,
-// 4H) = d(xp). A block owns the same (units, rows, direction) as in the
-// forward and carries their dc in registers; per step dh of its units is the
-// previous step's d_pre of all 4 H columns (read back from dg) times W_hh's
-// rows of those units: a product of K = 4H, in tiles of WK staged as [n][row]
-// and [n][unit], a thread holding 4 rows x 2 units.
-static __global__ void __launch_bounds__(WT)
+// grid (H / WU, row tiles of the wave, 2 directions), WT threads, WB_SMEM bytes
+// of dynamic shared memory, cooperative: the training core's backward at a
+// wide H. Inputs and output are time-ordered as in core_bwd_kernel
+// (bilstm_core.cu): gates (2, T, rows, 4H) post-activation, c (2, T, rows, H),
+// d(out) (T, rows, 2H) -> dg (2, T, rows, 4H) = d(xp). A block owns the same
+// (units, rows, direction) as in the forward and carries their dc in
+// registers.
+static __global__ void __launch_bounds__(WT, 3)
 wide_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                 const float* __restrict__ w_hh, const float* __restrict__ dout, float* dg,
                 int rows, int T, int H, int row0, int nrows) {
-  __shared__ __align__(16) float As[2][WK][WR];  // d_pre of the previous step, [n][row]
-  __shared__ __align__(16) float Bs[2][WK][WU];  // W_hh^T, [n][unit]
+  using namespace tf32mma;
+  extern __shared__ uint8_t wide_smem[];
+  const uint32_t ring_off = ring_offset(wide_smem);
+  const uint32_t ring = smem_u32(wide_smem) + ring_off;
+  uint8_t* const ring_p = wide_smem + ring_off;
   cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int d = blockIdx.z, G = 4 * H;
-  const int j0 = blockIdx.x * WU, j = j0 + 2 * tx;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32, g = lane / 4, t4 = lane % 4;
+  const int d = blockIdx.z, G = 4 * H, nk = G / WK;
+  const int u0 = blockIdx.x * WU;
   const int rt = row0 + blockIdx.y * WR, end = row0 + nrows;
   const size_t dir = (size_t)d * rows * T;
   const float* wd = w_hh + (size_t)d * H * G;
-  const int a_r = tid / 4, a_k = (tid % 4) * 4;  // the d_pre tile: 4 n of one row per thread
-  const bool a_ok = rt + a_r < end;
-  const float* brow = wd + (size_t)(j0 + tid / 4) * G + a_k;  // the W_hh tile: 4 n of one unit
+
+  // d_pre's copy: thread (r0, c) moves chunk c of tile rows r0, r0 + 16, ...; W's:
+  // chunk c of unit row r0 (WT / 8 = WU rows). Both in the 128-byte swizzle.
+  const int c = tid % 8, r0 = tid / 8;
+  const uint32_t a_dst = (uint32_t)(r0 * WROW + ((c ^ (r0 & 7)) << 4));
+  const uint32_t b_dst = WB_A_BYTES + a_dst;
+  const float* b_src = wd + (size_t)(u0 + r0) * G + c * 4;
+  // This thread's A fragment of a k step: rows 16 w + g (+ 8), k t4 (+ 4); rows 8
+  // apart share the swizzle (row % 8 = g): k 8 kk + 4 h lies in chunk (2 kk + h) ^ g.
+  const uint8_t* frag = ring_p + (16 * w + g) * WROW + t4 * 4;
+  // The cells this thread finishes: row rt + rr, units u0 + uc .. u0 + uc + 7.
+  const int rr = tid / 2, uc = 8 * (tid % 2), row = rt + rr;
+  const bool row_ok = row < end;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
-  float dc[4][2];
+  float dc[8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) dc[r][0] = dc[r][1] = 0.0f;
+  for (int u = 0; u < 8; ++u) dc[u] = 0.0f;
 
   for (int step = T - 1; step >= 0; --step) {
     const int t = d == 0 ? step : T - 1 - step;
     const int tn = d == 0 ? t + 1 : t - 1;  // the step processed before this one
     const int tp = d == 0 ? t - 1 : t + 1;  // the direction's previous step (its c)
 
-    // this step's residuals, asked for now and used after the product
-    float2 g[4][4], c[4], c_prev[4], dov[4];
+    const float* a_src[4];
+    bool a_ok[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = rt + 4 * ty + r;
-      const bool ok = row < end;
-      const size_t p = dir + (size_t)t * rows + row;
+    for (int i = 0; i < 4; ++i) {
+      const int r = rt + r0 + 16 * i;
+      a_ok[i] = r < end;
+      a_src[i] = dg + (dir + (size_t)tn * rows + (a_ok[i] ? r : row0)) * G + c * 4;
+    }
+    auto load = [&](int kt, int slot) {
+      const uint32_t st = ring + slot * WB_STAGE_BYTES;
+      const int k0 = kt * WK;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        cp_async16(st + a_dst + i * 16 * WROW, a_src[i] + k0, a_ok[i] ? 16 : 0);
+      cp_async16(st + b_dst, b_src + k0, 16);
+    };
+    if (step < T - 1)  // the step's first tiles, asked for before anything else
+      for (int s = 0; s < WB_STAGES - 1; ++s) {  // nk >= 48 > WB_STAGES - 1
+        load(s, s);
+        cp_async_commit();
+      }
+
+    // this step's residuals of its row (4 gates, c, c of the previous step, d(out), 8 units
+    // each), asked for now and used after the product
+    const int rowc = row_ok ? row : row0;
+    const size_t p = dir + (size_t)t * rows + rowc;
+    const float* g_src = gates + p * G + u0 + uc;
+    const float* c_src = cs + p * H + u0 + uc;
+    const float* cp_src = cs + (dir + (size_t)tp * rows + rowc) * H + u0 + uc;
+    const float* do_src = dout + ((size_t)t * rows + rowc) * (2 * H) + d * H + u0 + uc;
+    float4 gv[4][2], cv[2], cpv[2], dov[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        g[r][q] = ok ? __ldcs(reinterpret_cast<const float2*>(gates + p * G + q * H + j))
-                     : make_float2(0.0f, 0.0f);
-      c[r] = ok ? __ldcs(reinterpret_cast<const float2*>(cs + p * H + j))
-                : make_float2(0.0f, 0.0f);
-      c_prev[r] = ok && step > 0 ? __ldg(reinterpret_cast<const float2*>(
-                                       cs + (dir + (size_t)tp * rows + row) * H + j))
-                                 : make_float2(0.0f, 0.0f);
-      dov[r] = ok ? __ldcs(reinterpret_cast<const float2*>(
-                        dout + ((size_t)t * rows + row) * (2 * H) + d * H + j))
-                  : make_float2(0.0f, 0.0f);
+        gv[q][hh] = row_ok ? __ldcs(reinterpret_cast<const float4*>(g_src + q * H + 4 * hh)) : zero;
+      cv[hh] = row_ok ? __ldcs(reinterpret_cast<const float4*>(c_src + 4 * hh)) : zero;
+      cpv[hh] = row_ok && step > 0 ? __ldg(reinterpret_cast<const float4*>(cp_src + 4 * hh))
+                                   : zero;
+      dov[hh] = row_ok ? __ldcs(reinterpret_cast<const float4*>(do_src + 4 * hh)) : zero;
     }
 
-    float acc[4][2];  // dh: [row][unit]
+    float tot[8];  // dh, promoted every k tile: [j][row g / g + 8][e] as wgmma's
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = 0.0f;
+    for (int i = 0; i < 8; ++i) tot[i] = 0.0f;
 
     if (step < T - 1) {
-      const float* arow = dg + (dir + (size_t)tn * rows + (a_ok ? rt + a_r : row0)) * G + a_k;
-      float4 ar, br;
-      auto fetch = [&](int n0) {
-        ar = a_ok ? __ldcg(reinterpret_cast<const float4*>(arow + n0)) : zero;
-        br = __ldg(reinterpret_cast<const float4*>(brow + n0));
-      };
-      fetch(0);
-      const int tiles = G / WK;
-      for (int tile = 0; tile < tiles; ++tile) {
-        const int buf = tile & 1;
-        As[buf][a_k][a_r] = ar.x;
-        As[buf][a_k + 1][a_r] = ar.y;
-        As[buf][a_k + 2][a_r] = ar.z;
-        As[buf][a_k + 3][a_r] = ar.w;
-        Bs[buf][a_k][tid / 4] = br.x;
-        Bs[buf][a_k + 1][tid / 4] = br.y;
-        Bs[buf][a_k + 2][tid / 4] = br.z;
-        Bs[buf][a_k + 3][tid / 4] = br.w;
-        __syncthreads();  // this tile is in place; the other buffer's readers are done
-        if (tile + 1 < tiles) fetch((tile + 1) * WK);
+      for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<WB_STAGES - 2>();  // this thread's copies of tile kt have landed
+        const int slot = kt % WB_STAGES;
+        uint8_t* const st_p = ring_p + slot * WB_STAGE_BYTES;
+        {  // the chunk of W this thread copied: hi in place, lo beside
+          float4* const pw = reinterpret_cast<float4*>(st_p + b_dst);
+          const float4 v = *pw;
+          float4 hi, lo;
+          split4(v, hi, lo);
+          *pw = hi;
+          *reinterpret_cast<float4*>(st_p + WB_B_BYTES + b_dst) = lo;
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncthreads();  // every tile of kt is in place; everyone is done with tile kt - 1's slot
+        const int nxt = kt + WB_STAGES - 1;
+        if (nxt < nk) load(nxt, nxt % WB_STAGES);
+        cp_async_commit();
+        uint32_t hi[WK / 8][4], lo[WK / 8][4];
 #pragma unroll
-        for (int kk = 0; kk < WK; ++kk) {
-          const float4 a4 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
-          const float2 b = *reinterpret_cast<const float2*>(&Bs[buf][kk][2 * tx]);
-          acc[0][0] += a4.x * b.x;
-          acc[0][1] += a4.x * b.y;
-          acc[1][0] += a4.y * b.x;
-          acc[1][1] += a4.y * b.y;
-          acc[2][0] += a4.z * b.x;
-          acc[2][1] += a4.z * b.y;
-          acc[3][0] += a4.w * b.x;
-          acc[3][1] += a4.w * b.y;
+        for (int kk = 0; kk < WK / 8; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float v = *reinterpret_cast<const float*>(
+                frag + slot * WB_STAGE_BYTES + (i & 1) * 8 * WROW +
+                (((2 * kk + (i >> 1)) ^ g) << 4));
+            hi[kk][i] = tf32_bits_finite(v);
+            lo[kk][i] = tf32_bits_finite(v - __uint_as_float(hi[kk][i]));
+          }
+        const uint32_t stage = ring + slot * WB_STAGE_BYTES;
+        const uint64_t dh = smem_desc(stage + WB_A_BYTES),
+                       dl = smem_desc(stage + WB_A_BYTES + WB_B_BYTES);
+        float acc[8];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WK / 8; ++kk) {
+          wgmma_m64n16k8_tf32_rs(acc, hi[kk], dh + 2 * kk, kk > 0);
+          wgmma_m64n16k8_tf32_rs(acc, hi[kk], dl + 2 * kk, 1);
+          wgmma_m64n16k8_tf32_rs(acc, lo[kk], dh + 2 * kk, 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int kk = 0; kk < WK / 8; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(hi[kk][i]), "r"(lo[kk][i]));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          asm volatile("" : "+f"(acc[i])::"memory");
+          tot[i] += acc[i];
         }
       }
     }
 
+    // dh through shared memory, [row][unit], in the ring slot of tile nk (as the forward)
+    float* const dh_s = reinterpret_cast<float*>(ring_p + (nk % WB_STAGES) * WB_STAGE_BYTES);
+    float4 dhv[2] = {zero, zero};
+    if (step < T - 1) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = rt + 4 * ty + r;
-      float dp[2][4];
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float gi = u ? g[r][0].y : g[r][0].x, gf = u ? g[r][1].y : g[r][1].x;
-        const float gg = u ? g[r][2].y : g[r][2].x, go = u ? g[r][3].y : g[r][3].x;
-        const float cc = u ? c[r].y : c[r].x, cp = u ? c_prev[r].y : c_prev[r].x;
-        const float tc = tanhf(cc);
-        const float dh_tot = (u ? dov[r].y : dov[r].x) + acc[r][u];
-        const float dcv = dc[r][u] + dh_tot * go * (1.0f - tc * tc);
-        dp[u][0] = dcv * gg * gi * (1.0f - gi);
-        dp[u][1] = dcv * cp * gf * (1.0f - gf);
-        dp[u][2] = dcv * gi * (1.0f - gg * gg);
-        dp[u][3] = dh_tot * tc * go * (1.0f - go);
-        dc[r][u] = dcv * gf;
-      }
-      if (row < end) {
-        float* op = dg + (dir + (size_t)t * rows + row) * G + j;
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          *reinterpret_cast<float2*>(op + q * H) = make_float2(dp[0][q], dp[1][q]);
-      }
+          for (int e = 0; e < 2; ++e)
+            dh_s[(16 * w + g + 8 * h) * WDH_LD + 8 * j + 2 * t4 + e] = tot[4 * j + 2 * h + e];
+      __syncthreads();
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        dhv[hh] = *reinterpret_cast<const float4*>(dh_s + rr * WDH_LD + uc + 4 * hh);
+    }
+
+    float dp[4][8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int hh = u / 4, e = u % 4;
+      const float gi = comp(gv[0][hh], e), gf = comp(gv[1][hh], e);
+      const float gg = comp(gv[2][hh], e), go = comp(gv[3][hh], e);
+      const float tc = tanhf(comp(cv[hh], e));
+      const float dh_tot = comp(dov[hh], e) + comp(dhv[hh], e);
+      const float dcv = dc[u] + dh_tot * go * (1.0f - tc * tc);
+      dp[0][u] = dcv * gg * gi * (1.0f - gi);
+      dp[1][u] = dcv * comp(cpv[hh], e) * gf * (1.0f - gf);
+      dp[2][u] = dcv * gi * (1.0f - gg * gg);
+      dp[3][u] = dh_tot * tc * go * (1.0f - go);
+      dc[u] = dcv * gf;
+    }
+    if (row_ok) {
+      float* const op = dg + p * G + u0 + uc;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float4*>(op + q * H + 4 * hh) =
+              make_float4(dp[q][4 * hh], dp[q][4 * hh + 1], dp[q][4 * hh + 2], dp[q][4 * hh + 3]);
     }
     if (step > 0) grid.sync();  // this step's d_pre is written everywhere before it is read
   }
 }
 
-// How many blocks of a wide step kernel the current device holds at once.
+// Grants a wide step kernel its dynamic shared memory (and the carveout that
+// holds its blocks) on the device that is current.
 template <class Kernel>
-inline cudaError_t wide_capacity(int* n, Kernel kernel) {
+inline cudaError_t wide_attributes(Kernel kernel, int smem) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// How many blocks of a wide step kernel (with `smem` bytes of dynamic shared
+// memory) the current device holds at once.
+template <class Kernel>
+inline cudaError_t wide_capacity(int* n, Kernel kernel, int smem) {
   int dev = 0, sms = 0, per = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = wide_attributes(kernel, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, WT, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, WT, smem);
   *n = sms * per;
   return err;
 }
@@ -966,13 +1211,15 @@ inline cudaError_t wide_capacity(int* n, Kernel kernel) {
 // blocks: whole row tiles, each 2 H / WU blocks (0: not even one tile fits).
 inline int wide_wave_rows(int H, int capacity) { return capacity / (2 * (H / WU)) * WR; }
 
-// `kernel` over `rows` rows at H units, one cooperative launch per wave of
-// rows; its arguments are `args...` followed by (row0, nrows). A refused
-// launch returns CUDA's error: there is no other path.
+// `kernel` (`smem` bytes of dynamic shared memory) over `rows` rows at H
+// units, one cooperative launch per wave of rows; its arguments are `args...`
+// followed by (row0, nrows). A refused launch returns CUDA's error: there is
+// no other path.
 template <class Kernel, class... Args>
-inline cudaError_t wide_run(Kernel kernel, int H, int rows, cudaStream_t stream, Args... args) {
+inline cudaError_t wide_run(Kernel kernel, int smem, int H, int rows, cudaStream_t stream,
+                            Args... args) {
   int capacity = 0;
-  cudaError_t err = wide_capacity(&capacity, kernel);
+  cudaError_t err = wide_capacity(&capacity, kernel, smem);
   if (err != cudaSuccess) return err;
   const int wave = wide_wave_rows(H, capacity);
   if (wave <= 0) return cudaErrorCooperativeLaunchTooLarge;
@@ -981,6 +1228,7 @@ inline cudaError_t wide_run(Kernel kernel, int H, int rows, cudaStream_t stream,
     cudaLaunchConfig_t config = {};
     config.gridDim = dim3(H / WU, (n + WR - 1) / WR, 2);
     config.blockDim = dim3(WT, 1, 1);
+    config.dynamicSmemBytes = smem;
     config.stream = stream;
     cudaLaunchAttribute attr;
     attr.id = cudaLaunchAttributeCooperative;
@@ -1020,7 +1268,7 @@ inline cudaError_t run_layer_h(int H, const float* x, int in, const float* wt,
   if (err != cudaSuccess) return err;
   if (H == 128) return run_layer_steps<128>(xp, w_hh, out, rows, T, stream);
   if (H == 256) return run_layer_steps<256>(xp, w_hh, out, rows, T, stream);
-  return wide_run(layer_wide_kernel(), H, rows, stream, (const float*)xp, w_hh, out,
+  return wide_run(layer_wide_kernel(), WF_SMEM, H, rows, stream, (const float*)xp, w_hh, out,
                   (float*)nullptr, (float*)nullptr, rows, T, H);
 }
 

@@ -32,8 +32,9 @@
 //    distributed shared memory, two sub-tiles take turns. The two directions
 //    run in different clusters side by side, so the chain is F steps long,
 //    not 2 F. At H = 256 the layer kernels' instantiation (clusters of 8
-//    blocks, 32 rows), from H = 384 on the wide step loop (W_hh through L2,
-//    one grid-wide barrier a step). h (rows, F, 2H) goes to scratch.
+//    blocks, 32 rows), from H = 384 on the wide step loop (W_hh streamed
+//    through L2, h.W_hh in 3xTF32 on the tensor cores, blocks of 64 rows, one
+//    grid-wide barrier a step). h (rows, F, 2H) goes to scratch.
 // 3. out_parts_kernel + out_sum_kernel: out = h.reshape(rows, F 2H).W_proj +
 //    b_proj, in 3xTF32 on the tensor cores (see "the output projection"
 //    below). With 256 output columns and a few hundred rows a plain tiling has
@@ -346,7 +347,7 @@ cudaError_t run_out_proj(const float* h, const float* w_proj, const float* b_pro
 cudaError_t run_steps(const float* xp, const float* w_hh, float* h, int n, int F, int H,
                       cudaStream_t stream) {
   if (H > 256)
-    return wide_run(layer_wide_kernel(), H, n, stream, xp, w_hh, h, (float*)nullptr,
+    return wide_run(layer_wide_kernel(), WF_SMEM, H, n, stream, xp, w_hh, h, (float*)nullptr,
                     (float*)nullptr, n, F, H);
   const StepsKernel kernel = H == 128 ? freq_steps_kernel() : layer_steps_kernel<256>();
   const int cl = H == 128 ? FreqDims::CL : LayerDims<256>::CL;
@@ -399,15 +400,15 @@ extern "C" int sdfa_freq_lstm(const float* x, const float* w_ih, const float* w_
 
 // n[0], n[1]: how many clusters of the step kernel the card holds at once at H
 // = 128 and at H = 256; n[2]: how many blocks of the wide step loop; n[3]: the
-// rows a cluster owns at H = 128 (32 at 256 and in the wide loop, as built by
-// default); n[4]: the K range of one partial sum of the output projection.
+// rows a cluster owns at H = 128 (32 at 256; a block of the wide loop owns
+// WR); n[4]: the K range of one partial sum of the output projection.
 extern "C" int sdfa_freq_lstm_tiling(int* n) {
   n[3] = FreqDims::RT;
   n[4] = KSLAB;
   cudaError_t err = max_active_clusters(n, freq_steps_kernel(), FreqDims::THREADS,
                                         FreqDims::SMEM, FreqDims::CL);
   if (err == cudaSuccess) err = layer_max_active_clusters<256>(n + 1);
-  if (err == cudaSuccess) err = wide_capacity(n + 2, layer_wide_kernel());
+  if (err == cudaSuccess) err = wide_capacity(n + 2, layer_wide_kernel(), WF_SMEM);
   return (int)err;
 }
 

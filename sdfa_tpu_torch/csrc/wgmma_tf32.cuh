@@ -2,11 +2,13 @@
 // (and 4-byte) cp.async copies into a ring of shared-memory stages, the
 // shared-memory descriptor of a K-major operand tile in the 128-byte swizzle,
 // the split of an f32 value into two TF32 parts, and wgmma.mma_async
-// m64n128k8 TF32 with A from registers and f32 accumulators. Two products are
-// built from them: the input projection of the recurrent kernels
-// (bilstm_layer.cuh::proj_kernel) and FreqLstm's output projection
-// (freq_lstm.cu::out_parts_kernel). They are the ones csrc/decode_solve.cu's
-// split_product_kernel runs, which keeps its own copy.
+// m64nNk8 TF32 (N = 128, 64, 16) with A from registers and f32 accumulators.
+// Four products are built from them: the input projection of the recurrent
+// kernels (bilstm_layer.cuh::proj_kernel, N = 128), FreqLstm's output
+// projection (freq_lstm.cu::out_parts_kernel, N = 128), and the wide step
+// loop's h.W_hh (bilstm_layer.cuh::wide_steps_kernel, N = 64) and
+// d_pre.W_hh^T (wide_bwd_kernel, N = 16). They are the ones
+// csrc/decode_solve.cu's split_product_kernel runs, which keeps its own copy.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,6 +56,12 @@ __device__ __forceinline__ uint32_t tf32_bits(float x) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
   return u;
 }
+// The same for a finite x in two integer instructions: add half a TF32 unit to
+// the magnitude's bits and clear the 13 low ones (cvt.rna's result for every
+// finite x; cvt.rna also guards Inf and NaN, four instructions in all).
+__device__ __forceinline__ uint32_t tf32_bits_finite(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
 
 // acc (64 x 128 of a warpgroup, f32) += A (64 x 8, this thread's 4 TF32 values
 // in registers) . B (128 x 8)^T in TF32. A warpgroup's accumulators: warp w
@@ -90,6 +98,45 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&acc)[64], const 
         "+f"(acc[56]), "+f"(acc[57]), "+f"(acc[58]), "+f"(acc[59]),
         "+f"(acc[60]), "+f"(acc[61]), "+f"(acc[62]), "+f"(acc[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+// acc (64 x 64, f32) = A (64 x 8) . B (64 x 8)^T in TF32, + acc where
+// scale_d != 0. Accumulators as m64n128k8's, j < 8.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&acc)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
+        "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]),
+        "+f"(acc[8]), "+f"(acc[9]), "+f"(acc[10]), "+f"(acc[11]),
+        "+f"(acc[12]), "+f"(acc[13]), "+f"(acc[14]), "+f"(acc[15]),
+        "+f"(acc[16]), "+f"(acc[17]), "+f"(acc[18]), "+f"(acc[19]),
+        "+f"(acc[20]), "+f"(acc[21]), "+f"(acc[22]), "+f"(acc[23]),
+        "+f"(acc[24]), "+f"(acc[25]), "+f"(acc[26]), "+f"(acc[27]),
+        "+f"(acc[28]), "+f"(acc[29]), "+f"(acc[30]), "+f"(acc[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// acc (64 x 16, f32) = A (64 x 8) . B (16 x 8)^T in TF32, + acc where
+// scale_d != 0. Accumulators as m64n128k8's, j < 2.
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&acc)[8], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
+        "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");

@@ -23,9 +23,10 @@ w_hh is made). The forward is the step loop of ``csrc/bilstm_layer.cuh``
 indexed by time; the backward multiplies a block's own d_pre columns by its
 slice, hands every block the partial sums of that block's units, and adds
 them in block order. From H = 384 on (any multiple of 128) both passes run
-the wide step loop of the same header: w_hh read through L2, one grid-wide
-barrier a step; the backward reads the previous step's d_pre of all 4H
-columns back from d(xp) and multiplies it by w_hh's rows of its 32 units.
+the wide step loop of the same header: w_hh streamed through L2, the step's
+product in 3xTF32 on the tensor cores, one grid-wide barrier a step; the
+backward reads the previous step's d_pre of all 4H columns back from d(xp)
+and multiplies it by w_hh's rows of its ``WIDE_UNITS`` units.
 What is not CUDA — which columns a block owns, in how many interleaved
 parts a product is summed, the order of the partial sums, the waves — lives
 here too: ``forward_steps_tiled`` and ``backward_steps_tiled`` walk the same
@@ -43,6 +44,7 @@ from torch.autograd.function import once_differentiable
 from . import build, note_launch
 from .bilstm_layer import (UNITS_PER_BLOCK, WIDE_K, WIDE_ROW_TILE, WIDE_UNITS, block_columns,
                            lstm_dir, wide_run_columns, wide_steps_tiled, wide_wave_rows)
+from .tf32 import tiled_product
 
 FWD_LAUNCHES = 0  # forward-kernel launches in this process
 BWD_LAUNCHES = 0  # backward-kernel launches in this process
@@ -204,13 +206,17 @@ def forward_steps_tiled(xp, w_hh, capacity=None):
 def wide_backward_steps_tiled(gates, cs, w_hh, dout, capacity=None):
     """The wide loop's backward in plain tensors: per wave of rows (see
     ``wide_steps_tiled``) and step, last to first, each block — a direction,
-    a row tile, a run of 32 units — computes dh of its units as the previous
-    step's d_pre of all 4H columns, read back from dg, times w_hh's rows of
-    its units (tile by tile of ``WIDE_K`` columns), adds d(out), and turns
-    it, dc and the residuals into d_pre, written to dg at its time index."""
+    a row tile of ``WIDE_ROW_TILE``, a run of ``WIDE_UNITS`` units — computes
+    dh of its units as the previous step's d_pre of all 4H columns, read back
+    from dg, times w_hh's rows of its units, in 3xTF32 (``tiled_product``,
+    k tiles of ``WIDE_K`` over K = 4H, each tile's sum added to the total in
+    f32 from k = 0 on), adds d(out), and turns it, dc and the residuals into
+    d_pre, written to dg at its time index."""
     _, steps, rows, gdim = gates.shape
     hid = gdim // 4
     wave = rows if capacity is None else wide_wave_rows(hid, capacity)
+    if wave <= 0:
+        raise ValueError(f"no row tile of the wide loop at H={hid} fits {capacity} blocks")
     runs = wide_run_columns(hid)
     dg = torch.empty_like(gates)
     for r0 in range(0, rows, wave):  # one cooperative launch
@@ -226,11 +232,10 @@ def wide_backward_steps_tiled(gates, cs, w_hh, dout, capacity=None):
                     n = rs.stop - rs.start
                     for x0, cols in zip(range(0, hid, WIDE_UNITS), runs):
                         units = slice(x0, x0 + WIDE_UNITS)
-                        dh = gates.new_zeros(n, WIDE_UNITS)
                         if step < steps - 1:
-                            for k0 in range(0, gdim, WIDE_K):
-                                dh = dh + (dg[d, tn, rs, k0:k0 + WIDE_K]
-                                           @ w_hh[d, units, k0:k0 + WIDE_K].T)
+                            dh = tiled_product(dg[d, tn, rs], w_hh[d, units].T, WIDE_K)
+                        else:
+                            dh = gates.new_zeros(n, WIDE_UNITS)
                         i, f, g, o = gates[d, t, rs][:, cols].reshape(n, 4, WIDE_UNITS).unbind(1)
                         c_prev = cs[d, tp, rs, units] if step > 0 else torch.zeros_like(i)
                         d_pre, dc[d, rs, units] = _d_pre(

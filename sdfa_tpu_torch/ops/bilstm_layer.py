@@ -15,13 +15,14 @@ w_hh in the shared memory of a cluster of H / 32 blocks (8 at H = 256, 4 at
 H = 128): block s of a cluster owns hidden units 32s … 32s+31 of one
 direction for a tile of 32 rows. From H = 384 on (any multiple of 128) no
 cluster's shared memory holds w_hh, and the wide step loop takes its place:
-one cooperative launch per wave of rows, a block owning 32 units of one
-direction for a tile of ``WIDE_ROW_TILE`` rows, w_hh read through L2 in
-tiles of ``WIDE_K``, one grid-wide barrier a step (``takes``: every shape the
-JAX gate sends to its kernel). What is not CUDA — the row chunks, the
-scratch size, which gate columns a block owns, the waves — lives here, and
-``bilstm_layer_tiled`` walks the same tiling in plain tensors so that the CPU
-tests reach it.
+one cooperative launch per wave of rows, a block owning ``WIDE_UNITS`` units
+of one direction for a tile of ``WIDE_ROW_TILE`` rows, its step's product
+h·w_hh in 3xTF32 on the tensor cores with w_hh and h streamed through L2 in
+k tiles of ``WIDE_K`` (``wide_steps_tiled`` says how), one grid-wide barrier
+a step (``takes``: every shape the JAX gate sends to its kernel). What is not
+CUDA — the row chunks, the scratch size, which gate columns a block owns, the
+waves — lives here, and ``bilstm_layer_tiled`` walks the same tiling in plain
+tensors so that the CPU tests reach it.
 
 The input projection's scratch (``proj_scratch``, also for ``bilstm2`` and
 ``freq_lstm``): w_ih transposed and split into its TF32 parts, written by a
@@ -50,9 +51,10 @@ ROW_TILE = 32              # rows per cluster, walked as two sub-tiles that take
 SUB_TILE = ROW_TILE // 2
 PROJ_K = 32                # the input projection's k depth of a stage (its weights' K is
                            # padded to a multiple)
-WIDE_ROW_TILE = 32         # the wide step loop: rows a block owns,
-WIDE_UNITS = 32            # hidden units it owns (4 · 32 gate columns),
-WIDE_K = 16                # the k depth of one staged tile of its product
+WIDE_ROW_TILE = 64         # the wide step loop (both passes): rows a block owns,
+WIDE_UNITS = 16            # hidden units it owns (4 · 16 gate columns),
+WIDE_K = 32                # the k depth of one stage of its product (the sums promoted to
+                           # f32 registers after each)
 # Rows are walked in chunks of at most ``row_steps(H)`` (row, step) pairs (one
 # row where T alone is more), so the scratch does not grow with the batch: xp
 # holds 2 · 4H floats per pair, 128 MiB at any width; the 2-layer kernel's
@@ -73,7 +75,8 @@ def takes(hidden: int, n_in: int) -> bool:
 def wide_wave_rows(hidden: int, capacity: int) -> int:
     """Rows one cooperative launch of the wide step loop takes at ``hidden``
     units on a card that holds ``capacity`` of its blocks at once: whole row
-    tiles, each 2 · H / 32 blocks (both directions)."""
+    tiles of ``WIDE_ROW_TILE``, each 2 · H / ``WIDE_UNITS`` blocks (both
+    directions)."""
     return capacity // (2 * (hidden // WIDE_UNITS)) * WIDE_ROW_TILE
 
 
@@ -220,9 +223,10 @@ def layer_tiled_chunk(x, w_ih, w_hh, gate_bias, capacity=None):
 
 
 def wide_run_columns(hidden: int):
-    """The gate columns of each 32-unit run of the wide step loop, gate-major:
-    block x owns units 32x … 32x+31, columns q·H + those units for the gates
-    q = i, f, g, o."""
+    """The gate columns of each run of ``WIDE_UNITS`` units of the wide step
+    loop, gate-major: block x owns units 16x … 16x+15, columns q·H + those
+    units for the gates q = i, f, g, o (the kernel orders them otherwise in
+    its product; each column's sum is the same)."""
     return [torch.cat([q * hidden + u0 + torch.arange(WIDE_UNITS) for q in range(4)])
             for u0 in range(0, hidden, WIDE_UNITS)]
 
@@ -232,15 +236,20 @@ def wide_steps_tiled(xp, w_hh, out, capacity=None, gates=None, cs=None):
     rows, 2H) indexed by time (time-ordered views of a layer's tensors too).
     Per wave of ``wide_wave_rows(H, capacity)`` rows (all rows in one where
     ``capacity`` is None) and step, each block — a direction, a row tile of
-    ``WIDE_ROW_TILE``, a run of 32 units — multiplies the previous h of its
-    rows, read back from ``out`` at the direction's previous time index, by
-    its 128 gate columns of w_hh, adding the products tile by tile of
-    ``WIDE_K`` k, then the xp slab, and applies the cell; with ``gates`` and
-    ``cs`` given, it writes the post-activation gates and c as the training
-    core's forward does. Writes ``out`` (and ``gates``, ``cs``) in place."""
+    ``WIDE_ROW_TILE``, a run of ``WIDE_UNITS`` units — multiplies the previous
+    h of its rows, read back from ``out`` at the direction's previous time
+    index, by its 64 gate columns of w_hh in 3xTF32 (``tiled_product``: both
+    split into TF32 parts, three products a k tile of ``WIDE_K``, each tile's
+    sum added to the total in f32 from k = 0 on, as the kernel promotes its
+    tensor-core sums every k tile), adds the xp slab, and applies the cell;
+    with ``gates`` and ``cs`` given, it writes the post-activation gates and c
+    as the training core's forward does. Writes ``out`` (and ``gates``,
+    ``cs``) in place."""
     _, steps, rows, gdim = xp.shape
     hid = gdim // 4
     wave = rows if capacity is None else wide_wave_rows(hid, capacity)
+    if wave <= 0:
+        raise ValueError(f"no row tile of the wide loop at H={hid} fits {capacity} blocks")
     runs = wide_run_columns(hid)
     for r0 in range(0, rows, wave):  # one cooperative launch
         r1 = min(r0 + wave, rows)
@@ -254,12 +263,11 @@ def wide_steps_tiled(xp, w_hh, out, capacity=None, gates=None, cs=None):
                     n = rs.stop - rs.start
                     for x0, cols in zip(range(0, hid, WIDE_UNITS), runs):
                         units = slice(x0, x0 + WIDE_UNITS)
-                        acc = xp.new_zeros(n, 4 * WIDE_UNITS)
                         if step > 0:
-                            h_prev = out[tp, rs, d * hid:(d + 1) * hid]
-                            for k0 in range(0, hid, WIDE_K):
-                                ks = slice(k0, k0 + WIDE_K)
-                                acc = acc + h_prev[:, ks] @ w_hh[d, ks][:, cols]
+                            acc = tiled_product(out[tp, rs, d * hid:(d + 1) * hid],
+                                                w_hh[d][:, cols], WIDE_K)
+                        else:
+                            acc = xp.new_zeros(n, 4 * WIDE_UNITS)
                         pre = (acc + xp[d, t, rs][:, cols]).reshape(n, 4, WIDE_UNITS)
                         i, f, o = (torch.sigmoid(pre[:, q]) for q in (0, 1, 3))
                         g = torch.tanh(pre[:, 2])
@@ -292,11 +300,14 @@ def max_active_clusters(device) -> dict:
 def wide_resident_blocks(device) -> int:
     """How many blocks of the wide step loop ``device`` holds at once
     (resident blocks a multiprocessor × multiprocessors): what one cooperative
-    launch may take. Also checks the rows a block owns."""
-    blocks, row_tile = build.query_ints("bilstm_layer", "bilstm_layer_wide_blocks", 2, device)
-    if row_tile != WIDE_ROW_TILE:
-        raise RuntimeError(f"bilstm_layer.cuh's wide step loop owns {row_tile} rows a block; "
-                           f"WIDE_ROW_TILE says {WIDE_ROW_TILE}")
+    launch may take. Also checks the tiling it was built with: the rows and
+    units a block owns and the k depth of a stage (``WIDE_ROW_TILE``,
+    ``WIDE_UNITS``, ``WIDE_K``)."""
+    blocks, *tiling = build.query_ints("bilstm_layer", "bilstm_layer_wide_blocks", 4, device)
+    if tuple(tiling) != (WIDE_ROW_TILE, WIDE_UNITS, WIDE_K):
+        raise RuntimeError(f"bilstm_layer.cuh's wide step loop owns {tiling[0]} rows x "
+                           f"{tiling[1]} units a block in k tiles of {tiling[2]}; this module "
+                           f"says {WIDE_ROW_TILE} x {WIDE_UNITS}, {WIDE_K}")
     return blocks
 
 

@@ -12,7 +12,8 @@ per call: ``bilstm_layer.proj_scratch``); the recurrence on the step loop of
 ``csrc/bilstm_layer.cuh`` (at H = 128 and 256 the cluster step: a cluster of
 4 or 8 blocks holds one direction's w_hh in shared memory and owns
 ``ROW_TILE`` rows, the two directions in different clusters side by side;
-from H = 384 on the wide step loop, w_hh through L2), its h (rows, F, 2H)
+from H = 384 on the wide step loop, w_hh streamed through L2 and h·w_hh in
+3xTF32 on the tensor cores, blocks of ``WIDE_ROW_TILE`` rows), its h (rows, F, 2H)
 written to scratch; the output projection h·w_proj in 3xTF32 on the tensor
 cores too, at any output width: K = F·2H is split in slabs of ``K_SLAB``,
 each slab's partial sum taken k tile by k tile of ``OUT_K`` (three TF32
@@ -37,14 +38,15 @@ import collections
 import torch
 
 from . import build, note_launch
-from .bilstm_layer import (HIDDENS, WIDE_UNITS, bilstm_layer_plain, layer_tiled_chunk,
-                           proj_scratch)
+from .bilstm_layer import (HIDDENS, WIDE_ROW_TILE, WIDE_UNITS, bilstm_layer_plain,
+                           layer_tiled_chunk, proj_scratch)
 from .bilstm_layer import takes as layer_takes
 from .tf32 import tiled_product
 
 LAUNCHES = collections.Counter()  # wrapper calls that launched the kernels, by hidden width
 
-ROW_TILE = 32               # rows per cluster (per block of the wide loop) at every width
+ROW_TILE = 32               # rows per cluster at H = 128 and 256 (the wide loop's blocks own
+                            # WIDE_ROW_TILE)
 K_SLAB = 512                # K range of one partial sum of the output projection
 OUT_K = 32                  # the output projection's k depth of a stage
 # Rows are walked in chunks of at most ``row_steps(H)`` (row, step) pairs, so
@@ -90,18 +92,26 @@ def row_steps(hidden: int) -> int:
     return SCRATCH_ROW_STEPS * 128 // hidden
 
 
+def row_tile(hidden: int) -> int:
+    """Rows a (row tile, direction) group of the step loop owns at ``hidden``
+    units: a cluster's ``ROW_TILE`` at ``HIDDENS``, a block's
+    ``WIDE_ROW_TILE`` in the wide loop from H = 384 on."""
+    return ROW_TILE if hidden in HIDDENS else WIDE_ROW_TILE
+
+
 def chunk_rows(steps: int, groups: int, hidden: int) -> int:
     """Rows per chunk at ``steps`` frequency steps and ``hidden`` units on a
     card that holds ``groups`` (row tile, direction) groups of the step loop
     at once (``resident_groups``): whole waves (a row tile is two groups, one
     per direction) where a wave fits ``row_steps(hidden)``, else whole row
-    tiles, never less than one row."""
-    wave = max(1, groups // 2) * ROW_TILE
+    tiles (``row_tile``), never less than one row."""
+    tile = row_tile(hidden)
+    wave = max(1, groups // 2) * tile
     fit = row_steps(hidden) // steps
     if fit >= wave:
         return fit - fit % wave
-    if fit >= ROW_TILE:
-        return fit - fit % ROW_TILE
+    if fit >= tile:
+        return fit - fit % tile
     return max(1, fit)
 
 
@@ -131,8 +141,8 @@ def freq_lstm_tiled(x, w_ih, w_hh, gate_bias, w_proj, b_proj, groups: int, slab_
     """``freq_lstm_plain``'s function computed the kernels' way: row chunks of
     ``chunk_rows(F, groups, H)``; per chunk the projection for all steps, the
     step loop with the directions apart (``layer_tiled_chunk``; from H = 384
-    on the wide loop with ``groups`` · H / 32 resident blocks, so that its
-    waves are the chunk's) into the h scratch, then the output projection as
+    on the wide loop with ``groups`` · H / ``WIDE_UNITS`` resident blocks, so
+    that its waves are the chunk's) into the h scratch, then the output projection as
     ``output_projection_tiled``: a 3xTF32 partial sum per K slab, added by
     ``sum_slabs``."""
     rows, n_freq, _ = x.shape
@@ -186,7 +196,7 @@ def out_tiling(device) -> dict:
 def resident_groups(device, hidden: int) -> int:
     """(Row tile, direction) groups of the step loop at ``hidden`` units that
     ``device`` holds at once: clusters at ``HIDDENS``, the wide loop's blocks
-    over H / 32 from H = 384 on."""
+    over H / ``WIDE_UNITS`` from H = 384 on."""
     held = tiling(device)
     return held[hidden] if hidden in HIDDENS else held["wide"] // (hidden // WIDE_UNITS)
 

@@ -46,7 +46,7 @@ K2, K4, K5, P = "bilstm2", "bilstm_layer", "bilstm_core", trec.PLAIN
     (512, [512, 1024], False, (K2, K2)),
     (384, [256], True, (K5,)),
     (512, [64], True, (K5,)),
-    (640, [64, 1280], False, (K2, K2)),         # H = 640: 20 runs of 32 units
+    (640, [64, 1280], False, (K2, K2)),         # H = 640: 40 runs of 16 units
     (640, [64], True, (K5,)),
     (512, [1024], False, (K4,)),                 # an input of 1024 at H = 512
 ])

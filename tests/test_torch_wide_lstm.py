@@ -11,7 +11,7 @@ inputs at few rows and steps (rows <= 16, T <= 6, F <= 4):
   ``freq_lstm_fused``, K5 ``bilstm_core(interpret=True)`` forward and
   gradient. 1e-5, f32 on both sides (gradients relative to the largest);
 - the wide step loop's tiling walked in plain tensors (its waves of row
-  tiles, its runs of 32 units, the order its k tiles are added in, the
+  tiles, its runs of 16 units, the order its k tiles are added in, the
   projection's k tiles past 512 inputs) against the plain version;
 - both wide models of ``chip_smoke.py``'s ``wide_variants`` phase at their
   real recurrent widths (FreqLstm H = 256 / out 512 and a 2-layer time stack
@@ -173,10 +173,10 @@ def test_core_matches_pallas_interpret_forward_and_gradient(steps, rows, hid):
 
 @pytest.mark.parametrize("rows,steps,n_in,hid,capacity", [
     (16, 5, 1024, 512, None),   # one wave; the projection's k tiles past 512
-    (40, 3, 1000, 384, 48),     # 48 blocks: two row tiles a wave, so 40 rows in one, 2 tiles
-    (70, 2, 64, 384, 24),       # one row tile a wave: three waves, the last of 6 rows
-    (9, 2, 8, 640, None),       # H = 640: 20 runs of 32 units
-    (5, 2, 8, 1024, None)])     # H = 1024: 32 runs of 32 units
+    (40, 3, 1000, 384, 48),     # 48 blocks: one row tile of 64 a wave, so 40 rows in one
+    (70, 2, 64, 384, 48),       # one row tile a wave: two waves, the last of 6 rows
+    (9, 2, 8, 640, None),       # H = 640: 40 runs of 16 units
+    (5, 2, 8, 1024, None)])     # H = 1024: 64 runs of 16 units
 def test_wide_layer_tiled_matches_plain(rows, steps, n_in, hid, capacity):
     rng = np.random.default_rng(40 + rows)
     tx = [torch.from_numpy(a) for a in [_rand(rng, (rows, steps, n_in), 0.5)]
@@ -193,9 +193,9 @@ def test_wide_layer_tiled_matches_plain(rows, steps, n_in, hid, capacity):
 
 @pytest.mark.parametrize("steps,rows,hid,capacity", [
     (3, 16, 384, None), (2, 40, 512, 64), (1, 7, 384, None),
-    (2, 65, 384, 48),   # two row tiles a wave: one row past the first wave
-    (2, 9, 640, None),  # 20 runs of 32 units
-    (2, 5, 1024, None)])  # 32 runs
+    (2, 65, 384, 48),   # one row tile of 64 a wave: one row past the first wave
+    (2, 9, 640, None),  # 40 runs of 16 units
+    (2, 5, 1024, None)])  # 64 runs
 def test_wide_core_tiled_matches_plain(steps, rows, hid, capacity):
     """K5's wide forward (gates and c saved at their time index) and backward
     (the previous step's d_pre read back from dg) walked per wave, row tile
@@ -211,8 +211,8 @@ def test_wide_core_tiled_matches_plain(steps, rows, hid, capacity):
 
 @pytest.mark.parametrize("rows,n_freq,hid,out,groups", [
     (37, 3, 256, 200, 2), (40, 2, 384, 384, 2), (5, 4, 384, 201, 30),
-    (9, 2, 640, 100, 2),     # 20 runs of 32 units
-    (40, 2, 1024, 64, 2)])   # 64 blocks: one row tile a wave, two waves
+    (9, 2, 640, 100, 2),     # 40 runs of 16 units
+    (40, 2, 1024, 64, 2)])   # 128 blocks: one row tile of 64 a wave
 def test_wide_freq_tiled_matches_plain(rows, n_freq, hid, out, groups):
     """K1 at H = 256 (the layer kernels' cluster step) and 384 (the wide loop,
     its waves the chunk's), the output projection in K slabs at any width."""
@@ -238,12 +238,15 @@ def test_projection_walks_k_tiles_past_512():
                      .max()) < TOL
 
 
-@pytest.mark.parametrize("hid,capacity,rows", [(384, 396, 512), (512, 396, 384), (640, 396, 288),
-                                               (1024, 396, 192), (384, 23, 0), (8192, 396, 0)])
+@pytest.mark.parametrize("hid,capacity,rows", [(384, 396, 512), (512, 396, 384), (640, 396, 256),
+                                               (1024, 396, 192), (384, 23, 0), (8192, 396, 0),
+                                               (384, 528, 704), (512, 528, 512),
+                                               (3072, 396, 64), (3200, 396, 0)])
 def test_wide_wave_rows(hid, capacity, rows):
-    """Rows one cooperative launch takes: whole row tiles of 32 whose 2 H / 32
-    blocks each fit the resident blocks (396 on the H100 measured so far);
-    none where not one tile fits."""
+    """Rows one cooperative launch takes: whole row tiles of 64 whose 2 H / 16
+    blocks each fit the resident blocks (the forward's three a multiprocessor,
+    396 on an H100; the backward's four, 528); none where not one tile fits
+    (from H = 3200 at 396)."""
     assert K4.wide_wave_rows(hid, capacity) == rows
 
 

@@ -243,9 +243,10 @@ def test_dgrad_extraction_on_card_matches_numpy(cuda):
     (385, 2, 64, 512, False), (9, 3, 64, 1024, True)])
 def test_cuda_wide_layer_kernels_match_plain(cuda, rows, steps, n_in, hid, bias):
     """K4 and K2 through the wide step loop: one row, a partial row tile, an
-    input off the projection's k tile and past 512, one row more than one
-    cooperative launch takes at H = 384 and 512 on the H100 (512 and 384 rows),
-    H = 640 and 1024; each launch counted once, under its width."""
+    input off the projection's k tile and past 512, two and three waves' worth
+    of rows at H = 384 and 512 (513 and 385; the card's waves are
+    ``test_cuda_wide_edges_at_the_wave``'s), H = 640 and 1024; each launch
+    counted once, under its width."""
     rng = np.random.default_rng(rows + hid)
     g = 4 * hid
 
@@ -356,10 +357,9 @@ def test_cuda_output_projection_sees_a_weight_updated_in_place(cuda):
     (3, 1, 384), (2, 7, 512), (1, 33, 384), (3, 513, 384), (64, 100, 512), (2, 40, 640),
     (2, 385, 512), (2, 9, 1024)])
 def test_cuda_wide_training_core_matches_plain(cuda, steps, rows, hid):
-    """K5 through the wide step loop: one row, a partial row tile, T = 1, one row
-    more than a launch takes at H = 384 and 512 on the H100, H = 640 and 1024;
-    forward < 1e-4, the backward's gradients < 1e-4 of the largest; the same
-    bits twice."""
+    """K5 through the wide step loop: one row, a partial row tile, T = 1, rows
+    past one or two waves at H = 384 and 512, H = 640 and 1024; forward < 1e-4,
+    the backward's gradients < 1e-4 of the largest; the same bits twice."""
     xp, w_hh, dout = (torch.from_numpy(a).to(cuda)
                       for a in _core_inputs(steps, rows, hid, seed=11))
     xp.requires_grad_()
@@ -372,6 +372,46 @@ def test_cuda_wide_training_core_matches_plain(cuda, steps, rows, hid):
     for g, w in zip(got, want):
         assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)) < 1e-4
     assert torch.equal(got[0], torch.autograd.grad(K5.bilstm_core(xp, w_hh), (xp,), dout)[0])
+
+
+@pytest.mark.parametrize("hid", [384, 512])
+@pytest.mark.parametrize("edge", ["one_row", "partial_tile", "one_step", "past_a_wave"])
+def test_cuda_wide_edges_at_the_wave(cuda, edge, hid):
+    """The wide step loop at the edges of its tiling as the card runs it
+    (``WIDE_ROW_TILE`` rows a block; the rows one cooperative launch takes read
+    from the card's resident blocks, the forward's and the backward's apart):
+    one row, a partial row tile, T = 1, and one row past a wave of each pass
+    (two launches, the second of one row). K4 and K2 (the forward, a row's
+    steps together) and K5's forward and backward (by time) against their
+    plain versions: < 1e-4, the backward's gradients < 1e-4 of the largest."""
+    tile = K4.WIDE_ROW_TILE
+    blocks = K5.wide_resident_blocks(cuda)
+    waves = {"fwd": K4.wide_wave_rows(hid, blocks["fwd"]),
+             "bwd": K4.wide_wave_rows(hid, blocks["bwd"])}
+    assert K4.wide_resident_blocks(cuda) == blocks["fwd"] and min(waves.values()) >= tile
+    rows, steps = {"one_row": ([1], 3), "partial_tile": ([tile + 5], 3), "one_step": ([7], 1),
+                   "past_a_wave": ([waves["fwd"] + 1, waves["bwd"] + 1], 2)}[edge]
+    rng = np.random.default_rng(hid + steps)
+    for n in rows:
+        x = torch.from_numpy(_rand(rng, (n, steps, 256), 0.5)).to(cuda)
+        w = [torch.from_numpy(a).to(cuda) for a in (
+            _rand(rng, (2, 256, 4 * hid), 1 / 16), _rand(rng, (2, hid, 4 * hid), hid ** -0.5),
+            _rand(rng, (2, 4 * hid), 0.1), _rand(rng, (2, 2 * hid, 4 * hid), 1 / 16),
+            _rand(rng, (2, hid, 4 * hid), hid ** -0.5), _rand(rng, (2, 4 * hid), 0.1))]
+        assert float((K4.bilstm_layer(x, *w[:3]) - K4.bilstm_layer_plain(x, *w[:3])).abs()
+                     .max()) < 1e-4
+        assert float((K2.bilstm2(x, *w) - K2.bilstm2_plain(x, *w)).abs().max()) < 1e-4
+        xp, w_hh, dout = (torch.from_numpy(a).to(cuda)
+                          for a in _core_inputs(steps, n, hid, seed=n))
+        xp.requires_grad_()
+        w_hh.requires_grad_()
+        out = K5.bilstm_core(xp, w_hh)
+        got = torch.autograd.grad(out, (xp, w_hh), dout)
+        ref = K5.bilstm_core_plain(xp, w_hh)
+        want = torch.autograd.grad(ref, (xp, w_hh), dout)
+        assert float((out - ref).abs().max()) < 1e-4
+        for g, w_ in zip(got, want):
+            assert float((g - w_).abs().max() / w_.abs().max().clamp_min(1e-30)) < 1e-4
 
 
 # --- the input projection alone (proj_kernel in 3xTF32), at each instantiation -------
