@@ -4363,17 +4363,22 @@ def profile_server_tick(task, sr, smi, phase="profile_server_tick"):
                                      for k, ms, c in device[:16]], "card": smi})
 
 
-# the record_function spans of Experiment.train_step: ranges, not kernels, in a profile
-TRAIN_SPANS = ("train/upload", "train/forward_loss", "train/backward", "train/clip_adam")
+# the prefixes of the port's record_function spans (Experiment.train_step's stages,
+# the collectives, the collector's pauses): ranges, not kernels, in a profile
+TRAIN_SPANS = ("train/", "mesh/", "host/")
+# train_step's outermost stages: the device times of their kernels make up a step's
+TRAIN_STAGES = ("train/upload", "train/zero_grad", "train/forward_loss", "train/backward",
+                "train/clip_adam")
 
 
 def device_kernels(prof, spans=()):
     """(name, device ms, launches) of every kernel and copy in a profile, largest
-    first, and their sum; ``spans`` names record_function ranges to leave out."""
+    first, and their sum; ``spans`` holds the name prefixes of record_function
+    ranges to leave out."""
     from torch.autograd import DeviceType
 
     device = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.key not in spans]
+              if e.device_type == DeviceType.CUDA and not e.key.startswith(spans)]
     device.sort(key=lambda item: -item[1])
     return device, sum(ms for _, ms, _ in device)
 
@@ -4687,14 +4692,14 @@ def profile_train_step(exp, batches, smi, step_ms_unprofiled):
             exp.train_step(batch)
         torch.cuda.synchronize()
     span_ms = 1e3 * (time.perf_counter() - t0)
-    spans = TRAIN_SPANS
-    device, busy_ms = device_kernels(prof, spans)
+    device, busy_ms = device_kernels(prof, TRAIN_SPANS)
     # a span's device time is that of the kernels launched inside it on the calling
     # thread; autograd launches the backward's kernels from its own thread, so the
-    # backward's share is what the other three leave
+    # backward's share is what the other stages leave
     stages = {e.key: e.device_time_total / 1e3 / 3 for e in prof.key_averages()
-              if e.device_type == DeviceType.CPU and e.key in spans and e.key != spans[2]}
-    stages[spans[2]] = busy_ms / 3 - sum(stages.values())
+              if e.device_type == DeviceType.CPU and e.key in TRAIN_STAGES
+              and e.key != "train/backward"}
+    stages["train/backward"] = busy_ms / 3 - sum(stages.values())
     emit({"phase": "profile", "steps": 3, "profiled_span_ms": span_ms,
           "device_busy_ms_per_step": busy_ms / 3, "step_ms_unprofiled": step_ms_unprofiled,
           "device_busy_share": busy_ms / 3 / step_ms_unprofiled,

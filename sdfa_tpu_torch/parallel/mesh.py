@@ -23,6 +23,14 @@ step on its own rows, and what the global batch needs crosses ranks:
   metric) are reduced on a host (gloo) group, so that every rank takes the
   same decision without a device round trip.
 
+Every collective runs inside a ``mesh/<op>`` span (``record_function``, on a
+``torch.profiler`` trace's clock) and adds to ``CALLS`` and ``BYTES`` under
+the same op: ``all_reduce_sum`` and its backward ``all_reduce_sum_bwd`` (a
+pair per BatchNorm module whose input needs a gradient), ``mean_over_ranks``,
+``average_gradients``, ``host_mean``, ``all_ranks_agree`` and ``barrier``. The
+device collectives only enqueue their work: the span is the host's share, the
+trace's NCCL kernels the device's.
+
 ``batch_sharding`` and ``replicated`` of the JAX module return ``NamedSharding``
 objects, which have no counterpart: a rank holds its rows and the whole
 parameters by construction.
@@ -30,6 +38,7 @@ parameters by construction.
 
 from __future__ import annotations
 
+import collections
 import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -37,6 +46,21 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
+
+CALLS = collections.Counter()  # collectives called in this process, by op
+BYTES = collections.Counter()  # their payload bytes, by op
+
+
+def _all_reduce(span: str, tensor: torch.Tensor, group, **kwargs):
+    """``dist.all_reduce`` in place inside ``span`` (``mesh/<op>``), counted
+    under ``<op>``."""
+    op = span.removeprefix("mesh/")
+    CALLS[op] += 1
+    BYTES[op] += tensor.numel() * tensor.element_size()
+    with record_function(span):
+        dist.all_reduce(tensor, group=group, **kwargs)
+    return tensor
 
 
 @dataclass(frozen=True)
@@ -150,15 +174,14 @@ class _AllReduceSum(torch.autograd.Function):
     each rank's loss depends on every rank's share of the sum."""
 
     @staticmethod
-    def forward(ctx, tensor, group):
+    def forward(ctx, tensor, group, span="mesh/all_reduce_sum"):
         ctx.group = group
         out = tensor.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out
+        return _all_reduce(span, out, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad, ctx.group), None
+        return _AllReduceSum.apply(grad, ctx.group, "mesh/all_reduce_sum_bwd"), None, None
 
 
 def all_reduce_sum(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -170,16 +193,14 @@ def all_reduce_sum(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def mean_over_ranks(tensor: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The mean over ranks of a detached tensor, the same bits on every rank."""
     out = tensor.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=mesh.group)
-    return out.div_(mesh.world)
+    return _all_reduce("mesh/mean_over_ranks", out, mesh.group).div_(mesh.world)
 
 
 def average_gradients(grads: List[torch.Tensor], mesh: Mesh):
     """Every gradient replaced by its mean over ranks, in place: one flat
     all-reduce of all of them."""
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.group)
-    flat.div_(mesh.world)
+    _all_reduce("mesh/average_gradients", flat, mesh.group).div_(mesh.world)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -191,7 +212,7 @@ def host_mean(values: Dict[str, float], mesh: Mesh) -> Dict[str, float]:
     reduced on the host group in float64."""
     keys = sorted(values)
     t = torch.tensor([float(values[k]) for k in keys], dtype=torch.float64)
-    dist.all_reduce(t, group=mesh.host_group)
+    _all_reduce("mesh/host_mean", t, mesh.host_group)
     return dict(zip(keys, (t / mesh.world).tolist()))
 
 
@@ -199,7 +220,7 @@ def all_ranks_agree(flag: bool, mesh: Mesh) -> bool:
     """The flag, which every rank must hold alike: raises on every rank if
     they differ (loaders out of step would otherwise block a collective)."""
     t = torch.tensor([int(flag), -int(flag)], dtype=torch.int64)
-    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.host_group)
+    _all_reduce("mesh/all_ranks_agree", t, mesh.host_group, op=dist.ReduceOp.MIN)
     lo, hi = int(t[0]), -int(t[1])
     if lo != hi:
         raise RuntimeError(f"ranks disagree ({flag} on rank {mesh.rank}): their loaders are "
@@ -209,4 +230,6 @@ def all_ranks_agree(flag: bool, mesh: Mesh) -> bool:
 
 def barrier(mesh: Mesh):
     if mesh.parallel:
-        dist.barrier(group=mesh.host_group)
+        CALLS["barrier"] += 1
+        with record_function("mesh/barrier"):
+            dist.barrier(group=mesh.host_group)

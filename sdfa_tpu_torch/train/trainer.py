@@ -139,31 +139,35 @@ def make_loss_fn(model: SpeechDrivenAnimation, hparams, mesh: Optional[mesh_lib.
             # the host shipped raw windows and augmentation knobs only
             if feat_spec is None:
                 feat_spec = FeatureSpec.from_hparams(hparams)
-            audio_feat = device_train_features(*(batch[k] for k in RAW_KEYS), spec=feat_spec)
+            with record_function("train/features"):
+                audio_feat = device_train_features(*(batch[k] for k in RAW_KEYS),
+                                                   spec=feat_spec)
         else:
             audio_feat = batch["audio_feat"]
-        preds, _ = model(audio_feat, batch["speaker_id"], decode=is_face_data)
-        weights = batch.get(weight_key) if weight_key else None
-        if weights is None:
-            weights = audio_feat.new_ones(audio_feat.shape[0])
+        with record_function("train/model"):
+            preds, _ = model(audio_feat, batch["speaker_id"], decode=is_face_data)
+        with record_function("train/loss_terms"):
+            weights = batch.get(weight_key) if weight_key else None
+            if weights is None:
+                weights = audio_feat.new_ones(audio_feat.shape[0])
 
-        terms_fn = dgrad_terms if face_type == "dgrad_3d" else single_terms
-        scalars, terms = terms_fn(preds, batch, weights)
-        loss_terms: Dict[str, torch.Tensor] = {}
-        new_scalers = dict(scalers)
-        global_terms = [None] * len(terms)
-        if dyn and training and mesh is not None and mesh.parallel:
-            # every term's global mean in one all-reduce: the scalers' state stays
-            # the same on every rank and equal to one process's on the global batch
-            global_terms = mesh_lib.mean_over_ranks(torch.stack([t[1] for t in terms]), mesh)
-        for (key, val, sname, scl), global_val in zip(terms, global_terms):
-            if dyn:
-                scaled, new_scalers[sname] = L.dynamic_scale(val, scalers[sname], training,
-                                                              global_loss=global_val)
-                loss_terms[f"dyn_{key}"] = scaled * scl
-            else:
-                loss_terms[f"loss_{key}"] = val * scl
-        total = sum(loss_terms.values())
+            terms_fn = dgrad_terms if face_type == "dgrad_3d" else single_terms
+            scalars, terms = terms_fn(preds, batch, weights)
+            loss_terms: Dict[str, torch.Tensor] = {}
+            new_scalers = dict(scalers)
+            global_terms = [None] * len(terms)
+            if dyn and training and mesh is not None and mesh.parallel:
+                # every term's global mean in one all-reduce: the scalers' state stays
+                # the same on every rank and equal to one process's on the global batch
+                global_terms = mesh_lib.mean_over_ranks(torch.stack([t[1] for t in terms]), mesh)
+            for (key, val, sname, scl), global_val in zip(terms, global_terms):
+                if dyn:
+                    scaled, new_scalers[sname] = L.dynamic_scale(val, scalers[sname], training,
+                                                                  global_loss=global_val)
+                    loss_terms[f"dyn_{key}"] = scaled * scl
+                else:
+                    loss_terms[f"loss_{key}"] = val * scl
+            total = sum(loss_terms.values())
         scalars["total"] = total
         return total, dict(new_scalers=new_scalers, scalars=scalars, loss_terms=loss_terms)
 
@@ -333,8 +337,12 @@ class Experiment:
     def train_step(self, batch, dropout_seed: Optional[int] = None) -> Dict[str, Any]:
         """One optimization step; returns the loss scalars and terms, the
         gradient norm (before clipping) as 0-dim device tensors, and lr.
-        The gradients stay on the parameters until the next step. The four
-        ``record_function`` spans name the stages in a ``torch.profiler`` trace.
+        The gradients stay on the parameters until the next step.
+        ``record_function`` spans name the stages in a ``torch.profiler`` trace:
+        ``train/upload``, ``train/zero_grad``, ``train/forward_loss`` (holding
+        the loss function's ``train/features``, ``train/model`` and
+        ``train/loss_terms``), ``train/backward``, ``train/all_reduce`` under
+        a data-parallel mesh, and ``train/clip_adam``.
         The dropout generator is seeded with ``step_seed(seed, step)`` unless
         ``dropout_seed`` says otherwise (an aux loader's step)."""
         with record_function("train/upload"):
@@ -345,7 +353,8 @@ class Experiment:
         self.dropout_gen.manual_seed(step_seed(self.seed, self.step) if dropout_seed is None
                                      else dropout_seed)
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        with record_function("train/zero_grad"):
+            self.optimizer.zero_grad(set_to_none=True)
         with record_function("train/forward_loss"):
             total, aux = self.loss_fn(self.scalers, batch, True)
         with record_function("train/backward"):
@@ -663,9 +672,10 @@ class Trainer:
                         self.profile_start, self._steps_seen)
         exp.save()
         log.info("trained %d steps; kernel launches in this process: freq_lstm %d, bilstm2 %d, "
-                 "training core forward %d, backward %d", exp.step, freq_lstm.LAUNCHES.total(),
-                 sum(bilstm2.LAUNCHES.values()), bilstm_core.FWD_LAUNCHES,
-                 bilstm_core.BWD_LAUNCHES)
+                 "training core forward %d, backward %d; collectives by op %s, their bytes %s",
+                 exp.step, freq_lstm.LAUNCHES.total(), sum(bilstm2.LAUNCHES.values()),
+                 bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES, dict(mesh_lib.CALLS),
+                 dict(mesh_lib.BYTES))
         mesh_lib.barrier(exp.mesh)  # the run's files are written when train() returns
 
     def _agreed(self, batch):

@@ -105,7 +105,57 @@ def train_model_task(task: dict, rank: int) -> dict:
             "state_dict": {k: v.cpu() for k, v in exp.model.state_dict().items()}}
 
 
-TASKS = {"steps": steps_task, "train_model": train_model_task}
+def spans_task(task: dict, rank: int) -> dict:
+    """``task["steps"]`` steps as the ``Trainer`` takes them (the ranks agree
+    that each has a batch, then ``train_step``) on this rank's rows of the
+    raw-mode reader, under a ``torch.profiler`` capture: the collectives by op
+    from ``parallel.mesh.CALLS`` and from the capture's ``mesh/*`` spans, and
+    what the model holds that decides their number."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdfa_tpu_torch.config import configure
+    from sdfa_tpu_torch.data import DatasetSlidingWindow
+    from sdfa_tpu_torch.models import build_model
+    from sdfa_tpu_torch.nn.layers import BatchNorm
+    from sdfa_tpu_torch.parallel import mesh
+    from sdfa_tpu_torch.train import Experiment
+
+    hp = configure("dgrad", overrides=task["overrides"], dataset_root=task["dataset_root"])
+    hp.trainer.set_key("multihost", True)
+    exp = Experiment(hp, build_model(hp), os.path.join(task["log_dir"], f"rank{rank}"), "cpu",
+                     seed=task["seed"])
+    reader = DatasetSlidingWindow(hp, training=True).raw_batches(
+        int(hp.trainer.anime_loader.batch_size), shard=(exp.mesh.rank, exp.mesh.world))
+    before = dict(mesh.CALLS)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(task["steps"]):
+            batch = next(reader)
+            mesh.all_ranks_agree(batch is not None, exp.mesh)
+            exp.train_step(batch)
+    calls = {k: v - before.get(k, 0) for k, v in mesh.CALLS.items() if v - before.get(k, 0)}
+    path = os.path.join(task["log_dir"], f"trace{rank}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fp:
+        events = json.load(fp)["traceEvents"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("mesh/"):
+            spans[e["name"][len("mesh/"):]] = spans.get(e["name"][len("mesh/"):], 0) + 1
+    # BatchNorm's global sum stays twice differentiable: d/dx of sum(d/dx of
+    # sum(y^2)) through y = the sum over ranks of x is 2 world^2 a leaf
+    x = torch.full((3,), float(rank + 1), requires_grad=True)
+    (g,) = torch.autograd.grad(mesh.all_reduce_sum(x, exp.mesh).square().sum(), x,
+                               create_graph=True)
+    (gg,) = torch.autograd.grad(g.sum(), x)
+    return {"calls": calls, "spans": spans, "bytes": dict(mesh.BYTES),
+            "second_order": gg.tolist(),
+            "batch_norms": sum(isinstance(m, BatchNorm) for m in exp.model.modules()),
+            "dynamic_scalers": bool(hp.loss.get("dynamic_scalar", False))}
+
+
+TASKS = {"steps": steps_task, "train_model": train_model_task, "spans": spans_task}
 
 
 def main(argv):

@@ -98,8 +98,11 @@ def test_profile_window_writes_a_trace(cli):
     (trace,) = os.listdir(prof)
     with open(os.path.join(prof, trace)) as fp:
         events = json.load(fp)["traceEvents"]
-    spans = [e["name"] for e in events if e.get("name", "").startswith("train/")]
-    assert spans.count("train/forward_loss") == 1 and spans.count("train/backward") == 1
+    spans = [e["name"] for e in events if e.get("name", "").startswith("train/")
+             and e.get("cat") == "user_annotation"]
+    for stage in ("train/upload", "train/zero_grad", "train/forward_loss", "train/features",
+                  "train/model", "train/loss_terms", "train/backward", "train/clip_adam"):
+        assert spans.count(stage) == 1, (stage, spans)
 
 
 def _request_signal(wav, hp):
@@ -229,14 +232,13 @@ def test_refusals(cli, case, monkeypatch, capsys):
     assert not (cli["tmp"] / f"refused_{case}").exists()
 
 
-def test_profiling_trace_context_on_the_cpu(tmp_path, monkeypatch):
+def test_profiling_trace_context_on_the_cpu(tmp_path):
     from sdfa_tpu_torch import profiling
 
-    with profiling.trace(str(tmp_path), cuda=False):
-        with torch.profiler.record_function("probe/span"):
-            torch.ones(8).sum()
-    (trace,) = os.listdir(tmp_path)
-    with open(tmp_path / trace) as fp:
+    capture = profiling.start_trace(str(tmp_path), cuda=False)
+    with torch.profiler.record_function("probe/span"):
+        torch.ones(8).sum()
+    path = profiling.stop_trace(capture)
+    assert os.listdir(tmp_path) == [os.path.basename(path)]
+    with open(path) as fp:
         assert any(e.get("name") == "probe/span" for e in json.load(fp)["traceEvents"])
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert profiling.device_memory_stats() == {}  # without a card
