@@ -140,9 +140,10 @@ Phases, each printed as one JSON line:
 15. cli: ``python -m sdfa_tpu_torch`` on the ``data_train`` phase's dataset and
    checkpoint. ``train`` in process for 16 steps with ``--profile_dir`` (K5 48 / 48,
    ``last.ckpt``, one trace file of steps 10-14 that names the training core's
-   kernels); ``trace`` in process, then the same 3 s request through
-   ``load_traced``, ``load_task`` and the trained task in memory (K1 / K2 / K3 1 / 1
-   / 1 each, within 1e-7 m of each other; ``load_task``'s through the plain
+   kernels and the step's graph replay, 3 + 3 K5 kernels in each replay); ``trace``
+   in process, then the same 3 s request through ``load_traced``, ``load_task`` and
+   the trained task in memory (K1 / K2 / K3 1 / 1 / 1 each, within 1e-7 m of each
+   other; ``load_task``'s through the plain
    versions too, within 1e-5 m); ``evaluate`` as a subprocess (``evaluate.sh``'s
    command with the port's module) on a 1 s wav over the template written to a
    ``.ply``, its meshes within 1e-5 m of the same evaluation in process through
@@ -266,6 +267,14 @@ and a float64 product (<= 1e-5 of the largest |xp|).
 At the end ``ops.PLAIN_ROUTES`` must read 0: no path this script drives has a
 recurrent shape that no kernel takes.
 
+On one card a train step replays a CUDA graph, and each replay credits the wrappers'
+counters with the launches of the captured step; so K5's launches on the training paths
+at the published widths (train, data_train, last_modules' ``StepEnv``, the spec variants,
+offsets_train, preprocess) are also taken from a ``torch.profiler`` trace of the card's
+kernels (``k5_traced``: the counters' launches plus each capture's warm-up, or the run
+fails), and the CLI's trace window must hold 3 + 3 in each replay. The ``kernels`` line
+gives them as ``traced_by_path``.
+
 Before its last lines the script checks that no process it started is left
 (every process of its process group that was not there when it began). Any
 failure raises, so the script exits non-zero and prints no result
@@ -273,6 +282,7 @@ line. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import contextlib
 import json
 import os
 import re
@@ -345,8 +355,9 @@ CLI_SAME_TOL_M = 1e-7  # load_traced / load_task / the task in memory: the same 
 CLI_SERVE_TOL_M = 5e-6 + 1e-7  # a served stream on i16 vs the offline f32 request
 CLI_SUBPROCESS_TIMEOUT_S = 300
 # what the train window's trace must name: the training core's kernels, by their CUDA
-# names (the backward; the forward runs bilstm_layer.cuh's step kernel), and a span
-CLI_TRACE_NAMES = ("core_bwd_kernel", "steps_kernel", "train/backward")
+# names (the backward; the forward runs bilstm_layer.cuh's step kernel), and the span of
+# a step's replay (on one card the step runs as a CUDA graph: no stage span in it)
+CLI_TRACE_NAMES = ("core_bwd_kernel", "steps_kernel", "train/graph_replay")
 STEP_LOSS_RTOL = 1e-5  # train step, kernels vs plain versions: total loss
 STEP_GRAD_RTOL = 1e-4  # ... and every gradient: max |diff| over the model's largest |gradient|;
                        # the recurrent layers' gradients also over their own largest |value|
@@ -1672,6 +1683,8 @@ def main():
                 raise RuntimeError(f"train step {i}: non-finite {bad}")
         if (launches["bilstm_core_fwd"], launches["bilstm_core_bwd"]) != (3 * TRAIN_STEPS,) * 2:
             raise RuntimeError(f"bilstm_core launches {launches}, expected {3 * TRAIN_STEPS} each")
+        with k5_traced("train"):  # the same steps again, their K5 launches from a trace
+            Trainer(experiment("traced"), iter(batches)).train()
         after = exp.model.state_dict()
         unchanged = [n for n, p in exp.model.named_parameters() if torch.equal(before[n], p)]
         if unchanged:
@@ -1803,6 +1816,10 @@ def main():
             raise RuntimeError(f"{name} was never launched on its path")
         entry["launches_by_path"] = {path: counts[name] for path, counts in path_launches.items()
                                      if name in counts}
+        if name in K5_KERNELS:  # K5's launches by training path as the card ran them
+            entry["traced_by_path"] = {path: {k: v[name] for k, v in record.items()
+                                              if k in ("traced", "warm_up")}
+                                       for path, record in K5_TRACED.items()}
         kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)
@@ -1930,13 +1947,14 @@ def spec_variants_phase(task_main, pca, sig, spk, solver, dev, smi, tmp):
         exp = Experiment(hp, build_model(hp, pca=pca), os.path.join(tmp, name), dev, seed=SEED)
         reset()
         losses, step_ms, first = [], [], None
-        for batch in batches:
-            torch.cuda.synchronize()
-            t_step = time.perf_counter()
-            metrics = exp.train_step(batch)
-            losses.append(float(metrics["total"]))
-            step_ms.append((time.perf_counter() - t_step) * 1e3)
-            first = first or {k: float(v) for k, v in metrics.items()}
+        with k5_traced(f"spec_variants.{name}"):
+            for batch in batches:
+                torch.cuda.synchronize()
+                t_step = time.perf_counter()
+                metrics = exp.train_step(batch)
+                losses.append(float(metrics["total"]))
+                step_ms.append((time.perf_counter() - t_step) * 1e3)
+                first = first or {k: float(v) for k, v in metrics.items()}
         train = counts()
         plain_exp = Experiment(hp, build_model(hp, pca=pca), os.path.join(tmp, name + "_plain"),
                                dev, seed=SEED)
@@ -2267,8 +2285,9 @@ def _data_train(out, task_seeded, sig, spk, solver, dev, counters, tmp):
     reset_counts(counters)
     run = os.path.join(tmp, "run")
     t0 = time.perf_counter()
-    exp = api.train_model("dgrad", dataset_root=root, log_dir=run, max_steps=DATA_TRAIN_STEPS,
-                          overrides=pca_on, device=dev)
+    with k5_traced("data_train"):
+        exp = api.train_model("dgrad", dataset_root=root, log_dir=run,
+                              max_steps=DATA_TRAIN_STEPS, overrides=pca_on, device=dev)
     out["train_model_s"] = time.perf_counter() - t0
     path = read_counts(counters, "data_train train_model", zero=tuple(counters))
     core = (bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES)
@@ -2489,6 +2508,9 @@ def _last_modules(out, trained, served, train_step_ms, dev, tmp):
     path = {"bilstm_core_fwd": k5[0], "bilstm_core_bwd": k5[1]}
     if k5 != (3 * steps, 3 * steps):
         raise RuntimeError(f"StepEnv: K5 launched {k5} in {steps} steps, expected 3 + 3 a step")
+    with k5_traced("last_modules"):  # two steps more, their K5 launches from a trace
+        for i in range(2):
+            env.step(i)
     stats = env.cost_stats()
     out["stepenv"] = {
         "windows": env.n_windows, "step_ms_synced_median": median_s * 1e3,
@@ -2699,7 +2721,8 @@ def cli_phase(trained, repo, dev, smi):
     written to a ``.ply``) start first as subprocesses, so that their start-up
     overlaps the modes run in process: ``train`` for 16 steps with
     ``--profile_dir`` (K5 48 / 48, ``last.ckpt``, a trace file that names the
-    training core's kernels); ``trace``, then one 3 s request each through
+    training core's kernels and ``train/graph_replay``, with 3 + 3 K5 kernels
+    in each replay); ``trace``, then one 3 s request each through
     ``load_traced``, ``load_task`` and the trained task in memory (K1 / K2 / K3
     1 / 1 / 1 each, within ``CLI_SAME_TOL_M`` of each other, ``load_task``'s also
     through the plain versions); the same evaluation as the subprocess's, in
@@ -2771,13 +2794,21 @@ def cli_phase(trained, repo, dev, smi):
         traces = sorted(os.listdir(prof_dir)) if os.path.isdir(prof_dir) else []
         text = open(os.path.join(prof_dir, traces[0])).read() if len(traces) == 1 else ""
         named = {k: k in text for k in CLI_TRACE_NAMES}
+        # the window's K5 launches as the card ran them: 3 + 3 in each replay
+        events = json.loads(text)["traceEvents"] if text else []
+        replays = sum(e.get("cat") == "user_annotation" and e.get("name") == "train/graph_replay"
+                      for e in events)
+        ran = {name: sum(e.get("cat") == "kernel" and any(k in e.get("name", "") for k in ks)
+                         for e in events) for name, ks in K5_KERNELS.items()}
+        K5_TRACED["cli"] = {"traced": ran, "replays_in_window": replays}
         out["train"] = {"steps": exp.step, "bilstm_core_launches": list(core),
                         "last_ckpt": os.path.exists(os.path.join(run, "last.ckpt")),
                         "trace_files": len(traces), "trace_mbytes": len(text) / 1e6,
-                        "trace_names": named}
+                        "trace_names": named, "k5_traced": K5_TRACED["cli"]}
         path["bilstm_core_fwd"], path["bilstm_core_bwd"] = core
         if (exp.step, core) != (CLI_TRAIN_STEPS, (3 * CLI_TRAIN_STEPS,) * 2) or \
-                not out["train"]["last_ckpt"] or not all(named.values()):
+                not out["train"]["last_ckpt"] or not all(named.values()) or \
+                not replays or set(ran.values()) != {3 * replays}:
             raise RuntimeError(f"cli train: {out['train']}")
         del exp, text
 
@@ -3124,8 +3155,9 @@ def offsets_train_phase(dev, smi):
         reset_counts(counters)
         run = os.path.join(tmp, "run")
         t0 = time.perf_counter()
-        exp = api.train_model("offsets", dataset_root=root, log_dir=run,
-                              max_steps=DATA_TRAIN_STEPS, overrides=pca_on, device=dev)
+        with k5_traced("offsets_train"):
+            exp = api.train_model("offsets", dataset_root=root, log_dir=run,
+                                  max_steps=DATA_TRAIN_STEPS, overrides=pca_on, device=dev)
         out["train_model_s"] = time.perf_counter() - t0
         path = read_counts(counters, "offsets_train train_model", zero=tuple(counters))
         core = (bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES)
@@ -3377,8 +3409,9 @@ def preprocess_phase(repo, dev, smi, tmp):
     reset_counts(counters)
     run = os.path.join(tmp, "run")
     t0 = time.perf_counter()
-    exp = api.train_model("dgrad", dataset_root=root, log_dir=run, max_steps=PRE_TRAIN_STEPS,
-                          overrides=overrides, device=dev)
+    with k5_traced("preprocess"):
+        exp = api.train_model("dgrad", dataset_root=root, log_dir=run,
+                              max_steps=PRE_TRAIN_STEPS, overrides=overrides, device=dev)
     out["wall_s"]["train_model"] = time.perf_counter() - t0
     path = read_counts(counters, "preprocess train_model", zero=tuple(counters))
     core = (bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES)
@@ -4014,6 +4047,62 @@ def read_counts(counters, path, zero=(), k3_full=False):
         if (n != 0) if name in zero else (n < 1):
             raise RuntimeError(f"{path}: {name} launched {n} times")
     return counts
+
+
+# K5 at H = 128 and 256 by its CUDA names, one launch a wrapper call: the forward runs
+# bilstm_layer.cuh's cluster step loop, the backward its own kernel (from H = 384 on, the
+# wide loop launches once per wave of rows, so its launches are not the wrappers' count)
+K5_KERNELS = {"bilstm_core_fwd": ("steps_kernel",), "bilstm_core_bwd": ("core_bwd_kernel",)}
+K5_TRACED = {}  # training path -> K5's launches as the card ran them (``k5_traced``)
+
+
+def k5_in(prof):
+    """K5's launches in a ``torch.profiler`` capture, by counter name."""
+    from torch.autograd import DeviceType
+
+    ran = dict.fromkeys(K5_KERNELS, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name, kernels in K5_KERNELS.items():
+                ran[name] += e.count if any(k in e.key for k in kernels) else 0
+    return ran
+
+
+@contextlib.contextmanager
+def k5_traced(path):
+    """Runs the ``with`` block, training on one card and nothing else on it,
+    under a ``torch.profiler`` capture of the card's kernels, and holds the
+    K5 launches that the wrappers' counters add over the block to those the
+    card ran (``K5_TRACED[path]``, printed in the ``kernels`` line). On one
+    card a step is a CUDA graph replay, and each replay credits the counters
+    with the captured step's launches: only the trace can show a replay that
+    ran fewer. A capture's warm-up, ``trainer.GRAPH_WARMUP`` steps on a side
+    stream, runs launches that the counters leave out and the trace holds:
+    as many a step as the path's own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdfa_tpu_torch.ops import bilstm_core
+    from sdfa_tpu_torch.train import trainer
+
+    def counters():
+        return dict(zip(K5_KERNELS, (bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES)))
+
+    before, steps_before = counters(), collections.Counter(trainer.GRAPH_STEPS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield
+        torch.cuda.synchronize()
+    ran = k5_in(prof)
+    counted = {name: n - before[name] for name, n in counters().items()}
+    moved = trainer.GRAPH_STEPS - steps_before
+    steps = sum(moved.values()) - moved["capture"]  # a capture's step also counts as it ran
+    warm_up = {name: trainer.GRAPH_WARMUP * moved["capture"] * n // max(steps, 1)
+               for name, n in counted.items()}
+    K5_TRACED[path] = record = {"traced": ran, "counted": counted, "warm_up": warm_up,
+                                "steps_by_path": dict(moved)}
+    if not all(counted.values()) or any(ran[k] != counted[k] + warm_up[k] for k in ran):
+        raise RuntimeError(f"{path}: K5's launches on the card differ from its counters: "
+                           f"{record}")
 
 
 def max_err(a, b) -> float:
@@ -4680,7 +4769,10 @@ def profile_train_step(exp, batches, smi, step_ms_unprofiled):
     """Three more train steps under ``torch.profiler``: device time by stage
     (the ``record_function`` spans of ``Experiment.train_step``) and by
     kernel, and the device's busy time per step as a share of the unprofiled
-    step (the profiler slows the host, so the profiled span would understate it)."""
+    step (the profiler slows the host, so the profiled span would understate it).
+    A step that replays its CUDA graph has two stages, ``train/upload`` and
+    ``train/graph_replay``, the replay being what the upload leaves; an eager
+    step has the stage spans, and the backward is what the others leave."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4694,13 +4786,17 @@ def profile_train_step(exp, batches, smi, step_ms_unprofiled):
     span_ms = 1e3 * (time.perf_counter() - t0)
     device, busy_ms = device_kernels(prof, TRAIN_SPANS)
     # a span's device time is that of the kernels launched inside it on the calling
-    # thread; autograd launches the backward's kernels from its own thread, so the
-    # backward's share is what the other stages leave
+    # thread; autograd launches the backward's kernels from its own thread, so an eager
+    # step's backward is what the other stages leave; a graph's kernels are not tied to
+    # the span that launched the graph, so a replay's device time is what the upload leaves
     stages = {e.key: e.device_time_total / 1e3 / 3 for e in prof.key_averages()
-              if e.device_type == DeviceType.CPU and e.key in TRAIN_STAGES
-              and e.key != "train/backward"}
-    stages["train/backward"] = busy_ms / 3 - sum(stages.values())
-    emit({"phase": "profile", "steps": 3, "profiled_span_ms": span_ms,
+              if e.device_type == DeviceType.CPU
+              and e.key in (*TRAIN_STAGES, "train/graph_replay") and e.key != "train/backward"}
+    replayed = "train/graph_replay" in stages
+    rest = "train/graph_replay" if replayed else "train/backward"
+    stages[rest] = busy_ms / 3 - sum(v for k, v in stages.items() if k != rest)
+    emit({"phase": "profile", "steps": 3, "step_path": "graph_replay" if replayed else "eager",
+          "profiled_span_ms": span_ms,
           "device_busy_ms_per_step": busy_ms / 3, "step_ms_unprofiled": step_ms_unprofiled,
           "device_busy_share": busy_ms / 3 / step_ms_unprofiled,
           "stage_device_ms_per_step": stages,

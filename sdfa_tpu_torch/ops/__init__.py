@@ -24,15 +24,37 @@ of one launch, the count ``chip_smoke.py`` reckons the kernel's bound from
 written once). Inside ``count_costs()`` every launch records its cost, which
 is how ``train/stepbench.py::StepEnv.cost_stats`` adds the kernels that
 PyTorch's own counters cannot see.
+
+The launch counters are counted in Python, at the wrapper's call: a CUDA
+graph that replays a captured call runs no Python. Each module registers its
+counters where it defines them (``launch_counters``); ``launch_tally()``,
+``restore_launches()`` and ``credit_launches()`` walk that registry, so that
+the graph's owner (``train/trainer.py``) can take the tally of one captured
+step and add it at every replay.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import sys
+from typing import Dict, List, Tuple
 
 _PLAIN = [False]
 _COSTS = [None]  # inside count_costs(): the list each kernel launch appends its cost to
+# every launch counter, (module name, attribute): an int or a Counter each, registered by
+# the module that defines it (``launch_counters``)
+LAUNCH_COUNTERS: List[Tuple[str, str]] = []
+
+
+def launch_counters(module: str, *names: str) -> None:
+    """Register the launch counters ``names`` of ``module`` (its ``__name__``),
+    for ``launch_tally``, ``restore_launches`` and ``credit_launches``."""
+    LAUNCH_COUNTERS.extend((module, name) for name in names)
+
+
 PLAIN_ROUTES = 0  # plain recurrences taken on a CUDA tensor because no kernel takes the shape
+launch_counters(__name__, "PLAIN_ROUTES")
 
 
 @contextlib.contextmanager
@@ -66,6 +88,53 @@ def note_launch(kernel: str, cost) -> None:
     recorded inside ``count_costs()``."""
     if _COSTS[0] is not None:
         _COSTS[0].append((kernel, *cost))
+
+
+def counting_costs() -> bool:
+    """Whether a ``count_costs()`` block is open."""
+    return _COSTS[0] is not None
+
+
+def launch_tally() -> Dict[Tuple[str, str], object]:
+    """A copy of every registered launch counter (``LAUNCH_COUNTERS``) as it stands."""
+    out = {}
+    for mod, name in LAUNCH_COUNTERS:
+        value = getattr(sys.modules[mod], name)
+        out[mod, name] = collections.Counter(value) if isinstance(value, dict) else value
+    return out
+
+
+def restore_launches(tally) -> None:
+    """Set every launch counter back to ``tally``; a Counter keeps its identity."""
+    for (mod, name), value in tally.items():
+        module = sys.modules[mod]
+        if isinstance(value, dict):
+            counter = getattr(module, name)
+            counter.clear()
+            counter.update(value)
+        else:
+            setattr(module, name, value)
+
+
+def launches_between(before, after):
+    """The launches counted from tally ``before`` to tally ``after``, the
+    counters that moved only."""
+    out = {}
+    for key, value in after.items():
+        moved = value - before[key]
+        if moved:
+            out[key] = moved
+    return out
+
+
+def credit_launches(moved) -> None:
+    """Add ``moved`` (from ``launches_between``) to the launch counters."""
+    for (mod, name), value in moved.items():
+        module = sys.modules[mod]
+        if isinstance(value, dict):
+            getattr(module, name).update(value)
+        else:
+            setattr(module, name, getattr(module, name) + value)
 
 
 def plain_route(x) -> None:

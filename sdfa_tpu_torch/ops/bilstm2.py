@@ -21,12 +21,13 @@ import collections
 
 import torch
 
-from . import build, note_launch
+from . import build, launch_counters, note_launch
 from .bilstm_layer import (bilstm_layer_plain, chunk_rows, layer_tiled_chunk, proj_scratch,
                            scratch_rows, takes)  # one layer, one tiling, one limit
 from .bilstm_layer import cost as layer_cost
 
 LAUNCHES = collections.Counter()  # kernel launches by ``bilstm2`` in this process, by hidden width
+launch_counters(__name__, "LAUNCHES")
 
 
 def bilstm2_plain(x, w_ih1, w_hh1, gb1, w_ih2, w_hh2, gb2):

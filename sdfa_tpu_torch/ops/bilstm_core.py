@@ -41,7 +41,7 @@ import collections
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import build, note_launch
+from . import build, launch_counters, note_launch
 from .bilstm_layer import (UNITS_PER_BLOCK, WIDE_K, WIDE_ROW_TILE, WIDE_UNITS, block_columns,
                            lstm_dir, wide_run_columns, wide_steps_tiled, wide_wave_rows)
 from .tf32 import tiled_product
@@ -49,6 +49,7 @@ from .tf32 import tiled_product
 FWD_LAUNCHES = 0  # forward-kernel launches in this process
 BWD_LAUNCHES = 0  # backward-kernel launches in this process
 LAUNCHES_BY_HIDDEN = collections.Counter()  # both, by ("fwd" | "bwd", hidden width)
+launch_counters(__name__, "FWD_LAUNCHES", "BWD_LAUNCHES", "LAUNCHES_BY_HIDDEN")
 
 HIDDENS = (128, 256)            # the widths of the cluster step; the wide step loop takes the rest
 ROW_TILE = {128: 32, 256: 16}   # rows a cluster owns, walked as two sub-tiles that take turns

@@ -40,10 +40,11 @@ import collections
 
 import torch
 
-from . import build, note_launch
+from . import build, launch_counters, note_launch
 from .tf32 import tiled_product
 
 LAUNCHES = collections.Counter()  # kernel launches by ``bilstm_layer`` in this process, by hidden width
+launch_counters(__name__, "LAUNCHES")
 
 HIDDENS = (128, 256)       # the widths of the cluster step; the wide step loop takes the rest
 UNITS_PER_BLOCK = 32       # hidden units a block of a cluster owns, whatever the width

@@ -50,12 +50,13 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
-from . import build, note_launch, using_plain
+from . import build, launch_counters, note_launch, using_plain
 from .deform_solver import (_EYE9, DeformConsts, DeformationSolver, SolverSpec,
                             assemble_from_free, transform_entries_from_planes)
 from .tf32 import round_tf32, split_tf32
 
 LAUNCHES = collections.Counter()  # wrapper calls that launched the kernels, by body: delta, full
+launch_counters(__name__, "LAUNCHES")
 
 T_ALIGN = 128  # triangle and equation padding: the decode kernels' block width
 M_TILE, N_TILE, K_TILE = 128, 128, 32  # the product kernel's output tile and k per stage

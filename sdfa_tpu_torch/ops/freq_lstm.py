@@ -37,13 +37,14 @@ import collections
 
 import torch
 
-from . import build, note_launch
+from . import build, launch_counters, note_launch
 from .bilstm_layer import (HIDDENS, WIDE_ROW_TILE, WIDE_UNITS, bilstm_layer_plain,
                            layer_tiled_chunk, proj_scratch)
 from .bilstm_layer import takes as layer_takes
 from .tf32 import tiled_product
 
 LAUNCHES = collections.Counter()  # wrapper calls that launched the kernels, by hidden width
+launch_counters(__name__, "LAUNCHES")
 
 ROW_TILE = 32               # rows per cluster at H = 128 and 256 (the wide loop's blocks own
                             # WIDE_ROW_TILE)

@@ -22,6 +22,14 @@ Batches reach the device through two pinned host buffers that take turns
 upload right after step k is dispatched, before anything of step k is read,
 so that the host's batch preparation overlaps the device's step.
 
+On one card the step runs as one CUDA graph (``StepGraph``): the first step
+warms up on a side stream, captures everything from the batch's static
+inputs to Adam's update, puts the state back as it was and replays; every
+later step copies its batch into the static inputs and replays. A step runs
+eagerly, op by op, where it cannot replay (``graph_refusal``: a
+data-parallel mesh, a CPU device, launch costs being counted, another batch
+signature than the captured one); ``GRAPH_STEPS`` counts how each step ran.
+
 Run directory: ``hparams.json``, ``params_info.txt``,
 ``train_log/metrics.jsonl`` (with one ``timing`` line per epoch: wall time,
 the time the ``Trainer`` waited on its loader, the median interval between
@@ -35,16 +43,19 @@ checkpoints of ``checkpoints.py``.
 
 from __future__ import annotations
 
+import collections
 import csv
 import json
 import logging
 import os
 import time
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+import weakref
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from .. import ops, profiling
 from ..compat.from_flax import init_params
@@ -66,6 +77,8 @@ METRICS_EVERY = 50  # steps between lines of metrics.jsonl
 RAW_KEYS = ("raw_wav", "preemph", "t_idx", "f_idx", "feat_scale", "drop_rows", "drop_is_max",
             "drop_thres")  # a raw-mode batch's frontend inputs, in device_train_features' order
 HOST_ONLY = ("signal",)  # batch entries that never go to the device (summary audio clips)
+GRAPH_STEPS = collections.Counter()  # train steps by how they ran: capture, replay, eager:<reason>
+GRAPH_WARMUP = 3  # steps on a side stream before a capture: library workspaces, Adam's state
 
 
 def scaler_names(face_type: str) -> Tuple[str, ...]:
@@ -174,9 +187,13 @@ def make_loss_fn(model: SpeechDrivenAnimation, hparams, mesh: Optional[mesh_lib.
     return loss_fn
 
 
-def make_optimizer(hparams, params: Iterable[torch.nn.Parameter]):
+def make_optimizer(hparams, params: Iterable[torch.nn.Parameter], capturable: bool = False):
     """Adam (AdamW when a weight decay is set or named); lr and beta1 are
-    written into the param groups before every step.
+    written into the param groups before every step. ``capturable``: the
+    update reads its step counts on the device, as a CUDA graph needs; with
+    a beta1 schedule it is also the per-parameter update, which takes beta1
+    as a device tensor (the multi-tensor update reads a tensor beta1 back to
+    the host, which a graph capture refuses).
     Returns (optimizer, lr_fn, beta1_fn, mode, base_lr)."""
     opt = hparams.optim
     args = dict(opt.get("args") or {})
@@ -188,12 +205,14 @@ def make_optimizer(hparams, params: Iterable[torch.nn.Parameter]):
     name = opt.get("name", "Adam")
     if name not in ("Adam", "AdamW"):
         raise NotImplementedError(f"optimizer '{name}' is not ported")
+    foreach = False if capturable and beta1_fn is not None else None
     if wd > 0 or name == "AdamW":
         # decoupled decay p ← p − lr·wd·p, the rule of the JAX package's optimizer
         optimizer = torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                                      weight_decay=wd)
+                                      weight_decay=wd, capturable=capturable, foreach=foreach)
     else:
-        optimizer = torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8)
+        optimizer = torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                                     capturable=capturable, foreach=foreach)
     return optimizer, lr_fn, beta1_fn, mode, base_lr
 
 
@@ -208,6 +227,63 @@ def step_seed(seed: int, step: int, stream: int = 0) -> int:
     it follows (1_000_003 + the loader's index, as the JAX trainer folds it)."""
     base = (int(seed) * 1_000_003 + int(step)) % (2 ** 63 - 1)
     return base if not stream else (base * 1_000_003 + int(stream)) % (2 ** 63 - 1)
+
+
+def step_signature(batch: Dict[str, torch.Tensor]) -> tuple:
+    """What a captured step is specialised on: the batch's keys, shapes and
+    dtypes, and what picks a route or a library algorithm while the step is
+    traced (``ops.plain_versions()``, the float32 precision flags)."""
+    return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items())),
+            ops.using_plain(), torch.get_float32_matmul_precision(),
+            torch.backends.cudnn.allow_tf32)
+
+
+def graph_refusal(device: torch.device, parallel: bool, signature, graph) -> Optional[str]:
+    """Why a step may not run through ``graph`` (a ``StepGraph``; None: no
+    capture yet, the step may make one), or None where it may: ``parallel``
+    (a data-parallel mesh: its collectives and agreements run on the host),
+    ``device`` (not a card), ``mode`` (inside ``ops.count_costs()`` or a
+    PyTorch dispatch mode: they see each op, a replay runs none),
+    ``signature`` (not the captured step's ``step_signature``), ``capture``
+    (the capture of this signature failed)."""
+    if parallel:
+        return "parallel"
+    if device.type != "cuda":
+        return "device"
+    if ops.counting_costs() or _get_current_dispatch_mode() is not None:
+        return "mode"
+    if graph is None:
+        return None
+    if signature != graph.signature:
+        return "signature"
+    if graph.graph is None:
+        return "capture"
+    return None
+
+
+class StepGraph(NamedTuple):
+    """One train step captured in a CUDA graph, what it was captured for and
+    the static tensors it reads and writes."""
+    signature: tuple
+    graph: Optional[torch.cuda.CUDAGraph]  # None: the capture failed
+    inputs: Dict[str, torch.Tensor]  # the batch, copied in before each replay
+    scalers: Dict[str, L.ScalerState]  # the dynamic scalers, updated by the replay
+    out: Optional[torch.Tensor]  # the step's metrics, then grad_norm, stacked
+    keys: Tuple[str, ...]  # their names
+    grads: List[Optional[torch.Tensor]]  # the gradients the replay writes, by parameter
+    launches: dict  # the kernel launches of one step (ops.launches_between)
+
+
+def _after_optimizer_load(ref):
+    """An ``optimizer.load_state_dict`` post hook: the loaded state tensors
+    are new, so the experiment's graph is dropped and its optimizer fitted
+    to the graph's device again."""
+    def hook(optimizer):
+        exp = ref()
+        if exp is not None:
+            exp._graph = None
+            exp._fit_optimizer()
+    return hook
 
 
 class PinnedUploads:
@@ -266,7 +342,15 @@ class Experiment:
     (``parallel.shard_batch``), and the step computes what one process computes
     on the global batch: BatchNorm statistics, the dropout draws, the scalers
     and the gradient are global, the metrics are global means. Rank 0 alone
-    writes the run directory; every rank loads a checkpoint."""
+    writes the run directory; every rank loads a checkpoint.
+
+    On one card the step runs as a CUDA graph (``train_step``): Adam is
+    capturable there, its lr the device tensor ``_lr`` and, under a beta1
+    schedule, its beta1 the device tensor ``_beta1``, both filled before
+    every step; the state the graph updates in place (parameters, buffers,
+    Adam's state, the scalers) is the experiment's own. A checkpoint keeps
+    the eager format. ``optimizer.load_state_dict`` (so ``load``) drops the
+    graph: the next step captures anew."""
 
     def __init__(self, hparams, model: SpeechDrivenAnimation, log_dir: str, device,
                  load_from: Optional[str] = None, seed: int = 1234):
@@ -290,8 +374,18 @@ class Experiment:
         self.model = mesh_lib.replicate(self.mesh, init_params(model, self.seed).to(self.device))
         set_data_mesh(self.model, self.mesh if self.mesh.parallel else None)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
+        # one card: the step may run as a CUDA graph, so Adam reads lr and its
+        # step counts on the device from the start, eager steps too
+        graphable = self.device.type == "cuda" and not self.mesh.parallel
         (self.optimizer, self.lr_fn, self.beta1_fn, self.sched_mode,
-         self.base_lr) = make_optimizer(hparams, self.params)
+         self.base_lr) = make_optimizer(hparams, self.params, capturable=graphable)
+        self._lr = torch.tensor(self.base_lr, device=self.device) if graphable else None
+        self._beta1 = (torch.tensor(0.9, device=self.device)
+                       if graphable and self.beta1_fn is not None else None)
+        self._graph: Optional[StepGraph] = None
+        self._grads_bound = True  # whether p.grad is the graph's gradient, for every parameter
+        self._fit_optimizer()
+        self.optimizer.register_load_state_dict_post_hook(_after_optimizer_load(weakref.ref(self)))
         self.grad_clip = (hparams.get("trainer") or {}).get("grad_clip")
         self.scalers = {name: L.ScalerState.init(self.device)
                         for name in scaler_names(self.model.face_type)}
@@ -338,25 +432,51 @@ class Experiment:
         """One optimization step; returns the loss scalars and terms, the
         gradient norm (before clipping) as 0-dim device tensors, and lr.
         The gradients stay on the parameters until the next step.
-        ``record_function`` spans name the stages in a ``torch.profiler`` trace:
-        ``train/upload``, ``train/zero_grad``, ``train/forward_loss`` (holding
-        the loss function's ``train/features``, ``train/model`` and
-        ``train/loss_terms``), ``train/backward``, ``train/all_reduce`` under
-        a data-parallel mesh, and ``train/clip_adam``.
         The dropout generator is seeded with ``step_seed(seed, step)`` unless
-        ``dropout_seed`` says otherwise (an aux loader's step)."""
+        ``dropout_seed`` says otherwise (an aux loader's step).
+
+        The step replays the captured ``StepGraph`` where ``graph_refusal``
+        allows, inside a ``train/graph_replay`` span (the first such step
+        captures it first, inside ``train/graph_capture``), and runs eagerly
+        otherwise. ``record_function`` spans name the eager step's stages in a
+        ``torch.profiler`` trace: ``train/upload``, ``train/zero_grad``,
+        ``train/forward_loss`` (holding the loss function's
+        ``train/features``, ``train/model`` and ``train/loss_terms``),
+        ``train/backward``, ``train/all_reduce`` under a data-parallel mesh,
+        and ``train/clip_adam``; a replay has ``train/upload`` alone."""
         with record_function("train/upload"):
             batch = self.put_batch(batch)
         lr, b1 = self.current_lr()
         for group in self.optimizer.param_groups:
-            group["lr"], group["betas"] = lr, (b1, group["betas"][1])
+            if self._lr is None:
+                group["lr"] = lr
+            if self._beta1 is None:
+                group["betas"] = (b1, group["betas"][1])
+        if self._lr is not None:
+            self._lr.fill_(lr)
+        if self._beta1 is not None:
+            self._beta1.fill_(b1)
         self.dropout_gen.manual_seed(step_seed(self.seed, self.step) if dropout_seed is None
                                      else dropout_seed)
         self.model.train()
+        signature = step_signature(batch) if self._lr is not None else None
+        reason = graph_refusal(self.device, self.mesh.parallel, signature, self._graph)
+        if reason is None:
+            metrics = self._graph_step(batch, signature)
+        else:
+            GRAPH_STEPS["eager:" + reason] += 1
+            metrics = self._eager_step(batch)
+        self.step += 1
+        return {**metrics, "lr": lr}
+
+    def _update(self, batch, scalers):
+        """zero_grad, forward and loss, backward, the gradient norm, clipping
+        and Adam, in their stage spans: (the scalers' new states, the loss
+        scalars and terms, the gradient norm before clipping)."""
         with record_function("train/zero_grad"):
             self.optimizer.zero_grad(set_to_none=True)
         with record_function("train/forward_loss"):
-            total, aux = self.loss_fn(self.scalers, batch, True)
+            total, aux = self.loss_fn(scalers, batch, True)
         with record_function("train/backward"):
             total.backward()
         grads = [p.grad for p in self.params if p.grad is not None]
@@ -376,14 +496,133 @@ class Experiment:
                 for g in grads:
                     g.mul_(scale)
             self.optimizer.step()
-        self.scalers = aux["new_scalers"]
-        self.step += 1
         metrics = {k: v.detach() for k, v in {**aux["scalars"], **aux["loss_terms"]}.items()}
+        return aux["new_scalers"], metrics, grad_norm
+
+    def _eager_step(self, batch) -> Dict[str, torch.Tensor]:
+        new_scalers, metrics, grad_norm = self._update(batch, self.scalers)
+        self.scalers = new_scalers
+        self._grads_bound = False
         if self.mesh.parallel:  # the global means, in one all-reduce
             keys = sorted(metrics)
             means = mesh_lib.mean_over_ranks(torch.stack([metrics[k] for k in keys]), self.mesh)
             metrics = dict(zip(keys, means))
-        return {**metrics, "grad_norm": grad_norm, "lr": lr}
+        return {**metrics, "grad_norm": grad_norm}
+
+    def _graph_body(self, inputs, scalers) -> Tuple[torch.Tensor, Tuple[str, ...]]:
+        """The captured step: ``_update`` on the static inputs and scalers, the
+        scalers' new states written into the static ones, the metrics and the
+        gradient norm stacked into one tensor. Returns (that tensor, names)."""
+        new_scalers, metrics, grad_norm = self._update(inputs, scalers)
+        for name, state in new_scalers.items():
+            if state is not scalers[name]:
+                scalers[name].vt.copy_(state.vt)
+                scalers[name].beta_t.copy_(state.beta_t)
+        values = [*metrics.values(), grad_norm]
+        return torch.stack([v.float() for v in values]), (*metrics, "grad_norm")
+
+    def _graph_step(self, batch, signature) -> Dict[str, torch.Tensor]:
+        g = self._graph
+        if g is None:
+            with record_function("train/graph_capture"):
+                g = self._graph = self._capture(batch, signature)
+            GRAPH_STEPS["capture"] += 1
+            if g.graph is None:
+                GRAPH_STEPS["eager:capture"] += 1
+                return self._eager_step(batch)
+        for key, value in batch.items():
+            g.inputs[key].copy_(value)
+        if self.scalers is not g.scalers:  # set by an eager step or from outside
+            for name, state in self.scalers.items():
+                g.scalers[name].vt.copy_(state.vt)
+                g.scalers[name].beta_t.copy_(state.beta_t)
+            self.scalers = g.scalers
+        with record_function("train/graph_replay"):
+            g.graph.replay()
+        if not self._grads_bound:  # an eager step gave the parameters gradients of its own
+            for p, grad in zip(self.params, g.grads):
+                p.grad = grad
+            self._grads_bound = True
+        ops.credit_launches(g.launches)
+        GRAPH_STEPS["replay"] += 1
+        return dict(zip(g.keys, g.out.clone().unbind()))
+
+    def _capture(self, batch, signature) -> StepGraph:
+        """Warm up ``GRAPH_WARMUP`` steps on a side stream on ``batch``,
+        capture one, then put back every tensor they changed (parameters,
+        buffers, Adam's state, the scalers; Adam's state that the warm-up
+        created is zeroed, which is a fresh Adam's), the dropout seed, the
+        device's default generator and the launch counters: the warm-up and
+        the capture are not steps, and the kernel launches of one captured
+        step are credited at each replay.
+        Where the capture raises, the step and later ones of its signature
+        run eagerly (``StepGraph.graph`` None), and the reason is logged."""
+        dev = self.device
+        scalers = {n: L.ScalerState(*(t.clone() for t in s)) for n, s in self.scalers.items()}
+        inputs = {k: v.clone() for k, v in batch.items()}
+        state = list(self.model.state_dict().values()) + [t for s in scalers.values() for t in s]
+        for slot in self.optimizer.state.values():
+            state += [v for v in slot.values() if torch.is_tensor(v)]
+        saved = [t.clone() for t in state]
+        had_state = set(self.optimizer.state)
+        seed, tally = self.dropout_gen.initial_seed(), ops.launch_tally()
+        default_rng = torch.cuda.get_rng_state(dev)
+        graph, out, keys, launches = torch.cuda.CUDAGraph(), None, (), {}
+        try:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP):
+                    self._graph_body(inputs, scalers)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            before = ops.launch_tally()
+            self.optimizer.zero_grad(set_to_none=True)  # the gradients come from the graph's pool
+            graph.register_generator_state(self.dropout_gen)
+            with torch.cuda.graph(graph):
+                out, keys = self._graph_body(inputs, scalers)
+            launches = ops.launches_between(before, ops.launch_tally())
+        except Exception:  # noqa: BLE001 - logged, and the step runs eagerly
+            log.warning("the train step of signature %s could not be captured in a CUDA graph; "
+                        "its steps run eagerly", signature, exc_info=True)
+            graph = None
+            # a generator that the aborted capture registered stays in capture mode and
+            # refuses eager draws: give it a fresh state (its seed is put back below)
+            index = dev.index if dev.index is not None else torch.cuda.current_device()
+            for gen in (self.dropout_gen, torch.cuda.default_generators[index]):
+                gen.graphsafe_set_state(torch.Generator(device=dev).graphsafe_get_state())
+        finally:
+            ops.restore_launches(tally)
+            with torch.no_grad():
+                for t, v in zip(state, saved):
+                    t.copy_(v)
+                for p, slot in self.optimizer.state.items():
+                    if p not in had_state:
+                        for v in slot.values():
+                            if torch.is_tensor(v):
+                                v.zero_()
+            self.dropout_gen.manual_seed(seed)
+            torch.cuda.set_rng_state(default_rng, dev)
+        if graph is not None:
+            self.scalers, self._grads_bound = scalers, True
+            log.info("train step captured in a CUDA graph: %s", signature[0])
+        return StepGraph(signature, graph, inputs, scalers, out, keys,
+                         [p.grad for p in self.params], launches)
+
+    def _fit_optimizer(self):
+        """On one card: every param group's lr is the device tensor ``_lr``,
+        its beta1 ``_beta1`` under a beta1 schedule (through the per-parameter
+        update), and Adam's step counts live on the device, where a
+        capturable Adam reads them. Runs at construction and after every
+        ``optimizer.load_state_dict`` (``Experiment.load`` among them)."""
+        if self._lr is None:
+            return
+        for group in self.optimizer.param_groups:
+            group["capturable"], group["lr"] = True, self._lr
+            if self._beta1 is not None:
+                group["betas"], group["foreach"] = (self._beta1, group["betas"][1]), False
+        for slot in self.optimizer.state.values():
+            if "step" in slot:
+                slot["step"] = slot["step"].to(self.device)
 
     @torch.no_grad()
     def plot_forward(self, batch) -> Dict[str, Any]:
@@ -445,8 +684,16 @@ class Experiment:
 
     # -- checkpoint IO -------------------------------------------------------
     def payload(self) -> Dict[str, Any]:
+        opt = self.optimizer.state_dict()
+        if self._lr is not None:
+            # the eager format: lr and betas numbers, Adam's step counts on the host
+            for group in opt["param_groups"]:
+                group["lr"], group["capturable"], group["foreach"] = float(group["lr"]), False, None
+                group["betas"] = tuple(float(b) for b in group["betas"])
+            opt["state"] = {i: {k: (v.cpu() if k == "step" else v) for k, v in slot.items()}
+                            for i, slot in opt["state"].items()}
         return dict(epoch=self.epoch, global_step=self.step,
-                    model=self.model.state_dict(), optimizer=self.optimizer.state_dict(),
+                    model=self.model.state_dict(), optimizer=opt,
                     scalers={k: (v.vt, v.beta_t) for k, v in self.scalers.items()})
 
     def save(self, max_nb: int = 10) -> Optional[str]:
@@ -672,10 +919,11 @@ class Trainer:
                         self.profile_start, self._steps_seen)
         exp.save()
         log.info("trained %d steps; kernel launches in this process: freq_lstm %d, bilstm2 %d, "
-                 "training core forward %d, backward %d; collectives by op %s, their bytes %s",
+                 "training core forward %d, backward %d; collectives by op %s, their bytes %s; "
+                 "train steps by path %s",
                  exp.step, freq_lstm.LAUNCHES.total(), sum(bilstm2.LAUNCHES.values()),
                  bilstm_core.FWD_LAUNCHES, bilstm_core.BWD_LAUNCHES, dict(mesh_lib.CALLS),
-                 dict(mesh_lib.BYTES))
+                 dict(mesh_lib.BYTES), dict(GRAPH_STEPS))
         mesh_lib.barrier(exp.mesh)  # the run's files are written when train() returns
 
     def _agreed(self, batch):

@@ -109,8 +109,9 @@ def spans_task(task: dict, rank: int) -> dict:
     """``task["steps"]`` steps as the ``Trainer`` takes them (the ranks agree
     that each has a batch, then ``train_step``) on this rank's rows of the
     raw-mode reader, under a ``torch.profiler`` capture: the collectives by op
-    from ``parallel.mesh.CALLS`` and from the capture's ``mesh/*`` spans, and
-    what the model holds that decides their number."""
+    from ``parallel.mesh.CALLS`` and from the capture's ``mesh/*`` spans, what
+    the model holds that decides their number, and how the steps ran
+    (``trainer.GRAPH_STEPS``)."""
     import json
 
     from torch.profiler import ProfilerActivity, profile
@@ -120,7 +121,7 @@ def spans_task(task: dict, rank: int) -> dict:
     from sdfa_tpu_torch.models import build_model
     from sdfa_tpu_torch.nn.layers import BatchNorm
     from sdfa_tpu_torch.parallel import mesh
-    from sdfa_tpu_torch.train import Experiment
+    from sdfa_tpu_torch.train import Experiment, trainer
 
     hp = configure("dgrad", overrides=task["overrides"], dataset_root=task["dataset_root"])
     hp.trainer.set_key("multihost", True)
@@ -150,7 +151,7 @@ def spans_task(task: dict, rank: int) -> dict:
                                create_graph=True)
     (gg,) = torch.autograd.grad(g.sum(), x)
     return {"calls": calls, "spans": spans, "bytes": dict(mesh.BYTES),
-            "second_order": gg.tolist(),
+            "second_order": gg.tolist(), "graph_steps": dict(trainer.GRAPH_STEPS),
             "batch_norms": sum(isinstance(m, BatchNorm) for m in exp.model.modules()),
             "dynamic_scalers": bool(hp.loss.get("dynamic_scalar", False))}
 

@@ -134,7 +134,8 @@ def test_two_ranks_count_each_collective_once(dataset):
     equal ``mesh.CALLS`` op by op, and their number a step is the model's:
     a pair per BatchNorm module (its statistics forward and their gradient
     backward), one gradient exchange, one for the dynamic scalers, one for
-    the step's metrics and one agreement a batch."""
+    the step's metrics and one agreement a batch. Every step runs eagerly,
+    counted under ``eager:parallel``: a mesh's step is never captured."""
     tmp = str(dataset["tmp"] / "ranks")
     job = {"spans": dict(kind="spans", overrides=dataset["overrides"],
                          dataset_root=dataset["root"], steps=STEPS, seed=5, log_dir=tmp)}
@@ -150,3 +151,4 @@ def test_two_ranks_count_each_collective_once(dataset):
         assert result["calls"]["mean_over_ranks"] == 2 * STEPS
         assert all(result["bytes"][op] > 0 for op in result["calls"])
         assert result["second_order"] == [2.0 * 2 ** 2] * 3
+        assert result["graph_steps"] == {"eager:parallel": STEPS}

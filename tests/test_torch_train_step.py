@@ -4,13 +4,17 @@ make_train_step`` (its scan path on CPU) and through the port's
 ``Experiment.train_step``, at narrow widths with BatchNorm in batch-statistics
 mode and dropout 0 (the two frameworks' random streams cannot match). Then
 the port's own runtime: resume ≡ uninterrupted with dropout on, checkpoints,
-hooks, validation, and the float32 switches.
+hooks, validation, the float32 switches, and the choice between the captured
+CUDA graph and the eager step (the graph itself needs a card:
+``tests_gpu/test_cuda_train_graph.py``).
 
 Tolerances: loss terms 1e-5 relative at every step, parameters after step 3
 1e-5 absolute, scaler states 1e-6 — f32 on both sides, sums in another order.
 """
 
+import collections
 import json
+import logging
 import os
 
 import numpy as np
@@ -27,10 +31,15 @@ from sdfa_tpu.models.sdfa import SpeechDrivenAnimation as JModel
 from sdfa_tpu.nn import freeze_specs
 from sdfa_tpu.train import trainer as jtrainer
 from sdfa_tpu.utils.config import ConfigDict as JConfig
+from torch.utils.flop_counter import FlopCounterMode
+
+from sdfa_tpu_torch import ops
 from sdfa_tpu_torch.compat import flax_variables_from_model, load_flax_variables
 from sdfa_tpu_torch.config import ConfigDict as TConfig
 from sdfa_tpu_torch.models.sdfa import SpeechDrivenAnimation as TModel
 from sdfa_tpu_torch.train import Experiment, Trainer, checkpoints
+from sdfa_tpu_torch.ops import bilstm_core
+from sdfa_tpu_torch.train import trainer as ttrainer
 from sdfa_tpu_torch.train.trainer import SCALER_NAMES
 
 import _torch_threads  # noqa: F401  (one intra-op thread per xdist worker)
@@ -316,3 +325,146 @@ def test_experiment_switches_tf32_off(tmp_path):
         assert not torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+CUDA, CPU = torch.device("cuda", 0), torch.device("cpu")
+
+
+def _device_batch(bsz=8, dtype=torch.float32):
+    return {"audio_feat": torch.zeros(bsz, 8, 16, 3, dtype=dtype),
+            "speaker_id": torch.zeros(bsz, dtype=torch.int32),
+            "dgrad_3d_scale_coef": torch.zeros(bsz, 1, KS)}
+
+
+def _captured(signature, failed=False):
+    return ttrainer.StepGraph(signature, None if failed else object(), {}, {}, None, (), [], {})
+
+
+def _refusal(case):
+    """(the reason ``graph_refusal`` gives, the one the case expects)."""
+    sig = ttrainer.step_signature(_device_batch())
+    if case == "parallel":
+        return ttrainer.graph_refusal(CUDA, True, sig, _captured(sig))
+    if case == "device":
+        return ttrainer.graph_refusal(CPU, False, sig, None)
+    if case == "mode-count-costs":
+        with ops.count_costs():
+            return ttrainer.graph_refusal(CUDA, False, sig, _captured(sig))
+    if case == "mode-flop-counter":
+        with FlopCounterMode(display=False):
+            return ttrainer.graph_refusal(CUDA, False, sig, None)
+    if case == "signature":
+        other = ttrainer.step_signature(_device_batch(bsz=4))
+        return ttrainer.graph_refusal(CUDA, False, other, _captured(sig))
+    if case == "capture":
+        return ttrainer.graph_refusal(CUDA, False, sig, _captured(sig, failed=True))
+    if case == "first-step-captures":
+        return ttrainer.graph_refusal(CUDA, False, sig, None)
+    return ttrainer.graph_refusal(CUDA, False, sig, _captured(sig))  # "replays"
+
+
+@pytest.mark.parametrize("case,want", [
+    ("parallel", "parallel"), ("device", "device"), ("mode-count-costs", "mode"),
+    ("mode-flop-counter", "mode"), ("signature", "signature"), ("capture", "capture"),
+    ("first-step-captures", None), ("replays", None)])
+def test_graph_refusal_names_why_a_step_runs_eagerly(case, want):
+    assert _refusal(case) == want
+
+
+def test_step_signature_holds_the_batch_and_the_route_state():
+    sig = ttrainer.step_signature(_device_batch())
+    assert ttrainer.step_signature(dict(reversed(list(_device_batch().items())))) == sig
+    assert ttrainer.step_signature(_device_batch(bsz=4)) != sig
+    assert ttrainer.step_signature(_device_batch(dtype=torch.float64)) != sig
+    less = _device_batch()
+    less.pop("dgrad_3d_scale_coef")
+    assert ttrainer.step_signature(less) != sig
+    with ops.plain_versions():  # the recurrences' route is picked while the step is traced
+        assert ttrainer.step_signature(_device_batch()) != sig
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = not saved
+        assert ttrainer.step_signature(_device_batch()) != sig
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert ttrainer.step_signature(_device_batch()) == sig
+
+
+def test_cpu_steps_run_eagerly_counted_and_logged(tmp_path, caplog):
+    """A CPU experiment keeps the eager step and Adam as they were; every step
+    counts under ``eager:device`` and the ``Trainer``'s last line prints the
+    counter."""
+    exp = Experiment(TConfig(_hparams()), _torch_model(), str(tmp_path / "run"), "cpu")
+    group = exp.optimizer.param_groups[0]
+    assert exp._lr is None and not group["capturable"] and isinstance(group["lr"], float)
+    before = collections.Counter(ttrainer.GRAPH_STEPS)
+    with caplog.at_level(logging.INFO, logger=ttrainer.__name__):
+        Trainer(exp, [_batch(60 + i, coef=True) for i in range(3)]).train()
+    assert ttrainer.GRAPH_STEPS - before == {"eager:device": 3}
+    assert exp._graph is None
+    last = [r.getMessage() for r in caplog.records if r.name == ttrainer.__name__][-1]
+    assert last.startswith("trained 3 steps;")
+    assert last.endswith(f"train steps by path {dict(ttrainer.GRAPH_STEPS)}")
+    assert "'eager:device'" in last
+
+
+def test_launch_tally_is_taken_restored_and_credited():
+    """What a capture does with the wrappers' launch counters: the tally of
+    one captured step, the counters put back, the tally added at a replay."""
+    saved = ops.launch_tally()
+    try:
+        start = ops.launch_tally()
+        bilstm_core.FWD_LAUNCHES += 3
+        bilstm_core.LAUNCHES_BY_HIDDEN["fwd", 128] += 3
+        ops.PLAIN_ROUTES += 1
+        moved = ops.launches_between(start, ops.launch_tally())
+        core, root = bilstm_core.__name__, ops.__name__
+        assert moved == {(core, "FWD_LAUNCHES"): 3, (root, "PLAIN_ROUTES"): 1,
+                         (core, "LAUNCHES_BY_HIDDEN"): collections.Counter({("fwd", 128): 3})}
+        counter = bilstm_core.LAUNCHES_BY_HIDDEN
+        ops.restore_launches(start)
+        assert ops.launch_tally() == start and bilstm_core.LAUNCHES_BY_HIDDEN is counter
+        for _ in range(2):
+            ops.credit_launches(moved)
+        assert bilstm_core.FWD_LAUNCHES == start[core, "FWD_LAUNCHES"] + 6
+        assert counter["fwd", 128] == start[core, "LAUNCHES_BY_HIDDEN"]["fwd", 128] + 6
+        assert ops.PLAIN_ROUTES == start[root, "PLAIN_ROUTES"] + 2
+    finally:
+        ops.restore_launches(saved)
+
+
+def test_every_launch_counter_is_registered():
+    """Each wrapper registers the counters it defines (``ops.launch_counters``),
+    so that a replay credits them all: every module-level launch counter of
+    ``ops`` (an int or a Counter named ``*LAUNCHES*`` or ``PLAIN_ROUTES``) is
+    in the registry, once."""
+    import importlib
+    import pkgutil
+
+    found = set()
+    for info in pkgutil.iter_modules(ops.__path__):
+        module = importlib.import_module(f"{ops.__name__}.{info.name}")
+        found |= {(module.__name__, name) for name, value in vars(module).items()
+                  if "LAUNCHES" in name and isinstance(value, (int, collections.Counter))}
+    found.add((ops.__name__, "PLAIN_ROUTES"))
+    assert len(found) == 8
+    assert sorted(ops.LAUNCH_COUNTERS) == sorted(found)
+
+
+@pytest.mark.parametrize("schedule,foreach", [
+    (None, None), (dict(name="NoamZero", args=dict(mode="step", warmup_iters=1, start_ramp=2,
+                                                   total_iters=8)), False)],
+    ids=["constant-multi-tensor", "beta1-schedule-per-parameter"])
+def test_a_capturable_adam_takes_the_update_that_reads_beta1_on_the_device(schedule, foreach):
+    """A beta1 schedule on a card: the per-parameter update, which reads a
+    device-tensor beta1 on the device (the multi-tensor one reads it back to
+    the host, which a graph capture refuses); a constant beta1 keeps the
+    multi-tensor update. Off the card (not capturable) both keep the default."""
+    hp = TConfig(_hparams(optim=dict(name="Adam", args=dict(lr=1e-3, weight_decay=0),
+                                     lr_scheduler=schedule)))
+    params = [torch.nn.Parameter(torch.zeros(3))]
+    opt, _, beta1_fn, _, _ = ttrainer.make_optimizer(hp, params, capturable=True)
+    assert (beta1_fn is not None) == (schedule is not None)
+    assert opt.param_groups[0]["foreach"] is foreach and opt.param_groups[0]["capturable"]
+    eager, _, _, _, _ = ttrainer.make_optimizer(hp, params)
+    assert eager.param_groups[0]["foreach"] is None and not eager.param_groups[0]["capturable"]
